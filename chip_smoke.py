@@ -8,13 +8,23 @@
    (one nvcc per source, all started together).
 3. Serves 16 seeded requests through ``PagedEngine`` on the full-width
    Qwen3-0.6B student (random weights from a seed; the default sampler),
-   and fails unless both kernels were launched during the serve.
-4. Holds each kernel against its plain PyTorch version on the card at the
-   serving path's shapes, and times kernel, plain version, bound and (for
-   flash attention) the library SDPA call as a yardstick.
+   and fails unless both serving kernels were launched during the serve.
+4. Holds each serving kernel against its plain PyTorch version on the
+   card at the serving path's shapes, and times kernel, plain version,
+   bound and (for flash attention) the library SDPA call as a yardstick.
 5. Teacher-forces decode steps of ``paged_forward`` through the kernel and
    through the plain version, and compares the logits.
-6. Prints the kernels JSON line, then the result line.
+6. Trains: PiSSA LoRA on the same full-width model, ``make_kd_step(mode=
+   "precomputed")`` in ``train_loop`` over seeded synthetic batches (B 8,
+   T 512, K 128), with checkpoints; fails unless the flash forward and
+   backward kernels ran exactly as often as the step's layers say, the
+   losses are finite, the base stayed frozen and the adapters moved. Then
+   a short loop on one repeated batch, whose loss must fall.
+7. Holds the backward kernels (K1-dq, K1-dkv) against the plain backward
+   at the step's shape and times them beside SDPA's backward.
+8. Loss and gradients of the KD step at reduced depth through the kernel
+   route and the plain route in bf16, against the plain route in fp32.
+9. Prints the kernels JSON line, then the result line.
 
 Exits non-zero, printing no result, when CUDA is missing or any phase
 fails. Only one card is needed. Imports nothing of JAX.
@@ -23,21 +33,32 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from speech_distill_tpu_torch.core.config import (SamplingParams,
+from speech_distill_tpu_torch.core.config import (DistillConfig, LoraConfig,
+                                                  SamplingParams,
                                                   qwen3_student_0p6b)
+from speech_distill_tpu_torch.core.trainer import (LoopConfig, batches_from,
+                                                   train_loop)
+from speech_distill_tpu_torch.core.tree import tree_leaves, tree_map
+from speech_distill_tpu_torch.data.collator import DistillCollator
+from speech_distill_tpu_torch.distill import train_step
+from speech_distill_tpu_torch.distill.lora import init_lora, lora_scaling
 from speech_distill_tpu_torch.infer.paged import (PagedEngine, PagedKVCache,
                                                   paged_forward)
 from speech_distill_tpu_torch.models import qwen3
 from speech_distill_tpu_torch.ops import _cuda
 from speech_distill_tpu_torch.ops.flash_attention import (
-    flash_attention_fwd, flash_attention_fwd_plain)
+    flash_attention_bwd_plain, flash_attention_fwd, flash_attention_fwd_plain,
+    flash_dkv, flash_dq)
+from speech_distill_tpu_torch.ops.fused_lm_loss import head_sparse_kd_loss
 from speech_distill_tpu_torch.ops.paged_attention import (
     paged_attention, paged_attention_plain)
 
@@ -58,6 +79,16 @@ FP32_LOGITS_ATOL = 1e-3
 # no less accurate than the plain route against the fp32 route (2x slack
 # for which of two like-sized noises happens to be larger)
 BF16_ERR_RATIO = 2.0
+# flash backward, max |kernel - plain(fp32)| / max |plain| on the same bf16
+# inputs: the kernels round p and ds to bf16 (2^-9 relative) before
+# products over up to T * G terms and write bf16 results (2^-9), and their
+# forward's o and lse carry bf16 rounding too
+BWD_REL_TOL = 2e-2
+# the KD step of the smoke (bench.py's defaults): B 8, T 512, top-K 128
+TRAIN_B, TRAIN_T, TRAIN_K, TRAIN_STEPS = 8, 512, 128, 10
+SPEECH_BOS = 151_670          # a speech-start id; the pad id is the EOS
+# learning rate of the loop on one repeated batch (first step's rate is 0)
+REPEAT_LR, REPEAT_STEPS = 2e-4, 6
 
 
 def log(msg: str) -> None:
@@ -150,8 +181,9 @@ def serve(cfg, model):
             fail(f"request {rid}: token outside the vocabulary")
         if len(o) < c and o[-1] != cfg.eos_token_id:
             fail(f"request {rid} stopped early without EOS")
-    if min(counts.values()) <= 0:
-        fail(f"a kernel was not launched during the serve: {counts}")
+    if min(counts["paged_decode"], counts["flash_fwd"]) <= 0:
+        fail(f"a serving kernel was not launched during the serve: "
+             f"{counts}")
     L = cfg.num_hidden_layers
     if counts["paged_decode"] != L * eng.n_decode_steps:
         fail(f"paged_decode launches {counts['paged_decode']} != layers x "
@@ -339,6 +371,315 @@ def check_model_path(cfg, model, dev) -> None:
         fail(f"bf16 decode through the kernel is less accurate: {err}")
 
 
+def kd_features(cfg, n: int, rng) -> list:
+    """Seeded synthetic precomputed-KD examples: 385-512 tokens (so a batch
+    pads right to T = 512), a speech start in the first 32, and top-K
+    columns of distinct indices with fp16 logprobs ~ N(-3, 1)."""
+    V, K, pad = cfg.vocab_size, TRAIN_K, cfg.eos_token_id
+    cols = rng.permutation(V)[:K]
+    feats = []
+    for _ in range(n):
+        L = int(rng.integers(385, TRAIN_T + 1))
+        ids = rng.integers(0, V, L)
+        ids[np.isin(ids, (pad, SPEECH_BOS))] = 1
+        ids[int(rng.integers(1, 32))] = SPEECH_BOS
+        feats.append({
+            "input_ids": ids.tolist(),
+            "teacher_top_k_v": (rng.standard_normal((L, K)) - 3).astype(
+                np.float16),
+            "teacher_top_k_i": ((rng.integers(0, V, (L, 1)) + cols) % V
+                                ).astype(np.int32)})
+    return feats
+
+
+def train(cfg, model, dev):
+    """Phase 6: the KD training step through ``train_loop``. Returns the
+    launch counts of the loop and the trained LoRA tree."""
+    t0 = time.perf_counter()
+    lora, base = init_lora(model, cfg, LoraConfig(), device=dev)
+    torch.cuda.synchronize()
+    log(f"init_lora pissa r=32 alpha=64 rslora s="
+        f"{time.perf_counter() - t0:.2f}")
+    frozen = [p.detach().clone() for p in base.parameters()]
+    before = [t.detach().clone() for t in tree_leaves(lora)]
+    rng = np.random.default_rng(SEED + 4)
+    feats = kd_features(cfg, TRAIN_B * TRAIN_STEPS, rng)
+    collate = DistillCollator(pad_token_id=cfg.eos_token_id,
+                              speech_bos_id=SPEECH_BOS,
+                              pad_to_multiple_of=128)
+    dcfg = DistillConfig()
+    opt = train_step.make_optimizer(dcfg.learning_rate, 2, TRAIN_STEPS)
+    step = train_step.make_kd_step(cfg, dcfg, opt, mode="precomputed",
+                                   device=dev)
+    times, metrics, shapes = [], [], []
+
+    def timed_step(state, *args):
+        shapes.append(tuple(args[-1]["input_ids"].shape))
+        t = time.perf_counter()
+        state, m = step(state, *args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        metrics.append({k: float(v) for k, v in m.items()})
+        return state, m
+
+    def batch_iter(epoch):
+        return batches_from(feats, collate, TRAIN_B, 1, shuffle_seed=SEED,
+                            epoch=epoch)
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as out:
+        loop = LoopConfig(num_epochs=1, max_steps=TRAIN_STEPS,
+                          logging_steps=TRAIN_STEPS, save_steps=5,
+                          save_total_limit=2, output_dir=out)
+        _cuda.reset_launches()
+        state = train_loop(timed_step, train_step.init_state(lora, opt),
+                           (base, None), batch_iter, loop, device=dev)
+        torch.cuda.synchronize()
+        counts = dict(_cuda.launches)
+        kept = sorted(os.listdir(os.path.join(out, "ckpt")))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = len(times)
+    L = cfg.num_hidden_layers
+    tokens = TRAIN_B * TRAIN_T
+    step_s = float(np.median(times[2:]))
+    tok_s = tokens / step_s
+    mfu = tok_s * 3 * qwen3.flops_per_token(cfg, TRAIN_T) / BF16_FLOP_PER_S
+    real = sum(len(f["input_ids"]) for f in feats[:n * TRAIN_B])
+    log("train " + json.dumps({
+        "steps": n, "batch_shape": shapes[0], "tokens_per_step": tokens,
+        "real_tokens_per_step": real / n, "step_ms_median": step_s * 1e3,
+        "step_ms": [t * 1e3 for t in times], "tokens_per_s": tok_s,
+        "mfu": mfu, "mfu_peak": "H100 SXM bf16 dense 989 TFLOP/s",
+        "loss": [m["loss"] for m in metrics],
+        "grad_norm": [m["grad_norm"] for m in metrics],
+        "peak_mem_gib": peak, "checkpoints_kept": kept,
+        "launches": counts}))
+    if n != TRAIN_STEPS or state.step != TRAIN_STEPS:
+        fail(f"train_loop ran {n} steps, state at {state.step}")
+    if any(s != (1, TRAIN_B, TRAIN_T) for s in shapes):
+        fail(f"batches are not [1, {TRAIN_B}, {TRAIN_T}]: {set(shapes)}")
+    if not all(np.isfinite([m["loss"], m["grad_norm"]]).all()
+               for m in metrics):
+        fail("a loss or grad_norm is not finite")
+    want = {"flash_fwd": 2 * L * n, "flash_dq": L * n, "flash_dkv": L * n}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        fail(f"flash launches {got} != {want} (2 x layers forward under "
+             f"remat, layers backward, per step)")
+    if len(kept) != 2:
+        fail(f"save_total_limit 2 kept {kept}")
+    if not all(torch.equal(a, b) for a, b in zip(frozen,
+                                                 base.parameters())):
+        fail("the frozen base weights changed")
+    moved = [not torch.equal(a, b) for a, b in
+             zip(before, tree_leaves(state.trainable))]
+    if not all(moved):
+        fail(f"{moved.count(False)} trainable leaves did not change")
+    batch = {k: v[None] for k, v in collate(feats[:TRAIN_B]).items()}
+    check_loss_falls(cfg, dcfg, base, state.trainable, batch, dev)
+    profile_train(step, state, base, batch)
+    return counts, state.trainable
+
+
+def profile_train(step, state, base, batch) -> None:
+    """Where a training step spends its time: one step timed without the
+    profiler, one traced with it for the time of each CUDA kernel. Device
+    busy share = kernel time / unprofiled wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        nonlocal state
+        state, _ = step(state, base, None, batch)
+        torch.cuda.synchronize()
+    run()
+    t0 = time.perf_counter()
+    run()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)
+    busy_us = sum(e.self_device_time_total for e in rows)
+    flash_us = sum(e.self_device_time_total for e in rows
+                   if "flash_" in e.key)
+    log(f"profile train step: wall_ms={wall_us / 1e3:.2f} (unprofiled) "
+        f"device_kernel_ms={busy_us / 1e3:.2f} (profiled) busy_share="
+        f"{busy_us / wall_us:.3f} flash_kernels_ms={flash_us / 1e3:.2f} "
+        f"flash_share_of_kernel_time={flash_us / max(busy_us, 1.0):.3f}")
+    for e in rows[:14]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x "
+            f"{e.key[:90]}")
+
+
+def check_loss_falls(cfg, dcfg, base, trainable, batch, dev):
+    """A short loop on one repeated batch: its loss must fall."""
+    opt = train_step.make_optimizer(REPEAT_LR, 1, 50)
+    step = train_step.make_kd_step(cfg, dcfg, opt, mode="precomputed",
+                                   donate=False, device=dev)
+    state = train_step.init_state(trainable, opt)
+    losses = []
+    for _ in range(REPEAT_STEPS):
+        state, m = step(state, base, None, batch)
+        losses.append(float(m["loss"]))
+    log(f"repeated batch: lr={REPEAT_LR} (warmup 1: the first step's rate "
+        f"is 0) losses={losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"the loss on one repeated batch did not fall: {losses}")
+
+
+def check_flash_bwd(dev, counts: dict) -> list:
+    """K1-dq and K1-dkv at the training step's shape (B 8, T 512, H 16,
+    KV 8, Dh 128) against the plain backward in fp32 on the same bf16
+    inputs; K1-fwd timed at the same shape."""
+    rng = np.random.default_rng(SEED + 5)
+    B, T, H, KV, Dh = TRAIN_B, TRAIN_T, 16, 8, 128
+    G = H // KV
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)
+                                ).to(dev, torch.bfloat16)
+    q, k, v, do = rnd(B, T, H, Dh), rnd(B, T, KV, Dh), rnd(B, T, KV, Dh), \
+        rnd(B, T, H, Dh)
+    o, lse = flash_attention_fwd(q, k, v)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = flash_dq(q, k, v, do, lse, delta)
+    dk, dv = flash_dkv(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    ref_o, ref_lse = flash_attention_fwd_plain(qf, kf, vf)
+    ref = flash_attention_bwd_plain(qf, kf, vf, ref_o, ref_lse, dof)
+    abs_err = {name: (g.float() - r).abs().max().item()
+               for name, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref)}
+    err = {name: abs_err[name] / r.abs().max().item()
+           for name, r in zip(("dq", "dk", "dv"), ref)}
+    log(f"flash_bwd max |kernel - plain| / max |plain|: " + ", ".join(
+        f"{n}={e:.3e}" for n, e in err.items()) + f" tol={BWD_REL_TOL} "
+        f"(bf16 p and ds in the products, bf16 outputs, against fp32); "
+        f"max |kernel - plain|: " + ", ".join(
+            f"{n}={e:.3e}" for n, e in abs_err.items()))
+    if not max(err.values()) <= BWD_REL_TOL:
+        fail(f"flash backward disagrees with its plain version: {err}")
+    dq_ms = time_ms(lambda: flash_dq(q, k, v, do, lse, delta))
+    dkv_ms = time_ms(lambda: flash_dkv(q, k, v, do, lse, delta))
+    plain_ms = time_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse,
+                                                         do), iters=5)
+    # yardstick only, never called by the port: the backward of PyTorch's
+    # fused SDPA over KV heads repeated to H, one number for the pair
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt = k.repeat_interleave(G, dim=2).transpose(1, 2).detach() \
+        .requires_grad_()
+    vt = v.repeat_interleave(G, dim=2).transpose(1, 2).detach() \
+        .requires_grad_()
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    library_ms = time_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True))
+    fwd_ms = time_ms(lambda: flash_attention_fwd(q, k, v))
+    fwd_plain_ms = time_ms(lambda: flash_attention_fwd_plain(q, k, v),
+                           iters=5)
+    fwd_library_ms = time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True))
+    causal_mm = B * H * T * T * Dh          # flops of one causal product
+    qb, kvb, rowb = q.numel() * 2, k.numel() * 2, B * H * T * 4
+    fwd_bound = bound(2 * qb + 2 * kvb + rowb, 2 * causal_mm)
+    log(f"flash_fwd at the train shape B {B} T {T}: ms={fwd_ms:.4f} "
+        f"plain_ms={fwd_plain_ms:.4f} library_ms={fwd_library_ms:.4f} "
+        f"bound_ms={fwd_bound[0]:.5f} ({fwd_bound[1]})")
+    rows = []
+    for name, ms, line, nbytes, flops in (
+            ("flash_dq", dq_ms, 73, 3 * qb + 2 * kvb + 2 * rowb,
+             3 * causal_mm),
+            ("flash_dkv", dkv_ms, 104, 2 * qb + 4 * kvb + 2 * rowb,
+             4 * causal_mm)):
+        bound_ms, bound_by = bound(nbytes, flops)
+        outs = ("dq",) if name == "flash_dq" else ("dk", "dv")
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "speech_distill_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": f"speech_distill_tpu/ops/flash_attention.py:{line}",
+            "launches": counts[name],
+            "max_abs_err": max(abs_err[o] for o in outs),
+            "max_rel_err": max(err[o] for o in outs), "ms": ms,
+            "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms})
+    train_fwd = {"ms": fwd_ms, "plain_ms": fwd_plain_ms,
+                 "library_ms": fwd_library_ms, "bound_ms": fwd_bound[0],
+                 "shape": [B, T, H, KV, Dh]}
+    return rows, train_fwd
+
+
+def check_grad_path(cfg, model, lora, dev) -> None:
+    """Phase 8: one KD loss-and-grad of the full width at 4 layers, B 2,
+    T 512, from the same weights, LoRA and batch: (a) the kernel route in
+    bf16, (b) the plain route in bf16, (c) the plain route in fp32."""
+    depth = 4
+    rng = np.random.default_rng(SEED + 6)
+    feats = kd_features(cfg, 2, rng)
+    batch = DistillCollator(pad_token_id=cfg.eos_token_id,
+                            speech_bos_id=SPEECH_BOS)(feats)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    if batch["input_ids"].shape[1] != TRAIN_T:
+        fail(f"grad path batch is not T = {TRAIN_T}")
+    dcfg = DistillConfig()
+    g = lora_scaling(dcfg.lora)
+
+    def run(dtype, impl):
+        c = dataclasses.replace(cfg, num_hidden_layers=depth,
+                                dtype=dtype, attn_impl=impl)
+        m = qwen3.Qwen3(c, dev)
+        with torch.no_grad():
+            for name, p in m.named_parameters():
+                p.copy_(model.get_parameter(name))
+        tr = {"layers": tree_map(lambda t: t[:depth].detach().clone()
+                                 .requires_grad_(), lora["layers"]),
+              "embed": {"weight": lora["embed"]["weight"].detach()
+                        .to(c.torch_dtype).requires_grad_()}}
+        emb = tr["embed"]["weight"]
+        _cuda.reset_launches()
+        hidden = qwen3.forward_train(
+            m, batch["input_ids"], attention_mask=batch["attention_mask"],
+            embed=emb, adapters=tr["layers"], adapter_scale=g, device=dev)
+        out = head_sparse_kd_loss(hidden, emb, batch["labels"],
+                                  batch["teacher_top_k_v"],
+                                  batch["teacher_top_k_i"], None,
+                                  dcfg.temperature, dcfg.alpha)
+        leaves = tree_leaves(tr["layers"])
+        grads = torch.autograd.grad(out.total, leaves + [emb])
+        torch.cuda.synchronize()
+        return (float(out.total.detach()), [x.float() for x in grads[:-1]],
+                grads[-1].float(), dict(_cuda.launches))
+    ref_loss, ref_lora, ref_emb, _ = run("float32", "xla")
+    res = {"bf16_kernel": run("bfloat16", "auto"),
+           "bf16_plain": run("bfloat16", "xla")}
+    if res["bf16_kernel"][3]["flash_dq"] != depth \
+            or res["bf16_plain"][3]["flash_dq"] != 0:
+        fail(f"grad path routes: {[r[3] for r in res.values()]}")
+    err = {}
+    for key, (loss, lg, eg, _) in res.items():
+        if not (np.isfinite(loss) and all(bool(torch.isfinite(x).all())
+                                          for x in lg + [eg])):
+            fail(f"{key}: non-finite loss or grads")
+        err[key] = {"loss": abs(loss - ref_loss),
+                    "lora_grad": max(((a - b).abs().max() / b.abs().max())
+                                     .item() for a, b in zip(lg, ref_lora)),
+                    "embed_grad": ((eg - ref_emb).abs().max()
+                                   / ref_emb.abs().max()).item()}
+    log("grad path: " + json.dumps({"layers": depth, "B": 2, "T": TRAIN_T,
+                                    "fp32_plain_loss": ref_loss,
+                                    "errors_vs_fp32_plain": err}) +
+        f" (max |grad - fp32| / max |fp32 grad| over the LoRA leaves and "
+        f"the embed; the kernel route must stay within {BF16_ERR_RATIO}x "
+        f"the plain route's error)")
+    for what in ("lora_grad", "embed_grad"):
+        if not err["bf16_kernel"][what] <= \
+                BF16_ERR_RATIO * err["bf16_plain"][what]:
+            fail(f"bf16 {what} through the kernels is less accurate: {err}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available: this smoke runs on the GPU only")
@@ -364,6 +705,14 @@ def main() -> None:
     kernels = [check_paged_decode(dev, counts["paged_decode"]),
                check_flash_fwd(dev, counts["flash_fwd"])]
     check_model_path(cfg, model, dev)
+    t0 = time.perf_counter()
+    train_counts, lora = train(cfg, model, dev)
+    bwd_rows, train_fwd = check_flash_bwd(dev, train_counts)
+    kernels[1]["train_shape"] = dict(train_fwd,
+                                     launches=train_counts["flash_fwd"])
+    kernels += bwd_rows
+    check_grad_path(cfg, model, lora, dev)
+    log(f"train phases s={time.perf_counter() - t0:.2f}")
     log(f"total s={time.perf_counter() - t_all:.2f}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

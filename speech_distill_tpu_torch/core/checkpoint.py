@@ -1,0 +1,87 @@
+"""Checkpoints of the training state (port of the ``CheckpointManager`` of
+``speech_distill_tpu/core/checkpoint.py``).
+
+Orbax becomes ``torch.save``/``torch.load``: one file ``<step>.pt`` per
+saved step under the directory, holding the state's tensors, optimizer
+moments and counters as plain containers (so ``torch.load`` runs with
+``weights_only=True``), and the newest ``max_to_keep`` files kept. Saves
+are synchronous, so :meth:`CheckpointManager.wait` has nothing to wait
+for. The HF export waits for the CLI slice.
+"""
+from __future__ import annotations
+
+import os
+import re
+from typing import Any, List, Optional
+
+import torch
+
+_NAME = re.compile(r"^(\d+)\.pt$")
+
+
+def _to_plain(obj: Any) -> Any:
+    """NamedTuples become dicts tagged with their field names."""
+    if hasattr(obj, "_fields"):
+        return {"__fields__": list(obj._fields),
+                "values": [_to_plain(v) for v in obj]}
+    if isinstance(obj, dict):
+        return {k: _to_plain(v) for k, v in obj.items()}
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    return obj
+
+
+def _restore_like(template: Any, saved: Any) -> Any:
+    """``saved`` in the structure, types, devices and dtypes of
+    ``template`` (tensors that required grad require it again)."""
+    if hasattr(template, "_fields"):
+        return type(template)(*(_restore_like(t, s) for t, s in
+                                zip(template, saved["values"])))
+    if isinstance(template, dict):
+        return {k: _restore_like(template[k], saved[k]) for k in template}
+    if isinstance(template, torch.Tensor):
+        t = saved.to(template.device, template.dtype)
+        return t.requires_grad_(True) if template.requires_grad else t
+    return saved
+
+
+class CheckpointManager:
+    """save / latest_step / restore / wait, keeping ``max_to_keep``
+    checkpoints."""
+
+    def __init__(self, directory: str, max_to_keep: int = 3):
+        self.directory = directory
+        self.max_to_keep = max_to_keep
+        os.makedirs(directory, exist_ok=True)
+
+    def steps(self) -> List[int]:
+        return sorted(int(m.group(1)) for m in
+                      map(_NAME.match, os.listdir(self.directory)) if m)
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.directory, f"{step}.pt")
+
+    def save(self, step: int, state):
+        tmp = self._path(step) + ".tmp"
+        torch.save({"state": _to_plain(state)}, tmp)
+        os.replace(tmp, self._path(step))
+        for old in self.steps()[:-self.max_to_keep]:
+            os.remove(self._path(old))
+
+    def wait(self):
+        """Saves are synchronous: nothing is in flight."""
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def restore(self, state_template, step: Optional[int] = None):
+        step = self.latest_step() if step is None else step
+        if step is None:
+            return None
+        saved = torch.load(self._path(step), map_location="cpu",
+                           weights_only=True)
+        return _restore_like(state_template, saved["state"])
+
+    def close(self):
+        """Nothing is held open."""

@@ -1,13 +1,14 @@
-"""Configuration for the PyTorch port: the Qwen3 decoder and the sampler.
+"""Configuration for the PyTorch port: the Qwen3 decoder, the sampler, and
+the LoRA and distillation knobs of the KD training step.
 
-Own copy of the fields the serving slice reads from
+Own copy of the fields the port reads from
 ``speech_distill_tpu/core/config.py`` (the port imports nothing of the JAX
 package). Values and defaults are the same, so a config built on one side
 describes the same model on the other.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -40,6 +41,16 @@ class Qwen3Config:
     eos_token_id: int = 151675
     dtype: str = "bfloat16"
     logits_dtype: str = "float32"
+    # training forward: activation checkpointing of each layer; only the
+    # "full" policy (recompute the whole layer in the backward) is ported
+    remat: bool = True
+    remat_policy: str = "full"
+    # auto: the flash kernel where it applies (ops/attention.use_flash);
+    # xla: the plain route; pallas: the kernel route, raising where the
+    # kernel cannot take the input (the JAX names)
+    attn_impl: str = "auto"
+    # dtype of the lm-head cotangent in the unfused head's backward
+    head_bwd_dtype: str = "float32"
 
     @property
     def q_dim(self) -> int:
@@ -86,6 +97,33 @@ def qwen3_tiny(vocab_size: int = 512, **kw) -> Qwen3Config:
     )
     base.update(kw)
     return Qwen3Config(**base)
+
+
+@dataclass
+class LoraConfig:
+    """LoRA knobs (defaults: r 32, alpha 64, rsLoRA, PiSSA init, all seven
+    projections, embed and lm-head copies trained)."""
+
+    r: int = 32
+    alpha: int = 64
+    use_rslora: bool = True
+    init_weights: str = "pissa"        # pissa | gaussian | default
+    target_modules: tuple = (
+        "q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
+        "down_proj")
+    # full-rank trained alongside LoRA because of the new vocab rows
+    modules_to_save: tuple = ("embed_tokens", "lm_head")
+
+
+@dataclass
+class DistillConfig:
+    """Stage-2 KD knobs the training step reads (the reference's
+    defaults); the CLI's other knobs come with the CLI."""
+
+    temperature: float = 2.0
+    alpha: float = 0.5
+    learning_rate: float = 5e-5
+    lora: LoraConfig = field(default_factory=LoraConfig)
 
 
 @dataclass

@@ -1,0 +1,258 @@
+"""The stage-2 KD training step in precomputed mode (port of
+``speech_distill_tpu/distill/train_step.py``).
+
+``make_kd_step(mode="precomputed")`` returns
+``step(state, base, teacher_params, batch) -> (state, metrics)``: the
+student forward with unmerged LoRA adapters (``models/qwen3.
+forward_train``), the sparse top-K KD loss against the batch's teacher
+top-K columns (the fused head op by default), gradients of the trainable
+tree accumulated over the batch's leading microbatch axis [A, B, T], and
+the optax chain of the JAX package — clip by global norm, then AdamW on a
+warmup-linear / linear-decay schedule — applied to the trainable tree.
+
+The JAX step donates its state; the port updates the trainable tensors of
+the state in place the same way (``donate=True``), or leaves them as they
+were and returns new ones (``donate=False``). The online modes, the chunked fused loss, the split
+apply, the 1F1B pipeline, full finetuning and the 8-bit and fused
+optimizers are not ported yet and raise.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, NamedTuple, Optional
+
+import torch
+
+from speech_distill_tpu_torch.core.config import (DistillConfig, LoraConfig,
+                                                  Qwen3Config)
+from speech_distill_tpu_torch.core.device import resolve_device
+from speech_distill_tpu_torch.core.tree import (tree_leaves, tree_map,
+                                                tree_unflatten)
+from speech_distill_tpu_torch.distill import losses
+from speech_distill_tpu_torch.distill.lora import lora_scaling
+from speech_distill_tpu_torch.models import qwen3
+from speech_distill_tpu_torch.ops.fused_lm_loss import head_sparse_kd_loss
+
+Params = Dict[str, Any]
+
+
+class Student(NamedTuple):
+    """What the student forward reads besides the frozen base model."""
+    embed: Optional[torch.Tensor]
+    lm_head: Optional[torch.Tensor]
+    adapters: Optional[Params]
+    adapter_scale: float
+
+
+def _effective_student(trainable: Params, lcfg: LoraConfig) -> Student:
+    """The trainable copies of the saved modules and the unmerged adapters
+    (the JAX ``_effective_student`` for LoRA). The base weights are the
+    frozen model's own and get no gradient."""
+    return Student(trainable.get("embed", {}).get("weight"),
+                   trainable.get("lm_head", {}).get("weight"),
+                   trainable.get("layers"), lora_scaling(lcfg))
+
+
+class TrainState(NamedTuple):
+    trainable: Params
+    opt_state: Any
+    step: int
+
+
+class Optimizer(NamedTuple):
+    """The optax ``GradientTransformation`` shape: ``init(params) ->
+    state`` and ``update(grads, state, params) -> (updates, state)``."""
+    init: Callable
+    update: Callable
+
+
+def global_norm(tree: Params) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in fp32."""
+    return torch.sqrt(sum(t.float().square().sum()
+                          for t in tree_leaves(tree)))
+
+
+def make_optimizer(learning_rate: float, warmup_steps: int,
+                   total_steps: int, weight_decay: float = 0.0,
+                   max_grad_norm: float = 1.0, eight_bit: bool = False,
+                   fused: bool = False) -> Optimizer:
+    """``optax.chain(clip_by_global_norm(max_grad_norm), adamw(schedule,
+    b1=0.9, b2=0.999, eps=1e-8, weight_decay))`` with the schedule
+    ``join_schedules([linear(0 -> lr, warmup), linear(lr -> 0, total -
+    warmup)])`` evaluated at the count of earlier updates, so the first
+    step's learning rate is 0.
+
+    Clipping scales by max / |g| only when |g| >= max (no epsilon, unlike
+    ``torch.nn.utils.clip_grad_norm_``). The moments are kept in each
+    parameter's dtype, as optax keeps them (bf16 for a bf16 embed copy);
+    each update's arithmetic runs in fp32.
+    """
+    if eight_bit or fused:
+        raise NotImplementedError("the 8-bit and fused optimizers are not "
+                                  "ported yet")
+    warmup = max(1, warmup_steps)
+    total = max(total_steps, warmup + 1)
+    b1, b2, eps = 0.9, 0.999, 1e-8
+
+    def schedule(count: int) -> float:
+        if count < warmup:
+            return learning_rate * count / warmup
+        frac = min(count - warmup, total - warmup) / (total - warmup)
+        return learning_rate * (1.0 - frac)
+
+    def init(params: Params) -> dict:
+        return {"count": 0,
+                "mu": tree_map(lambda p: torch.zeros_like(
+                    p, requires_grad=False), params),
+                "nu": tree_map(lambda p: torch.zeros_like(
+                    p, requires_grad=False), params)}
+
+    @torch.no_grad()
+    def update(grads: Params, state: dict, params: Params):
+        g_norm = global_norm(grads)
+        clip = torch.where(g_norm < max_grad_norm, 1.0,
+                           max_grad_norm / g_norm)
+        count = state["count"] + 1
+        bc1 = 1.0 - b1 ** count
+        bc2 = 1.0 - b2 ** count
+        lr = schedule(state["count"])
+        ups, mus, nus = [], [], []
+        for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state["mu"]),
+                              tree_leaves(state["nu"]),
+                              tree_leaves(params)):
+            gc = g.float() * clip
+            m2 = (1.0 - b1) * gc + b1 * m.float()
+            v2 = (1.0 - b2) * gc.square() + b2 * v.float()
+            upd = (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps)
+            if weight_decay:
+                upd = upd + weight_decay * p.float()
+            ups.append(-lr * upd)
+            mus.append(m2.to(m.dtype))
+            nus.append(v2.to(v.dtype))
+        new_state = {"count": count,
+                     "mu": tree_unflatten(state["mu"], mus),
+                     "nu": tree_unflatten(state["nu"], nus)}
+        return tree_unflatten(grads, ups), new_state
+
+    return Optimizer(init, update)
+
+
+@torch.no_grad()
+def apply_updates(params: Params, updates: Params,
+                  in_place: bool = True) -> Params:
+    """p + u rounded to p's dtype (``optax.apply_updates``); in place on
+    the parameter tensors, or into new leaves that require grad."""
+    def one(p, u):
+        new = (p.float() + u).to(p.dtype)
+        if in_place:
+            p.copy_(new)
+            return p
+        return new.requires_grad_(True)
+    return tree_map(one, params, updates)
+
+
+def init_state(trainable: Params, optimizer: Optimizer) -> TrainState:
+    return TrainState(trainable, optimizer.init(trainable), 0)
+
+
+def _accumulate(loss_and_grad: Callable, trainable: Params, batch: dict):
+    """Loss and grads over the leading microbatch axis A, averaged. A == 1
+    keeps the grads in each parameter's dtype; A > 1 sums them in fp32."""
+    A = batch["input_ids"].shape[0]
+    if A == 1:
+        return loss_and_grad(trainable, {k: v[0] for k, v in batch.items()})
+    acc, per_mb = None, []
+    for a in range(A):
+        grads, metrics = loss_and_grad(
+            trainable, {k: v[a] for k, v in batch.items()})
+        g32 = [g.float() for g in tree_leaves(grads)]
+        acc = g32 if acc is None else [x + y for x, y in zip(acc, g32)]
+        per_mb.append(metrics)
+    inv = 1.0 / A
+    grads = tree_unflatten(trainable, [x * inv for x in acc])
+    metrics = {k: torch.stack([m[k] for m in per_mb]).mean()
+               for k in per_mb[0]}
+    return grads, metrics
+
+
+def make_kd_step(student_cfg: Qwen3Config, distill_cfg: DistillConfig,
+                 optimizer: Optimizer, *, mode: str,
+                 use_lora: bool = True, merge_weights: bool = False,
+                 donate: bool = True, fused_loss: bool = False,
+                 head_loss: str = "fused", split_apply: bool = False,
+                 pp_schedule: str = "gpipe", device="cuda"):
+    """Build the KD step ``step(state, base, teacher_params, batch) ->
+    (state, metrics)``.
+
+    ``base`` is the frozen :class:`~speech_distill_tpu_torch.models.qwen3.
+    Qwen3` (after ``init_lora``); ``teacher_params`` is unused in
+    precomputed mode. ``batch`` maps names to [A, B, T(, K)] arrays or
+    tensors: input_ids, attention_mask, labels, teacher_top_k_v,
+    teacher_top_k_i and optionally speech_token_mask; they are moved to
+    ``device`` (CUDA by default; raises without it). ``head_loss``:
+    'fused' (``head_sparse_kd_loss``, the analytic one-pass backward) or
+    'unfused' (autograd through ``unembed_train`` and
+    ``sparse_distill_loss``). ``merge_weights`` folds the adapters into
+    the weights inside the forward and lets autograd differentiate the
+    merged product. Metrics (0-dim tensors on the device): loss,
+    student_loss, distill_loss, teacher_loss and grad_norm (global norm of
+    the grads before clipping).
+    """
+    dev = resolve_device(device)
+    if mode != "precomputed":
+        raise NotImplementedError(f"mode={mode!r}: only 'precomputed' is "
+                                  "ported")
+    if not use_lora:
+        raise NotImplementedError("full finetuning is not ported")
+    if fused_loss:
+        raise NotImplementedError("fused_loss (the chunked / K2 head) is "
+                                  "not ported yet")
+    if split_apply:
+        raise NotImplementedError("split_apply is not ported")
+    if pp_schedule == "1f1b":
+        raise NotImplementedError("pp_schedule='1f1b' is not ported")
+    if pp_schedule != "gpipe":
+        raise ValueError(f"unknown pp_schedule {pp_schedule!r}")
+    if head_loss not in ("fused", "unfused"):
+        raise ValueError(f"unknown head_loss {head_loss!r}")
+    lcfg = distill_cfg.lora
+    T, alpha = distill_cfg.temperature, distill_cfg.alpha
+    fused_head = head_loss == "fused"
+
+    def loss_and_grad(trainable: Params, mb: dict, base: qwen3.Qwen3):
+        st = _effective_student(trainable, lcfg)
+        acts = qwen3.forward_train(
+            base, mb["input_ids"], attention_mask=mb["attention_mask"],
+            embed=st.embed, lm_head=st.lm_head, adapters=st.adapters,
+            adapter_scale=st.adapter_scale, merge_adapters=merge_weights,
+            return_hidden=fused_head, device=dev)
+        args = (mb["labels"], mb["teacher_top_k_v"], mb["teacher_top_k_i"],
+                mb.get("speech_token_mask"), T, alpha)
+        if fused_head:
+            head = qwen3.lm_head_weight(base, st.embed, st.lm_head)
+            out = head_sparse_kd_loss(acts, head, *args)
+        else:
+            labels, v, i, smask = args[:4]
+            out = losses.sparse_distill_loss(acts, v, i, labels, smask,
+                                             T, alpha)
+        leaves = tree_leaves(trainable)
+        grads = torch.autograd.grad(out.total, leaves)
+        metrics = {"loss": out.total, "student_loss": out.task,
+                   "distill_loss": out.distill, "teacher_loss": out.teacher}
+        return (tree_unflatten(trainable, list(grads)),
+                {k: m.detach() for k, m in metrics.items()})
+
+    def step(state: TrainState, base: qwen3.Qwen3, teacher_params,
+             batch: dict):
+        del teacher_params          # precomputed: top-K rides the batch
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        grads, metrics = _accumulate(
+            lambda tr, mb: loss_and_grad(tr, mb, base), state.trainable,
+            batch)
+        metrics["grad_norm"] = global_norm(grads)
+        updates, opt_state = optimizer.update(grads, state.opt_state,
+                                              state.trainable)
+        trainable = apply_updates(state.trainable, updates, in_place=donate)
+        return TrainState(trainable, opt_state, state.step + 1), metrics
+
+    return step
+

@@ -1,9 +1,12 @@
 """Qwen3 decoder in PyTorch (port of ``speech_distill_tpu/models/qwen3.py``).
 
 GQA + per-head q/k RMSNorm + NeoX RoPE + SwiGLU, norms and softmax in
-fp32. The serving slice needs the no-cache forward and the cache-prefill
-forward; the per-row ``cache_positions`` path, ring attention, pipelining
-and LoRA belong to later slices.
+fp32. Two forwards: the serving :func:`forward` (no-cache and
+cache-prefill, under ``torch.no_grad``) and the grad-enabled
+:func:`forward_train` of the KD step (embed and head overrides, unmerged
+LoRA adapters through ``ops/lora_linear``, per-layer activation
+checkpointing). The per-row ``cache_positions`` path, ring attention and
+pipelining belong to later slices.
 
 Parameters keep the JAX layout of ``param_shapes`` with the layer axis
 unstacked: matrices are [din, dout] and apply as ``x @ w``, so
@@ -13,15 +16,22 @@ JAX pytree across leaf by leaf.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from speech_distill_tpu_torch.core.config import Qwen3Config
+from speech_distill_tpu_torch.core.config import Qwen3Config, torch_dtype
 from speech_distill_tpu_torch.core.device import resolve_device
 from speech_distill_tpu_torch.ops.attention import sdpa
+from speech_distill_tpu_torch.ops.lora_linear import lora_linear
+from speech_distill_tpu_torch.ops.matmul import matmul_f32
+
+# per-layer LoRA factors: {group: {key: (a [din, r], b [r, dout])}}
+LayerAdapters = Dict[str, Dict[str, Tuple[torch.Tensor, torch.Tensor]]]
 
 
 def _weight(shape, device, dtype) -> nn.Parameter:
@@ -164,23 +174,42 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     return (xf * cos + rotated * sin).to(x.dtype)
 
 
-def qkv_proj(attn: Attention, x: torch.Tensor, cos, sin, cfg: Qwen3Config):
+def _proj(x: torch.Tensor, w: torch.Tensor, la: Optional[dict], key: str,
+          scale: float, merge: bool) -> torch.Tensor:
+    """Projection with optional LoRA (counterpart of the JAX ``_proj``):
+    through :func:`lora_linear` (merged forward, skinny backward), or with
+    ``merge`` as a plain product with the merged weight, differentiated by
+    autograd (the JAX ``merge_weights=True`` path)."""
+    if la is None or key not in la:
+        return x @ w
+    a, b = la[key]
+    if merge:
+        return x @ (w + (matmul_f32(a, b) * scale).to(w.dtype))
+    return lora_linear(x, w, a, b, scale)
+
+
+def qkv_proj(attn: Attention, x: torch.Tensor, cos, sin, cfg: Qwen3Config,
+             la: Optional[dict] = None, scale: float = 1.0,
+             merge: bool = False):
     """Project + qk-norm + rope: x [B, T, D] -> q [B, T, H, Dh],
     k/v [B, T, KV, Dh]. Shared with the paged decode step."""
     B, T, _ = x.shape
     H, KV, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    q = (x @ attn.q).reshape(B, T, H, Dh)
-    k = (x @ attn.k).reshape(B, T, KV, Dh)
-    v = (x @ attn.v).reshape(B, T, KV, Dh)
+    q = _proj(x, attn.q, la, "q", scale, merge).reshape(B, T, H, Dh)
+    k = _proj(x, attn.k, la, "k", scale, merge).reshape(B, T, KV, Dh)
+    v = _proj(x, attn.v, la, "v", scale, merge).reshape(B, T, KV, Dh)
     q = rms_norm(q, attn.q_norm, cfg.rms_norm_eps)
     k = rms_norm(k, attn.k_norm, cfg.rms_norm_eps)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def mlp_block(mlp: MLP, y: torch.Tensor) -> torch.Tensor:
+def mlp_block(mlp: MLP, y: torch.Tensor, la: Optional[dict] = None,
+              scale: float = 1.0, merge: bool = False) -> torch.Tensor:
     """Gated MLP on the already-normed input, SiLU in fp32."""
-    g = torch.nn.functional.silu((y @ mlp.gate).float()).to(y.dtype)
-    return (g * (y @ mlp.up)) @ mlp.down
+    g = F.silu(_proj(y, mlp.gate, la, "gate", scale, merge).float()
+               ).to(y.dtype)
+    return _proj(g * _proj(y, mlp.up, la, "up", scale, merge), mlp.down,
+                 la, "down", scale, merge)
 
 
 @dataclass
@@ -218,12 +247,31 @@ def causal_bias(attention_mask: Optional[torch.Tensor], B: int, T: int,
     return _bias(keep)
 
 
-def o_proj_and_mlp(layer: DecoderLayer, x, o, cfg: Qwen3Config):
+def o_proj_and_mlp(layer: DecoderLayer, x, o, cfg: Qwen3Config,
+                   la: Optional[LayerAdapters] = None, scale: float = 1.0,
+                   merge: bool = False):
     """Residual adds around the o-projection and the MLP."""
     B, T = x.shape[:2]
-    x = x + o.reshape(B, T, cfg.q_dim) @ layer.attn.o
+    la_attn = la.get("attn") if la is not None else None
+    la_mlp = la.get("mlp") if la is not None else None
+    x = x + _proj(o.reshape(B, T, cfg.q_dim), layer.attn.o, la_attn, "o",
+                  scale, merge)
     y = rms_norm(x, layer.post_ln, cfg.rms_norm_eps)
-    return x + mlp_block(layer.mlp, y)
+    return x + mlp_block(layer.mlp, y, la_mlp, scale, merge)
+
+
+def layer_forward(layer: DecoderLayer, x: torch.Tensor, cos, sin,
+                  mask_bias, cfg: Qwen3Config,
+                  la: Optional[LayerAdapters] = None, scale: float = 1.0,
+                  merge: bool = False) -> torch.Tensor:
+    """One decoder layer without a cache (the JAX ``_layer``), with
+    optional per-layer LoRA factors."""
+    y = rms_norm(x, layer.input_ln, cfg.rms_norm_eps)
+    q, k, v = qkv_proj(layer.attn, y, cos, sin, cfg,
+                       la.get("attn") if la is not None else None, scale,
+                       merge)
+    return o_proj_and_mlp(layer, x, sdpa(q, k, v, mask_bias, cfg.attn_impl),
+                          cfg, la, scale, merge)
 
 
 @torch.no_grad()
@@ -250,9 +298,7 @@ def forward(model: Qwen3, input_ids: torch.Tensor, *,
         cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
         mask_bias = causal_bias(attention_mask, B, T, dev)
         for layer in model.layers:
-            y = rms_norm(x, layer.input_ln, cfg.rms_norm_eps)
-            q, k, v = qkv_proj(layer.attn, y, cos, sin, cfg)
-            x = o_proj_and_mlp(layer, x, sdpa(q, k, v, mask_bias), cfg)
+            x = layer_forward(layer, x, cos, sin, mask_bias, cfg)
     else:
         S, start = cache.k.shape[2], cache.length
         steps = start + torch.arange(T, device=dev)
@@ -272,7 +318,7 @@ def forward(model: Qwen3, input_ids: torch.Tensor, *,
             # read back in the compute dtype (an fp32 cache never promotes
             # the hidden state)
             o = sdpa(q, cache.k[li].to(q.dtype), cache.v[li].to(q.dtype),
-                     mask_bias)
+                     mask_bias, cfg.attn_impl)
             x = o_proj_and_mlp(layer, x, o, cfg)
         cache = KVCache(cache.k, cache.v, start + T)
     x = rms_norm(x, model.final_ln, cfg.rms_norm_eps)
@@ -280,26 +326,132 @@ def forward(model: Qwen3, input_ids: torch.Tensor, *,
     return out if cache is None else (out, cache)
 
 
-def lm_head_weight(model: Qwen3) -> torch.Tensor:
-    """[V, D] unembedding matrix (tied or separate)."""
-    return model.embed if model.lm_head is None else model.lm_head
+def _layer_adapters(adapters: Optional[dict], L: int
+                    ) -> List[Optional[LayerAdapters]]:
+    """Split stacked adapters {group: {key: {"a": [L, din, r],
+    "b": [L, r, dout]}}} into one per-layer dict of (a, b) views. One
+    ``unbind`` per leaf, so the backward stacks each leaf's gradient
+    once."""
+    if adapters is None:
+        return [None] * L
+    out: List[LayerAdapters] = [{} for _ in range(L)]
+    for group, mods in adapters.items():
+        for key, ab in mods.items():
+            for i, pair in enumerate(zip(ab["a"].unbind(0),
+                                         ab["b"].unbind(0))):
+                out[i].setdefault(group, {})[key] = pair
+    return out
+
+
+def forward_train(model: Qwen3, input_ids, *, attention_mask=None,
+                  embed: Optional[torch.Tensor] = None,
+                  lm_head: Optional[torch.Tensor] = None,
+                  adapters: Optional[dict] = None,
+                  adapter_scale: float = 1.0,
+                  merge_adapters: bool = False,
+                  return_hidden: bool = True, device="cuda"):
+    """Grad-enabled forward of the training step (the JAX ``forward`` with
+    ``cache=None``).
+
+    ``embed`` / ``lm_head`` replace the model's tables (the trainable
+    copies; a tied head reads ``embed``). ``adapters`` are stacked LoRA
+    factors shaped like the JAX ``lora_params["layers"]``, applied with
+    ``adapter_scale`` through :func:`lora_linear`, or merged into the
+    weights with ``merge_adapters``. With ``cfg.remat`` each layer is
+    checkpointed (``torch.utils.checkpoint``, non-reentrant): its forward
+    runs again in the backward. Returns the final-normed hidden states
+    [B, T, D], or fp32 logits through :func:`unembed_train`.
+
+    Runs on ``device`` (CUDA by default; raises without it), where the
+    model must live.
+    """
+    dev = resolve_device(device)
+    if model.device != dev:
+        raise ValueError(f"model is on {model.device}, not {dev}")
+    cfg = model.cfg
+    if cfg.remat and cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r}: only 'full' is ported")
+    input_ids = torch.as_tensor(input_ids, device=dev).long()
+    if attention_mask is not None:
+        attention_mask = torch.as_tensor(attention_mask, device=dev)
+    B, T = input_ids.shape
+    table = model.embed if embed is None else embed
+    x = F.embedding(input_ids, table)
+    positions = torch.arange(T, device=dev)[None].expand(B, T)
+    cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    mask_bias = causal_bias(attention_mask, B, T, dev)
+    per_layer = _layer_adapters(adapters, cfg.num_hidden_layers)
+    for layer, la in zip(model.layers, per_layer):
+        args = (layer, x, cos, sin, mask_bias, cfg, la, adapter_scale,
+                merge_adapters)
+        x = (checkpoint(layer_forward, *args, use_reentrant=False)
+             if cfg.remat else layer_forward(*args))
+    x = rms_norm(x, model.final_ln, cfg.rms_norm_eps)
+    if return_hidden:
+        return x
+    return unembed_train(x, lm_head_weight(model, embed, lm_head), cfg)
+
+
+class _Unembed(torch.autograd.Function):
+    """hidden @ w^T with fp32 logits; the backward casts d_logits to
+    ``bwd_dtype`` before both transpose products (accumulated in fp32), as
+    the JAX ``_unembed_mm``. With ``bwd_dtype`` fp32 it is the exact
+    gradient of the fp32 logits."""
+
+    @staticmethod
+    def forward(ctx, hidden, w, bwd_dtype):
+        ctx.save_for_backward(hidden, w)
+        ctx.bwd_dtype = bwd_dtype
+        return matmul_f32(hidden, w.t())
+
+    @staticmethod
+    def backward(ctx, g):
+        hidden, w = ctx.saved_tensors
+        bd = ctx.bwd_dtype
+        gb = g.to(bd)
+        dh = matmul_f32(gb, w.to(bd)).to(hidden.dtype)
+        g2 = gb.reshape(-1, g.shape[-1])
+        h2 = hidden.reshape(-1, hidden.shape[-1]).to(bd)
+        dw = matmul_f32(g2.t(), h2).to(w.dtype)
+        return dh, dw, None
+
+
+def unembed_train(hidden: torch.Tensor, w: torch.Tensor,
+                  cfg: Qwen3Config) -> torch.Tensor:
+    """Differentiable lm-head product, logits in ``cfg.logits_dtype``
+    (fp32), backward in ``cfg.head_bwd_dtype``."""
+    out = _Unembed.apply(hidden, w, torch_dtype(cfg.head_bwd_dtype))
+    return out.to(cfg.torch_logits_dtype)
+
+
+def flops_per_token(cfg: Qwen3Config, seq_len: int) -> float:
+    """Approximate forward FLOPs a token (2 N matmul + attention term),
+    the JAX ``flops_per_token``."""
+    D, Fd, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
+    QD, KVD = cfg.q_dim, cfg.kv_dim
+    per_layer = 2 * (D * QD + 2 * D * KVD + QD * D + 3 * D * Fd)
+    attn = 2 * 2 * QD * seq_len
+    return L * (per_layer + attn) + 2 * D * cfg.vocab_size
+
+
+def lm_head_weight(model: Qwen3, embed: Optional[torch.Tensor] = None,
+                   lm_head: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[V, D] unembedding matrix: the ``lm_head`` override, else the
+    model's own head, else (tied) the ``embed`` override or the model's
+    table."""
+    if lm_head is not None:
+        return lm_head
+    if model.lm_head is not None:
+        return model.lm_head
+    return model.embed if embed is None else embed
 
 
 def unembed(model: Qwen3, hidden: torch.Tensor) -> torch.Tensor:
     """lm-head product with logits in ``cfg.logits_dtype`` (fp32).
 
     As in the JAX ``preferred_element_type`` product, bf16 operands are
-    accumulated in fp32 and the fp32 sum is returned unrounded: on CUDA
-    through ``torch.mm(..., out_dtype=float32)``; on the CPU the bf16
-    operands are upcast first (exact products). A plain bf16 matmul would
-    round the logits to bf16 (~3 significant digits), so it is not used.
+    accumulated in fp32 and the fp32 sum is returned unrounded
+    (``ops/matmul.matmul_f32``).
     """
-    w = lm_head_weight(model)
-    out_dt = model.cfg.torch_logits_dtype
-    if hidden.dtype == out_dt:
-        return hidden @ w.t()
-    lead, D = hidden.shape[:-1], hidden.shape[-1]
-    if hidden.is_cuda:
-        out = torch.mm(hidden.reshape(-1, D), w.t(), out_dtype=out_dt)
-        return out.reshape(*lead, -1)
-    return hidden.to(out_dt) @ w.to(out_dt).t()
+    return unembed_train(hidden, lm_head_weight(model), model.cfg)

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels in ``csrc/``.
 
-Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled by
+Each ``csrc/<source>.cu`` exposes plain C entry points (:data:`SOURCES`
+says which) and is compiled by
 ``nvcc -gencode arch=compute_90a,code=sm_90a -shared`` into
-``build/lib<name>-<source hash>.so`` at first use, then loaded with
+``build/lib<source>-<source hash>.so`` at first use, then loaded with
 ctypes. Pointers and the stream cross the boundary as ``c_void_p``; each C
 entry returns ``cudaGetLastError()`` and :func:`check` raises on a
 non-zero code. Nothing here runs at import time: this module imports on
@@ -30,14 +31,21 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signature of each entry point; the symbol is named like its source file
+# C signature of each entry point
 SIGNATURES = {
     # q, k_pool, v_pool, block_tables, lengths, out,
     # B, KV, G, Dh, P, ps, max_pages, layer, scale, dtype, stream
     "paged_decode": [_P] * 6 + [_I] * 8 + [_F, _I, _P],
     # q, k, v, o, lse, B, T, H, KV, Dh, scale, stream
     "flash_fwd": [_P] * 5 + [_I] * 5 + [_F, _P],
+    # q, k, v, dO, lse, delta, dq, B, T, H, KV, Dh, scale, stream
+    "flash_dq": [_P] * 7 + [_I] * 5 + [_F, _P],
+    # q, k, v, dO, lse, delta, dk, dv, B, T, H, KV, Dh, scale, stream
+    "flash_dkv": [_P] * 8 + [_I] * 5 + [_F, _P],
 }
+# the csrc/<source>.cu that defines each entry point
+SOURCES = {"paged_decode": "paged_decode", "flash_fwd": "flash_fwd",
+           "flash_dq": "flash_bwd", "flash_dkv": "flash_bwd"}
 
 launches: Dict[str, int] = {name: 0 for name in SIGNATURES}
 _fns: Dict[str, object] = {}
@@ -56,18 +64,19 @@ def _nvcc() -> str:
                        "machine with the GPU (CUDA toolkit required)")
 
 
-def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+def _lib_path(source: str) -> Path:
+    src = (CSRC / f"{source}.cu").read_bytes()
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD / f"lib{name}-{digest[:12]}.so"
+    return BUILD / f"lib{source}-{digest[:12]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:
-    """Compile every missing library, one nvcc process per source, all
-    started together. Returns {name: ptxas report} for what was built."""
+    """Compile the missing libraries that define the named entry points,
+    one nvcc process per source, all started together. Returns
+    {source: ptxas report} for what was built."""
     BUILD.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in names:
+    for name in sorted({SOURCES[n] for n in names}):
         out = _lib_path(name)
         if out.exists():
             continue
@@ -92,11 +101,11 @@ def build(names: Iterable[str]) -> Dict[str, str]:
 
 
 def function(name: str):
-    """The C entry point of ``csrc/<name>.cu``, built first if needed."""
+    """The C entry point ``name``, its source built first if needed."""
     fn = _fns.get(name)
     if fn is None:
         build([name])
-        fn = getattr(ctypes.CDLL(str(_lib_path(name))), name)
+        fn = getattr(ctypes.CDLL(str(_lib_path(SOURCES[name]))), name)
         fn.argtypes = SIGNATURES[name]
         fn.restype = ctypes.c_int
         _fns[name] = fn

@@ -1,10 +1,20 @@
 """Attention dispatch (port of ``speech_distill_tpu/ops/attention.py``).
 
-``sdpa`` sends causal self-attention of long prompts to the hand-written
-flash kernel under the same predicate as the JAX package — CUDA tensors,
-T >= 512, T == S, T % 256 == 0 — and everything else to ``sdpa_plain``,
-plain tensor code (as JAX leaves it to XLA). On CUDA the kernel runs or
-raises: the JAX ``try/except`` fallback is not carried over.
+``sdpa`` picks a route by ``impl``, with the JAX names:
+
+* ``"xla"``: :func:`sdpa_plain`, plain tensor code (as JAX leaves it to
+  XLA);
+* ``"pallas"``: the causal flash op (``flash_attention``: the hand-written
+  CUDA kernels on CUDA tensors, which raise on what they cannot take; the
+  plain versions on CPU tensors, as JAX interprets the Pallas kernel
+  off the TPU);
+* ``"auto"``: the flash op where :func:`use_flash` says the kernels apply
+  — CUDA tensors, T >= 512, T == S, T % 256 == 0 (the JAX predicate) and
+  what the kernels take (bf16, Dh in {64, 128}) — and the plain route
+  otherwise. The JAX ``try/except`` fallback is not carried over: on the
+  kernel route the kernel runs or raises.
+
+The ring routes (sequence parallelism) are not ported and raise.
 """
 from __future__ import annotations
 
@@ -12,10 +22,12 @@ from typing import Optional
 
 import torch
 
-from speech_distill_tpu_torch.ops.flash_attention import flash_attention_fwd
+from speech_distill_tpu_torch.ops.flash_attention import (flash_attention,
+                                                          kernel_takes)
 
 FLASH_MIN_SEQ = 512
 FLASH_BLOCK = 256
+IMPLS = ("auto", "xla", "pallas")
 
 
 def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -41,12 +53,31 @@ def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, T, H, Dh).to(q.dtype)
 
 
-def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         mask_bias: Optional[torch.Tensor]) -> torch.Tensor:
-    """Flash kernel for long causal self-attention on CUDA (the mask is
-    then implied: causal, right padding is exact), plain SDPA otherwise."""
+def _on_cuda(t: torch.Tensor) -> bool:
+    return t.is_cuda
+
+
+def use_flash(q: torch.Tensor, k: torch.Tensor, impl: str = "auto") -> bool:
+    """Whether ``sdpa`` takes the flash route for these inputs."""
+    if impl == "xla":
+        return False
+    if impl == "pallas":
+        return True
+    if impl != "auto":
+        raise NotImplementedError(
+            f"attn_impl={impl!r} is not ported (the port has {IMPLS})")
     T = q.shape[1]
-    if (q.is_cuda and T >= FLASH_MIN_SEQ and T == k.shape[1]
-            and T % FLASH_BLOCK == 0):
-        return flash_attention_fwd(q, k, v)[0]
+    return (_on_cuda(q) and T >= FLASH_MIN_SEQ and T == k.shape[1]
+            and T % FLASH_BLOCK == 0 and kernel_takes(q)
+            and k.dtype == q.dtype)
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         mask_bias: Optional[torch.Tensor], impl: str = "auto"
+         ) -> torch.Tensor:
+    """Attention output [B, T, H, Dh] by the route :func:`use_flash`
+    picks. On the flash route the mask is implied (causal; right padding
+    is exact) and gradients flow through the kernels' backward."""
+    if use_flash(q, k, impl):
+        return flash_attention(q, k, v)
     return sdpa_plain(q, k, v, mask_bias)

@@ -11,7 +11,8 @@ from speech_distill_tpu.ops.flash_attention import _flash_call
 from speech_distill_tpu.ops.paged_attention import (
     paged_attention as jax_paged_attention, paged_attention_xla)
 from speech_distill_tpu_torch.ops import _cuda
-from speech_distill_tpu_torch.ops.attention import sdpa, sdpa_plain
+from speech_distill_tpu_torch.ops import attention
+from speech_distill_tpu_torch.ops.attention import sdpa, sdpa_plain, use_flash
 from speech_distill_tpu_torch.ops.flash_attention import (
     flash_attention_fwd, flash_attention_fwd_plain)
 from speech_distill_tpu_torch.ops.paged_attention import (
@@ -109,3 +110,47 @@ def test_flash_plain_matches_sdpa_plain_at_dispatch_width():
     torch.testing.assert_close(flash_attention_fwd_plain(qt, kt, vt)[0],
                                sdpa_plain(qt, kt, vt, bias),
                                atol=ATOL, rtol=RTOL)
+
+
+def _qk(T=512, S=None, Dh=128, dtype=torch.bfloat16):
+    return (torch.zeros(1, T, 4, Dh, dtype=dtype),
+            torch.zeros(1, T if S is None else S, 2, Dh, dtype=dtype))
+
+
+@pytest.mark.parametrize("shape,dtype,route", [
+    (dict(T=512), torch.bfloat16, True),
+    (dict(T=768), torch.bfloat16, True),
+    (dict(T=512), torch.float32, False),       # the kernels take bf16
+    (dict(T=256), torch.bfloat16, False),      # below 512
+    (dict(T=640), torch.bfloat16, False),      # not a multiple of 256
+    (dict(T=512, S=1024), torch.bfloat16, False),   # T != S (prefill)
+    (dict(T=512, Dh=96), torch.bfloat16, False),    # head dim
+])
+def test_auto_route_predicate(monkeypatch, shape, dtype, route):
+    """The auto route on a card (the CUDA check stubbed): the JAX predicate
+    plus what the kernels take, so an fp32 model computes on the plain
+    route instead of raising in the kernel wrapper."""
+    q, k = _qk(**shape, dtype=dtype)
+    assert use_flash(q, k, "auto") is False          # CPU tensors
+    monkeypatch.setattr(attention, "_on_cuda", lambda t: True)
+    assert use_flash(q, k, "auto") is route
+    assert use_flash(q, k, "xla") is False
+    assert use_flash(q, k, "pallas") is True
+
+
+def test_named_routes():
+    """'pallas' takes the flash op (the plain versions on CPU tensors, as
+    JAX interprets the kernel) and raises where it cannot apply; 'xla' is
+    the plain route; the ring routes are not ported."""
+    q, k, v = map(torch.from_numpy, _qkv(B=1, T=64, seed=8))
+    pos = torch.arange(64)
+    bias = torch.where(pos[None] <= pos[:, None], 0.0,
+                       -float("inf"))[None, None]
+    torch.testing.assert_close(sdpa(q, k, v, bias, "pallas"),
+                               flash_attention_fwd_plain(q, k, v)[0])
+    torch.testing.assert_close(sdpa(q, k, v, bias, "xla"),
+                               sdpa_plain(q, k, v, bias))
+    with pytest.raises(ValueError, match="matching q"):
+        sdpa(q[:, :32], k, v, bias[:, :, :32], "pallas")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        sdpa(q, k, v, bias, "ring")

@@ -9,6 +9,7 @@ import torch
 
 from speech_distill_tpu_torch.ops import _cuda
 from speech_distill_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
     flash_attention_fwd, flash_attention_fwd_plain)
 from speech_distill_tpu_torch.ops.paged_attention import (
     paged_attention, paged_attention_plain)
@@ -18,6 +19,10 @@ pytestmark = pytest.mark.cuda
 # bf16 outputs: one rounding of a value |o| <= max|v| ~ 4 (2^-8 relative)
 BF16_ATOL = 2e-2
 FP32_ATOL = 1e-5
+# flash backward, max |kernel - plain(fp32)| / max |plain|: the kernels
+# round p and ds to bf16 (2^-9 relative) before products over up to T * G
+# terms and write bf16 results (2^-9), against an fp32 plain version
+BWD_REL_TOL = 2e-2
 
 
 @pytest.fixture
@@ -62,3 +67,50 @@ def test_flash_fwd_kernel_matches_plain(dev, H, KV):
                                                v.float())
     torch.testing.assert_close(o.float(), ref_o, atol=BF16_ATOL, rtol=0)
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+
+
+def _rel_err(got, ref):
+    return ((got.float() - ref).abs().max() / ref.abs().max()).item()
+
+
+@pytest.mark.parametrize("H,KV", [(16, 8), (4, 4)])
+def test_flash_bwd_kernels_match_plain(dev, H, KV):
+    rng = np.random.default_rng(2)
+    B, T, Dh = 2, 256, 128
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(B, T, n, Dh))
+                                    ).to(dev, torch.bfloat16)
+                   for n in (H, KV, KV, H))
+    o, lse = flash_attention_fwd(q, k, v)
+    before = {n: _cuda.launches[n] for n in ("flash_dq", "flash_dkv")}
+    dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert {n: _cuda.launches[n] - before[n] for n in before} == {
+        "flash_dq": 1, "flash_dkv": 1}
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    ref_o, ref_lse = flash_attention_fwd_plain(qf, kf, vf)
+    refs = flash_attention_bwd_plain(qf, kf, vf, ref_o, ref_lse, dof)
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        assert _rel_err(got, ref) <= BWD_REL_TOL, name
+
+
+def test_flash_autograd_runs_the_kernels(dev):
+    """Gradients through ``flash_attention`` on the card are the kernels'
+    backward, launched once each per backward."""
+    rng = np.random.default_rng(3)
+    B, T, H, KV, Dh = 1, 512, 4, 2, 64
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, T, n, Dh))).to(
+        dev, torch.bfloat16).requires_grad_() for n in (H, KV, KV))
+    w = torch.from_numpy(rng.normal(size=(B, T, H, Dh))).to(dev,
+                                                            torch.bfloat16)
+    before = dict(_cuda.launches)
+    (flash_attention(q, k, v).float() * w.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert {n: _cuda.launches[n] - before[n]
+            for n in ("flash_fwd", "flash_dq", "flash_dkv")} == {
+        "flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    qf, kf, vf = (t.detach().float() for t in (q, k, v))
+    ref_o, ref_lse = flash_attention_fwd_plain(qf, kf, vf)
+    refs = flash_attention_bwd_plain(qf, kf, vf, ref_o, ref_lse, w.float())
+    for name, got, ref in zip("qkv", (q.grad, k.grad, v.grad), refs):
+        assert _rel_err(got, ref) <= BWD_REL_TOL, name

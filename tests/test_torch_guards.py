@@ -51,19 +51,36 @@ def test_no_jax_or_jax_package_imports(path):
         assert not any(banned(n) for n in names), (path, names)
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
-    from speech_distill_tpu_torch.core.config import (SamplingParams,
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    from speech_distill_tpu_torch.core.config import (DistillConfig,
+                                                      LoraConfig,
+                                                      SamplingParams,
                                                       qwen3_tiny)
+    from speech_distill_tpu_torch.core.trainer import LoopConfig, train_loop
+    from speech_distill_tpu_torch.distill import train_step
+    from speech_distill_tpu_torch.distill.lora import init_lora
     from speech_distill_tpu_torch.infer.paged import PagedEngine
     from speech_distill_tpu_torch.models import qwen3
 
     cfg = qwen3_tiny(32, dtype="float32")
     model = qwen3.init_params(cfg, seed=0, device="cpu")
+    ids = np.ones((1, 4), np.int64)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         PagedEngine(model, cfg, SamplingParams())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         qwen3.init_params(cfg, seed=0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        qwen3.forward_train(model, ids)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_lora(model, cfg, LoraConfig(r=2, alpha=4))
+    opt = train_step.make_optimizer(1e-3, 1, 10)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_step.make_kd_step(cfg, DistillConfig(), opt,
+                                mode="precomputed")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_loop(lambda *a: None, None, (), lambda epoch: iter(()),
+                   LoopConfig(output_dir=str(tmp_path)))
     # the explicit CPU request runs
     eng = PagedEngine(model, cfg, SamplingParams(top_k=4,
                                                  stop_token_ids=(31,)),
