@@ -24,7 +24,21 @@
    at the step's shape and times them beside SDPA's backward.
 8. Loss and gradients of the KD step at reduced depth through the kernel
    route and the plain route in bf16, against the plain route in fp32.
-9. Prints the kernels JSON line, then the result line.
+9. Two KD steps with ``fused_loss=True, fused_backend="pallas"`` (the K2
+   kernels) on one batch, held to the default fused-head route.
+10. Stage 1 at the reference CLI's defaults on a fresh full-width model:
+   ``make_stage1_step`` (fused CE through K2) in ``train_loop`` for 4
+   steps of B 4, T 4096, A 4 over packed seeded speech-token data, one
+   eval with ``make_stage1_eval_step`` and load-best; fails unless the
+   launch counts are exact, the losses finite, the old embedding rows
+   equal their start less AdamW's decay, the base bit-equal and a new row
+   moved. Then a profile of one stage-1 step.
+11. Holds K2 (stats, dh, dW) against the plain versions at V 159,488,
+   D 1024, at N 4096 and at the stage-1 microbatch's N 16,380, and times
+   them at N 16,380.
+12. The stage-1 gradient of the embedding at 4 layers, B 1, T 4096 through
+   the kernel route and the plain route in bf16, against fp32.
+13. Prints the kernels JSON line, then the result line.
 
 Exits non-zero, printing no result, when CUDA is missing or any phase
 fails. Only one card is needed. Imports nothing of JAX.
@@ -58,9 +72,14 @@ from speech_distill_tpu_torch.ops import _cuda
 from speech_distill_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_plain, flash_attention_fwd, flash_attention_fwd_plain,
     flash_dkv, flash_dq)
-from speech_distill_tpu_torch.ops.fused_lm_loss import head_sparse_kd_loss
+from speech_distill_tpu_torch.ops.fused_lm_loss import (fused_cross_entropy,
+                                                        head_sparse_kd_loss)
 from speech_distill_tpu_torch.ops.paged_attention import (
     paged_attention, paged_attention_plain)
+from speech_distill_tpu_torch.ops.pallas_lm_loss import (
+    _n_split, lm_head_dh, lm_head_dw, lm_head_stats_bwd_plain,
+    lm_head_stats_kernel, lm_head_stats_plain)
+from speech_distill_tpu_torch.pipelines import stage1 as stage1_data
 
 SEED = 0
 # H100 SXM published peaks (dense): HBM bandwidth and bf16 tensor cores
@@ -89,6 +108,27 @@ TRAIN_B, TRAIN_T, TRAIN_K, TRAIN_STEPS = 8, 512, 128, 10
 SPEECH_BOS = 151_670          # a speech-start id; the pad id is the EOS
 # learning rate of the loop on one repeated batch (first step's rate is 0)
 REPEAT_LR, REPEAT_STEPS = 2e-4, 6
+# the fused KD route against the head route on the same weights and batch:
+# both take fp32 logits of the same bf16 operands, summed in another order
+# (~1e-6 relative); the teacher top-K logits are the same gather
+FUSED_KD_LOSS_RTOL = 1e-4
+# ... and both round d_logits to bf16 (2^-9 relative), the head route from
+# a bf16 logits residual, K2 from recomputed fp32 logits
+FUSED_KD_GRAD_NORM_RTOL = 2e-2
+# stage 1 at the reference CLI's defaults (pipelines/stage1.py: batch 4,
+# max_seq_length 4096, gradient_accumulation_steps 4, weight_decay 0.01,
+# num_new_tokens 8220); lr with warmup 1, so the rate is nonzero from
+# step 2 (the first step's rate is 0)
+S1_B, S1_T, S1_A, S1_STEPS = 4, 4096, 4, 4
+S1_NEW_TOKENS, S1_LR, S1_WARMUP, S1_WD = 8220, 1e-4, 1, 0.01
+S1_EVAL_ROWS = 2                  # eval rows, scored one at a time
+# K2 against its plain version, max |kernel - plain(fp32)| / max |plain|:
+# the statistics are fp32 sums of bf16 products in another order; dh and
+# dW round dlogits to bf16 (2^-9 relative) as the TPU kernels do, and are
+# written in bf16
+K2_CHECK_N = S1_T                 # one packed sequence; also checked at
+#                                   the stage-1 microbatch's N
+LSE_REL_TOL, HEAD_GRAD_REL_TOL = 1e-3, 2e-2
 
 
 def log(msg: str) -> None:
@@ -394,7 +434,7 @@ def kd_features(cfg, n: int, rng) -> list:
 
 def train(cfg, model, dev):
     """Phase 6: the KD training step through ``train_loop``. Returns the
-    launch counts of the loop and the trained LoRA tree."""
+    launch counts of the loop, the trained LoRA tree and the base."""
     t0 = time.perf_counter()
     lora, base = init_lora(model, cfg, LoraConfig(), device=dev)
     torch.cuda.synchronize()
@@ -477,21 +517,21 @@ def train(cfg, model, dev):
     batch = {k: v[None] for k, v in collate(feats[:TRAIN_B]).items()}
     check_loss_falls(cfg, dcfg, base, state.trainable, batch, dev)
     profile_train(step, state, base, batch)
-    return counts, state.trainable
+    return counts, state.trainable, base
 
 
-def profile_train(step, state, base, batch) -> None:
-    """Where a training step spends its time: one step timed without the
-    profiler, one traced with it for the time of each CUDA kernel. Device
-    busy share = kernel time / unprofiled wall time."""
+def profile_step(what: str, run, groups: dict, warm: bool = True,
+                 top: int = 14) -> None:
+    """Where a training step spends its time: ``run()`` (one step, ending
+    in a synchronise) timed without the profiler, then traced with it for
+    the time of each CUDA kernel. Device busy share = kernel time /
+    unprofiled wall time; ``groups`` maps a label to a substring of the
+    kernel names whose time is summed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def run():
-        nonlocal state
-        state, _ = step(state, base, None, batch)
-        torch.cuda.synchronize()
-    run()
+    if warm:
+        run()
     t0 = time.perf_counter()
     run()
     wall_us = (time.perf_counter() - t0) * 1e6
@@ -502,15 +542,26 @@ def profile_train(step, state, base, batch) -> None:
                    if e.device_type == DeviceType.CUDA),
                   key=lambda e: -e.self_device_time_total)
     busy_us = sum(e.self_device_time_total for e in rows)
-    flash_us = sum(e.self_device_time_total for e in rows
-                   if "flash_" in e.key)
-    log(f"profile train step: wall_ms={wall_us / 1e3:.2f} (unprofiled) "
+    parts = ""
+    for label, key in groups.items():
+        us = sum(e.self_device_time_total for e in rows if key in e.key)
+        parts += (f" {label}_kernels_ms={us / 1e3:.2f} {label}_share_of_"
+                  f"kernel_time={us / max(busy_us, 1.0):.3f}")
+    log(f"profile {what}: wall_ms={wall_us / 1e3:.2f} (unprofiled) "
         f"device_kernel_ms={busy_us / 1e3:.2f} (profiled) busy_share="
-        f"{busy_us / wall_us:.3f} flash_kernels_ms={flash_us / 1e3:.2f} "
-        f"flash_share_of_kernel_time={flash_us / max(busy_us, 1.0):.3f}")
-    for e in rows[:14]:
+        f"{busy_us / wall_us:.3f}{parts}")
+    for e in rows[:top]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x "
             f"{e.key[:90]}")
+
+
+def profile_train(step, state, base, batch) -> None:
+    """Phase 6's step under :func:`profile_step`."""
+    def run():
+        nonlocal state
+        state, _ = step(state, base, None, batch)
+        torch.cuda.synchronize()
+    profile_step("train step", run, {"flash": "flash_"})
 
 
 def check_loss_falls(cfg, dcfg, base, trainable, batch, dev):
@@ -680,6 +731,361 @@ def check_grad_path(cfg, model, lora, dev) -> None:
             fail(f"bf16 {what} through the kernels is less accurate: {err}")
 
 
+def check_fused_kd(cfg, base, lora, dev) -> dict:
+    """Phase 9: two KD steps on one batch (B 8, T 512, K 128) through
+    ``fused_loss=True, fused_backend="pallas"`` (K2) and through the
+    default fused-head route, from the same LoRA. The first step's rate is
+    0, so both steps of both routes see the same weights. Returns the
+    launch counts of the fused route."""
+    rng = np.random.default_rng(SEED + 8)
+    collate = DistillCollator(pad_token_id=cfg.eos_token_id,
+                              speech_bos_id=SPEECH_BOS,
+                              pad_to_multiple_of=128)
+    batch = {k: v[None] for k, v in
+             collate(kd_features(cfg, TRAIN_B, rng)).items()}
+    dcfg = DistillConfig()
+    out = {}
+    for route in ("head", "fused"):
+        opt = train_step.make_optimizer(dcfg.learning_rate, 2, TRAIN_STEPS)
+        step = train_step.make_kd_step(
+            cfg, dcfg, opt, mode="precomputed", fused_loss=route == "fused",
+            fused_backend="pallas", device=dev)
+        tr = tree_map(lambda t: t.detach().clone().requires_grad_(), lora)
+        state = train_step.init_state(tr, opt)
+        metrics = []
+        _cuda.reset_launches()
+        for _ in range(2):
+            state, m = step(state, base, None, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        out[route] = (metrics, dict(_cuda.launches))
+        del state, tr
+    (head, _), (fused, counts) = out["head"], out["fused"]
+    err = {k: max(abs(f[k] - h[k]) / abs(h[k]) for f, h in zip(fused, head))
+           for k in ("loss", "grad_norm")}
+    log("fused kd: " + json.dumps({
+        "B": TRAIN_B, "T": TRAIN_T, "K": TRAIN_K,
+        "loss_head": [m["loss"] for m in head],
+        "loss_fused": [m["loss"] for m in fused],
+        "grad_norm_head": [m["grad_norm"] for m in head],
+        "grad_norm_fused": [m["grad_norm"] for m in fused],
+        "rel_err": err, "launches": counts}) +
+        f" (tol loss {FUSED_KD_LOSS_RTOL}, grad_norm "
+        f"{FUSED_KD_GRAD_NORM_RTOL})")
+    want = {"lm_head_stats": 2, "lm_head_dh": 2, "lm_head_dw": 2}
+    if {k: counts[k] for k in want} != want or \
+            out["head"][1]["lm_head_stats"] != 0:
+        fail(f"fused kd launches {counts} (want {want} a route of 2 steps)")
+    if not (err["loss"] <= FUSED_KD_LOSS_RTOL
+            and err["grad_norm"] <= FUSED_KD_GRAD_NORM_RTOL):
+        fail(f"the fused KD route disagrees with the head route: {err}")
+    return counts
+
+
+def stage1_rows(cfg, old_vocab: int, n_rows: int, rng) -> np.ndarray:
+    """Seeded synthetic stage-1 data packed into n_rows rows of S1_T: each
+    example is a short text prefix of old-vocab ids (3-32) and then
+    new-vocab speech tokens (200-1200), as tests/test_stage1_parity.py
+    builds them, each followed by the EOS id."""
+    need = n_rows * S1_T
+    examples, total = [], 0
+    while total < need + S1_T:
+        text = rng.integers(0, old_vocab, int(rng.integers(3, 33)))
+        speech = rng.integers(old_vocab, cfg.vocab_size,
+                              int(rng.integers(200, 1201)))
+        examples.append(np.concatenate([text, speech]).tolist())
+        total += len(examples[-1]) + 1
+    rows = stage1_data.pack_sequences(examples, S1_T, cfg.eos_token_id)
+    return rows[:n_rows]
+
+
+def stage1(cfg, dev):
+    """Phase 10: the stage-1 warm-up, this slice's main path, through the
+    entry points the stage-1 CLI calls. Returns the launch counts of the
+    loop, the model and the packed rows."""
+    t0 = time.perf_counter()
+    model = qwen3.init_params(cfg, seed=SEED, device=dev)
+    old_vocab = cfg.vocab_size - S1_NEW_TOKENS
+    rng = np.random.default_rng(SEED + 9)
+    n_train = S1_STEPS * S1_B * S1_A
+    rows = stage1_rows(cfg, old_vocab, n_train + S1_EVAL_ROWS, rng)
+    train_rows, eval_rows = rows[:n_train], rows[n_train:]
+    fused, backend = stage1_data.fused_route(S1_T, dev)
+    trainable = {"embed": {"weight": model.embed.detach().clone()
+                           .requires_grad_()}}
+    start = trainable["embed"]["weight"].detach().clone()
+    frozen = [p.detach().clone() for p in model.parameters()]
+    opt = train_step.make_optimizer(S1_LR, S1_WARMUP, S1_STEPS,
+                                    weight_decay=S1_WD)
+    step = train_step.make_stage1_step(cfg, opt, old_vocab,
+                                       fused_loss=fused,
+                                       fused_backend=backend, device=dev)
+    eval_fn = stage1_data.make_eval_fn(
+        train_step.make_stage1_eval_step(cfg, device=dev), eval_rows, 1,
+        model)
+    torch.cuda.synchronize()
+    log(f"stage1 setup: old_vocab={old_vocab} fused={fused} "
+        f"backend={backend} rows={len(train_rows)}+{len(eval_rows)} "
+        f"s={time.perf_counter() - t0:.2f}")
+    times, metrics, per_step = [], [], []
+
+    def timed_step(state, *args):
+        before = dict(_cuda.launches)
+        t = time.perf_counter()
+        state, m = step(state, *args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        metrics.append({k: float(v) for k, v in m.items()})
+        per_step.append({k: _cuda.launches[k] - before[k] for k in before})
+        return state, m
+
+    evals = []
+
+    def counted_eval(state):
+        t = time.perf_counter()
+        m = eval_fn(state)
+        torch.cuda.synchronize()
+        evals.append({"loss": m["loss"], "s": time.perf_counter() - t})
+        return m
+
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as out:
+        loop = LoopConfig(num_epochs=1, max_steps=S1_STEPS, logging_steps=1,
+                          save_steps=None, save_total_limit=2,
+                          output_dir=out, eval_steps=None,
+                          load_best_at_end=True)
+        _cuda.reset_launches()
+        state = train_loop(
+            timed_step, train_step.init_state(trainable, opt), (model,),
+            lambda epoch: stage1_data.stage1_batches(train_rows, S1_B, S1_A,
+                                                     SEED, epoch),
+            loop, eval_fn=counted_eval,
+            tokens_per_batch=S1_B * S1_A * S1_T, device=dev)
+        torch.cuda.synchronize()
+        counts = dict(_cuda.launches)
+        kept = sorted(os.listdir(os.path.join(out, "ckpt")))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = len(times)
+    tokens = S1_B * S1_A * S1_T
+    step_s = float(np.median(times[1:]))
+    tok_s = tokens / step_s
+    mfu = tok_s * 3 * qwen3.flops_per_token(cfg, S1_T) / BF16_FLOP_PER_S
+    log("stage1 " + json.dumps({
+        "steps": n, "B": S1_B, "T": S1_T, "A": S1_A,
+        "tokens_per_step": tokens, "step_ms": [t * 1e3 for t in times],
+        "step_ms_median_after_first": step_s * 1e3, "tokens_per_s": tok_s,
+        "mfu": mfu, "mfu_formula": "tokens_per_s * 3 * flops_per_token(cfg, "
+        "4096) / 989e12 (H100 SXM bf16 dense)",
+        "peak_mem_gib": peak, "loss": [m["loss"] for m in metrics],
+        "grad_norm": [m["grad_norm"] for m in metrics], "eval": evals,
+        "checkpoints_kept": kept, "launches_per_step": per_step,
+        "launches": counts}))
+    L = cfg.num_hidden_layers
+    if n != S1_STEPS or state.step != S1_STEPS:
+        fail(f"stage-1 train_loop ran {n} steps, state at {state.step}")
+    if not all(np.isfinite([m["loss"], m["grad_norm"]]).all()
+               for m in metrics) or len(evals) != 1 \
+            or not np.isfinite(evals[0]["loss"]):
+        fail("a stage-1 loss, grad_norm or eval loss is not finite")
+    want = {"lm_head_stats": S1_A, "lm_head_dh": S1_A, "lm_head_dw": S1_A,
+            "flash_fwd": 2 * L * S1_A, "flash_dq": L * S1_A,
+            "flash_dkv": L * S1_A}
+    for i, got in enumerate(per_step):
+        if {k: got[k] for k in want} != want:
+            fail(f"stage-1 step {i + 1} launches {got} != {want} (K2 once a "
+                 f"microbatch; flash 2 x layers forward under remat, layers "
+                 f"backward)")
+    # the eval forward: one flash forward a layer for each eval row
+    total = {k: v * S1_STEPS for k, v in want.items()}
+    total["flash_fwd"] += L * S1_EVAL_ROWS
+    if {k: counts[k] for k in total} != total:
+        fail(f"stage-1 loop launches {counts} != {total}")
+    final = state.trainable["embed"]["weight"].detach()
+    if not all(torch.equal(a, b) for a, b in zip(frozen,
+                                                 model.parameters())):
+        fail("the frozen base weights changed")
+    if torch.equal(final[old_vocab:], start[old_vocab:]):
+        fail("no new embedding row moved")
+    # the old rows get a zero gradient: AdamW only decays them, so the same
+    # optimizer on zero gradients from the same start gives them exactly
+    old = {"w": start[:old_vocab].clone()}
+    ost = opt.init(old)
+    for _ in range(S1_STEPS):
+        ups, ost = opt.update({"w": torch.zeros_like(old["w"])}, ost, old)
+        old = train_step.apply_updates(old, ups)
+    if not torch.equal(final[:old_vocab], old["w"]):
+        fail("the old embedding rows are not their start less AdamW's decay")
+    log(f"stage1 checks: old rows == start less AdamW decay (bit-equal), "
+        f"base bit-equal, {int((final[old_vocab:] != start[old_vocab:]).any(1).sum())} "
+        f"of {S1_NEW_TOKENS} new rows moved")
+    batch = next(stage1_data.stage1_batches(train_rows, S1_B, S1_A, SEED, 0))
+
+    def run():
+        nonlocal state
+        state, _ = step(state, model, batch)
+        torch.cuda.synchronize()
+    profile_step("stage1 step", run, {"flash": "flash_",
+                                      "lm_head": "lm_head_"}, warm=False)
+    return counts, model, rows
+
+
+def check_lm_head(dev, model, counts: dict) -> list:
+    """K2 at the stage-1 head: W is the full-width table [159,488, 1024]
+    bf16 scaled to N(0, 0.1) (logits of std ~3), h ~ N(0, 1), T 2.0,
+    labels over the vocab with a hit in the last column, random a1, aT, b.
+    Checked against the plain versions in fp32 at N 4096 (the fused-KD
+    microbatch's vocab-split grid) and at the stage-1 microbatch's
+    N 16,380, where it is also timed."""
+    rng = np.random.default_rng(SEED + 10)
+    V, D = model.embed.shape
+    w = (model.embed.detach().float() * 5.0).to(torch.bfloat16)
+    T = 2.0
+
+    def inputs(n):
+        h = torch.from_numpy(rng.standard_normal((n, D), np.float32)).to(
+            dev, torch.bfloat16)
+        lab = rng.integers(0, V, n)
+        lab[0] = V - 1
+        labels = torch.from_numpy(lab).to(dev, torch.int32)
+        cot = [torch.from_numpy(rng.standard_normal(n, np.float32)).to(dev)
+               for _ in range(3)]
+        return h, labels, cot
+    def compare(h, labels, cot):
+        """max |kernel - plain(fp32)| and that over max |plain| for each
+        output, on the same bf16 inputs."""
+        stats = lm_head_stats_kernel(h, w, labels, T)
+        args = (h, w, labels, stats[0], stats[1], *cot, T)
+        got = dict(zip(("lse1", "lseT", "label_logit", "dh", "dW"),
+                       (*stats, lm_head_dh(*args), lm_head_dw(*args))))
+        torch.cuda.synchronize()
+        hf, wf = h.float(), w.float()
+        ref = lm_head_stats_plain(hf, wf, labels, T)
+        refs = dict(zip(got, (*ref, *lm_head_stats_bwd_plain(
+            hf, wf, labels, ref[0], ref[1], *cot, T))))
+        abs_err = {k: (got[k].float() - refs[k]).abs().max().item()
+                   for k in got}
+        err = {k: abs_err[k] / refs[k].abs().max().item() for k in got}
+        log(f"lm_head K2 at N {h.shape[0]} ({_n_split(h.shape[0], dev)} "
+            f"vocab splits), V {V}, D {D}: max |kernel - plain(fp32)| / max "
+            "|plain|: " + ", ".join(f"{k}={e:.3e}" for k, e in err.items())
+            + f" (tol {LSE_REL_TOL} for the statistics, {HEAD_GRAD_REL_TOL} "
+            "for dh and dW: bf16 dlogits and outputs); max abs: "
+            + ", ".join(f"{k}={e:.3e}" for k, e in abs_err.items()))
+        if not (max(err[k] for k in ("lse1", "lseT", "label_logit"))
+                <= LSE_REL_TOL and max(err["dh"], err["dW"])
+                <= HEAD_GRAD_REL_TOL):
+            fail(f"K2 disagrees with its plain version at N {h.shape[0]}: "
+                 f"{err}")
+        return abs_err, err
+
+    # the fused-KD microbatch's grid, then the stage-1 microbatch's
+    checks = [compare(*inputs(K2_CHECK_N))]
+    N = S1_B * (S1_T - 1)         # rows of one stage-1 microbatch
+    h, labels, cot = inputs(N)
+    checks.append(compare(h, labels, cot))
+    abs_err = {k: max(c[0][k] for c in checks) for k in checks[0][0]}
+    err = {k: max(c[1][k] for c in checks) for k in checks[0][1]}
+    stats = lm_head_stats_kernel(h, w, labels, T)
+    args = (h, w, labels, stats[0], stats[1], *cot, T)
+    ms = {"lm_head_stats": time_ms(lambda: lm_head_stats_kernel(
+              h, w, labels, T), iters=10, warmup=2),
+          "lm_head_dh": time_ms(lambda: lm_head_dh(*args), iters=5,
+                                warmup=1),
+          "lm_head_dw": time_ms(lambda: lm_head_dw(*args), iters=5,
+                                warmup=1)}
+    plain_fwd = time_ms(lambda: lm_head_stats_plain(h, w, labels, T),
+                        iters=2, warmup=1)
+    plain_bwd = time_ms(lambda: lm_head_stats_bwd_plain(
+        h, w, labels, stats[0], stats[1], *cot, T), iters=2, warmup=1)
+    # yardstick only, never called by the port: cuBLAS's bf16 product of
+    # the same [N, D] x [D, V] alone (no statistic computes in it)
+    library_ms = time_ms(lambda: torch.matmul(h, w.t()), iters=10, warmup=2)
+    nvd = N * V * D
+    opnd = (N + V) * D * 2 + N * 4            # h, W, labels
+    rows = []
+    for name, line, nbytes, flops, plain_ms, outs in (
+            ("lm_head_stats", 34, opnd + 3 * N * 4, 2 * nvd, plain_fwd,
+             ("lse1", "lseT", "label_logit")),
+            ("lm_head_dh", 79, opnd + 5 * N * 4 + N * D * 2, 4 * nvd,
+             plain_bwd, ("dh",)),
+            ("lm_head_dw", 112, opnd + 5 * N * 4 + V * D * 2, 4 * nvd,
+             plain_bwd, ("dW",))):
+        bound_ms, bound_by = bound(nbytes, flops)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "speech_distill_tpu_torch/csrc/lm_head_stats.cu",
+            "replaces": f"speech_distill_tpu/ops/pallas_lm_loss.py:{line}",
+            "launches": counts[name],
+            "max_abs_err": max(abs_err[o] for o in outs),
+            "max_rel_err": max(err[o] for o in outs), "ms": ms[name],
+            "kernel_ms": ms[name], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "checked_n": [K2_CHECK_N, N],
+            "timed_shape": [N, V, D]})
+    log("lm_head K2 at N " + str(N) + ": " + ", ".join(
+        f"{r['name']} ms={r['ms']:.3f} bound_ms={r['bound_ms']:.3f}"
+        for r in rows) + f"; plain stats ms={plain_fwd:.3f}, plain bwd "
+        f"(dh and dW) ms={plain_bwd:.3f}; library (cuBLAS h @ W^T) "
+        f"ms={library_ms:.3f}")
+    return rows
+
+
+def check_stage1_grad_path(cfg, model, rows, dev) -> None:
+    """Phase 12: the stage-1 loss and masked embedding gradient of one
+    packed row (B 1, T 4096) at 4 layers of the full width, from the same
+    weights: (a) the kernel route in bf16 (flash + K2), (b) the plain
+    route in bf16 (plain attention + chunked CE), (c) the plain route in
+    fp32."""
+    depth = 4
+    old_vocab = cfg.vocab_size - S1_NEW_TOKENS
+    ids = torch.as_tensor(rows[:1], device=dev).long()
+    labels = ids.clone()
+    ones = torch.ones_like(ids)
+
+    def run(dtype, impl, backend):
+        c = dataclasses.replace(cfg, num_hidden_layers=depth, dtype=dtype,
+                                attn_impl=impl)
+        m = qwen3.Qwen3(c, dev)
+        with torch.no_grad():
+            for name, p in m.named_parameters():
+                p.copy_(model.get_parameter(name))
+        emb = model.embed.detach().to(c.torch_dtype).clone() \
+            .requires_grad_()
+        _cuda.reset_launches()
+        hidden = qwen3.forward_train(m, ids, attention_mask=ones, embed=emb,
+                                     device=dev)
+        loss = fused_cross_entropy(hidden, emb, labels, backend=backend)
+        (g,) = torch.autograd.grad(loss, [emb])
+        g = train_step.mask_new_token_grads({"embed": {"weight": g}},
+                                            old_vocab)["embed"]["weight"]
+        torch.cuda.synchronize()
+        return float(loss.detach()), g.float(), dict(_cuda.launches)
+    ref_loss, ref_g, _ = run("float32", "xla", "xla")
+    res = {"bf16_kernel": run("bfloat16", "auto", "pallas"),
+           "bf16_plain": run("bfloat16", "xla", "xla")}
+    want = {"flash_fwd": 2 * depth, "flash_dq": depth, "flash_dkv": depth,
+            "lm_head_stats": 1, "lm_head_dh": 1, "lm_head_dw": 1}
+    if {k: res["bf16_kernel"][2][k] for k in want} != want or any(
+            res["bf16_plain"][2][k] for k in want):
+        fail(f"stage-1 grad path routes: {[r[2] for r in res.values()]}")
+    scale = ref_g.abs().max().item()
+    err = {}
+    for key, (loss, g, _) in res.items():
+        if not (np.isfinite(loss) and bool(torch.isfinite(g).all())):
+            fail(f"{key}: non-finite stage-1 loss or gradient")
+        err[key] = {"loss": abs(loss - ref_loss),
+                    "embed_grad": (g - ref_g).abs().max().item() / scale}
+    log("stage1 grad path: " + json.dumps({
+        "layers": depth, "B": 1, "T": S1_T, "fp32_plain_loss": ref_loss,
+        "errors_vs_fp32_plain": err}) + " (max |grad - fp32| / max |fp32 "
+        "grad| over the masked embedding gradient; the kernel route must "
+        f"stay within {BF16_ERR_RATIO}x the plain route's error)")
+    if not err["bf16_kernel"]["embed_grad"] <= \
+            BF16_ERR_RATIO * err["bf16_plain"]["embed_grad"]:
+        fail(f"bf16 stage-1 embedding gradient through the kernels is less "
+             f"accurate: {err}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available: this smoke runs on the GPU only")
@@ -706,13 +1112,20 @@ def main() -> None:
                check_flash_fwd(dev, counts["flash_fwd"])]
     check_model_path(cfg, model, dev)
     t0 = time.perf_counter()
-    train_counts, lora = train(cfg, model, dev)
+    train_counts, lora, base = train(cfg, model, dev)
     bwd_rows, train_fwd = check_flash_bwd(dev, train_counts)
     kernels[1]["train_shape"] = dict(train_fwd,
                                      launches=train_counts["flash_fwd"])
     kernels += bwd_rows
     check_grad_path(cfg, model, lora, dev)
+    check_fused_kd(cfg, base, lora, dev)
+    del lora, base, model
     log(f"train phases s={time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    s1_counts, model, rows = stage1(cfg, dev)
+    kernels += check_lm_head(dev, model, s1_counts)
+    check_stage1_grad_path(cfg, model, rows, dev)
+    log(f"stage1 phases s={time.perf_counter() - t0:.2f}")
     log(f"total s={time.perf_counter() - t_all:.2f}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -10,9 +10,14 @@ tree accumulated over the batch's leading microbatch axis [A, B, T], and
 the optax chain of the JAX package — clip by global norm, then AdamW on a
 warmup-linear / linear-decay schedule — applied to the trainable tree.
 
+``make_stage1_step`` is the stage-1 warm-up: next-token CE with only the
+embedding (and an untied head) trainable and the gradient rows of the old
+vocabulary zeroed, through the plain head or the fused CE (the chunked
+plain route, or the K2 kernels of ``ops/pallas_lm_loss``).
+
 The JAX step donates its state; the port updates the trainable tensors of
 the state in place the same way (``donate=True``), or leaves them as they
-were and returns new ones (``donate=False``). The online modes, the chunked fused loss, the split
+were and returns new ones (``donate=False``). The online modes, the split
 apply, the 1F1B pipeline, full finetuning and the 8-bit and fused
 optimizers are not ported yet and raise.
 """
@@ -30,7 +35,8 @@ from speech_distill_tpu_torch.core.tree import (tree_leaves, tree_map,
 from speech_distill_tpu_torch.distill import losses
 from speech_distill_tpu_torch.distill.lora import lora_scaling
 from speech_distill_tpu_torch.models import qwen3
-from speech_distill_tpu_torch.ops.fused_lm_loss import head_sparse_kd_loss
+from speech_distill_tpu_torch.ops.fused_lm_loss import (
+    BACKENDS, fused_cross_entropy, fused_sparse_kd_loss, head_sparse_kd_loss)
 
 Params = Dict[str, Any]
 
@@ -178,6 +184,7 @@ def make_kd_step(student_cfg: Qwen3Config, distill_cfg: DistillConfig,
                  optimizer: Optimizer, *, mode: str,
                  use_lora: bool = True, merge_weights: bool = False,
                  donate: bool = True, fused_loss: bool = False,
+                 fused_backend: str = "xla", loss_chunk_size: int = 16384,
                  head_loss: str = "fused", split_apply: bool = False,
                  pp_schedule: str = "gpipe", device="cuda"):
     """Build the KD step ``step(state, base, teacher_params, batch) ->
@@ -188,7 +195,10 @@ def make_kd_step(student_cfg: Qwen3Config, distill_cfg: DistillConfig,
     precomputed mode. ``batch`` maps names to [A, B, T(, K)] arrays or
     tensors: input_ids, attention_mask, labels, teacher_top_k_v,
     teacher_top_k_i and optionally speech_token_mask; they are moved to
-    ``device`` (CUDA by default; raises without it). ``head_loss``:
+    ``device`` (CUDA by default; raises without it). ``fused_loss`` takes
+    the loss from row statistics (``fused_sparse_kd_loss`` with
+    ``fused_backend`` "xla", chunks of ``loss_chunk_size``, or "pallas",
+    the K2 op) and never materialises the logits; otherwise ``head_loss``:
     'fused' (``head_sparse_kd_loss``, the analytic one-pass backward) or
     'unfused' (autograd through ``unembed_train`` and
     ``sparse_distill_loss``). ``merge_weights`` folds the adapters into
@@ -203,9 +213,8 @@ def make_kd_step(student_cfg: Qwen3Config, distill_cfg: DistillConfig,
                                   "ported")
     if not use_lora:
         raise NotImplementedError("full finetuning is not ported")
-    if fused_loss:
-        raise NotImplementedError("fused_loss (the chunked / K2 head) is "
-                                  "not ported yet")
+    if fused_backend not in BACKENDS:
+        raise ValueError(f"unknown fused_backend {fused_backend!r}")
     if split_apply:
         raise NotImplementedError("split_apply is not ported")
     if pp_schedule == "1f1b":
@@ -216,7 +225,7 @@ def make_kd_step(student_cfg: Qwen3Config, distill_cfg: DistillConfig,
         raise ValueError(f"unknown head_loss {head_loss!r}")
     lcfg = distill_cfg.lora
     T, alpha = distill_cfg.temperature, distill_cfg.alpha
-    fused_head = head_loss == "fused"
+    fused_head = fused_loss or head_loss == "fused"
 
     def loss_and_grad(trainable: Params, mb: dict, base: qwen3.Qwen3):
         st = _effective_student(trainable, lcfg)
@@ -227,8 +236,12 @@ def make_kd_step(student_cfg: Qwen3Config, distill_cfg: DistillConfig,
             return_hidden=fused_head, device=dev)
         args = (mb["labels"], mb["teacher_top_k_v"], mb["teacher_top_k_i"],
                 mb.get("speech_token_mask"), T, alpha)
-        if fused_head:
-            head = qwen3.lm_head_weight(base, st.embed, st.lm_head)
+        head = qwen3.lm_head_weight(base, st.embed, st.lm_head)
+        if fused_loss:
+            out = fused_sparse_kd_loss(acts, head, *args,
+                                       chunk_size=loss_chunk_size,
+                                       backend=fused_backend)
+        elif fused_head:
             out = head_sparse_kd_loss(acts, head, *args)
         else:
             labels, v, i, smask = args[:4]
@@ -244,7 +257,7 @@ def make_kd_step(student_cfg: Qwen3Config, distill_cfg: DistillConfig,
     def step(state: TrainState, base: qwen3.Qwen3, teacher_params,
              batch: dict):
         del teacher_params          # precomputed: top-K rides the batch
-        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        batch = _batch_to(batch, dev)
         grads, metrics = _accumulate(
             lambda tr, mb: loss_and_grad(tr, mb, base), state.trainable,
             batch)
@@ -256,3 +269,114 @@ def make_kd_step(student_cfg: Qwen3Config, distill_cfg: DistillConfig,
 
     return step
 
+
+# ---------------------------------------------------------------------------
+# Stage-1 warm-up: new-embedding-only training
+# ---------------------------------------------------------------------------
+
+
+def mask_new_token_grads(grads: Params, old_vocab_size: int) -> Params:
+    """Zero the gradient rows below ``old_vocab_size`` of every leaf
+    ({"embed": {"weight"}}, {"lm_head": {"weight"}}): only the new
+    speech-token rows train (the reference's backward hooks)."""
+    def mask_rows(g):
+        rows = torch.arange(g.shape[0], device=g.device)[:, None]
+        return torch.where(rows >= old_vocab_size, g, torch.zeros_like(g))
+    return {key: {"weight": mask_rows(grads[key]["weight"])}
+            for key in grads}
+
+
+def _stage1_tables(trainable: Params):
+    return (trainable["embed"]["weight"],
+            trainable.get("lm_head", {}).get("weight"))
+
+
+def _batch_to(batch: dict, dev) -> dict:
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+def make_stage1_eval_step(cfg: Qwen3Config, device="cuda"):
+    """Loss-only stage-1 evaluation ``eval_step(trainable, base, batch)``:
+    next-token CE over labels != -100 through the plain head (the fp32
+    [B, T, V] logits are materialised, as in JAX). The batch carries the
+    [A, B, T] microbatch axis; returns {"loss_sum", "n_tokens"} summed over
+    it (sums, not means: the caller aggregates groups by their valid-token
+    count, so the overall metric is the exact per-token mean)."""
+    dev = resolve_device(device)
+
+    @torch.no_grad()
+    def eval_step(trainable: Params, base: qwen3.Qwen3, batch: dict):
+        embed, lm_head = _stage1_tables(trainable)
+        batch = _batch_to(batch, dev)
+        loss_sum = torch.zeros((), device=dev)
+        n_tokens = torch.zeros((), device=dev)
+        for a in range(batch["input_ids"].shape[0]):
+            logits = qwen3.forward_train(
+                base, batch["input_ids"][a],
+                attention_mask=batch["attention_mask"][a], embed=embed,
+                lm_head=lm_head, return_hidden=False, device=dev)
+            shift = batch["labels"][a][:, 1:]
+            valid = (shift != losses.IGNORE_INDEX).float()
+            ce = losses._ce_per_pos(logits[:, :-1, :], shift)
+            del logits
+            loss_sum += (ce * valid).sum()
+            n_tokens += valid.sum()
+        return {"loss_sum": loss_sum, "n_tokens": n_tokens}
+
+    return eval_step
+
+
+def make_stage1_step(cfg: Qwen3Config, optimizer: Optimizer,
+                     old_vocab_size: int, donate: bool = True,
+                     fused_loss: bool = False, fused_backend: str = "xla",
+                     device="cuda"):
+    """The stage-1 SFT step ``step(state, base, batch) -> (state,
+    metrics)``: next-token CE over labels != -100 (TRL SFT semantics) with
+    only ``state.trainable`` = {"embed": ..., ["lm_head": ...]} trained
+    and the frozen ``base`` model read for everything else (no adapters).
+    Gradients are accumulated over the batch's [A, B, T] microbatch axis,
+    their rows below ``old_vocab_size`` zeroed, then the optimizer runs.
+
+    ``fused_loss`` takes the CE from row statistics and never materialises
+    the [B*T, V] logits (needed at the reference's seq 4096):
+    ``fused_cross_entropy`` with ``fused_backend`` "xla" (the chunked
+    plain route) or "pallas" (the K2 op). Metrics: loss, grad_norm (of the
+    masked grads, before clipping).
+    """
+    dev = resolve_device(device)
+    if fused_backend not in BACKENDS:
+        raise ValueError(f"unknown fused_backend {fused_backend!r}")
+
+    def loss_and_grad(trainable: Params, mb: dict, base: qwen3.Qwen3):
+        embed, lm_head = _stage1_tables(trainable)
+        labels = mb["labels"]
+        acts = qwen3.forward_train(
+            base, mb["input_ids"], attention_mask=mb["attention_mask"],
+            embed=embed, lm_head=lm_head, return_hidden=fused_loss,
+            device=dev)
+        if fused_loss:
+            head = qwen3.lm_head_weight(base, embed, lm_head)
+            loss = fused_cross_entropy(acts, head, labels,
+                                       backend=fused_backend)
+        else:
+            shift = labels[:, 1:]
+            valid = (shift != losses.IGNORE_INDEX).float()
+            ce = losses._ce_per_pos(acts[:, :-1, :], shift)
+            loss = losses._masked_mean(ce, valid)
+        leaves = tree_leaves(trainable)
+        grads = torch.autograd.grad(loss, leaves)
+        return tree_unflatten(trainable, list(grads)), {"loss": loss.detach()}
+
+    def step(state: TrainState, base: qwen3.Qwen3, batch: dict):
+        batch = _batch_to(batch, dev)
+        grads, metrics = _accumulate(
+            lambda tr, mb: loss_and_grad(tr, mb, base), state.trainable,
+            batch)
+        grads = mask_new_token_grads(grads, old_vocab_size)
+        metrics["grad_norm"] = global_norm(grads)
+        updates, opt_state = optimizer.update(grads, state.opt_state,
+                                              state.trainable)
+        trainable = apply_updates(state.trainable, updates, in_place=donate)
+        return TrainState(trainable, opt_state, state.step + 1), metrics
+
+    return step

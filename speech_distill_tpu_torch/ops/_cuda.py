@@ -42,10 +42,18 @@ SIGNATURES = {
     "flash_dq": [_P] * 7 + [_I] * 5 + [_F, _P],
     # q, k, v, dO, lse, delta, dk, dv, B, T, H, KV, Dh, scale, stream
     "flash_dkv": [_P] * 8 + [_I] * 5 + [_F, _P],
+    # h, w, labels, partials, lse1, lseT, label_logit, N, V, D, splits,
+    # temperature, stream
+    "lm_head_stats": [_P] * 7 + [_I] * 4 + [_F, _P],
+    # h, w, labels, lse1, lseT, a1, aT, b, out, N, V, D, temperature, stream
+    "lm_head_dh": [_P] * 9 + [_I] * 3 + [_F, _P],
+    "lm_head_dw": [_P] * 9 + [_I] * 3 + [_F, _P],
 }
 # the csrc/<source>.cu that defines each entry point
 SOURCES = {"paged_decode": "paged_decode", "flash_fwd": "flash_fwd",
-           "flash_dq": "flash_bwd", "flash_dkv": "flash_bwd"}
+           "flash_dq": "flash_bwd", "flash_dkv": "flash_bwd",
+           "lm_head_stats": "lm_head_stats", "lm_head_dh": "lm_head_stats",
+           "lm_head_dw": "lm_head_stats"}
 
 launches: Dict[str, int] = {name: 0 for name in SIGNATURES}
 _fns: Dict[str, object] = {}

@@ -13,12 +13,20 @@ from speech_distill_tpu_torch.ops.flash_attention import (
     flash_attention_fwd, flash_attention_fwd_plain)
 from speech_distill_tpu_torch.ops.paged_attention import (
     paged_attention, paged_attention_plain)
+from speech_distill_tpu_torch.ops.pallas_lm_loss import (
+    lm_head_stats, lm_head_stats_bwd_plain, lm_head_stats_plain)
 
 pytestmark = pytest.mark.cuda
 
 # bf16 outputs: one rounding of a value |o| <= max|v| ~ 4 (2^-8 relative)
 BF16_ATOL = 2e-2
 FP32_ATOL = 1e-5
+# lm-head statistics, max |kernel - plain(fp32)| / max |plain|: fp32 sums
+# of bf16 products in another order and tiling (lse, label logit); dh and
+# dW round dlogits to bf16 (2^-9 relative) before the products and are
+# written in bf16
+LSE_REL_TOL = 1e-3
+HEAD_GRAD_REL_TOL = 2e-2
 # flash backward, max |kernel - plain(fp32)| / max |plain|: the kernels
 # round p and ds to bf16 (2^-9 relative) before products over up to T * G
 # terms and write bf16 results (2^-9), against an fp32 plain version
@@ -114,3 +122,45 @@ def test_flash_autograd_runs_the_kernels(dev):
     refs = flash_attention_bwd_plain(qf, kf, vf, ref_o, ref_lse, w.float())
     for name, got, ref in zip("qkv", (q.grad, k.grad, v.grad), refs):
         assert _rel_err(got, ref) <= BWD_REL_TOL, name
+
+
+def _lm_head_inputs(dev, N, V, D, seed):
+    """bf16 h ~ N(0, 1) and W ~ N(0, 0.1) (logits of std ~3 at D 1024),
+    labels with a hit in the last, ragged vocab tile, a label past V
+    (never hits) and a clamped -100 (0); fp32 cotangents."""
+    rng = np.random.default_rng(seed)
+    h = torch.from_numpy(rng.normal(size=(N, D))).to(dev, torch.bfloat16)
+    w = torch.from_numpy(rng.normal(0, 0.1, (V, D))).to(dev, torch.bfloat16)
+    lab = rng.integers(0, V, N)
+    lab[:3] = [V - 1, V + 7, 0]
+    labels = torch.from_numpy(lab).to(dev, torch.int32)
+    cot = [torch.from_numpy(rng.normal(size=N)).to(dev, torch.float32)
+           for _ in range(3)]
+    return h, w, labels, cot
+
+
+@pytest.mark.parametrize("N,V,D", [(300, 1000, 128), (129, 4099, 1024),
+                                   (70, 300, 64)])
+def test_lm_head_kernels_match_plain(dev, N, V, D):
+    h, w, labels, cot = _lm_head_inputs(dev, N, V, D, seed=4)
+    T = 2.0
+    hr, wr = h.detach().requires_grad_(), w.detach().requires_grad_()
+    before = dict(_cuda.launches)
+    out = lm_head_stats(hr, wr, labels, T)
+    sum((o * c).sum() for o, c in zip(out, cot)).backward()
+    torch.cuda.synchronize()
+    assert {n: _cuda.launches[n] - before[n] for n in (
+        "lm_head_stats", "lm_head_dh", "lm_head_dw")} == {
+        "lm_head_stats": 1, "lm_head_dh": 1, "lm_head_dw": 1}
+    ref = lm_head_stats_plain(h.float(), w.float(), labels, T)
+    assert out[2][1].item() == float(np.float32(-1e30))   # label past V
+    hits = ref[2] > -1e29
+    for name, got, r in zip(("lse1", "lseT", "label"),
+                            (out[0], out[1], out[2][hits]),
+                            (ref[0], ref[1], ref[2][hits])):
+        assert _rel_err(got, r) <= LSE_REL_TOL, name
+    ref_dh, ref_dw = lm_head_stats_bwd_plain(h.float(), w.float(), labels,
+                                             ref[0], ref[1], *cot, T)
+    assert hr.grad.dtype == torch.bfloat16 and wr.grad.shape == w.shape
+    assert _rel_err(hr.grad, ref_dh) <= HEAD_GRAD_REL_TOL
+    assert _rel_err(wr.grad, ref_dw) <= HEAD_GRAD_REL_TOL

@@ -79,6 +79,10 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         train_step.make_kd_step(cfg, DistillConfig(), opt,
                                 mode="precomputed")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_step.make_stage1_step(cfg, opt, 16)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_step.make_stage1_eval_step(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_loop(lambda *a: None, None, (), lambda epoch: iter(()),
                    LoopConfig(output_dir=str(tmp_path)))
     # the explicit CPU request runs
@@ -87,3 +91,20 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
                       slots=2, max_len=32, page_size=8, device="cpu")
     out = eng.serve([np.arange(1, 6).tolist()], max_new=3)
     assert len(out[0]) == 3
+
+
+def test_lm_head_kernel_wrappers_refuse_what_the_kernels_cannot_take():
+    """On the card the K2 wrappers launch or raise; the checks before the
+    launch run anywhere (the CPU has no kernel to reach)."""
+    from speech_distill_tpu_torch.ops import pallas_lm_loss as pl
+    h = torch.zeros(4, 96, dtype=torch.bfloat16)
+    w = torch.zeros(10, 96, dtype=torch.bfloat16)
+    labels = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="D in"):
+        pl.lm_head_stats_kernel(h, w, labels, 2.0)
+    with pytest.raises(ValueError, match="bf16"):
+        pl.lm_head_stats_kernel(h.float()[:, :64], w.float()[:, :64],
+                                labels, 2.0)
+    h64, w64 = h[:, :64].contiguous(), w[:, :64].contiguous()
+    with pytest.raises(ValueError, match="int32"):
+        pl.lm_head_dh(h64, w64, labels.long(), *[torch.zeros(4)] * 5, 2.0)

@@ -1,0 +1,242 @@
+"""PyTorch port, the fused lm-head statistics (K2) and the fused losses
+built on them, held against the JAX package on the same numpy inputs: the
+plain K2 against ``pallas_lm_loss.lm_head_stats`` in interpret mode
+(forward and VJP), ``gathered_logits``, ``fused_sparse_kd_loss`` (both
+backends) and ``fused_cross_entropy`` with their gradients. fp32, CPU,
+N 40, D 32, V 300 (not a multiple of the tiles)."""
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from speech_distill_tpu.distill import losses as jlosses
+from speech_distill_tpu.ops import fused_lm_loss as jfused
+from speech_distill_tpu.ops import pallas_lm_loss as jpallas
+from speech_distill_tpu_torch.ops import fused_lm_loss as tfused
+from speech_distill_tpu_torch.ops import pallas_lm_loss as tpallas
+
+N, D, V, TEMP = 40, 32, 300, 2.0
+# JAX interpret-mode tiles: 16 rows, 128 vocab columns (V is ragged)
+BN, BV = 16, 128
+
+
+def _inputs(seed=0):
+    """h, W, and labels with one past V (never hits) and one clamped -100
+    (0), as numpy."""
+    rng = np.random.default_rng(seed)
+    h = rng.normal(size=(N, D)).astype(np.float32)
+    w = rng.normal(size=(V, D)).astype(np.float32)
+    labels = rng.integers(0, V, N).astype(np.int32)
+    labels[:3] = [V + 5, 0, V - 1]
+    return h, w, labels
+
+
+def _jax_stats(h, w, labels):
+    return jpallas.lm_head_stats(jnp.asarray(h), jnp.asarray(w),
+                                 jnp.asarray(labels), TEMP, BN, BV, True)
+
+
+@pytest.mark.parametrize("chunk", [64, 128, 8192])
+def test_plain_stats_match_interpret(chunk):
+    h, w, labels = _inputs()
+    ref = _jax_stats(h, w, labels)
+    got = tpallas.lm_head_stats_plain(torch.from_numpy(h),
+                                      torch.from_numpy(w),
+                                      torch.from_numpy(labels), TEMP,
+                                      chunk=chunk)
+    for name, a, b in zip(("lse1", "lseT", "label"), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5,
+                                   rtol=0, err_msg=name)
+    assert got[2][0].item() == float(np.float32(-1e30))
+
+
+def test_stats_vjp_matches_interpret():
+    """Random nonzero cotangents on all three outputs (a1, aT and b)."""
+    h, w, labels = _inputs(seed=1)
+    cot = [np.random.default_rng(2).normal(size=N).astype(np.float32) * s
+           for s in (1.0, 0.5, 2.0)]
+
+    def jloss(hh, ww):
+        out = jpallas.lm_head_stats(hh, ww, jnp.asarray(labels), TEMP, BN,
+                                    BV, True)
+        return sum(jnp.sum(o * jnp.asarray(c)) for o, c in zip(out, cot))
+    jdh, jdw = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(h),
+                                               jnp.asarray(w))
+    ht = torch.from_numpy(h).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    out = tpallas.lm_head_stats(ht, wt, torch.from_numpy(labels), TEMP)
+    sum((o * torch.from_numpy(c)).sum() for o, c in zip(out, cot)).backward()
+    np.testing.assert_allclose(ht.grad.numpy(), np.asarray(jdh), atol=5e-5,
+                               rtol=1e-3)
+    np.testing.assert_allclose(wt.grad.numpy(), np.asarray(jdw), atol=5e-5,
+                               rtol=1e-3)
+
+
+def test_plain_bwd_is_the_vjp():
+    """``lm_head_stats_bwd_plain`` (what the chip compares the kernels with)
+    is the op's backward: the same dh and dW as autograd of the plain
+    forward's logsumexp algebra."""
+    h, w, labels = _inputs(seed=3)
+    a1, at, b = (torch.from_numpy(np.random.default_rng(s).normal(
+        size=N).astype(np.float32)) for s in (4, 5, 6))
+    ht = torch.from_numpy(h).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    z = ht @ wt.t()
+    lab = torch.from_numpy(labels).long()
+    hit = lab < V
+    label_logit = torch.where(hit, z.gather(1, lab.clamp_max(V - 1)[:, None]
+                                            )[:, 0], 0.0)
+    (torch.logsumexp(z, 1) * a1 + torch.logsumexp(z / TEMP, 1) * at
+     + label_logit * b).sum().backward()
+    stats = tpallas.lm_head_stats_plain(ht.detach(), wt.detach(), lab, TEMP)
+    dh, dw = tpallas.lm_head_stats_bwd_plain(ht.detach(), wt.detach(), lab,
+                                             stats[0], stats[1], a1, at, b,
+                                             TEMP, chunk=100)
+    torch.testing.assert_close(dh, ht.grad, atol=2e-5, rtol=1e-4)
+    torch.testing.assert_close(dw, wt.grad, atol=2e-5, rtol=1e-4)
+
+
+def test_gathered_logits_match_jax():
+    h, w, _ = _inputs(seed=7)
+    idx = np.random.default_rng(8).integers(0, V, (N, 5)).astype(np.int32)
+    ref = jpallas.gathered_logits(jnp.asarray(h), jnp.asarray(w),
+                                  jnp.asarray(idx), chunk=16)
+    got = tpallas.gathered_logits(torch.from_numpy(h), torch.from_numpy(w),
+                                  torch.from_numpy(idx).long(), chunk=16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
+
+
+def _loss_inputs(seed, B=2, T=10, Dm=16, Vm=300, K=6):
+    """The batch of tests/test_fused_loss.py: -100 labels in one row."""
+    rng = np.random.default_rng(seed)
+    hidden = rng.normal(size=(B, T, Dm)).astype(np.float32)
+    lm_w = rng.normal(size=(Vm, Dm)).astype(np.float32)
+    labels = rng.integers(0, Vm, (B, T))
+    labels[0, :3] = -100
+    logp = (rng.normal(size=(B, T, K)) - 2).astype(np.float32)
+    idx = rng.integers(0, Vm, (B, T, K)).astype(np.int32)
+    smask = (rng.random((B, T)) > 0.3).astype(np.float32)
+    return hidden, lm_w, labels, logp, idx, smask
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "smask"])
+def test_fused_sparse_kd_loss_matches_jax(backend, masked):
+    """All four outputs against the JAX function (the Pallas backend in
+    interpret mode), and the gradients of total in hidden and W against
+    the JAX chunked route."""
+    hidden, lm_w, labels, logp, idx, smask = _loss_inputs(seed=1)
+    sm = smask if masked else None
+    jargs = (jnp.asarray(labels), jnp.asarray(logp), jnp.asarray(idx),
+             None if sm is None else jnp.asarray(sm))
+    ref = jfused.fused_sparse_kd_loss(
+        jnp.asarray(hidden), jnp.asarray(lm_w), *jargs, chunk_size=48,
+        backend=backend, interpret=True)
+
+    def jtotal(hh, ww):
+        return jfused.fused_sparse_kd_loss(hh, ww, *jargs,
+                                           chunk_size=48).total
+    jdh, jdw = jax.grad(jtotal, argnums=(0, 1))(jnp.asarray(hidden),
+                                                jnp.asarray(lm_w))
+    ht = torch.from_numpy(hidden).requires_grad_()
+    wt = torch.from_numpy(lm_w).requires_grad_()
+    out = tfused.fused_sparse_kd_loss(
+        ht, wt, torch.from_numpy(labels), torch.from_numpy(logp),
+        torch.from_numpy(idx), None if sm is None else torch.from_numpy(sm),
+        chunk_size=48, backend=backend)
+    for name, a, b in zip(out._fields, out, ref):
+        np.testing.assert_allclose(a.item(), float(b), rtol=1e-5, atol=1e-6,
+                                   err_msg=name)
+    out.total.backward()
+    np.testing.assert_allclose(ht.grad.numpy(), np.asarray(jdh), atol=1e-5,
+                               rtol=1e-4)
+    np.testing.assert_allclose(wt.grad.numpy(), np.asarray(jdw), atol=1e-5,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("chunk", [32, 100])
+def test_fused_cross_entropy_matches_jax(chunk):
+    hidden, lm_w, labels, *_ = _loss_inputs(seed=3)
+    jl = jnp.asarray(labels)
+
+    def jce(hh, ww):
+        return jfused.fused_cross_entropy(hh, ww, jl, chunk_size=chunk)
+    ref, (jdh, jdw) = jax.value_and_grad(jce, argnums=(0, 1))(
+        jnp.asarray(hidden), jnp.asarray(lm_w))
+    # the materialised reference of the JAX test, for the value
+    logits = (jnp.asarray(hidden) @ jnp.asarray(lm_w).T)[:, :-1, :]
+    shift = jl[:, 1:]
+    mat = jlosses._masked_mean(jlosses._ce_per_pos(logits, shift),
+                               (shift != -100).astype(jnp.float32))
+    ht = torch.from_numpy(hidden).requires_grad_()
+    wt = torch.from_numpy(lm_w).requires_grad_()
+    got = tfused.fused_cross_entropy(ht, wt, torch.from_numpy(labels),
+                                     chunk_size=chunk)
+    np.testing.assert_allclose(float(got), float(ref), rtol=1e-5)
+    np.testing.assert_allclose(float(got), float(mat), rtol=1e-5)
+    got.backward()
+    np.testing.assert_allclose(ht.grad.numpy(), np.asarray(jdh), atol=1e-5,
+                               rtol=1e-4)
+    np.testing.assert_allclose(wt.grad.numpy(), np.asarray(jdw), atol=1e-5,
+                               rtol=1e-4)
+
+
+def test_fused_cross_entropy_pallas_matches_jax():
+    """``backend="pallas"`` against the JAX stage-1 step's K2 loss (the
+    interpret-mode kernel at temperature 2: masked mean of lse1 minus the
+    label logit over the clamped shifted labels), value and gradients."""
+    hidden, lm_w, labels, *_ = _loss_inputs(seed=5)
+    shift = jnp.asarray(labels)[:, 1:].reshape(-1)
+    valid = (shift != -100).astype(jnp.float32)
+
+    def jce(hh, ww):
+        h = hh[:, :-1, :].reshape(-1, hh.shape[-1])
+        lse1, _, gold = jpallas.lm_head_stats(h, ww, jnp.maximum(shift, 0),
+                                              2.0, BN, BV, True)
+        return jlosses._masked_mean(lse1 - gold, valid)
+    ref, (jdh, jdw) = jax.value_and_grad(jce, argnums=(0, 1))(
+        jnp.asarray(hidden), jnp.asarray(lm_w))
+    ht = torch.from_numpy(hidden).requires_grad_()
+    wt = torch.from_numpy(lm_w).requires_grad_()
+    got = tfused.fused_cross_entropy(ht, wt, torch.from_numpy(labels),
+                                     backend="pallas")
+    np.testing.assert_allclose(float(got), float(ref), rtol=1e-5)
+    got.backward()
+    np.testing.assert_allclose(ht.grad.numpy(), np.asarray(jdh), atol=1e-5,
+                               rtol=1e-4)
+    np.testing.assert_allclose(wt.grad.numpy(), np.asarray(jdw), atol=1e-5,
+                               rtol=1e-4)
+
+
+def test_checkpointed_chunks_change_nothing():
+    """``chunked_stats`` with each chunk checkpointed (the xla route) gives
+    the plain version's values and gradients; without labels it skips the
+    label logit."""
+    h, w, labels = _inputs(seed=9)
+    cot = [torch.from_numpy(np.random.default_rng(s).normal(size=N)
+                            .astype(np.float32)) for s in (10, 11)]
+    grads = []
+    for ckpt, lab in ((False, torch.from_numpy(labels)), (True, None)):
+        ht = torch.from_numpy(h).requires_grad_()
+        wt = torch.from_numpy(w).requires_grad_()
+        lse1, lse_t, gold = tpallas.chunked_stats(ht, wt, lab, TEMP, chunk=64,
+                                                  checkpointed=ckpt)
+        (lse1 * cot[0] + lse_t * cot[1]).sum().backward()
+        grads.append((lse1.detach(), lse_t.detach(), ht.grad, wt.grad))
+    assert bool((gold == float(np.float32(-1e30))).all())    # no labels
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def test_unknown_backend_raises():
+    hidden, lm_w, labels, logp, idx, _ = _loss_inputs(seed=4)
+    with pytest.raises(ValueError, match="backend"):
+        tfused.fused_sparse_kd_loss(
+            torch.from_numpy(hidden), torch.from_numpy(lm_w),
+            torch.from_numpy(labels), torch.from_numpy(logp),
+            torch.from_numpy(idx), backend="ring")
+    with pytest.raises(ValueError, match="backend"):
+        tfused.fused_cross_entropy(
+            torch.from_numpy(hidden), torch.from_numpy(lm_w),
+            torch.from_numpy(labels), backend="ring")

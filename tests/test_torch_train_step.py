@@ -15,6 +15,7 @@ from speech_distill_tpu.distill import train_step as jts
 from speech_distill_tpu.distill.lora import init_lora as jax_init_lora
 from speech_distill_tpu.distill.lora import lora_scaling as jax_scaling
 from speech_distill_tpu.models import qwen3 as jq
+from speech_distill_tpu.ops import pallas_lm_loss as jpallas
 from speech_distill_tpu_torch.core.config import (DistillConfig, LoraConfig,
                                                   qwen3_tiny)
 from speech_distill_tpu_torch.core.tree import tree_leaves
@@ -154,6 +155,44 @@ def test_kd_steps_match_jax(setup, A, head_loss, merge):
     ref = _np(jstate.trainable)
     for a, b_ in zip(tree_leaves(got), jax.tree.leaves(ref)):
         np.testing.assert_allclose(a, b_, rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+def test_kd_fused_loss_steps_match_jax(setup, monkeypatch, backend):
+    """``fused_loss=True``: three steps of the row-statistics loss (chunked
+    route, or K2 plain on the CPU) against the JAX step of the same
+    backend, its Pallas K2 run in interpret mode."""
+    jcfg, lora, base = setup
+    stats = jpallas.lm_head_stats
+    monkeypatch.setattr(jpallas, "lm_head_stats",
+                        lambda h, w, l, t, bn, bv, interpret=False:
+                        stats(h, w, l, t, bn, bv, True))
+    jd = JDistill(lora=JLora(r=R, alpha=ALPHA))
+    jopt = jts.make_optimizer(LR, 1, 10)
+    jstep = jts.make_kd_step(jcfg, jd, jopt, mode="precomputed",
+                             donate=False, fused_loss=True,
+                             fused_backend=backend, loss_chunk_size=48)
+    jstate = jts.init_state(jax.tree.map(jnp.asarray, lora), jopt)
+    jbase = jax.tree.map(jnp.asarray, base)
+    cfg, model, trainable = _port(setup, remat=False)
+    dcfg = DistillConfig(lora=LoraConfig(r=R, alpha=ALPHA))
+    opt = tts.make_optimizer(LR, 1, 10)
+    step = tts.make_kd_step(cfg, dcfg, opt, mode="precomputed",
+                            fused_loss=True, fused_backend=backend,
+                            loss_chunk_size=48, device="cpu")
+    state = tts.init_state(trainable, opt)
+    batch = _batch(seed=4)
+    for _ in range(3):
+        jstate, jm = jstep(jstate, jbase, None,
+                           jax.tree.map(jnp.asarray, batch))
+        state, m = step(state, model, None, batch)
+        for k in ("loss", "student_loss", "distill_loss", "teacher_loss",
+                  "grad_norm"):
+            np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-5,
+                                       err_msg=k)
+    for a, b_ in zip(tree_leaves(tree_to_numpy(state.trainable)),
+                     jax.tree.leaves(_np(jstate.trainable))):
+        np.testing.assert_allclose(a, b_, rtol=1e-4, atol=1e-6)
 
 
 def test_optimizer_matches_optax_chain():
