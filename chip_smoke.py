@@ -14,6 +14,14 @@
    bound and (for flash attention) the library SDPA call as a yardstick.
 5. Teacher-forces decode steps of ``paged_forward`` through the kernel and
    through the plain version, and compares the logits.
+5b. Quantized serving: the same model quantized to int4 projections and
+   an int8 tied embedding/head, served from an int8 page pool with the
+   same traffic; fails unless K3 (``int4_matmul``) and K4-int8
+   (``paged_decode_int8``) ran exactly 7 x 28 a model forward and 28 a
+   decode step. Then K3 against its plain version at M 16 and 1,024 on
+   the gate and down codes (device times beside cuBLAS), K4-int8 at K4's
+   check shape, and decode logits of the kernel and plain routes against
+   an fp32 reference on the same codes.
 6. Trains: PiSSA LoRA on the same full-width model, ``make_kd_step(mode=
    "precomputed")`` in ``train_loop`` over seeded synthetic batches (B 8,
    T 512, K 128), with checkpoints; fails unless the flash forward and
@@ -68,6 +76,8 @@ from speech_distill_tpu_torch.distill.lora import init_lora, lora_scaling
 from speech_distill_tpu_torch.infer.paged import (PagedEngine, PagedKVCache,
                                                   paged_forward)
 from speech_distill_tpu_torch.models import qwen3
+from speech_distill_tpu_torch.models.convert import (model_to_tree,
+                                                     params_from_jax)
 from speech_distill_tpu_torch.ops import _cuda
 from speech_distill_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_plain, flash_attention_fwd, flash_attention_fwd_plain,
@@ -75,10 +85,15 @@ from speech_distill_tpu_torch.ops.flash_attention import (
 from speech_distill_tpu_torch.ops.fused_lm_loss import (fused_cross_entropy,
                                                         head_sparse_kd_loss)
 from speech_distill_tpu_torch.ops.paged_attention import (
-    paged_attention, paged_attention_plain)
+    paged_attention, paged_attention_plain, quantize_kv)
 from speech_distill_tpu_torch.ops.pallas_lm_loss import (
     _n_split, lm_head_dh, lm_head_dw, lm_head_stats_bwd_plain,
     lm_head_stats_kernel, lm_head_stats_plain)
+from speech_distill_tpu_torch.ops.quant import (dequantize_array,
+                                                param_bytes, quantize_params)
+from speech_distill_tpu_torch.ops.quant_matmul import (int4_matmul,
+                                                       int4_matmul_plain,
+                                                       int4_route)
 from speech_distill_tpu_torch.pipelines import stage1 as stage1_data
 
 SEED = 0
@@ -129,6 +144,14 @@ S1_EVAL_ROWS = 2                  # eval rows, scored one at a time
 K2_CHECK_N = S1_T                 # one packed sequence; also checked at
 #                                   the stage-1 microbatch's N
 LSE_REL_TOL, HEAD_GRAD_REL_TOL = 1e-3, 2e-2
+# K3 against int4_matmul_plain, max |kernel - plain| / max |plain|: the
+# same bf16 x and integer grid, fp32 sums in another order (split over
+# blocks at decode) for an fp32 output; a bf16 output adds one rounding
+# of each element (at most 2^-8 of it) on either side of a sum that may
+# differ in its last fp32 bits
+INT4_REL_TOL, INT4_BF16_REL_TOL = 1e-3, 2.0 ** -7
+# the seven projections of a layer, each one K3 launch a model forward
+QUANT_PROJ = 7
 
 
 def log(msg: str) -> None:
@@ -153,6 +176,35 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, side, iters: int = 20, replays: int = 10) -> float:
+    """Mean device time of ``fn`` with no host in the way: ``iters`` calls
+    captured in one CUDA graph, replayed ``replays`` times between CUDA
+    events. For kernels shorter than their launch's host work, where
+    :func:`time_ms` measures the host. The warm-up runs on the stream
+    ``side``, one for all calls: cuBLAS keeps a workspace for every stream
+    it has run on, so a new stream a call would hold memory into the
+    later phases."""
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
 
 
 def bound(nbytes: float, flops: float):
@@ -185,14 +237,14 @@ def build_kernels() -> None:
         f"built={sorted(reports)}")
 
 
-def serve(cfg, model):
-    """Phase 3: the main path. Returns the launch counts of the serve."""
-    sp = SamplingParams(stop_token_ids=(cfg.eos_token_id,))
-    eng = PagedEngine(model, cfg, sp, slots=16, max_len=2048, page_size=128,
-                      seed=SEED, device=model.device)
+def serve_traffic(cfg, eng, what: str, **extra):
+    """The smoke's serving traffic through ``eng``, timed with the launch
+    counts set to 0 just before and read just after: 16 seeded requests,
+    13 short prompts and three fresh long ones whose page-aligned widths
+    (512, 768, 1024) take the flash kernel at prefill, after a warm-up.
+    Prints the ``what`` line, checks the caps contract and returns
+    (counts, lens, rng)."""
     rng = np.random.default_rng(SEED)
-    # 13 short prompts and three fresh long ones whose page-aligned widths
-    # (512, 768, 1024) take the flash kernel at prefill
     lens = [int(n) for n in rng.integers(64, 129, 13)] + [500, 700, 1000]
     prompts = [rng.integers(1, cfg.vocab_size - 2, n).tolist() for n in lens]
     caps = [int(c) for c in rng.integers(32, 129, len(prompts))]
@@ -207,20 +259,31 @@ def serve(cfg, model):
     counts = dict(_cuda.launches)
 
     n_gen = sum(len(o) for o in outs)
-    log("serve " + json.dumps({
+    log(what + " " + json.dumps({
         "requests": len(prompts), "prompt_tokens": sum(lens),
         "generated_tokens": n_gen, "seconds": dt, "tokens_per_s": n_gen / dt,
         "phase_seconds": eng.phase_seconds, "decode_steps":
         eng.n_decode_steps, "chunks": eng.n_chunks, "exit_syncs":
         eng.n_exit_syncs, "preemptions": eng.preemptions,
-        "batched_prefills": eng.n_batched_prefills, "launches": counts}))
+        "batched_prefills": eng.n_batched_prefills,
+        "prefill_forwards": eng.n_prefill_forwards, **extra,
+        "launches": counts}))
     for rid, (o, c) in enumerate(zip(outs, caps)):
         if not 0 < len(o) <= c:
-            fail(f"request {rid}: {len(o)} tokens for cap {c}")
+            fail(f"{what} request {rid}: {len(o)} tokens for cap {c}")
         if not all(0 <= t < cfg.vocab_size for t in o):
-            fail(f"request {rid}: token outside the vocabulary")
+            fail(f"{what} request {rid}: token outside the vocabulary")
         if len(o) < c and o[-1] != cfg.eos_token_id:
-            fail(f"request {rid} stopped early without EOS")
+            fail(f"{what} request {rid} stopped early without EOS")
+    return counts, lens, rng
+
+
+def serve(cfg, model):
+    """Phase 3: the main path. Returns the launch counts of the serve."""
+    sp = SamplingParams(stop_token_ids=(cfg.eos_token_id,))
+    eng = PagedEngine(model, cfg, sp, slots=16, max_len=2048, page_size=128,
+                      seed=SEED, device=model.device)
+    counts, lens, rng = serve_traffic(cfg, eng, "serve")
     if min(counts["paged_decode"], counts["flash_fwd"]) <= 0:
         fail(f"a serving kernel was not launched during the serve: "
              f"{counts}")
@@ -232,7 +295,8 @@ def serve(cfg, model):
     return counts
 
 
-def profile_decode(eng, lens, cfg, rng) -> None:
+def profile_decode(eng, lens, cfg, rng, what: str = "decode serve"
+                   ) -> None:
     """Where a decode-heavy serve spends its time: the same serve (fresh
     random prompts of the given lengths, 32 tokens each) timed without the
     profiler, then traced with it for the time of each CUDA kernel. Device
@@ -255,12 +319,20 @@ def profile_decode(eng, lens, cfg, rng) -> None:
                    if e.device_type == DeviceType.CUDA),
                   key=lambda e: -e.self_device_time_total)
     busy_us = sum(e.self_device_time_total for e in rows)
-    log(f"profile decode serve: {len(lens)} requests x 32 tokens, "
+    log(f"profile {what}: {len(lens)} requests x 32 tokens, "
         f"{steps} steps, wall_ms={wall_us / 1e3:.2f} (unprofiled) "
         f"device_kernel_ms={busy_us / 1e3:.2f} (profiled) busy_share="
         f"{busy_us / wall_us:.3f}")
     for e in rows[:8]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x "
+            f"{e.key[:90]}")
+    host = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)
+    log(f"  host: {sum(e.self_cpu_time_total for e in host) / 1e3:.2f} ms "
+        f"of CPU self time (profiled), the largest:")
+    for e in host[:8]:
+        log(f"  {e.self_cpu_time_total / 1e3:9.3f} ms {e.count:6d}x "
             f"{e.key[:90]}")
 
 
@@ -409,6 +481,231 @@ def check_model_path(cfg, model, dev) -> None:
         fail(f"fp32 decode logits through the kernel disagree: {err}")
     if not err["bf16_kernel"] <= BF16_ERR_RATIO * err["bf16_plain"]:
         fail(f"bf16 decode through the kernel is less accurate: {err}")
+
+
+def serve_quant(cfg, model, dev):
+    """Quantized serving, this slice's main path: the same seeded model
+    quantized as ``quantize_params(bits=4, method="int4",
+    quantize_embed=True)`` (int4 projections through K3, an int8 tied
+    embed/head), served from an int8 page pool (decode through K4-int8)
+    with the bf16 serve's traffic. Returns the quantized model and the
+    launch counts of the serve."""
+    t0 = time.perf_counter()
+    tree = model_to_tree(model)
+    dense_bytes = param_bytes(tree)
+    qtree = quantize_params(tree, bits=4, method="int4", quantize_embed=True)
+    del tree
+    qmodel = params_from_jax(qtree, cfg, dev)
+    quant_bytes = param_bytes(qtree)
+    del qtree
+    torch.cuda.synchronize()
+    log(f"quantize int4 layers + int8 embed s={time.perf_counter() - t0:.2f}")
+    sp = SamplingParams(stop_token_ids=(cfg.eos_token_id,))
+    eng = PagedEngine(qmodel, cfg, sp, slots=16, max_len=2048,
+                      page_size=128, seed=SEED, device=dev,
+                      cache_dtype=torch.int8)
+    L, P = cfg.num_hidden_layers, eng.num_pages + 1
+    kv_elems = L * P * cfg.num_key_value_heads * eng.ps * cfg.head_dim
+    pool_bytes = 2 * kv_elems + 2 * (kv_elems // cfg.head_dim) * 4
+    counts, lens, rng = serve_traffic(
+        cfg, eng, "serve_quant", pool_bytes=pool_bytes,
+        bf16_pool_bytes=2 * kv_elems * 2, weight_bytes=quant_bytes,
+        bf16_weight_bytes=dense_bytes)
+    want = {"paged_decode_int8": L * eng.n_decode_steps,
+            "int4_matmul": QUANT_PROJ * L * (eng.n_decode_steps
+                                             + eng.n_prefill_forwards),
+            "paged_decode": 0}
+    if {k: counts[k] for k in want} != want:
+        fail(f"quantized serve launches {counts} != {want} (K4-int8 once a "
+             f"layer a decode step; K3 for the 7 projections of every "
+             f"layer of every model forward)")
+    profile_decode(eng, lens[:13], cfg, rng, "quantized decode serve")
+    return qmodel, counts
+
+
+def check_int4_matmul(dev, qmodel, launches: int) -> dict:
+    """K3 on the quantized model's layer-0 gate (1024 -> 3072) and down
+    (3072 -> 1024) codes at M 16 (a decode step) and M 1024 (a batched
+    prefill): the kernel on bf16 x (the serving route) and on the same
+    values in fp32 (fp32 output, so only summation order differs) against
+    ``int4_matmul_plain``. Timed on the device (:func:`graph_ms`) beside
+    its bound, the plain version, cuBLAS on the weight dequantized to bf16
+    once beforehand (what the bf16 model pays) and
+    dequantize-then-matmul."""
+    rng = np.random.default_rng(SEED + 11)
+    side = torch.cuda.Stream()
+    mlp = qmodel.layers[0].mlp
+    rows, err, err_bf16 = [], 0.0, 0.0
+    for name, leaf in (("gate", mlp.gate.leaf), ("down", mlp.down.leaf)):
+        packed, scale = leaf["q4"], leaf["scale"]
+        K2, N = packed.shape
+        K = 2 * K2
+        w_bf16 = dequantize_array(leaf, torch.bfloat16)
+        for M in (16, 1024):
+            x = torch.from_numpy(rng.standard_normal((M, K), np.float32)).to(
+                dev, torch.bfloat16)
+            got = int4_matmul(x.float(), packed, scale)
+            got_bf16 = int4_matmul(x, packed, scale)
+            torch.cuda.synchronize()
+            ref = int4_matmul_plain(x.float(), packed, scale)
+            scale_ref = ref.abs().max().item()
+            abs_err = (got - ref).abs().max().item()
+            e = abs_err / scale_ref
+            e16 = (got_bf16.float() - ref).abs().max().item() / scale_ref
+            err, err_bf16 = max(err, e), max(err_bf16, e16)
+            # device times (graph replays); the host's time to issue one
+            # K3 call (a stream of calls between events) beside them
+            ms = graph_ms(lambda: int4_matmul(x, packed, scale), side)
+            stream_ms = time_ms(lambda: int4_matmul(x, packed, scale),
+                                iters=50)
+            plain_ms = graph_ms(lambda: int4_matmul_plain(x, packed, scale),
+                                side)
+            # yardsticks only, never called by the port
+            library_ms = graph_ms(lambda: x @ w_bf16, side)
+            deq_ms = graph_ms(lambda: x @ dequantize_array(
+                leaf, torch.bfloat16), side)
+            nbytes = K2 * N + 4 * N + 2 * M * K + 2 * M * N
+            bound_ms, bound_by = bound(nbytes, 2 * M * K * N)
+            rows.append({"proj": name, "M": M, "K": K, "N": N,
+                         "abs_err_fp32_out": abs_err,
+                         "rel_err_fp32_out": e, "rel_err_bf16_out": e16,
+                         "ms": ms, "stream_ms": stream_ms,
+                         "plain_ms": plain_ms, "library_ms": library_ms,
+                         "dequant_matmul_ms": deq_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by})
+            log(f"int4_matmul {name} M {M} K {K} N {N}: rel_err fp32 out "
+                f"{e:.3e} (tol {INT4_REL_TOL}), bf16 out {e16:.3e} (tol "
+                f"{INT4_BF16_REL_TOL:.3e}); device ms={ms:.4f} (a call "
+                f"issued from the host: {stream_ms:.4f}) plain_ms="
+                f"{plain_ms:.4f} cublas_bf16_ms={library_ms:.4f} "
+                f"dequant_matmul_ms={deq_ms:.4f} bound_ms={bound_ms:.5f} "
+                f"({bound_by})")
+    if not (err <= INT4_REL_TOL and err_bf16 <= INT4_BF16_REL_TOL):
+        fail(f"int4_matmul disagrees with its plain version: {err}, "
+             f"{err_bf16}")
+    main = rows[0]                       # gate at M 16, a decode step
+    return {"name": "int4_matmul", "route": "cuda",
+            "source": "speech_distill_tpu_torch/csrc/int4_matmul.cu",
+            "replaces": "speech_distill_tpu/ops/quant_matmul.py:30",
+            "launches": launches,
+            "max_abs_err": max(r["abs_err_fp32_out"] for r in rows),
+            "max_rel_err": err, "ms": main["ms"], "kernel_ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "shapes": rows}
+
+
+def check_paged_decode_int8(dev, launches: int) -> dict:
+    """K4-int8 at K4's check shape (16 rows, KV 8, G 2, Dh 128, page 128,
+    lengths 0..2048, layer 1 of 2), int8 pools and scales from
+    ``quantize_kv`` of seeded bf16 K/V, against the plain version in fp32
+    on the same codes."""
+    rng = np.random.default_rng(SEED + 12)
+    B, KV, G, Dh, ps, mp, L = 16, 8, 2, 128, 128, 16, 2
+    P = B * mp
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)
+                                ).to(dev, torch.bfloat16)
+    q = rnd(B, KV, G, Dh)
+    kq, ks = quantize_kv(rnd(L, P + 1, KV, ps, Dh))
+    vq, vs = quantize_kv(rnd(L, P + 1, KV, ps, Dh))
+    bt = torch.from_numpy(rng.permutation(P).reshape(B, mp).astype(
+        np.int32)).to(dev)
+    lens = [0, 1, 127, 128, 129, 255, 256, 511, 640, 1000, 1023, 1024,
+            1500, 1920, 2047, 2048]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    args = (q, kq, vq, bt, lengths)
+    kw = dict(layer=1, k_scale=ks, v_scale=vs)
+    got = paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    ref = paged_attention_plain(q.float(), kq, vq, bt, lengths, **kw)
+    err = (got.float() - ref).abs().max().item()
+    if not bool(torch.all(got[0] == 0)):
+        fail("paged_decode_int8: idle row is not exact zeros")
+    log(f"paged_decode_int8 max_abs_err={err:.3e} tol={KERNEL_ATOL} (bf16 "
+        f"output rounding vs the plain version in fp32 on the same int8 "
+        f"codes and scales)")
+    if not err <= KERNEL_ATOL:
+        fail(f"paged_decode_int8 disagrees with its plain version: {err}")
+    ms = time_ms(lambda: paged_attention(*args, **kw))
+    plain_ms = time_ms(lambda: paged_attention_plain(*args, **kw))
+    resident = sum(lens)
+    pages_read = sum(-(-n // ps) for n in lens)
+    nbytes = (resident * KV * Dh * 2              # K and V rows, int8
+              + resident * KV * 4 * 2             # their fp32 scales
+              + 2 * q.numel() * 2                 # q in, out
+              + pages_read * 4 + B * 4)           # block tables, lengths
+    flops = 4 * G * Dh * KV * resident
+    bound_ms, bound_by = bound(nbytes, flops)
+    log(f"paged_decode_int8 ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={bound_ms:.5f} ({bound_by}, {nbytes / 1e6:.2f} MB)")
+    return {"name": "paged_decode_int8", "route": "cuda",
+            "source": "speech_distill_tpu_torch/csrc/paged_decode.cu",
+            "replaces": "speech_distill_tpu/ops/paged_attention.py:55",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def check_quant_model_path(cfg, qmodel, dev) -> None:
+    """Decode steps of ``paged_forward`` on the quantized model over an
+    int8 pool, from the same quantized random KV history, with one dead
+    row: the kernel route (K3 + K4-int8) and the plain route
+    (``int4_matmul_plain`` + plain int8 attention), both in bf16, against
+    the plain route with fp32 activations on the same codes."""
+    rng = np.random.default_rng(SEED + 13)
+    B, ps, mp, steps = 4, 128, 4, 4
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    qmodel32 = params_from_jax(model_to_tree(qmodel), cfg32, dev)
+    runs = {}
+    hist = None
+    for key, m in ((("bf16", "kernel"), qmodel), (("bf16", "plain"), qmodel),
+                   (("fp32", "plain"), qmodel32)):
+        pool = PagedKVCache.create(cfg, B * mp, ps, torch.int8, dev)
+        if hist is None:
+            hist = torch.from_numpy(rng.standard_normal(
+                tuple(pool.k.shape), np.float32)).to(dev, torch.bfloat16)
+        pool.k, pool.ks = quantize_kv(hist)
+        pool.v, pool.vs = quantize_kv(hist.flip(-1))
+        runs[key] = (m, pool)
+    del hist
+    routes = {("bf16", "kernel"): "auto", ("bf16", "plain"): "plain",
+              ("fp32", "plain"): "plain"}
+    bt = torch.from_numpy(rng.permutation(B * mp).reshape(B, mp).astype(
+        np.int32)).to(dev)
+    lengths = torch.tensor([0, 100, 128, 300], dtype=torch.int64,
+                           device=dev)
+    live = torch.tensor([True, True, True, False], device=dev)
+    err = {"bf16_kernel": 0.0, "bf16_plain": 0.0}
+    for _ in range(steps):
+        tok = torch.from_numpy(rng.integers(1, cfg.vocab_size - 2, B)).to(dev)
+        out = {}
+        for key, (m, pool) in runs.items():
+            _cuda.reset_launches()
+            with int4_route(routes[key]):
+                out[key] = paged_forward(m, tok, pool, bt, lengths, live,
+                                         key[1])
+            n = dict(_cuda.launches)
+            k = key == ("bf16", "kernel")
+            L = cfg.num_hidden_layers
+            if (n["int4_matmul"], n["paged_decode_int8"]) != \
+                    ((QUANT_PROJ * L, L) if k else (0, 0)):
+                fail(f"quantized model path {key}: launches {n}")
+        if not all(bool(torch.isfinite(o).all()) for o in out.values()):
+            fail("quantized paged_forward produced non-finite logits")
+        ref = out["fp32", "plain"][live]
+        for name, key in (("bf16_kernel", ("bf16", "kernel")),
+                          ("bf16_plain", ("bf16", "plain"))):
+            err[name] = max(err[name],
+                            (out[key][live] - ref).abs().max().item())
+        lengths = lengths + live
+    log(f"quantized model path: {steps} decode steps over an int8 pool, "
+        f"max |logits - fp32 plain|: bf16 kernel {err['bf16_kernel']:.3e}, "
+        f"bf16 plain {err['bf16_plain']:.3e} (the kernel route must stay "
+        f"within {BF16_ERR_RATIO}x the plain route's error)")
+    if not err["bf16_kernel"] <= BF16_ERR_RATIO * err["bf16_plain"]:
+        fail(f"quantized decode through the kernels is less accurate: {err}")
 
 
 def kd_features(cfg, n: int, rng) -> list:
@@ -1107,10 +1404,21 @@ def main() -> None:
         f"{cfg.num_key_value_heads} vocab={cfg.vocab_size} bf16 random "
         f"init seed={SEED} s={time.perf_counter() - t0:.2f}")
     counts = serve(cfg, model)
+    log(f"device memory allocated after the bf16 serve "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
 
     kernels = [check_paged_decode(dev, counts["paged_decode"]),
                check_flash_fwd(dev, counts["flash_fwd"])]
     check_model_path(cfg, model, dev)
+    t0 = time.perf_counter()
+    qmodel, qcounts = serve_quant(cfg, model, dev)
+    kernels += [check_int4_matmul(dev, qmodel, qcounts["int4_matmul"]),
+                check_paged_decode_int8(dev, qcounts["paged_decode_int8"])]
+    check_quant_model_path(cfg, qmodel, dev)
+    del qmodel
+    log(f"quantized serving phases s={time.perf_counter() - t0:.2f}, "
+        f"device memory still allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
     t0 = time.perf_counter()
     train_counts, lora, base = train(cfg, model, dev)
     bwd_rows, train_fwd = check_flash_bwd(dev, train_counts)

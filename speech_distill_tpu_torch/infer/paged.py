@@ -20,10 +20,11 @@ Differences from the JAX engine, by design:
   * The decode chunk is a Python loop; its early-exit test (every slot
     finished) is one host read per step, counted in ``n_exit_syncs``.
     CUDA graphs come later.
-  * The pool holds the model's dtype (bf16 or fp32): the decode kernel
-    takes one dtype for queries and pool.
+  * The pool holds the model's dtype (bf16 or fp32), or int8 with one
+    fp32 scale per (token, KV head) (``cache_dtype=torch.int8``, the
+    vLLM quantized KV cache; decode through ``paged_decode_int8``).
   * Admission is fifo (the JAX ``_AdmissionQueue`` under fifo is exactly a
-    deque). Chunked prefill, tensor parallelism, the int8 pool,
+    deque). Chunked prefill, tensor parallelism,
     per-request sampling, logprobs, deadlines and shedding, open-loop
     arrivals, the other admission policies, the early chunk exit and the
     native C++ runtime come with later slices; asking for one raises
@@ -44,7 +45,7 @@ from speech_distill_tpu_torch.core.device import resolve_device
 from speech_distill_tpu_torch.infer.engine import sample_next_token
 from speech_distill_tpu_torch.models import qwen3
 from speech_distill_tpu_torch.ops.paged_attention import (
-    paged_attention, paged_attention_plain)
+    paged_attention, paged_attention_plain, quantize_kv)
 
 
 # zero-shared-prefix prompts up to this page-aligned width prefill in
@@ -59,27 +60,39 @@ def _ceil_div(a: int, b: int) -> int:
 @dataclass
 class PagedKVCache:
     """Page pools [L, P + 1, KV, page_size, Dh]; page P is the drop target
-    of dead rows' writes and is never read."""
+    of dead rows' writes and is never read. An int8 pool carries one fp32
+    scale per (token, KV head) in ``ks``/``vs`` [L, P + 1, KV, page_size]
+    (ones at creation)."""
 
     k: torch.Tensor
     v: torch.Tensor
+    ks: Optional[torch.Tensor] = None
+    vs: Optional[torch.Tensor] = None
 
     @property
     def drop_page(self) -> int:
         return self.k.shape[1] - 1
 
+    @property
+    def quantized(self) -> bool:
+        return self.ks is not None
+
     @classmethod
     def create(cls, cfg: Qwen3Config, num_pages: int, page_size: int,
                dtype=torch.bfloat16, device="cuda") -> "PagedKVCache":
-        if dtype not in (torch.bfloat16, torch.float32):
-            raise NotImplementedError(
-                f"pool dtype {dtype}: bf16 and fp32 pools only (the int8 "
-                f"pool comes with a later slice)")
+        if dtype not in (torch.bfloat16, torch.float32, torch.int8):
+            raise ValueError(f"pool dtype {dtype}: bf16, fp32 or int8")
         shape = (cfg.num_hidden_layers, num_pages + 1,
                  cfg.num_key_value_heads, page_size, cfg.head_dim)
         device = resolve_device(device)
-        return cls(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device))
+
+        def zeros():
+            return torch.zeros(shape, dtype=dtype, device=device)
+        if dtype != torch.int8:
+            return cls(zeros(), zeros())
+        return cls(zeros(), zeros(),
+                   torch.ones(shape[:-1], dtype=torch.float32, device=device),
+                   torch.ones(shape[:-1], dtype=torch.float32, device=device))
 
 
 @dataclass
@@ -130,10 +143,18 @@ def paged_forward(model: qwen3.Qwen3, token: torch.Tensor,
     for li, layer in enumerate(model.layers):
         y = qwen3.rms_norm(x, layer.input_ln, cfg.rms_norm_eps)
         q, k, v = qwen3.qkv_proj(layer.attn, y, cos, sin, cfg)
-        pool.k[li, pages, heads, offs] = k[:, 0].to(pool.k.dtype)
-        pool.v[li, pages, heads, offs] = v[:, 0].to(pool.v.dtype)
+        k1, v1 = k[:, 0], v[:, 0]                          # [B, KV, Dh]
+        if pool.quantized:
+            # per (token, head) int8 before the scatter; K and V in one
+            # call (the scales are per slice, so stacking changes nothing)
+            (k1, v1), (ksc, vsc) = quantize_kv(torch.stack([k1, v1]))
+            pool.ks[li, pages, heads, offs] = ksc
+            pool.vs[li, pages, heads, offs] = vsc
+        pool.k[li, pages, heads, offs] = k1.to(pool.k.dtype)
+        pool.v[li, pages, heads, offs] = v1.to(pool.v.dtype)
         o = attend(q.reshape(B, KV, H // KV, Dh), pool.k, pool.v,
-                   block_tables, klen, layer=li)
+                   block_tables, klen, layer=li, k_scale=pool.ks,
+                   v_scale=pool.vs)
         x = qwen3.o_proj_and_mlp(layer, x, o, cfg)
     x = qwen3.rms_norm(x, model.final_ln, cfg.rms_norm_eps)
     return qwen3.unembed(model, x)[:, 0].float()
@@ -292,7 +313,10 @@ class PagedEngine:
     per-request caps) with KV memory bounded by ``num_pages`` and
     recompute preemption when the pool runs dry. ``num_pages >=
     ceil(max_len / page_size)`` is required so a lone stream can always
-    run to max_len. ``device`` defaults to CUDA and raises without it."""
+    run to max_len. ``cache_dtype``: the pool's dtype, the model's when
+    None, or ``torch.int8`` (prefill then runs over a bf16 cache that is
+    quantized at the page scatter). ``device`` defaults to CUDA and
+    raises without it."""
 
     def __init__(self, model: qwen3.Qwen3, cfg: Qwen3Config,
                  sp: SamplingParams, slots: int = 8, max_len: int = 4096,
@@ -304,7 +328,8 @@ class PagedEngine:
                  per_request_sampling: bool = False,
                  return_logprobs: bool = False,
                  admission_policy: str = "fifo",
-                 chunk_exit_free: Optional[int] = None):
+                 chunk_exit_free: Optional[int] = None,
+                 cache_dtype: Optional[torch.dtype] = None):
         deferred = {"prefill_chunk": prefill_chunk is not None,
                     "mesh": mesh is not None,
                     "chunk_exit_free": bool(chunk_exit_free),
@@ -334,9 +359,14 @@ class PagedEngine:
                 f"num_pages={self.num_pages} cannot hold one max_len stream "
                 f"({self.max_pages} pages)")
         self.chunk_steps = chunk_steps
-        # the pool (and the prefill caches) hold the model dtype: the
-        # decode kernel takes one dtype for q and pool
-        self.cache_dtype = cfg.torch_dtype
+        # the pool holds the model dtype (the bf16/fp32 decode kernel takes
+        # one dtype for q and pool) or int8; the contiguous prefill cache
+        # of an int8 pool is bf16 (quantized at the page scatter)
+        self.cache_dtype = (cfg.torch_dtype if cache_dtype is None
+                            else cache_dtype)
+        self._tmp_cache_dtype = (torch.bfloat16
+                                 if self.cache_dtype == torch.int8
+                                 else self.cache_dtype)
         self.prefix_sharing = prefix_sharing
         self._decode = make_paged_decode_fn(sp)
         self._generator = torch.Generator(device=self.device)
@@ -367,31 +397,44 @@ class PagedEngine:
         """Install a contiguous prefill cache [L, B, W, KV, Dh] into
         ``len(page_ids)`` pool pages (len(page_ids) == B * W/page_size;
         rows flatten page-major, so batched admission scatters every row's
-        pages in ONE update)."""
+        pages in ONE update). An int8 pool quantizes here, per token per
+        head, so the result does not depend on how prefill was batched."""
         L, B, W, KV, Dh = tmp_k.shape
         n = page_ids.shape[0]
         ps = (B * W) // n
-        pool.k[:, page_ids] = tmp_k.reshape(L, n, ps, KV, Dh).transpose(
-            2, 3).to(pool.k.dtype)
-        pool.v[:, page_ids] = tmp_v.reshape(L, n, ps, KV, Dh).transpose(
-            2, 3).to(pool.v.dtype)
+        kk = tmp_k.reshape(L, n, ps, KV, Dh).transpose(2, 3)
+        vv = tmp_v.reshape(L, n, ps, KV, Dh).transpose(2, 3)
+        if pool.quantized:
+            kk, ksc = quantize_kv(kk)
+            vv, vsc = quantize_kv(vv)
+            pool.ks[:, page_ids] = ksc
+            pool.vs[:, page_ids] = vsc
+        pool.k[:, page_ids] = kk.to(pool.k.dtype)
+        pool.v[:, page_ids] = vv.to(pool.v.dtype)
 
     @staticmethod
     def _gather_impl(pool: PagedKVCache, page_ids,
                      total_w: int) -> qwen3.KVCache:
         """Assemble a contiguous B=1 prefill cache [L, 1, total_w, KV, Dh]
         from ``len(page_ids)`` shared pool pages (the prefix-cache hit
-        path: the suffix then prefills on top of it)."""
+        path: the suffix then prefills on top of it). An int8 pool
+        dequantizes here to bf16: the suffix attends over what decode
+        attends over."""
         L, _, KV, ps, Dh = pool.k.shape
         m = page_ids.shape[0]
 
-        def gx(a):
-            g = a[:, page_ids].transpose(2, 3).reshape(L, 1, m * ps, KV, Dh)
-            out = torch.zeros((L, 1, total_w, KV, Dh), dtype=a.dtype,
+        def gx(a, scl):
+            g = a[:, page_ids]                         # [L, m, KV, ps, Dh]
+            if scl is not None:
+                g = (g.float() * scl[:, page_ids][..., None]).to(
+                    torch.bfloat16)
+            g = g.transpose(2, 3).reshape(L, 1, m * ps, KV, Dh)
+            out = torch.zeros((L, 1, total_w, KV, Dh), dtype=g.dtype,
                               device=a.device)
             out[:, :, :m * ps] = g
             return out
-        return qwen3.KVCache(gx(pool.k), gx(pool.v), m * ps)
+        return qwen3.KVCache(gx(pool.k, pool.ks), gx(pool.v, pool.vs),
+                             m * ps)
 
     def _admit(self, state: PagedState, b: int, arr, mask, pages, n: int,
                token_row, presence_row, n_gen0: int, cap: int, *, m: int,
@@ -402,9 +445,10 @@ class PagedEngine:
         if m > 0:
             tmp = self._gather_impl(state.pool, pages[:m], width)
         else:
-            tmp = qwen3.KVCache.create(self.cfg, 1, width, self.cache_dtype,
-                                       self.device)
+            tmp = qwen3.KVCache.create(self.cfg, 1, width,
+                                       self._tmp_cache_dtype, self.device)
         # unembed ONLY the last prompt position
+        self.n_prefill_forwards += 1
         hidden, tmp = qwen3.forward(self.model, arr, attention_mask=mask,
                                     cache=tmp, return_hidden=True)
         self._scatter_impl(state.pool, tmp.k[:, :, pre:], tmp.v[:, :, pre:],
@@ -427,8 +471,9 @@ class PagedEngine:
         n = arrs.shape[0]
         masks = (torch.arange(width, device=self.device)[None]
                  < ns[:, None]).to(torch.int32)
-        tmp = qwen3.KVCache.create(self.cfg, n, width, self.cache_dtype,
-                                   self.device)
+        tmp = qwen3.KVCache.create(self.cfg, n, width,
+                                   self._tmp_cache_dtype, self.device)
+        self.n_prefill_forwards += 1
         hidden, tmp = qwen3.forward(self.model, arrs, attention_mask=masks,
                                     cache=tmp, return_hidden=True)
         self._scatter_impl(state.pool, tmp.k, tmp.v, pages_flat)
@@ -583,6 +628,7 @@ class PagedEngine:
         self.n_exit_syncs = 0
         self.n_prefills = 0
         self.n_batched_prefills = 0
+        self.n_prefill_forwards = 0        # model forwards of admission
         # per-request latency records, chunk-granularity: ttft = enqueue ->
         # end of the first chunk that produced this request's token(s);
         # e2e = enqueue -> retire

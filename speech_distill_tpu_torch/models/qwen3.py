@@ -8,6 +8,12 @@ LoRA adapters through ``ops/lora_linear``, per-layer activation
 checkpointing). The per-row ``cache_positions`` path, ring attention and
 pipelining belong to later slices.
 
+Quantized weights (``ops/quant`` leaves: int4/int8/nf4 projections, an
+int8 embed/head) sit where the dense weights sit, as :class:`QuantWeight`
+modules holding buffers; :func:`deq` dequantizes them, a 2-D int4
+projection goes through ``ops/quant_matmul`` (K3 on CUDA), and the int8
+table is gathered before it is scaled.
+
 Parameters keep the JAX layout of ``param_shapes`` with the layer axis
 unstacked: matrices are [din, dout] and apply as ``x @ w``, so
 :func:`speech_distill_tpu_torch.models.convert.params_from_jax` copies a
@@ -29,6 +35,8 @@ from speech_distill_tpu_torch.core.device import resolve_device
 from speech_distill_tpu_torch.ops.attention import sdpa
 from speech_distill_tpu_torch.ops.lora_linear import lora_linear
 from speech_distill_tpu_torch.ops.matmul import matmul_f32
+from speech_distill_tpu_torch.ops.quant import dequantize_array
+from speech_distill_tpu_torch.ops.quant_matmul import quantized_matmul
 
 # per-layer LoRA factors: {group: {key: (a [din, r], b [r, dout])}}
 LayerAdapters = Dict[str, Dict[str, Tuple[torch.Tensor, torch.Tensor]]]
@@ -37,6 +45,31 @@ LayerAdapters = Dict[str, Dict[str, Tuple[torch.Tensor, torch.Tensor]]]
 def _weight(shape, device, dtype) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
                         requires_grad=False)
+
+
+class QuantWeight(nn.Module):
+    """A quantized weight: the tensors of an ``ops/quant`` leaf (``q4`` /
+    ``q8`` / ``nf4`` codes and their scales) as buffers, in the leaf's
+    layout ([din/2, dout] packed int4, [din, dout] int8, ...)."""
+
+    def __init__(self, leaf: Dict[str, torch.Tensor]):
+        super().__init__()
+        for name, t in leaf.items():
+            self.register_buffer(name, t)
+
+    @property
+    def leaf(self) -> Dict[str, torch.Tensor]:
+        """The leaf's tensors by name (the module's own buffer dict, read
+        on every projection, so not copied)."""
+        return self._buffers
+
+
+def deq(w, dtype=torch.bfloat16) -> torch.Tensor:
+    """Weight accessor: a tensor passes through, a :class:`QuantWeight` is
+    dequantized to ``dtype`` (the JAX ``deq``)."""
+    if isinstance(w, QuantWeight):
+        return dequantize_array(w.leaf, dtype)
+    return w
 
 
 class Attention(nn.Module):
@@ -92,7 +125,7 @@ class Qwen3(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.embed.device
+        return self.final_ln.device          # never quantized
 
     def forward(self, input_ids, **kw):
         return forward(self, input_ids, **kw)
@@ -139,7 +172,13 @@ def init_params(cfg: Qwen3Config, seed: int = 0, device="cuda") -> Qwen3:
 
 
 def embed_tokens(model: Qwen3, input_ids: torch.Tensor) -> torch.Tensor:
-    return model.embed[input_ids]
+    """Token embedding lookup; an int8 table gathers its rows first and
+    scales only them (per-column scale [1, D]) in the model dtype."""
+    table = model.embed
+    if isinstance(table, QuantWeight):
+        dt = model.cfg.torch_dtype
+        return table.q8[input_ids].to(dt) * table.scale[0].to(dt)
+    return table[input_ids]
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
@@ -174,14 +213,19 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     return (xf * cos + rotated * sin).to(x.dtype)
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor, la: Optional[dict], key: str,
+def _proj(x: torch.Tensor, w, la: Optional[dict], key: str,
           scale: float, merge: bool) -> torch.Tensor:
     """Projection with optional LoRA (counterpart of the JAX ``_proj``):
     through :func:`lora_linear` (merged forward, skinny backward), or with
     ``merge`` as a plain product with the merged weight, differentiated by
-    autograd (the JAX ``merge_weights=True`` path)."""
+    autograd (the JAX ``merge_weights=True`` path). A quantized weight is
+    dequantized to x.dtype, except a 2-D int4 weight on the route of
+    ``ops/quant_matmul.int4_route`` (on CUDA: K3, the JAX TPU branch)."""
     if la is None or key not in la:
+        if isinstance(w, QuantWeight):
+            return quantized_matmul(x, w.leaf)
         return x @ w
+    w = deq(w, x.dtype)
     a, b = la[key]
     if merge:
         return x @ (w + (matmul_f32(a, b) * scale).to(w.dtype))
@@ -439,12 +483,13 @@ def lm_head_weight(model: Qwen3, embed: Optional[torch.Tensor] = None,
                    lm_head: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[V, D] unembedding matrix: the ``lm_head`` override, else the
     model's own head, else (tied) the ``embed`` override or the model's
-    table."""
+    table. A quantized table is dequantized to bf16, as the JAX ``deq``
+    default does."""
     if lm_head is not None:
         return lm_head
     if model.lm_head is not None:
-        return model.lm_head
-    return model.embed if embed is None else embed
+        return deq(model.lm_head)
+    return deq(model.embed) if embed is None else embed
 
 
 def unembed(model: Qwen3, hidden: torch.Tensor) -> torch.Tensor:

@@ -36,6 +36,11 @@ SIGNATURES = {
     # q, k_pool, v_pool, block_tables, lengths, out,
     # B, KV, G, Dh, P, ps, max_pages, layer, scale, dtype, stream
     "paged_decode": [_P] * 6 + [_I] * 8 + [_F, _I, _P],
+    # q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths, out,
+    # B, KV, G, Dh, P, ps, max_pages, layer, scale, q dtype, stream
+    "paged_decode_int8": [_P] * 8 + [_I] * 8 + [_F, _I, _P],
+    # x, packed, scale, out, work, M, N, K2, ldx, splits, out dtype, stream
+    "int4_matmul": [_P] * 5 + [_I] * 6 + [_P],
     # q, k, v, o, lse, B, T, H, KV, Dh, scale, stream
     "flash_fwd": [_P] * 5 + [_I] * 5 + [_F, _P],
     # q, k, v, dO, lse, delta, dq, B, T, H, KV, Dh, scale, stream
@@ -50,7 +55,9 @@ SIGNATURES = {
     "lm_head_dw": [_P] * 9 + [_I] * 3 + [_F, _P],
 }
 # the csrc/<source>.cu that defines each entry point
-SOURCES = {"paged_decode": "paged_decode", "flash_fwd": "flash_fwd",
+SOURCES = {"paged_decode": "paged_decode",
+           "paged_decode_int8": "paged_decode",
+           "int4_matmul": "int4_matmul", "flash_fwd": "flash_fwd",
            "flash_dq": "flash_bwd", "flash_dkv": "flash_bwd",
            "lm_head_stats": "lm_head_stats", "lm_head_dh": "lm_head_stats",
            "lm_head_dw": "lm_head_stats"}

@@ -1,7 +1,8 @@
 """Paged decode attention: single-token queries over a block-table KV pool.
 
-Port of ``speech_distill_tpu/ops/paged_attention.py`` (bf16 and fp32
-pools; the int8 pool and ``quantize_kv`` wait for a later slice).
+Port of ``speech_distill_tpu/ops/paged_attention.py``: bf16 and fp32
+pools, and int8 pools with one fp32 scale per (token, KV head)
+(:func:`quantize_kv`).
 
 Layouts (decode step, T == 1):
   q            [B, KV, G, Dh]        (H = KV * G query heads, GQA-grouped)
@@ -12,12 +13,19 @@ Layouts (decode step, T == 1):
                                       and never read)
   lengths      [B] int32             (valid keys incl. the current token;
                                       0 => row idle, output exact zeros)
+  k/v scales   [L, P, KV, ps] fp32   (int8 pools only)
 
-:func:`paged_attention` launches the hand-written CUDA kernel
-``csrc/paged_decode.cu`` (the counterpart of the TPU ``_decode_kernel``)
-for CUDA tensors; for CPU tensors it runs :func:`paged_attention_plain`.
+A pool without the layer axis, [P, KV, ps, Dh] (scales [P, KV, ps]), is
+read as a pool of one layer, as the JAX ``layer=None``.
+
+:func:`paged_attention` launches the hand-written CUDA kernels of
+``csrc/paged_decode.cu`` (the counterpart of the TPU ``_decode_kernel``):
+``paged_decode`` for bf16/fp32 pools, ``paged_decode_int8`` for int8
+pools; for CPU tensors it runs :func:`paged_attention_plain`.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -27,19 +35,51 @@ NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def quantize_kv(x: torch.Tensor, dim: int = -1):
+    """Symmetric int8 with one scale per slice along ``dim`` (per token
+    per KV head when x is [..., Dh]). Returns (q int8, scale fp32 with
+    ``dim`` squeezed). Exact zeros stay exact (scale 1)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=dim, keepdim=True)
+    scl = torch.where(amax > 0, amax / 127.0, 1.0)
+    q = (xf / scl).round_().clamp_(-127, 127).to(torch.int8)
+    return q, scl.squeeze(dim)
+
+
+def _full_pool(k_pool, v_pool, k_scale, v_scale, layer):
+    """A one-layer pool [P, KV, ps, Dh] as layer 0 of [1, P, KV, ps, Dh]."""
+    if k_pool.dim() == 4:
+        k_pool, v_pool = k_pool[None], v_pool[None]
+        if k_scale is not None:
+            k_scale, v_scale = k_scale[None], v_scale[None]
+        layer = 0
+    return k_pool, v_pool, k_scale, v_scale, layer
+
+
 def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
                           v_pool: torch.Tensor, block_tables: torch.Tensor,
-                          lengths: torch.Tensor, layer: int = 0
+                          lengths: torch.Tensor, layer: int = 0,
+                          k_scale: Optional[torch.Tensor] = None,
+                          v_scale: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
     """Gather-based plain version (counterpart of ``paged_attention_xla``):
-    materializes the gathered KV [B, max_pages*ps, KV, Dh] and runs a
-    masked fp32 softmax. Same arguments and result as the kernel."""
+    materializes the gathered KV [B, max_pages*ps, KV, Dh] (an int8 pool
+    dequantized after the gather, in q.dtype) and runs a masked fp32
+    softmax. Same arguments and result as the kernel."""
+    k_pool, v_pool, k_scale, v_scale, layer = _full_pool(
+        k_pool, v_pool, k_scale, v_scale, layer)
     B, KV, G, Dh = q.shape
     ps = k_pool.shape[3]
     mp = block_tables.shape[1]
     bt = block_tables.long()
     k = k_pool[layer][bt]                   # [B, mp, KV, ps, Dh]
     v = v_pool[layer][bt]
+    if k_pool.dtype == torch.int8:
+        if k_scale is None or v_scale is None:
+            raise ValueError("int8 pools require k_scale/v_scale")
+        dt = q.dtype
+        k = k.to(dt) * k_scale[layer][bt][..., None].to(dt)
+        v = v.to(dt) * v_scale[layer][bt][..., None].to(dt)
     k = k.transpose(2, 3).reshape(B, mp * ps, KV, Dh)
     v = v.transpose(2, 3).reshape(B, mp * ps, KV, Dh)
     s = torch.einsum("bkgd,bskd->bkgs", q.float(), k.float()) * Dh ** -0.5
@@ -55,14 +95,20 @@ def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     v_pool: torch.Tensor, block_tables: torch.Tensor,
-                    lengths: torch.Tensor, layer: int = 0) -> torch.Tensor:
-    """q [B, KV, G, Dh] -> [B, KV, G, Dh] over the full pool's ``layer``.
+                    lengths: torch.Tensor, layer: int = 0,
+                    k_scale: Optional[torch.Tensor] = None,
+                    v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q [B, KV, G, Dh] -> [B, KV, G, Dh] over the full pool's ``layer``
+    (int8 pools with their per-token scales).
 
     CPU tensors take :func:`paged_attention_plain`. CUDA tensors launch
     ``csrc/paged_decode.cu`` or raise; there is no fallback."""
     if not q.is_cuda:
         return paged_attention_plain(q, k_pool, v_pool, block_tables,
-                                     lengths, layer)
+                                     lengths, layer, k_scale, v_scale)
+    k_pool, v_pool, k_scale, v_scale, layer = _full_pool(
+        k_pool, v_pool, k_scale, v_scale, layer)
+    quantized = k_pool.dtype == torch.int8
     B, KV, G, Dh = q.shape
     if k_pool.dim() != 5 or k_pool.shape != v_pool.shape:
         raise ValueError(f"pools must be [L, P, KV, ps, Dh], got "
@@ -71,14 +117,25 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if (KVp, Dhp) != (KV, Dh):
         raise ValueError(f"q {tuple(q.shape)} does not match pool "
                          f"{tuple(k_pool.shape)}")
-    if q.dtype not in _DTYPE_CODE or k_pool.dtype != q.dtype \
-            or v_pool.dtype != q.dtype:
+    pool_dt = torch.int8 if quantized else q.dtype
+    if q.dtype not in _DTYPE_CODE or k_pool.dtype != pool_dt \
+            or v_pool.dtype != pool_dt:
         raise ValueError(f"paged_decode takes bf16 or fp32 q and pools of "
-                         f"the same dtype, got {q.dtype}/{k_pool.dtype}/"
-                         f"{v_pool.dtype}")
-    if Dh % 8 or Dh > 256 or G > 16:
-        raise ValueError(f"paged_decode supports Dh % 8 == 0, Dh <= 256, "
-                         f"G <= 16; got Dh={Dh}, G={G}")
+                         f"the same dtype or int8, got {q.dtype}/"
+                         f"{k_pool.dtype}/{v_pool.dtype}")
+    if Dh % (16 if quantized else 8) or Dh > 256 or G > 16:
+        raise ValueError(f"paged_decode supports Dh % 8 == 0 (int8: 16), "
+                         f"Dh <= 256, G <= 16; got Dh={Dh}, G={G}")
+    if quantized:
+        if k_scale is None or v_scale is None:
+            raise ValueError("int8 pools require k_scale/v_scale")
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t.shape != k_pool.shape[:-1] or t.dtype != torch.float32:
+                raise ValueError(f"{name} must be fp32 "
+                                 f"{tuple(k_pool.shape[:-1])}, got "
+                                 f"{t.dtype} {tuple(t.shape)}")
+            if t.device != q.device or not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous on {q.device}")
     if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise ValueError("block_tables and lengths must be int32")
     if block_tables.dim() != 2 or block_tables.shape[0] != B \
@@ -92,6 +149,17 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {q.device}")
     out = torch.empty_like(q)
+    if quantized:
+        fn = _cuda.function("paged_decode_int8")
+        _cuda.launches["paged_decode_int8"] += 1
+        _cuda.check(fn(_cuda.ptr(q), _cuda.ptr(k_pool), _cuda.ptr(v_pool),
+                       _cuda.ptr(k_scale), _cuda.ptr(v_scale),
+                       _cuda.ptr(block_tables), _cuda.ptr(lengths),
+                       _cuda.ptr(out), B, KV, G, Dh, P, ps,
+                       block_tables.shape[1], int(layer), Dh ** -0.5,
+                       _DTYPE_CODE[q.dtype], _cuda.stream_of(q)),
+                    "paged_decode_int8")
+        return out
     fn = _cuda.function("paged_decode")
     _cuda.launches["paged_decode"] += 1
     _cuda.check(fn(_cuda.ptr(q), _cuda.ptr(k_pool), _cuda.ptr(v_pool),

@@ -1,0 +1,133 @@
+"""Fused int4 dequantize-matmul (port of
+``speech_distill_tpu/ops/quant_matmul.py``).
+
+:func:`int4_matmul` computes ``y = x @ ((nibble - 8) * scale)`` from the
+packed split-halves weight (``ops/quant.quantize_array_int4``: the high
+nibble is contraction row r, the low nibble row K/2 + r) without ever
+writing the bf16 weight to memory: on CUDA tensors it launches the
+hand-written kernel ``csrc/int4_matmul.cu`` (the counterpart of the TPU
+``_kernel``) or raises; on CPU tensors it runs :func:`int4_matmul_plain`.
+
+The route :func:`quantized_matmul` and ``models/qwen3._proj`` take for a
+2-D int4 leaf is set by :func:`int4_route`:
+
+* ``"auto"`` (default): CUDA inputs launch the kernel; CPU inputs take
+  dequantize-then-matmul, the route the JAX model takes off the TPU;
+* ``"plain"``: :func:`int4_matmul_plain` on any device (the kernel's
+  function in plain tensor code, the reference the kernel is held to).
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Dict
+
+import torch
+
+from speech_distill_tpu_torch.ops import _cuda
+from speech_distill_tpu_torch.ops.quant import dequantize_array, unpack_int4
+
+_OUT_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# tile of the kernel: 128 output columns, 32 packed rows a step
+BLOCK_N, BLOCK_K2 = 128, 32
+ROUTES = ("auto", "plain")
+_route = ["auto"]
+_sm_count: Dict[int, int] = {}       # streaming multiprocessors by device
+
+
+@contextlib.contextmanager
+def int4_route(name: str):
+    """Within the block, 2-D int4 leaves take the route ``name``."""
+    if name not in ROUTES:
+        raise ValueError(f"int4 route {name!r} not in {ROUTES}")
+    old, _route[0] = _route[0], name
+    try:
+        yield
+    finally:
+        _route[0] = old
+
+
+def int4_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
+                      scale: torch.Tensor) -> torch.Tensor:
+    """The kernel's function in plain tensor code: x rounded to bf16, the
+    unpacked integer grid (exact), an fp32 product, the per-column scale
+    applied after the sum, the result in x.dtype."""
+    xb = x.to(torch.bfloat16).float()
+    acc = xb @ unpack_int4(packed).float()
+    return (acc * scale.float().reshape(1, -1)).to(x.dtype)
+
+
+def int4_matmul(x: torch.Tensor, packed: torch.Tensor,
+                scale: torch.Tensor) -> torch.Tensor:
+    """y = x @ dequant_int4(packed, scale).
+
+    x [M, K] (any float dtype; bf16 operands, fp32 accumulation), packed
+    [K/2, N] uint8 split-halves nibbles, scale [1, N] fp32. Returns [M, N]
+    in x.dtype. CPU tensors take :func:`int4_matmul_plain`; CUDA tensors
+    launch ``csrc/int4_matmul.cu`` or raise."""
+    if not x.is_cuda:
+        return int4_matmul_plain(x, packed, scale)
+    if x.dim() != 2 or packed.dim() != 2:
+        raise ValueError(f"int4_matmul takes x [M, K] and packed [K/2, N], "
+                         f"got {tuple(x.shape)} / {tuple(packed.shape)}")
+    M, K = x.shape
+    K2, N = packed.shape
+    if K != 2 * K2 or scale.numel() != N:
+        raise ValueError(f"x {tuple(x.shape)}, packed {tuple(packed.shape)} "
+                         f"and scale {tuple(scale.shape)} do not match")
+    if K2 % BLOCK_K2 or N % BLOCK_N:
+        raise ValueError(f"int4_matmul needs K/2 % {BLOCK_K2} == 0 and "
+                         f"N % {BLOCK_N} == 0, got K/2={K2}, N={N}")
+    if x.dtype not in _OUT_CODE or packed.dtype != torch.uint8 \
+            or scale.dtype != torch.float32:
+        raise ValueError(f"int4_matmul takes fp32/bf16 x, uint8 packed, "
+                         f"fp32 scale; got {x.dtype}/{packed.dtype}/"
+                         f"{scale.dtype}")
+    for name, t in (("packed", packed), ("scale", scale)):
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {x.device}")
+    # the kernel's operand is x rounded to bf16 (a bf16 x is used in place;
+    # its two halves are column slices at row stride K)
+    xb = x.to(torch.bfloat16).contiguous()
+    if xb.data_ptr() % 16 or packed.data_ptr() % 16:
+        raise ValueError("int4_matmul needs 16-byte aligned x and packed")
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    splits = split_k(M, N, K2, x.device)
+    work = (torch.empty((splits, M, N), dtype=torch.float32,
+                        device=x.device) if splits > 1 else out)
+    fn = _cuda.function("int4_matmul")
+    _cuda.launches["int4_matmul"] += 1
+    _cuda.check(fn(_cuda.ptr(xb), _cuda.ptr(packed), _cuda.ptr(scale),
+                   _cuda.ptr(out), _cuda.ptr(work), M, N, K2, K, splits,
+                   _OUT_CODE[x.dtype], _cuda.stream_of(x)), "int4_matmul")
+    return out
+
+
+def split_k(M: int, N: int, K2: int, device) -> int:
+    """Contraction splits: enough blocks for two a streaming
+    multiprocessor when M is small (decode), each split at least 4
+    steps of 32 packed rows; 1 when the output tiles already fill the
+    card (their partial sums would cost more than they save)."""
+    bm = 16 if M <= 16 else 64
+    tiles = (N // BLOCK_N) * -(-M // bm)
+    sms = _sm_count.get(device.index)
+    if sms is None:
+        sms = _sm_count[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    steps = K2 // BLOCK_K2
+    return max(1, min(-(-2 * sms // tiles), steps // 4))
+
+
+def quantized_matmul(x: torch.Tensor, leaf: Dict[str, torch.Tensor]
+                     ) -> torch.Tensor:
+    """``x @ dequant(leaf)`` with leading batch dims on x. A 2-D int4 leaf
+    takes the route of :func:`int4_route`; other leaves dequantize to
+    x.dtype and multiply (no kernel exists for them)."""
+    route = _route[0]
+    if "q4" not in leaf or leaf["q4"].dim() != 2 \
+            or (route == "auto" and not x.is_cuda):
+        return x @ dequantize_array(leaf, x.dtype)
+    N = leaf["q4"].shape[1]
+    fn = int4_matmul_plain if route == "plain" else int4_matmul
+    y = fn(x.reshape(-1, x.shape[-1]), leaf["q4"],
+           leaf["scale"].reshape(1, N))
+    return y.reshape(*x.shape[:-1], N)

@@ -12,9 +12,12 @@ from speech_distill_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
     flash_attention_fwd, flash_attention_fwd_plain)
 from speech_distill_tpu_torch.ops.paged_attention import (
-    paged_attention, paged_attention_plain)
+    paged_attention, paged_attention_plain, quantize_kv)
 from speech_distill_tpu_torch.ops.pallas_lm_loss import (
     lm_head_stats, lm_head_stats_bwd_plain, lm_head_stats_plain)
+from speech_distill_tpu_torch.ops.quant import quantize_array_int4
+from speech_distill_tpu_torch.ops.quant_matmul import (int4_matmul,
+                                                       int4_matmul_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -31,6 +34,11 @@ HEAD_GRAD_REL_TOL = 2e-2
 # round p and ds to bf16 (2^-9 relative) before products over up to T * G
 # terms and write bf16 results (2^-9), against an fp32 plain version
 BWD_REL_TOL = 2e-2
+# int4 dequant-matmul, max |kernel - plain| / max |plain| on the same bf16
+# x and codes: fp32 sums in another order (and split over blocks) for an
+# fp32 output; for a bf16 output one rounding of each element (at most
+# 2^-8 of it) of sums that may differ in their last fp32 bits
+INT4_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 
 
 @pytest.fixture
@@ -164,3 +172,60 @@ def test_lm_head_kernels_match_plain(dev, N, V, D):
     assert hr.grad.dtype == torch.bfloat16 and wr.grad.shape == w.shape
     assert _rel_err(hr.grad, ref_dh) <= HEAD_GRAD_REL_TOL
     assert _rel_err(wr.grad, ref_dw) <= HEAD_GRAD_REL_TOL
+
+
+@pytest.mark.parametrize("M", [1, 16, 33, 300])
+@pytest.mark.parametrize("K,N", [(1024, 3072), (3072, 1024)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int4_matmul_kernel_matches_plain(dev, M, K, N, dtype):
+    """Decode (M <= 16, contraction split over blocks) and prefill tiles,
+    a ragged last row tile, nibble 0 (-8) and an all-zero column."""
+    rng = np.random.default_rng(M + K)
+    w = torch.from_numpy(rng.normal(0, 0.02, (K, N))).float()
+    w[:, 7] = 0.0
+    leaf = quantize_array_int4(w.to(dev))
+    packed = leaf["q4"].clone()
+    packed[0, :64] = 0x08
+    x = torch.from_numpy(rng.normal(size=(M, K))).to(dev, dtype)
+    before = _cuda.launches["int4_matmul"]
+    got = int4_matmul(x, packed, leaf["scale"])
+    torch.cuda.synchronize()
+    assert _cuda.launches["int4_matmul"] == before + 1
+    ref = int4_matmul_plain(x.float(), packed, leaf["scale"])
+    assert got.dtype == dtype and got.shape == (M, N)
+    assert torch.all(got[:, 7] == 0)
+    assert _rel_err(got, ref) <= INT4_REL_TOL[dtype]
+
+
+def test_int4_matmul_refuses_what_the_kernel_cannot_take(dev):
+    leaf = quantize_array_int4(torch.ones(128, 64, device=dev))
+    with pytest.raises(ValueError, match="N % 128"):
+        int4_matmul(torch.ones(2, 128, device=dev), leaf["q4"],
+                    leaf["scale"])
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, BF16_ATOL),
+                                        (torch.float32, FP32_ATOL)])
+def test_paged_decode_int8_kernel_matches_plain(dev, dtype, atol):
+    rng = np.random.default_rng(5)
+    B, KV, G, Dh, L, P, ps, mp = 5, 8, 2, 128, 3, 40, 16, 8
+    q = torch.from_numpy(rng.normal(size=(B, KV, G, Dh))).to(dev, dtype)
+    kq, ks = quantize_kv(torch.from_numpy(
+        rng.normal(size=(L, P, KV, ps, Dh))).to(dev))
+    vq, vs = quantize_kv(torch.from_numpy(
+        rng.normal(size=(L, P, KV, ps, Dh))).to(dev))
+    bt = torch.from_numpy(rng.permutation(P)[:B * mp].reshape(B, mp)
+                          ).to(dev, torch.int32)
+    lengths = torch.tensor([0, 1, ps, ps + 1, mp * ps], dtype=torch.int32,
+                           device=dev)
+    before = dict(_cuda.launches)
+    got = paged_attention(q, kq, vq, bt, lengths, layer=2, k_scale=ks,
+                          v_scale=vs)
+    torch.cuda.synchronize()
+    assert {n: _cuda.launches[n] - before[n] for n in (
+        "paged_decode", "paged_decode_int8")} == {
+        "paged_decode": 0, "paged_decode_int8": 1}
+    ref = paged_attention_plain(q.float(), kq, vq, bt, lengths, layer=2,
+                                k_scale=ks, v_scale=vs)
+    assert got.dtype == dtype and torch.all(got[0] == 0)
+    torch.testing.assert_close(got.float(), ref, atol=atol, rtol=0)

@@ -108,3 +108,24 @@ def test_lm_head_kernel_wrappers_refuse_what_the_kernels_cannot_take():
     h64, w64 = h[:, :64].contiguous(), w[:, :64].contiguous()
     with pytest.raises(ValueError, match="int32"):
         pl.lm_head_dh(h64, w64, labels.long(), *[torch.zeros(4)] * 5, 2.0)
+
+
+def test_quantized_serving_raises_without_cuda(monkeypatch):
+    """The int8 pool and the quantized model default to the card too."""
+    from speech_distill_tpu_torch.core.config import qwen3_tiny
+    from speech_distill_tpu_torch.infer.paged import PagedKVCache
+    from speech_distill_tpu_torch.models import qwen3
+    from speech_distill_tpu_torch.models.convert import (model_to_tree,
+                                                         params_from_jax)
+    from speech_distill_tpu_torch.ops.quant import quantize_params
+
+    cfg = qwen3_tiny(32, dtype="float32")
+    tree = quantize_params(model_to_tree(qwen3.init_params(cfg, 0, "cpu")),
+                           bits=4, method="int4")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PagedKVCache.create(cfg, 4, 8, torch.int8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        params_from_jax(tree, cfg)
+    model = params_from_jax(tree, cfg, "cpu")
+    assert isinstance(model.layers[0].attn.q, qwen3.QuantWeight)

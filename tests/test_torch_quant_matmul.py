@@ -1,0 +1,114 @@
+"""PyTorch port, fused int4 dequant-matmul: ``int4_matmul_plain`` (the
+function of the K3 kernel, ``csrc/int4_matmul.cu``) held against the JAX
+Pallas ``int4_matmul`` in interpret mode on the CPU, and the routes of
+``quantized_matmul``."""
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from speech_distill_tpu.ops import quant as jquant
+from speech_distill_tpu.ops.quant_matmul import (
+    int4_matmul as jax_int4_matmul, quantized_matmul as jax_quantized_matmul)
+from speech_distill_tpu_torch.ops import _cuda
+from speech_distill_tpu_torch.ops.quant import (dequantize_array,
+                                                quantize_array_int4,
+                                                quantize_array_int8)
+from speech_distill_tpu_torch.ops.quant_matmul import (
+    int4_matmul, int4_matmul_plain, int4_route, quantized_matmul)
+
+K, N = 1024, 512
+# both sides: the same bf16 x, an exact integer grid, fp32 sums of 1024
+# products of magnitude ~7 (|y| ~ 200) in another order, one fp32 scale
+ATOL = 1e-3
+
+
+def _leaf(seed=3):
+    w = np.random.default_rng(seed).normal(size=(K, N)).astype(np.float32)
+    jleaf = jquant.quantize_array_int4(jnp.asarray(w))
+    leaf = {k: torch.from_numpy(np.array(v)) for k, v in jleaf.items()}
+    return jleaf, leaf
+
+
+@pytest.mark.parametrize("M", [1, 3, 16, 33])
+def test_plain_matches_pallas_interpret(M):
+    jleaf, leaf = _leaf()
+    x = np.random.default_rng(M).normal(size=(M, K)).astype(np.float32)
+    ref = np.asarray(jax_int4_matmul(jnp.asarray(x), jleaf["q4"],
+                                     jleaf["scale"].reshape(1, N),
+                                     interpret=True))
+    got = int4_matmul_plain(torch.from_numpy(x), leaf["q4"], leaf["scale"])
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    np.testing.assert_allclose(got.numpy(), ref, atol=ATOL, rtol=0)
+    # the CPU wrapper is the plain version and launches nothing
+    before = _cuda.launches["int4_matmul"]
+    same = int4_matmul(torch.from_numpy(x), leaf["q4"], leaf["scale"])
+    assert _cuda.launches["int4_matmul"] == before
+    torch.testing.assert_close(same, got, atol=0, rtol=0)
+
+
+def test_leading_batch_dims_match_pallas_interpret():
+    jleaf, leaf = _leaf()
+    x = np.random.default_rng(7).normal(size=(2, 5, K)).astype(np.float32)
+    ref = np.asarray(jax_quantized_matmul(jnp.asarray(x), jleaf,
+                                          interpret=True))
+    with int4_route("plain"):
+        got = quantized_matmul(torch.from_numpy(x), leaf)
+    assert got.shape == (2, 5, N)
+    np.testing.assert_allclose(got.numpy(), ref, atol=ATOL, rtol=0)
+
+
+def test_plain_is_exact_on_bf16_inputs_and_keeps_dtype():
+    """On bf16 x the plain version is the fp32 product of the bf16 values
+    with the integer grid, scaled after the sum, rounded once to bf16."""
+    _, leaf = _leaf(seed=4)
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(4, K)).astype(np.float32)).to(torch.bfloat16)
+    got = int4_matmul_plain(x, leaf["q4"], leaf["scale"])
+    grid = torch.cat([(leaf["q4"] >> 4).float() - 8,
+                      (leaf["q4"] & 0xF).float() - 8])
+    want = ((x.double() @ grid.double()) * leaf["scale"].double()).to(
+        torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got, want, atol=0, rtol=2 ** -7)
+
+
+def test_routes():
+    """auto on the CPU is dequantize-then-matmul (the JAX route off the
+    TPU); an int8 leaf takes it on every route."""
+    _, leaf = _leaf(seed=5)
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(3, K)).astype(np.float32))
+    deq = x @ dequantize_array(leaf, torch.float32)
+    torch.testing.assert_close(quantized_matmul(x, leaf), deq, atol=0,
+                               rtol=0)
+    with int4_route("plain"):
+        torch.testing.assert_close(
+            quantized_matmul(x, leaf),
+            int4_matmul_plain(x, leaf["q4"], leaf["scale"]), atol=0, rtol=0)
+        q8 = quantize_array_int8(torch.from_numpy(np.random.default_rng(
+            2).normal(size=(K, N)).astype(np.float32)))
+        torch.testing.assert_close(quantized_matmul(x, q8),
+                                   x @ dequantize_array(q8, torch.float32),
+                                   atol=0, rtol=0)
+    with pytest.raises(ValueError, match="route"):
+        with int4_route("pallas"):
+            pass
+
+
+def test_zero_codes_and_zero_columns():
+    """Nibble 0 (-8, which the quantizer never writes) and an all-zero
+    column (scale 0 after the 1e-12 guard) come out right."""
+    w = np.random.default_rng(6).normal(size=(64, 128)).astype(np.float32)
+    w[:, 5] = 0.0
+    leaf = quantize_array_int4(torch.from_numpy(w))
+    packed = leaf["q4"].clone()
+    packed[0, :] = 0x08                      # row 0 -> -8, row 32 -> 0
+    x = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(2, 64)).astype(np.float32))
+    got = int4_matmul_plain(x, packed, leaf["scale"])
+    want = x.to(torch.bfloat16).double() @ (
+        dequantize_array({"q4": packed, "scale": leaf["scale"]},
+                         torch.float32).double())
+    assert torch.all(got[:, 5] == 0)
+    torch.testing.assert_close(got.double(), want, atol=1e-4, rtol=1e-5)
