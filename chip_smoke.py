@@ -11,7 +11,9 @@
    and fails unless both serving kernels were launched during the serve.
 4. Holds each serving kernel against its plain PyTorch version on the
    card at the serving path's shapes, and times kernel, plain version,
-   bound and (for flash attention) the library SDPA call as a yardstick.
+   bound and (for flash attention) the library SDPA call as a yardstick;
+   K1-fwd and SDPA by CUDA-graph replays, here and at the KD and stage-1
+   shapes.
 5. Teacher-forces decode steps of ``paged_forward`` through the kernel and
    through the plain version, and compares the logits.
 5b. Quantized serving: the same model quantized to int4 projections and
@@ -28,8 +30,8 @@
    backward kernels ran exactly as often as the step's layers say, the
    losses are finite, the base stayed frozen and the adapters moved. Then
    a short loop on one repeated batch, whose loss must fall.
-7. Holds the backward kernels (K1-dq, K1-dkv) against the plain backward
-   at the step's shape and times them beside SDPA's backward.
+7. Holds K1-fwd and the backward kernels (K1-dq, K1-dkv) against their
+   plain versions at the step's shape and times them beside SDPA.
 8. Loss and gradients of the KD step at reduced depth through the kernel
    route and the plain route in bf16, against the plain route in fp32.
 9. Two KD steps with ``fused_loss=True, fused_backend="pallas"`` (the K2
@@ -46,7 +48,10 @@
    them at N 16,380.
 12. The stage-1 gradient of the embedding at 4 layers, B 1, T 4096 through
    the kernel route and the plain route in bf16, against fp32.
-13. Prints the kernels JSON line, then the result line.
+13. K1 (fwd, dq, dkv) at the stage-1 microbatch's shape: against the plain
+   versions at B 1, T 4096, timed at B 4 beside SDPA.
+14. Prints the kernels JSON line (K1-fwd once for each of the serve, KD
+   and stage-1 shapes), then the result line.
 
 Exits non-zero, printing no result, when CUDA is missing or any phase
 fails. Only one card is needed. Imports nothing of JAX.
@@ -383,50 +388,84 @@ def check_paged_decode(dev, launches: int) -> dict:
             "bound_by": bound_by, "library_ms": None}
 
 
-def check_flash_fwd(dev, launches: int) -> dict:
-    """K1-fwd at the long-prompt prefill's shape: B 1, T 1024, H 16,
-    KV 8, Dh 128."""
-    rng = np.random.default_rng(SEED + 2)
-    B, T, H, KV, Dh = 1, 1024, 16, 8, 128
+def flash_inputs(rng, dev, B: int, T: int, n: int = 3, H: int = 16,
+                 KV: int = 8, Dh: int = 128) -> list:
+    """q [B, T, H, Dh], k and v [B, T, KV, Dh] (and, for n 4, a dO like
+    q): bf16 of N(0, 1), the model's head layout."""
+    return [torch.from_numpy(rng.standard_normal((B, T, h, Dh), np.float32)
+                             ).to(dev, torch.bfloat16)
+            for h in (H, KV, KV, H)[:n]]
 
-    def rnd(*shape):
-        return torch.from_numpy(rng.standard_normal(shape, np.float32)
-                                ).to(dev, torch.bfloat16)
-    q, k, v = rnd(B, T, H, Dh), rnd(B, T, KV, Dh), rnd(B, T, KV, Dh)
+
+def sdpa_inputs(q, k, v, grad: bool = False) -> tuple:
+    """q, k, v for PyTorch's fused SDPA, the yardstick only (never called
+    by the port): [B, heads, T, Dh], the KV heads repeated to H once here,
+    outside every timing."""
+    G = q.shape[2] // k.shape[2]
+    out = (q.transpose(1, 2), k.repeat_interleave(G, dim=2).transpose(1, 2),
+           v.repeat_interleave(G, dim=2).transpose(1, 2))
+    return tuple(t.detach().requires_grad_() for t in out) if grad else out
+
+
+def flash_fwd_entry(what: str, q, k, v, launches: int, err: float, side,
+                    plain_iters: int = 20) -> dict:
+    """The kernels-line entry of K1-fwd at one path's shape: the kernel and
+    the SDPA yardstick timed by CUDA-graph replays (:func:`graph_ms`: a
+    call here is shorter than its host work), the plain version by
+    events."""
+    B, T, H, Dh = q.shape
+    ms = graph_ms(lambda: flash_attention_fwd(q, k, v), side)
+    plain_ms = time_ms(lambda: flash_attention_fwd_plain(q, k, v),
+                       iters=plain_iters, warmup=1)
+    qt, kt, vt = sdpa_inputs(q, k, v)
+    library_ms = graph_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), side)
+    del qt, kt, vt
+    nbytes = (q.numel() * 2 * 2 + k.numel() * 2 * 2   # q, o, k, v bf16
+              + B * H * T * 4)                         # lse fp32
+    flops = 2 * B * H * T * T * Dh                     # causal QK^T + PV
+    bound_ms, bound_by = bound(nbytes, flops)
+    log(f"flash_fwd at the {what} shape B {B} T {T} H {H} KV {k.shape[2]} "
+        f"Dh {Dh}: ms={ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s) "
+        f"library_ms={library_ms:.4f} (SDPA causal; kernel / SDPA "
+        f"{ms / library_ms:.2f}) plain_ms={plain_ms:.4f} bound_ms="
+        f"{bound_ms:.5f} ({bound_by}) launches={launches} (graph replays)")
+    return {"name": "flash_fwd", "route": "cuda",
+            "source": "speech_distill_tpu_torch/csrc/flash_fwd.cu",
+            "replaces": "speech_distill_tpu/ops/flash_attention.py:28",
+            "path": what, "shape": [B, T, H, k.shape[2], Dh],
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "timing": "graph"}
+
+
+def check_flash_fwd(q, k, v, what: str) -> float:
+    """K1-fwd against its plain version in fp32 on the same bf16 inputs;
+    returns max(|o - plain|, |lse - plain|)."""
     o, lse = flash_attention_fwd(q, k, v)
     torch.cuda.synchronize()
     ref_o, ref_lse = flash_attention_fwd_plain(q.float(), k.float(),
                                                v.float())
     err = (o.float() - ref_o).abs().max().item()
     err_lse = (lse - ref_lse).abs().max().item()
-    log(f"flash_fwd max_abs_err o={err:.3e} tol={KERNEL_ATOL} (bf16 output "
-        f"and bf16 P), lse={err_lse:.3e} tol={LSE_ATOL} (fp32)")
+    log(f"flash_fwd at the {what} check shape {list(q.shape)}: "
+        f"max_abs_err o={err:.3e} tol={KERNEL_ATOL} (bf16 output and bf16 "
+        f"P), lse={err_lse:.3e} tol={LSE_ATOL} (fp32)")
     if not (err <= KERNEL_ATOL and err_lse <= LSE_ATOL):
-        fail(f"flash_fwd disagrees with its plain version: {err}, "
-             f"{err_lse}")
-    ms = time_ms(lambda: flash_attention_fwd(q, k, v))
-    plain_ms = time_ms(lambda: flash_attention_fwd_plain(q, k, v))
-    # yardstick only, never called by the port: PyTorch's fused SDPA over
-    # the KV heads repeated to H (the repeat is done once, outside the
-    # timing)
-    G = H // KV
-    qt = q.transpose(1, 2)
-    kt = k.repeat_interleave(G, dim=2).transpose(1, 2)
-    vt = v.repeat_interleave(G, dim=2).transpose(1, 2)
-    library_ms = time_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True))
-    nbytes = (q.numel() * 2 * 2 + k.numel() * 2 * 2   # q, o, k, v bf16
-              + B * H * T * 4)                         # lse fp32
-    flops = 2 * B * H * T * T * Dh                     # causal QK^T + PV
-    bound_ms, bound_by = bound(nbytes, flops)
-    return {"name": "flash_fwd", "route": "cuda",
-            "source": "speech_distill_tpu_torch/csrc/flash_fwd.cu",
-            "replaces": "speech_distill_tpu/ops/flash_attention.py:28",
-            "launches": launches, "max_abs_err": max(err, err_lse),
-            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+        fail(f"flash_fwd disagrees with its plain version at the {what} "
+             f"shape: {err}, {err_lse}")
+    return max(err, err_lse)
+
+
+def check_flash_serve(dev, launches: int, side) -> dict:
+    """K1-fwd at the long-prompt prefill's shape: B 1, T 1024, H 16,
+    KV 8, Dh 128."""
+    rng = np.random.default_rng(SEED + 2)
+    q, k, v = flash_inputs(rng, dev, 1, 1024)
+    err = check_flash_fwd(q, k, v, "serve")
+    return flash_fwd_entry("serve", q, k, v, launches, err, side)
 
 
 def check_model_path(cfg, model, dev) -> None:
@@ -877,66 +916,49 @@ def check_loss_falls(cfg, dcfg, base, trainable, batch, dev):
         fail(f"the loss on one repeated batch did not fall: {losses}")
 
 
-def check_flash_bwd(dev, counts: dict) -> list:
+def check_flash_bwd(dev, counts: dict, side) -> list:
     """K1-dq and K1-dkv at the training step's shape (B 8, T 512, H 16,
     KV 8, Dh 128) against the plain backward in fp32 on the same bf16
-    inputs; K1-fwd timed at the same shape."""
+    inputs, K1-fwd against its plain version; K1-fwd graph-timed at the
+    same shape. Returns the kernels-line entries."""
     rng = np.random.default_rng(SEED + 5)
     B, T, H, KV, Dh = TRAIN_B, TRAIN_T, 16, 8, 128
-    G = H // KV
-
-    def rnd(*shape):
-        return torch.from_numpy(rng.standard_normal(shape, np.float32)
-                                ).to(dev, torch.bfloat16)
-    q, k, v, do = rnd(B, T, H, Dh), rnd(B, T, KV, Dh), rnd(B, T, KV, Dh), \
-        rnd(B, T, H, Dh)
+    q, k, v, do = flash_inputs(rng, dev, B, T, n=4)
+    fwd_err = check_flash_fwd(q, k, v, "KD")
+    abs_err, err = flash_bwd_errors(q, k, v, do, "KD")
     o, lse = flash_attention_fwd(q, k, v)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    dq = flash_dq(q, k, v, do, lse, delta)
-    dk, dv = flash_dkv(q, k, v, do, lse, delta)
-    torch.cuda.synchronize()
-    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
-    ref_o, ref_lse = flash_attention_fwd_plain(qf, kf, vf)
-    ref = flash_attention_bwd_plain(qf, kf, vf, ref_o, ref_lse, dof)
-    abs_err = {name: (g.float() - r).abs().max().item()
-               for name, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref)}
-    err = {name: abs_err[name] / r.abs().max().item()
-           for name, r in zip(("dq", "dk", "dv"), ref)}
-    log(f"flash_bwd max |kernel - plain| / max |plain|: " + ", ".join(
-        f"{n}={e:.3e}" for n, e in err.items()) + f" tol={BWD_REL_TOL} "
-        f"(bf16 p and ds in the products, bf16 outputs, against fp32); "
-        f"max |kernel - plain|: " + ", ".join(
-            f"{n}={e:.3e}" for n, e in abs_err.items()))
-    if not max(err.values()) <= BWD_REL_TOL:
-        fail(f"flash backward disagrees with its plain version: {err}")
     dq_ms = time_ms(lambda: flash_dq(q, k, v, do, lse, delta))
     dkv_ms = time_ms(lambda: flash_dkv(q, k, v, do, lse, delta))
     plain_ms = time_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse,
                                                          do), iters=5)
-    # yardstick only, never called by the port: the backward of PyTorch's
-    # fused SDPA over KV heads repeated to H, one number for the pair
-    qt = q.transpose(1, 2).detach().requires_grad_()
-    kt = k.repeat_interleave(G, dim=2).transpose(1, 2).detach() \
-        .requires_grad_()
-    vt = v.repeat_interleave(G, dim=2).transpose(1, 2).detach() \
-        .requires_grad_()
+    library_ms = sdpa_bwd_ms(q, k, v, do)
+    rows = flash_bwd_entries("KD", q, k, counts, abs_err, err,
+                             (dq_ms, dkv_ms, plain_ms, library_ms))
+    return rows + [flash_fwd_entry("KD", q, k, v, counts["flash_fwd"],
+                                   fwd_err, side, plain_iters=5)]
+
+
+def sdpa_bwd_ms(q, k, v, do, iters: int = 20) -> float:
+    """Events around the backward of PyTorch's fused SDPA over the KV heads
+    repeated to H, one number for the pair dq and dk/dv (the yardstick
+    only, never called by the port)."""
+    qt, kt, vt = sdpa_inputs(q, k, v, grad=True)
     out = torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True)
     dot = do.transpose(1, 2)
-    library_ms = time_ms(lambda: torch.autograd.grad(
-        out, (qt, kt, vt), dot, retain_graph=True))
-    fwd_ms = time_ms(lambda: flash_attention_fwd(q, k, v))
-    fwd_plain_ms = time_ms(lambda: flash_attention_fwd_plain(q, k, v),
-                           iters=5)
-    fwd_library_ms = time_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True))
+    return time_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), iters=iters)
+
+
+def flash_bwd_entries(what: str, q, k, counts: dict, abs_err: dict,
+                      err: dict, times: tuple) -> list:
+    """The kernels-line entries of K1-dq and K1-dkv at one path's shape;
+    ``times`` = (dq ms, dkv ms, plain backward ms, SDPA backward ms)."""
+    B, T, H, Dh = q.shape
+    dq_ms, dkv_ms, plain_ms, library_ms = times
     causal_mm = B * H * T * T * Dh          # flops of one causal product
     qb, kvb, rowb = q.numel() * 2, k.numel() * 2, B * H * T * 4
-    fwd_bound = bound(2 * qb + 2 * kvb + rowb, 2 * causal_mm)
-    log(f"flash_fwd at the train shape B {B} T {T}: ms={fwd_ms:.4f} "
-        f"plain_ms={fwd_plain_ms:.4f} library_ms={fwd_library_ms:.4f} "
-        f"bound_ms={fwd_bound[0]:.5f} ({fwd_bound[1]})")
     rows = []
     for name, ms, line, nbytes, flops in (
             ("flash_dq", dq_ms, 73, 3 * qb + 2 * kvb + 2 * rowb,
@@ -949,15 +971,75 @@ def check_flash_bwd(dev, counts: dict) -> list:
             "name": name, "route": "cuda",
             "source": "speech_distill_tpu_torch/csrc/flash_bwd.cu",
             "replaces": f"speech_distill_tpu/ops/flash_attention.py:{line}",
+            "path": what, "shape": [B, T, H, k.shape[2], Dh],
             "launches": counts[name],
             "max_abs_err": max(abs_err[o] for o in outs),
             "max_rel_err": max(err[o] for o in outs), "ms": ms,
             "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms})
-    train_fwd = {"ms": fwd_ms, "plain_ms": fwd_plain_ms,
-                 "library_ms": fwd_library_ms, "bound_ms": fwd_bound[0],
-                 "shape": [B, T, H, KV, Dh]}
-    return rows, train_fwd
+            "bound_by": bound_by, "library_ms": library_ms,
+            "timing": "events"})
+    log(f"flash_bwd at the {what} shape B {B} T {T}: dq ms={dq_ms:.4f} "
+        f"dkv ms={dkv_ms:.4f} (bounds {rows[0]['bound_ms']:.5f}, "
+        f"{rows[1]['bound_ms']:.5f}) library_ms={library_ms:.4f} (SDPA "
+        f"backward, the pair) plain_ms={plain_ms:.4f} launches "
+        f"{counts['flash_dq']}, {counts['flash_dkv']}")
+    return rows
+
+
+def flash_bwd_errors(q, k, v, do, what: str) -> tuple:
+    """K1-dq and K1-dkv (on the forward kernel's o and lse) against the
+    plain backward in fp32 on the same bf16 inputs: (max |kernel - plain|,
+    that over max |plain|) for dq, dk and dv."""
+    o, lse = flash_attention_fwd(q, k, v)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    got = (flash_dq(q, k, v, do, lse, delta),
+           *flash_dkv(q, k, v, do, lse, delta))
+    torch.cuda.synchronize()
+    del o, lse, delta
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    ref_o, ref_lse = flash_attention_fwd_plain(qf, kf, vf)
+    ref = flash_attention_bwd_plain(qf, kf, vf, ref_o, ref_lse, dof)
+    abs_err = {name: (g.float() - r).abs().max().item()
+               for name, g, r in zip(("dq", "dk", "dv"), got, ref)}
+    err = {name: abs_err[name] / r.abs().max().item()
+           for name, r in zip(("dq", "dk", "dv"), ref)}
+    log(f"flash_bwd at the {what} check shape {list(q.shape)}: max |kernel "
+        f"- plain| / max |plain|: " + ", ".join(
+            f"{n}={e:.3e}" for n, e in err.items()) + f" tol={BWD_REL_TOL} "
+        f"(bf16 p and ds in the products, bf16 outputs, against fp32); "
+        f"max |kernel - plain|: " + ", ".join(
+            f"{n}={e:.3e}" for n, e in abs_err.items()))
+    if not max(err.values()) <= BWD_REL_TOL:
+        fail(f"flash backward disagrees with its plain version at the "
+             f"{what} shape: {err}")
+    return abs_err, err
+
+
+def check_flash_stage1(dev, counts: dict, side) -> list:
+    """K1 at the stage-1 microbatch's shape (H 16, KV 8, Dh 128, T 4096):
+    the forward and the backward pair against their plain versions at B 1
+    (the fp32 scores of one row, 1 GiB, beside the model), then timed at
+    B 4 beside SDPA, forward and backward. Returns the kernels-line
+    entries."""
+    rng = np.random.default_rng(SEED + 12)
+    q, k, v, do = flash_inputs(rng, dev, 1, S1_T, n=4)
+    fwd_err = check_flash_fwd(q, k, v, "stage-1")
+    abs_err, err = flash_bwd_errors(q, k, v, do, "stage-1")
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    q, k, v, do = flash_inputs(rng, dev, S1_B, S1_T, n=4)
+    rows = [flash_fwd_entry("stage-1", q, k, v, counts["flash_fwd"],
+                            fwd_err, side, plain_iters=2)]
+    o, lse = flash_attention_fwd(q, k, v)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    dq_ms = time_ms(lambda: flash_dq(q, k, v, do, lse, delta), iters=10)
+    dkv_ms = time_ms(lambda: flash_dkv(q, k, v, do, lse, delta), iters=10)
+    plain_ms = time_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse,
+                                                         do), iters=1)
+    library_ms = sdpa_bwd_ms(q, k, v, do, iters=10)
+    rows += flash_bwd_entries("stage-1", q, k, counts, abs_err, err,
+                              (dq_ms, dkv_ms, plain_ms, library_ms))
+    return rows
 
 
 def check_grad_path(cfg, model, lora, dev) -> None:
@@ -1222,6 +1304,7 @@ def stage1(cfg, dev):
         state, _ = step(state, model, batch)
         torch.cuda.synchronize()
     profile_step("stage1 step", run, {"flash": "flash_",
+                                      "flash_fwd": "flash_fwd",
                                       "lm_head": "lm_head_"}, warm=False)
     return counts, model, rows
 
@@ -1407,8 +1490,9 @@ def main() -> None:
     log(f"device memory allocated after the bf16 serve "
         f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
 
+    side = torch.cuda.Stream()          # warm-ups of every graph timing
     kernels = [check_paged_decode(dev, counts["paged_decode"]),
-               check_flash_fwd(dev, counts["flash_fwd"])]
+               check_flash_serve(dev, counts["flash_fwd"], side)]
     check_model_path(cfg, model, dev)
     t0 = time.perf_counter()
     qmodel, qcounts = serve_quant(cfg, model, dev)
@@ -1421,10 +1505,7 @@ def main() -> None:
         f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
     t0 = time.perf_counter()
     train_counts, lora, base = train(cfg, model, dev)
-    bwd_rows, train_fwd = check_flash_bwd(dev, train_counts)
-    kernels[1]["train_shape"] = dict(train_fwd,
-                                     launches=train_counts["flash_fwd"])
-    kernels += bwd_rows
+    kernels += check_flash_bwd(dev, train_counts, side)
     check_grad_path(cfg, model, lora, dev)
     check_fused_kd(cfg, base, lora, dev)
     del lora, base, model
@@ -1433,6 +1514,8 @@ def main() -> None:
     s1_counts, model, rows = stage1(cfg, dev)
     kernels += check_lm_head(dev, model, s1_counts)
     check_stage1_grad_path(cfg, model, rows, dev)
+    del model
+    kernels += check_flash_stage1(dev, s1_counts, side)
     log(f"stage1 phases s={time.perf_counter() - t0:.2f}")
     log(f"total s={time.perf_counter() - t_all:.2f}")
     log(json.dumps({"kernels": kernels}))

@@ -24,7 +24,10 @@ import torch
 from speech_distill_tpu_torch.ops import _cuda
 
 NEG_INF = -1e30
-KERNEL_BLOCK = 64            # query/key tile of csrc/flash_fwd.cu
+# T granularity of the kernels: flash_bwd.cu's query/key tile and
+# flash_fwd.cu's 64-row warpgroup tile (its 128-key tiles zero-fill
+# past T)
+KERNEL_BLOCK = 64
 
 
 def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,

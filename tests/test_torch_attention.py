@@ -67,10 +67,15 @@ def _qkv(B=2, T=128, H=4, KV=2, Dh=32, seed=0):
             rng.normal(size=(B, T, KV, Dh)).astype(np.float32))
 
 
-@pytest.mark.parametrize("H,KV,block", [(4, 2, 64), (2, 2, 32)],
-                         ids=["gqa", "mha"])
-def test_flash_plain_matches_jax_kernel(H, KV, block):
-    q, k, v = _qkv(H=H, KV=KV, seed=H)
+# the last two: shapes the CUDA kernel takes in its own ways, a group of 4
+# (two query heads a warpgroup pair, twice a KV head) and a half last
+# 128-row query tile (T 320) at Dh 64; or Dh 128 with one head a KV head
+@pytest.mark.parametrize("H,KV,block,T,Dh",
+                         [(4, 2, 64, 128, 32), (2, 2, 32, 128, 32),
+                          (8, 2, 64, 320, 64), (4, 4, 64, 192, 128)],
+                         ids=["gqa", "mha", "gqa4-half-tile", "mha-dh128"])
+def test_flash_plain_matches_jax_kernel(H, KV, block, T, Dh):
+    q, k, v = _qkv(T=T, H=H, KV=KV, Dh=Dh, seed=H)
     o, lse = flash_attention_fwd_plain(*map(torch.from_numpy, (q, k, v)))
     ref_o, (_, ref_lse, *_) = _flash_call(jnp.asarray(q), jnp.asarray(k),
                                           jnp.asarray(v), block, True)

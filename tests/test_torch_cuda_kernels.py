@@ -70,19 +70,37 @@ def test_paged_decode_kernel_matches_plain(dev, dtype, atol):
     torch.testing.assert_close(got.float(), ref, atol=atol, rtol=0)
 
 
-@pytest.mark.parametrize("H,KV", [(16, 8), (4, 4)])
-def test_flash_fwd_kernel_matches_plain(dev, H, KV):
-    rng = np.random.default_rng(1)
-    B, T, Dh = 2, 256, 128
-    q, k, v = (torch.from_numpy(rng.normal(size=(B, T, n, Dh))
-                                ).to(dev, torch.bfloat16)
-               for n in (H, KV, KV))
+def _flash_qkv(dev, B, T, H, KV, Dh, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=(B, T, n, Dh))).to(
+        dev, torch.bfloat16) for n in (H, KV, KV)]
+
+
+# T 64: one key tile, half of it past T; T 320: a half last 128-row query
+# tile; (16, 8) and (16, 4): two query heads of a KV group a block; (4, 4):
+# 128 rows of one head a block
+@pytest.mark.parametrize("H,KV", [(16, 8), (4, 4), (16, 4)])
+@pytest.mark.parametrize("T", [64, 320, 1024])
+@pytest.mark.parametrize("Dh", [64, 128])
+def test_flash_fwd_kernel_matches_plain(dev, H, KV, T, Dh):
+    q, k, v = _flash_qkv(dev, 2, T, H, KV, Dh, seed=1)
+    before = _cuda.launches["flash_fwd"]
     o, lse = flash_attention_fwd(q, k, v)
     torch.cuda.synchronize()
+    assert _cuda.launches["flash_fwd"] == before + 1
     ref_o, ref_lse = flash_attention_fwd_plain(q.float(), k.float(),
                                                v.float())
     torch.testing.assert_close(o.float(), ref_o, atol=BF16_ATOL, rtol=0)
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+
+
+def test_flash_fwd_kernel_is_deterministic(dev):
+    """Two calls on the same inputs give bitwise the same o and lse."""
+    q, k, v = _flash_qkv(dev, 2, 320, 16, 8, 128, seed=4)
+    o1, lse1 = flash_attention_fwd(q, k, v)
+    o2, lse2 = flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
 
 
 def _rel_err(got, ref):
@@ -110,11 +128,13 @@ def test_flash_bwd_kernels_match_plain(dev, H, KV):
         assert _rel_err(got, ref) <= BWD_REL_TOL, name
 
 
-def test_flash_autograd_runs_the_kernels(dev):
+@pytest.mark.parametrize("T", [512, 320])
+def test_flash_autograd_runs_the_kernels(dev, T):
     """Gradients through ``flash_attention`` on the card are the kernels'
-    backward, launched once each per backward."""
+    backward, launched once each per backward, reading the forward kernel's
+    lse (T 320: a half last query tile of the forward)."""
     rng = np.random.default_rng(3)
-    B, T, H, KV, Dh = 1, 512, 4, 2, 64
+    B, H, KV, Dh = 1, 4, 2, 64
     q, k, v = (torch.from_numpy(rng.normal(size=(B, T, n, Dh))).to(
         dev, torch.bfloat16).requires_grad_() for n in (H, KV, KV))
     w = torch.from_numpy(rng.normal(size=(B, T, H, Dh))).to(dev,
