@@ -12,8 +12,8 @@
 4. Holds each serving kernel against its plain PyTorch version on the
    card at the serving path's shapes, and times kernel, plain version,
    bound and (for flash attention) the library SDPA call as a yardstick;
-   K1-fwd and SDPA by CUDA-graph replays, here and at the KD and stage-1
-   shapes.
+   K1 (fwd, dq, dkv) and SDPA (forward, backward) by CUDA-graph replays,
+   here and at the KD and stage-1 shapes.
 5. Teacher-forces decode steps of ``paged_forward`` through the kernel and
    through the plain version, and compares the logits.
 5b. Quantized serving: the same model quantized to int4 projections and
@@ -45,7 +45,8 @@
    moved. Then a profile of one stage-1 step.
 11. Holds K2 (stats, dh, dW) against the plain versions at V 159,488,
    D 1024, at N 4096 and at the stage-1 microbatch's N 16,380, and times
-   them at N 16,380.
+   them at N 16,380 beside cuBLAS: h W^T for stats, that product followed
+   by the product with W (dh) or, transposed, with h (dW).
 12. The stage-1 gradient of the embedding at 4 layers, B 1, T 4096 through
    the kernel route and the plain route in bf16, against fp32.
 13. K1 (fwd, dq, dkv) at the stage-1 microbatch's shape: against the plain
@@ -187,17 +188,18 @@ def graph_ms(fn, side, iters: int = 20, replays: int = 10) -> float:
     """Mean device time of ``fn`` with no host in the way: ``iters`` calls
     captured in one CUDA graph, replayed ``replays`` times between CUDA
     events. For kernels shorter than their launch's host work, where
-    :func:`time_ms` measures the host. The warm-up runs on the stream
-    ``side``, one for all calls: cuBLAS keeps a workspace for every stream
-    it has run on, so a new stream a call would hold memory into the
-    later phases."""
+    :func:`time_ms` measures the host. The warm-up and the capture run on
+    the stream ``side``, one for all calls: cuBLAS keeps a workspace for
+    every stream it has run on, so a new stream a call would hold memory
+    into the later phases; and an autograd backward runs on the stream of
+    its forward, so a forward run on ``side`` has its backward captured."""
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -236,7 +238,9 @@ def build_kernels() -> None:
     reports = _cuda.build(list(_cuda.SIGNATURES))
     for name, rep in reports.items():
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill",
+                                       "Function properties",
+                                       "Performance Loss")):
                 log(f"ptxas {name}: {line.strip()}")
     log(f"build s={time.perf_counter() - t0:.2f} "
         f"built={sorted(reports)}")
@@ -928,27 +932,31 @@ def check_flash_bwd(dev, counts: dict, side) -> list:
     abs_err, err = flash_bwd_errors(q, k, v, do, "KD")
     o, lse = flash_attention_fwd(q, k, v)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    dq_ms = time_ms(lambda: flash_dq(q, k, v, do, lse, delta))
-    dkv_ms = time_ms(lambda: flash_dkv(q, k, v, do, lse, delta))
+    dq_ms = graph_ms(lambda: flash_dq(q, k, v, do, lse, delta), side)
+    dkv_ms = graph_ms(lambda: flash_dkv(q, k, v, do, lse, delta), side)
     plain_ms = time_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse,
                                                          do), iters=5)
-    library_ms = sdpa_bwd_ms(q, k, v, do)
+    library_ms = sdpa_bwd_ms(q, k, v, do, side)
     rows = flash_bwd_entries("KD", q, k, counts, abs_err, err,
                              (dq_ms, dkv_ms, plain_ms, library_ms))
     return rows + [flash_fwd_entry("KD", q, k, v, counts["flash_fwd"],
                                    fwd_err, side, plain_iters=5)]
 
 
-def sdpa_bwd_ms(q, k, v, do, iters: int = 20) -> float:
-    """Events around the backward of PyTorch's fused SDPA over the KV heads
-    repeated to H, one number for the pair dq and dk/dv (the yardstick
-    only, never called by the port)."""
+def sdpa_bwd_ms(q, k, v, do, side, iters: int = 20) -> float:
+    """Graph replays (:func:`graph_ms`) of the backward of PyTorch's fused
+    SDPA over the KV heads repeated to H, one number for the pair dq and
+    dk/dv (the yardstick only, never called by the port). The forward
+    runs on ``side``, so that its backward runs and is captured there."""
     qt, kt, vt = sdpa_inputs(q, k, v, grad=True)
-    out = torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)
+    torch.cuda.current_stream().wait_stream(side)
     dot = do.transpose(1, 2)
-    return time_ms(lambda: torch.autograd.grad(
-        out, (qt, kt, vt), dot, retain_graph=True), iters=iters)
+    return graph_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), side, iters=iters)
 
 
 def flash_bwd_entries(what: str, q, k, counts: dict, abs_err: dict,
@@ -977,12 +985,15 @@ def flash_bwd_entries(what: str, q, k, counts: dict, abs_err: dict,
             "max_rel_err": max(err[o] for o in outs), "ms": ms,
             "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
-            "timing": "events"})
+            "timing": "graph"})
     log(f"flash_bwd at the {what} shape B {B} T {T}: dq ms={dq_ms:.4f} "
-        f"dkv ms={dkv_ms:.4f} (bounds {rows[0]['bound_ms']:.5f}, "
-        f"{rows[1]['bound_ms']:.5f}) library_ms={library_ms:.4f} (SDPA "
-        f"backward, the pair) plain_ms={plain_ms:.4f} launches "
-        f"{counts['flash_dq']}, {counts['flash_dkv']}")
+        f"({3 * causal_mm / dq_ms / 1e9:.1f} TFLOP/s) dkv ms={dkv_ms:.4f} "
+        f"({4 * causal_mm / dkv_ms / 1e9:.1f} TFLOP/s) (bounds "
+        f"{rows[0]['bound_ms']:.5f}, {rows[1]['bound_ms']:.5f}) "
+        f"library_ms={library_ms:.4f} (SDPA backward, the pair; pair / "
+        f"SDPA {(dq_ms + dkv_ms) / library_ms:.2f}) plain_ms="
+        f"{plain_ms:.4f} launches {counts['flash_dq']}, "
+        f"{counts['flash_dkv']} (graph replays)")
     return rows
 
 
@@ -1032,11 +1043,13 @@ def check_flash_stage1(dev, counts: dict, side) -> list:
                             fwd_err, side, plain_iters=2)]
     o, lse = flash_attention_fwd(q, k, v)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    dq_ms = time_ms(lambda: flash_dq(q, k, v, do, lse, delta), iters=10)
-    dkv_ms = time_ms(lambda: flash_dkv(q, k, v, do, lse, delta), iters=10)
+    dq_ms = graph_ms(lambda: flash_dq(q, k, v, do, lse, delta), side,
+                     iters=10)
+    dkv_ms = graph_ms(lambda: flash_dkv(q, k, v, do, lse, delta), side,
+                      iters=10)
     plain_ms = time_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse,
                                                          do), iters=1)
-    library_ms = sdpa_bwd_ms(q, k, v, do, iters=10)
+    library_ms = sdpa_bwd_ms(q, k, v, do, side, iters=10)
     rows += flash_bwd_entries("stage-1", q, k, counts, abs_err, err,
                               (dq_ms, dkv_ms, plain_ms, library_ms))
     return rows
@@ -1189,7 +1202,8 @@ def stage1(cfg, dev):
     n_train = S1_STEPS * S1_B * S1_A
     rows = stage1_rows(cfg, old_vocab, n_train + S1_EVAL_ROWS, rng)
     train_rows, eval_rows = rows[:n_train], rows[n_train:]
-    fused, backend = stage1_data.fused_route(S1_T, dev)
+    fused, backend = stage1_data.fused_route(S1_T, dev, cfg.torch_dtype,
+                                                 cfg.hidden_size)
     trainable = {"embed": {"weight": model.embed.detach().clone()
                            .requires_grad_()}}
     start = trainable["embed"]["weight"].detach().clone()
@@ -1309,13 +1323,14 @@ def stage1(cfg, dev):
     return counts, model, rows
 
 
-def check_lm_head(dev, model, counts: dict) -> list:
+def check_lm_head(dev, model, counts: dict, side) -> list:
     """K2 at the stage-1 head: W is the full-width table [159,488, 1024]
     bf16 scaled to N(0, 0.1) (logits of std ~3), h ~ N(0, 1), T 2.0,
     labels over the vocab with a hit in the last column, random a1, aT, b.
     Checked against the plain versions in fp32 at N 4096 (the fused-KD
     microbatch's vocab-split grid) and at the stage-1 microbatch's
-    N 16,380, where it is also timed."""
+    N 16,380, where it is also timed; dh and dW beside the two cuBLAS
+    products that each one's work holds, graph-timed on ``side``."""
     rng = np.random.default_rng(SEED + 10)
     V, D = model.embed.shape
     w = (model.embed.detach().float() * 5.0).to(torch.bfloat16)
@@ -1380,6 +1395,13 @@ def check_lm_head(dev, model, counts: dict) -> list:
     # yardstick only, never called by the port: cuBLAS's bf16 product of
     # the same [N, D] x [D, V] alone (no statistic computes in it)
     library_ms = time_ms(lambda: torch.matmul(h, w.t()), iters=10, warmup=2)
+    # the same for dh and dW: the logits h W^T (bf16 [N, V]) and then
+    # their product with W (dh) or, transposed, with h (dW)
+    library = {"lm_head_stats": library_ms,
+               "lm_head_dh": graph_ms(lambda: (h @ w.t()) @ w, side,
+                                      iters=3, replays=2),
+               "lm_head_dw": graph_ms(lambda: (h @ w.t()).t() @ h, side,
+                                      iters=3, replays=2)}
     nvd = N * V * D
     opnd = (N + V) * D * 2 + N * 4            # h, W, labels
     rows = []
@@ -1400,13 +1422,15 @@ def check_lm_head(dev, model, counts: dict) -> list:
             "max_rel_err": max(err[o] for o in outs), "ms": ms[name],
             "kernel_ms": ms[name], "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "checked_n": [K2_CHECK_N, N],
+            "library_ms": library[name], "checked_n": [K2_CHECK_N, N],
             "timed_shape": [N, V, D]})
     log("lm_head K2 at N " + str(N) + ": " + ", ".join(
         f"{r['name']} ms={r['ms']:.3f} bound_ms={r['bound_ms']:.3f}"
         for r in rows) + f"; plain stats ms={plain_fwd:.3f}, plain bwd "
-        f"(dh and dW) ms={plain_bwd:.3f}; library (cuBLAS h @ W^T) "
-        f"ms={library_ms:.3f}")
+        f"(dh and dW) ms={plain_bwd:.3f}; library: cuBLAS h @ W^T "
+        f"ms={library_ms:.3f} (events), (h @ W^T) @ W ms="
+        f"{library['lm_head_dh']:.3f}, (h @ W^T)^T @ h ms="
+        f"{library['lm_head_dw']:.3f} (graph replays)")
     return rows
 
 
@@ -1512,7 +1536,7 @@ def main() -> None:
     log(f"train phases s={time.perf_counter() - t0:.2f}")
     t0 = time.perf_counter()
     s1_counts, model, rows = stage1(cfg, dev)
-    kernels += check_lm_head(dev, model, s1_counts)
+    kernels += check_lm_head(dev, model, s1_counts, side)
     check_stage1_grad_path(cfg, model, rows, dev)
     del model
     kernels += check_flash_stage1(dev, s1_counts, side)

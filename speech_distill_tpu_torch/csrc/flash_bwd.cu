@@ -14,354 +14,421 @@
 //
 // What bounds them on the card: tensor-core operations at long T. Per
 // causal (query, key) pair dq does three products (s, dp, dq) and dk/dv
-// four (s, dp, dv, dk), against O(B T (H + KV) Dh) bytes. So every product
-// runs as 16x16x16 bf16 WMMA with fp32 accumulation:
-//   * one block of 4 warps per (64-row tile, head, batch row); each warp
-//     owns 16 rows of the tile (query rows in dq, key rows in dkv), so only
-//     the staging of shared tiles needs block-wide barriers;
-//   * the fp32 accumulators (dq, or dk and dv) live in WMMA fragments in
-//     registers for the whole loop and are written once, in bf16;
-//   * flash_dkv loops over the G query heads of its KV head and over the
-//     query tiles from the diagonal on, so dk/dv come out summed over the
-//     group with no fp32 [B, H, T, Dh] intermediate, no second pass and no
-//     atomics: the result is deterministic, as the TPU design is;
-//   * precision as the TPU kernel: p is rounded to bf16 before p^T dO and
-//     ds before ds k and ds^T q; every sum accumulates in fp32.
-// Where trouble is likely:
-//   * the diagonal tile: keys above the diagonal get p = 0 exactly (the
-//     select never evaluates exp there), and every element of the S, dP, P
-//     and dS tiles is written by a product or by the elementwise pass
-//     before any product reads it, so no uninitialised shared memory
-//     reaches a product;
-//   * lse must be the forward kernel's own, for the p recomputed here to
-//     be the forward's softmax; the tile height (64) is the forward's.
-// Shared memory is ~112 KB (dq) and ~121 KB (dkv) a block at Dh = 128.
-// wgmma, TMA and a pipelined K/V stream are later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+// four (s, dp, dv, dk), against O(B T (H + KV) Dh) bytes. dq stays a
+// kernel of its own that recomputes s and dp (seven products in all, not
+// the five of a fused backward) because the alternative sums dq over key
+// blocks with atomics, and these kernels are deterministic, as the TPU's
+// are. Both are built like flash_fwd.cu, from the pieces in hopper.cuh:
+//   * a block is two consumer warpgroups of 64 rows and a producer
+//     warpgroup (384 threads, one block an SM; setmaxnreg leaves the
+//     producer 24 registers a thread and gives the consumers 240). One
+//     producer thread streams tiles with TMA (4-D maps (Dh, heads, T, B),
+//     128-byte swizzle, zeros past T) through a ring in shared memory,
+//     completion on mbarriers; the consumers release each tile on an
+//     `empty` barrier as soon as they are done with it;
+//   * every product is a wgmma with fp32 accumulators in registers. Scores
+//     and dp come from K-major shared tiles (`qk`); p and ds are computed
+//     in registers and rounded pair-wise into bf16 A fragments, and the
+//     products that consume them read their B operand MN-major (`pv`), as
+//     the forward's P V does;
+//   * flash_dq is the forward's block (`block_work`: two heads of one KV
+//     group at the same 64 query rows when G is even, else 128 rows of one
+//     head; the heaviest query tiles first) over 128-key K/V tiles, with a
+//     second score product in place of the online softmax. Per tile:
+//     S = Q K^T and dP = dO V^T (`wgmma m64n128k16`), V released, then
+//     p = exp2(S scale log2(e) - lse log2(e)) and ds = p (dP - delta) for
+//     the thread's two rows (lse and delta read once), and dQ += dS K with
+//     K read MN-major, then K released;
+//   * flash_dkv: a block owns 128 keys of one KV head (64 a warpgroup, K
+//     and V resident) and streams (query head g of the group, 64-query
+//     tile) stages of Q, dO, lse and delta through a 2-stage ring (3 or 4
+//     stages measured slower), from the last query tile down to the
+//     diagonal. Per stage: S^T = K Q^T and
+//     dP^T = V dO^T (`wgmma m64n64k16`), then P^T and dS^T in registers
+//     (lse and delta per column, from the stage), then dV += P^T dO and
+//     dK += dS^T Q. dK and dV stay in registers over all G heads, so they
+//     come out summed over the group with no fp32 intermediate, no second
+//     pass and no atomics. A stage entirely above a warpgroup's diagonal
+//     is skipped (its barrier still waited on and released). Key tile 0,
+//     which sees every query tile, is issued first;
+//   * precision as the TPU kernels: p is rounded to bf16 before p^T dO and
+//     ds before ds k and ds^T q; every sum accumulates in fp32, in a fixed
+//     order, so repeated runs are bit-identical;
+//   * the causal mask (p = 0 exactly, exp never evaluated there) only on
+//     the diagonal tile; keys past T are zero-filled and always masked;
+//     rows >= T (half a tile when T % 128 == 64) are never stored;
+//   * the epilogue scales, rounds to bf16, stages the rows in the
+//     warpgroup's own Q (dq) or K and V (dk, dv) rows of shared memory and
+//     stores whole 16-byte rows.
+#include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
-using bf16 = __nv_bfloat16;
+constexpr int kStagesDq = 2;     // K/V tiles in flight (dq)
+constexpr int kStagesKv = 2;     // Q/dO/lse/delta stages in flight (dk/dv)
+// two consumer warpgroups and a producer warpgroup; ptxas budgets wgmma
+// kernels by whole warpgroups, so a producer warp alone would leave 168
+// registers a thread. setmaxnreg moves the producer's to the consumers:
+// 128 x 24 + 256 x 240 = 64,512 of the SM's 65,536.
+constexpr int kThreadsBwd = 128 * (kConsumers + 1);
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
 
-constexpr int kBlk = 64;     // rows of a query or key tile
-constexpr int kThreads = 128;
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragBRow =
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBCol =
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragAcc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
+// byte offsets in shared memory from a 1024-aligned base
 template <int DH>
-struct Dims {
-  static constexpr int LDH = DH + 8;     // bf16 row of a q/k/v/dO tile
-  static constexpr int LDS = kBlk + 4;   // fp32 row of S or dP
-  static constexpr int LDP = kBlk + 8;   // bf16 row of P or dS
-  static constexpr int LDO = DH + 4;     // fp32 row of the epilogue staging
-  static constexpr size_t tile = (size_t)kBlk * LDH * 2;
-  static constexpr size_t score = (size_t)kBlk * LDS * 4;
-  static constexpr size_t prob = (size_t)kBlk * LDP * 2;
-  static_assert(tile % 32 == 0 && score % 32 == 0 && prob % 32 == 0,
-                "WMMA tiles need 32-byte aligned shared memory");
-  static_assert((size_t)kBlk * LDO * 4 <= 2 * score,
-                "the epilogue staging reuses the two score tiles");
+struct DqSmem {
+  static constexpr uint32_t q_chunk = kBQ * 128;  // one box: 64 rows x 64
+  static constexpr uint32_t kv_chunk = kBK * 128; // one box: 128 rows x 64
+  static constexpr uint32_t q_bytes = kBQ * DH * 2;
+  static constexpr uint32_t kv_bytes = kBK * DH * 2;
+  static constexpr uint32_t q = 0;
+  static constexpr uint32_t dout = q + kConsumers * q_bytes;
+  static constexpr uint32_t k = dout + kConsumers * q_bytes;
+  static constexpr uint32_t v = k + kStagesDq * kv_bytes;
+  // mbarriers: Q and dO, then full K, full V, empty K and empty V a stage
+  static constexpr uint32_t bar = v + kStagesDq * kv_bytes;
+  static constexpr uint32_t bytes = bar + 8 * (1 + 4 * kStagesDq) + 1024;
 };
 
-// byte offsets of the dq kernel's shared memory
 template <int DH>
-struct DqLayout {
-  using D = Dims<DH>;
-  static constexpr size_t q = 0;
-  static constexpr size_t dout = q + D::tile;
-  static constexpr size_t k = dout + D::tile;
-  static constexpr size_t v = k + D::tile;
-  static constexpr size_t s = v + D::tile;       // S, then P (fp32)
-  static constexpr size_t dp = s + D::score;
-  static constexpr size_t ds = dp + D::score;    // dS (bf16)
-  static constexpr size_t lse = ds + D::prob;
-  static constexpr size_t delta = lse + kBlk * 4;
-  static constexpr size_t bytes = delta + kBlk * 4;
+struct DkvSmem {
+  static constexpr uint32_t q_chunk = kBQ * 128;
+  static constexpr uint32_t kv_chunk = kBK * 128;
+  static constexpr uint32_t q_bytes = kBQ * DH * 2;
+  static constexpr uint32_t kv_bytes = kBK * DH * 2;
+  static constexpr uint32_t row_bytes = kBQ * 4;  // lse or delta of a stage
+  static constexpr uint32_t k = 0;
+  static constexpr uint32_t v = k + kv_bytes;
+  static constexpr uint32_t q = v + kv_bytes;
+  static constexpr uint32_t dout = q + kStagesKv * q_bytes;
+  static constexpr uint32_t lse = dout + kStagesKv * q_bytes;
+  static constexpr uint32_t delta = lse + kStagesKv * row_bytes;
+  // mbarriers: K and V, then full and empty a stage
+  static constexpr uint32_t bar = delta + kStagesKv * row_bytes;
+  static constexpr uint32_t bytes = bar + 8 * (1 + 2 * kStagesKv) + 1024;
 };
 
-// byte offsets of the dk/dv kernel's shared memory
 template <int DH>
-struct DkvLayout {
-  using D = Dims<DH>;
-  static constexpr size_t k = 0;
-  static constexpr size_t v = k + D::tile;
-  static constexpr size_t q = v + D::tile;
-  static constexpr size_t dout = q + D::tile;
-  static constexpr size_t st = dout + D::tile;   // S^T (fp32)
-  static constexpr size_t dpt = st + D::score;   // dP^T (fp32)
-  static constexpr size_t pt = dpt + D::score;   // P^T (bf16)
-  static constexpr size_t dst = pt + D::prob;    // dS^T (bf16)
-  static constexpr size_t lse = dst + D::prob;
-  static constexpr size_t delta = lse + kBlk * 4;
-  static constexpr size_t bytes = delta + kBlk * 4;
-};
-
-// kBlk x DH bf16 tile from global (row stride `stride` elements) to shared
-template <int DH>
-__device__ __forceinline__ void stage(bf16* dst, const bf16* src,
-                                      size_t stride, int tid) {
-  constexpr int kVecs = DH / 8;
-  for (int i = tid; i < kBlk * kVecs; i += kThreads) {
-    const int r = i / kVecs;
-    const int c = (i - r * kVecs) * 8;
-    *reinterpret_cast<uint4*>(dst + r * Dims<DH>::LDH + c) =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * stride + c);
-  }
-}
-
-// out[r0:r0+16, 0:64] = A[r0:r0+16, :] B^T, with A and B kBlk x DH bf16
-// tiles in shared memory (B^T is B read column-major)
-template <int DH>
-__device__ __forceinline__ void rows_times_tile_t(float* out, const bf16* a,
-                                                  const bf16* b, int r0) {
-  constexpr int LDH = Dims<DH>::LDH;
-#pragma unroll
-  for (int nc = 0; nc < kBlk / 16; ++nc) {
-    FragAcc acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      FragA fa;
-      FragBCol fb;
-      wmma::load_matrix_sync(fa, a + r0 * LDH + kk * 16, LDH);
-      wmma::load_matrix_sync(fb, b + nc * 16 * LDH + kk * 16, LDH);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(out + r0 * Dims<DH>::LDS + nc * 16, acc,
-                            Dims<DH>::LDS, wmma::mem_row_major);
-  }
-}
-
-// acc[nc] += P[r0:r0+16, 0:64] X[0:64, nc*16:(nc+1)*16] for every column
-// block nc, with P a kBlk x kBlk bf16 tile and X a kBlk x DH bf16 tile
-template <int DH>
-__device__ __forceinline__ void accumulate_rows(FragAcc (&acc)[DH / 16],
-                                                const bf16* p, const bf16* x,
-                                                int r0) {
-  constexpr int LDH = Dims<DH>::LDH;
-  constexpr int LDP = Dims<DH>::LDP;
-#pragma unroll
-  for (int kk = 0; kk < kBlk / 16; ++kk) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, p + r0 * LDP + kk * 16, LDP);
-#pragma unroll
-    for (int nc = 0; nc < DH / 16; ++nc) {
-      FragBRow fb;
-      wmma::load_matrix_sync(fb, x + kk * 16 * LDH + nc * 16, LDH);
-      wmma::mma_sync(acc[nc], fa, fb, acc[nc]);
-    }
-  }
-}
-
-// scale * acc (16 rows of this warp) -> bf16 rows of `dst` (row stride
-// `stride` elements), through the warp's rows of an fp32 staging tile
-template <int DH>
-__device__ __forceinline__ void write_rows(bf16* dst, size_t stride,
-                                           FragAcc (&acc)[DH / 16],
-                                           float scale, float* staging,
-                                           int r0, int lane) {
-  constexpr int LDO = Dims<DH>::LDO;
-#pragma unroll
-  for (int nc = 0; nc < DH / 16; ++nc) {
-#pragma unroll
-    for (int i = 0; i < acc[nc].num_elements; ++i) acc[nc].x[i] *= scale;
-    wmma::store_matrix_sync(staging + r0 * LDO + nc * 16, acc[nc], LDO,
-                            wmma::mem_row_major);
-  }
-  __syncwarp();
-  for (int i = lane; i < 16 * DH; i += 32) {
-    const int r = i / DH;
-    const int c = i - r * DH;
-    dst[(size_t)r * stride + c] =
-        __float2bfloat16(staging[(r0 + r) * LDO + c]);
-  }
-  __syncwarp();
-}
-
-template <int DH>
-__global__ void __launch_bounds__(kThreads) flash_dq_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+__global__ void __launch_bounds__(kThreadsBwd, 1) flash_dq_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __grid_constant__ CUtensorMap tm_do,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dq, int T, int H, int KV, float scale) {
-  using L = DqLayout<DH>;
-  using D = Dims<DH>;
-  const int iq = blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int r0 = warp * 16;            // this warp's 16 query rows
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* do_s = reinterpret_cast<bf16*>(smem + L::dout);
-  bf16* k_s = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* v_s = reinterpret_cast<bf16*>(smem + L::v);
-  float* s_s = reinterpret_cast<float*>(smem + L::s);
-  float* dp_s = reinterpret_cast<float*>(smem + L::dp);
-  bf16* ds_s = reinterpret_cast<bf16*>(smem + L::ds);
-  float* lse_s = reinterpret_cast<float*>(smem + L::lse);
-  float* delta_s = reinterpret_cast<float*>(smem + L::delta);
-
-  const size_t q_stride = (size_t)H * DH;     // between tokens in q, dO, dq
-  const size_t kv_stride = (size_t)KV * DH;   // between tokens in k and v
-  const size_t q_off =
-      ((size_t)b * T + (size_t)iq * kBlk) * q_stride + (size_t)h * DH;
-  const bf16* kg = k + (size_t)b * T * kv_stride + (size_t)kvh * DH;
-  const bf16* vg = v + (size_t)b * T * kv_stride + (size_t)kvh * DH;
-  const size_t row_off = ((size_t)b * H + h) * T + (size_t)iq * kBlk;
-
-  stage<DH>(q_s, q + q_off, q_stride, tid);
-  stage<DH>(do_s, dout + q_off, q_stride, tid);
-  if (tid < kBlk) {
-    lse_s[tid] = lse[row_off + tid];
-    delta_s[tid] = delta[row_off + tid];
-  }
-
-  FragAcc acc[DH / 16];
-#pragma unroll
-  for (int nc = 0; nc < DH / 16; ++nc) wmma::fill_fragment(acc[nc], 0.f);
-
-  for (int j = 0; j <= iq; ++j) {
-    __syncthreads();   // every warp is done with the previous K/V tile
-    stage<DH>(k_s, kg + (size_t)j * kBlk * kv_stride, kv_stride, tid);
-    stage<DH>(v_s, vg + (size_t)j * kBlk * kv_stride, kv_stride, tid);
-    __syncthreads();
-
-    rows_times_tile_t<DH>(s_s, q_s, k_s, r0);    // S  = Q K^T
-    rows_times_tile_t<DH>(dp_s, do_s, v_s, r0);  // dP = dO V^T
-    __syncwarp();
-
-    // P and dS for this warp's 16 rows; keys above the diagonal get p = 0
-    for (int i = lane; i < 16 * kBlk; i += 32) {
-      const int r = r0 + i / kBlk;
-      const int c = i % kBlk;
-      const int q_pos = iq * kBlk + r;
-      const int k_pos = j * kBlk + c;
-      const float p = k_pos <= q_pos
-                          ? expf(s_s[r * D::LDS + c] * scale - lse_s[r])
-                          : 0.f;
-      ds_s[r * D::LDP + c] =
-          __float2bfloat16(p * (dp_s[r * D::LDS + c] - delta_s[r]));
-    }
-    __syncwarp();
-
-    accumulate_rows<DH>(acc, ds_s, k_s, r0);     // dQ += dS K
-  }
-
-  __syncthreads();   // the score tiles become the epilogue's staging
-  write_rows<DH>(dq + q_off + (size_t)r0 * q_stride, q_stride, acc, scale,
-                 s_s, r0, lane);
-}
-
-template <int DH>
-__global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int T, int H, int KV,
+    bf16* __restrict__ dq, int T, int H, int KV, int B, float scale_log2,
     float scale) {
-  using L = DkvLayout<DH>;
-  using D = Dims<DH>;
-  const int ik = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int G = H / KV;
-  const int n_tiles = T / kBlk;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int r0 = warp * 16;            // this warp's 16 key rows
+  using L = DqSmem<DH>;
+  constexpr int kChunks = DH / kBox;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t bar_q = base + L::bar;
+  const uint32_t bar_full_k = bar_q + 8;                   // + 8 s
+  const uint32_t bar_full_v = bar_full_k + 8 * kStagesDq;  // + 8 s
+  const uint32_t bar_empty_k = bar_full_v + 8 * kStagesDq;  // + 8 s
+  const uint32_t bar_empty_v = bar_empty_k + 8 * kStagesDq;  // + 8 s
+  const Work w = block_work(T, H, KV, B);
 
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* v_s = reinterpret_cast<bf16*>(smem + L::v);
-  bf16* q_s = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* do_s = reinterpret_cast<bf16*>(smem + L::dout);
-  float* st_s = reinterpret_cast<float*>(smem + L::st);
-  float* dpt_s = reinterpret_cast<float*>(smem + L::dpt);
-  bf16* pt_s = reinterpret_cast<bf16*>(smem + L::pt);
-  bf16* dst_s = reinterpret_cast<bf16*>(smem + L::dst);
-  float* lse_s = reinterpret_cast<float*>(smem + L::lse);
-  float* delta_s = reinterpret_cast<float*>(smem + L::delta);
-
-  const size_t q_stride = (size_t)H * DH;
-  const size_t kv_stride = (size_t)KV * DH;
-  const size_t kv_off =
-      ((size_t)b * T + (size_t)ik * kBlk) * kv_stride + (size_t)kvh * DH;
-  stage<DH>(k_s, k + kv_off, kv_stride, tid);
-  stage<DH>(v_s, v + kv_off, kv_stride, tid);
-
-  FragAcc dk_acc[DH / 16];
-  FragAcc dv_acc[DH / 16];
-#pragma unroll
-  for (int nc = 0; nc < DH / 16; ++nc) {
-    wmma::fill_fragment(dk_acc[nc], 0.f);
-    wmma::fill_fragment(dv_acc[nc], 0.f);
-  }
-
-  for (int g = 0; g < G; ++g) {
-    const int h = kvh * G + g;
-    for (int jq = ik; jq < n_tiles; ++jq) {
-      __syncthreads();   // every warp is done with the previous Q/dO tile
-      const size_t q_off =
-          ((size_t)b * T + (size_t)jq * kBlk) * q_stride + (size_t)h * DH;
-      stage<DH>(q_s, q + q_off, q_stride, tid);
-      stage<DH>(do_s, dout + q_off, q_stride, tid);
-      if (tid < kBlk) {
-        const size_t row_off = ((size_t)b * H + h) * T + (size_t)jq * kBlk;
-        lse_s[tid] = lse[row_off + tid];
-        delta_s[tid] = delta[row_off + tid];
-      }
-      __syncthreads();
-
-      rows_times_tile_t<DH>(st_s, k_s, q_s, r0);    // S^T  = K Q^T
-      rows_times_tile_t<DH>(dpt_s, v_s, do_s, r0);  // dP^T = V dO^T
-      __syncwarp();
-
-      // P^T and dS^T for this warp's 16 key rows (columns are queries);
-      // keys above the diagonal get p = 0
-      for (int i = lane; i < 16 * kBlk; i += 32) {
-        const int r = r0 + i / kBlk;
-        const int c = i % kBlk;
-        const int k_pos = ik * kBlk + r;
-        const int q_pos = jq * kBlk + c;
-        const float p = k_pos <= q_pos
-                            ? expf(st_s[r * D::LDS + c] * scale - lse_s[c])
-                            : 0.f;
-        pt_s[r * D::LDP + c] = __float2bfloat16(p);
-        dst_s[r * D::LDP + c] =
-            __float2bfloat16(p * (dpt_s[r * D::LDS + c] - delta_s[c]));
-      }
-      __syncwarp();
-
-      accumulate_rows<DH>(dv_acc, pt_s, do_s, r0);   // dV += P^T dO
-      accumulate_rows<DH>(dk_acc, dst_s, q_s, r0);   // dK += dS^T Q
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStagesDq; ++s) {
+      mbar_init(bar_full_k + 8 * s, 1);
+      mbar_init(bar_full_v + 8 * s, 1);
+      mbar_init(bar_empty_k + 8 * s, kConsumers * 4);  // one arrive a warp
+      mbar_init(bar_empty_v + 8 * s, kConsumers * 4);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  __syncthreads();
 
-  __syncthreads();   // the score tiles become the epilogue's staging
-  const size_t out_off = kv_off + (size_t)r0 * kv_stride;
-  write_rows<DH>(dk + out_off, kv_stride, dk_acc, scale, st_s, r0, lane);
-  write_rows<DH>(dv + out_off, kv_stride, dv_acc, 1.f, st_s, r0, lane);
+  if (threadIdx.x >= kConsumers * 128) {
+    // producer warpgroup: one thread issues every TMA load
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kConsumers * 128) {
+      mbar_expect_tx(bar_q, 2 * kConsumers * L::q_bytes);
+      for (int c = 0; c < kConsumers; ++c)
+        for (int x = 0; x < kChunks; ++x) {
+          const uint32_t off = c * L::q_bytes + x * L::q_chunk;
+          tma_load(base + L::q + off, &tm_q, x * kBox, w.head(c), w.row0(c),
+                   w.b, bar_q);
+          tma_load(base + L::dout + off, &tm_do, x * kBox, w.head(c),
+                   w.row0(c), w.b, bar_q);
+        }
+      for (int it = 0; it < w.n_k; ++it) {
+        const int s = it % kStagesDq;
+        const uint32_t round = (it / kStagesDq) & 1;
+        const int key0 = (w.n_k - 1 - it) * kBK;  // diagonal tile first
+        mbar_wait(bar_empty_k + 8 * s, round ^ 1);  // round 0 passes
+        mbar_expect_tx(bar_full_k + 8 * s, L::kv_bytes);
+        for (int x = 0; x < kChunks; ++x)
+          tma_load(base + L::k + s * L::kv_bytes + x * L::kv_chunk, &tm_k,
+                   x * kBox, w.kvh, key0, w.b, bar_full_k + 8 * s);
+        mbar_wait(bar_empty_v + 8 * s, round ^ 1);
+        mbar_expect_tx(bar_full_v + 8 * s, L::kv_bytes);
+        for (int x = 0; x < kChunks; ++x)
+          tma_load(base + L::v + s * L::kv_bytes + x * L::kv_chunk, &tm_v,
+                   x * kBox, w.kvh, key0, w.b, bar_full_v + 8 * s);
+      }
+    }
+  } else {
+    // consumer warpgroup: 64 query rows of one head
+    setmaxnreg_inc<kConsumerRegs>();
+    const int wg = threadIdx.x / 128;
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int r_a = (t / 32) * 16 + lane / 4;  // rows r_a and r_a + 8
+    const int head = w.head(wg);
+    const int row0 = w.row0(wg);
+    const uint32_t q_s = base + L::q + wg * L::q_bytes;
+    const uint32_t do_s = base + L::dout + wg * L::q_bytes;
+
+    // lse (in log2 units) and delta of the thread's two rows; rows past T
+    // (zero Q and dO) get 0 and are never stored
+    float lse2[2], dlt[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + r_a + 8 * r;
+      const size_t idx = ((size_t)w.b * H + head) * T + row;
+      lse2[r] = row < T ? lse[idx] * kLog2e : 0.f;
+      dlt[r] = row < T ? delta[idx] : 0.f;
+    }
+    float acc[DH / 2];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+    auto release = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+
+    mbar_wait(bar_q, 0);
+    for (int it = 0; it < w.n_k; ++it) {
+      const int s = it % kStagesDq;
+      const uint32_t round = (it / kStagesDq) & 1;
+      const uint32_t k_s = base + L::k + s * L::kv_bytes;
+      float sc[kBK / 2], dp[kBK / 2];
+      // both tiles first: a spin on a barrier while a product is in flight
+      // makes ptxas serialize every wgmma
+      mbar_wait(bar_full_k + 8 * s, round);
+      mbar_wait(bar_full_v + 8 * s, round);
+      wgmma_fence();
+      qk<DH, kBK>(sc, q_s, L::q_chunk, k_s, L::kv_chunk);  // S = Q K^T
+      qk<DH, kBK>(dp, do_s, L::q_chunk, base + L::v + s * L::kv_bytes,
+                  L::kv_chunk);                           // dP = dO V^T
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      fence_regs(dp);
+      release(bar_empty_v + 8 * s);
+      // ds = p (dp - delta) in bf16, p = 0 above the diagonal (tile 0)
+      const int key0 = (w.n_k - 1 - it) * kBK;
+      uint32_t ds[kBK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          float d2[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 8 * kk + 2 * x + e;
+            const int r = (i >> 1) & 1;
+            const int key = key0 + (i / 4) * 8 + (lane % 4) * 2 + (i & 1);
+            const bool masked = it == 0 && key > row0 + r_a + 8 * r;
+            const float p =
+                masked ? 0.f : fast_exp2(fmaf(sc[i], scale_log2, -lse2[r]));
+            d2[e] = p * (dp[i] - dlt[r]);
+          }
+          ds[kk][x] = pack_bf16(d2[0], d2[1]);
+        }
+      fence_regs(acc);
+      fence_regs(ds);
+      wgmma_fence();
+      pv<DH, kBK>(acc, ds, k_s);                          // dQ += dS K
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      fence_regs(ds);
+      release(bar_empty_k + 8 * s);
+    }
+
+    const float mult[2] = {scale, scale};
+    store_rows<DH>(acc, mult, smem + L::q + wg * L::q_bytes, L::q_chunk, 0,
+                   dq + (((size_t)w.b * T + row0) * H + head) * DH,
+                   (size_t)H * DH, T - row0, t, wg);
+  }
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+template <int DH>
+__global__ void __launch_bounds__(kThreadsBwd, 1) flash_dkv_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __grid_constant__ CUtensorMap tm_do,
+    const __grid_constant__ CUtensorMap tm_lse,
+    const __grid_constant__ CUtensorMap tm_delta, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int T, int H, int KV, int B, float scale_log2,
+    float scale) {
+  using L = DkvSmem<DH>;
+  constexpr int kChunks = DH / kBox;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t bar_kv = base + L::bar;
+  const uint32_t bar_full = bar_kv + 8;                  // + 8 s
+  const uint32_t bar_empty = bar_full + 8 * kStagesKv;   // + 8 s
+  // key tile 0 (every query tile) first
+  const int G = H / KV;
+  const int units = B * KV;
+  const int k0 = (static_cast<int>(blockIdx.x) / units) * kBK;
+  const int b = (static_cast<int>(blockIdx.x) % units) / KV;
+  const int kvh = static_cast<int>(blockIdx.x) % KV;
+  const int n_q = T / kBQ;
+  const int per_g = n_q - k0 / kBQ;  // query tiles from the diagonal on
+  const int n_it = G * per_g;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kStagesKv; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, kConsumers * 4);  // one arrive a warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers * 128) {
+    // producer warpgroup: K and V once, then (head, query tile) stages,
+    // the last query tile first
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kConsumers * 128) {
+      mbar_expect_tx(bar_kv, 2 * L::kv_bytes);
+      for (int x = 0; x < kChunks; ++x) {
+        tma_load(base + L::k + x * L::kv_chunk, &tm_k, x * kBox, kvh, k0, b,
+                 bar_kv);
+        tma_load(base + L::v + x * L::kv_chunk, &tm_v, x * kBox, kvh, k0, b,
+                 bar_kv);
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % kStagesKv;
+        const uint32_t round = (it / kStagesKv) & 1;
+        const int h = kvh * G + it / per_g;
+        const int q0 = (n_q - 1 - it % per_g) * kBQ;
+        const uint32_t full = bar_full + 8 * s;
+        mbar_wait(bar_empty + 8 * s, round ^ 1);  // round 0 passes
+        mbar_expect_tx(full, 2 * L::q_bytes + 2 * L::row_bytes);
+        for (int x = 0; x < kChunks; ++x) {
+          const uint32_t off = s * L::q_bytes + x * L::q_chunk;
+          tma_load(base + L::q + off, &tm_q, x * kBox, h, q0, b, full);
+          tma_load(base + L::dout + off, &tm_do, x * kBox, h, q0, b, full);
+        }
+        tma_load_2d(base + L::lse + s * L::row_bytes, &tm_lse, q0, b * H + h,
+                    full);
+        tma_load_2d(base + L::delta + s * L::row_bytes, &tm_delta, q0,
+                    b * H + h, full);
+      }
+    }
+  } else {
+    // consumer warpgroup: 64 keys, rows 64 wg .. of the K and V tiles
+    setmaxnreg_inc<kConsumerRegs>();
+    const int wg = threadIdx.x / 128;
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int r_a = (t / 32) * 16 + lane / 4;  // key rows r_a and r_a + 8
+    const int kc = k0 + wg * kBQ;              // the warpgroup's first key
+    const uint32_t k_s = base + L::k + wg * kBQ * 128;
+    const uint32_t v_s = base + L::v + wg * kBQ * 128;
+
+    float dk_acc[DH / 2], dv_acc[DH / 2];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) {
+      dk_acc[i] = 0.f;
+      dv_acc[i] = 0.f;
+    }
+    auto release = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+
+    mbar_wait(bar_kv, 0);
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % kStagesKv;
+      const uint32_t round = (it / kStagesKv) & 1;
+      const int q0 = (n_q - 1 - it % per_g) * kBQ;
+      mbar_wait(bar_full + 8 * s, round);
+      // a query tile wholly above this warpgroup's keys adds nothing
+      if (q0 + kBQ > kc) {
+        const uint32_t q_s = base + L::q + s * L::q_bytes;
+        const uint32_t do_s = base + L::dout + s * L::q_bytes;
+        const float* lse_s =
+            reinterpret_cast<const float*>(smem + L::lse + s * L::row_bytes);
+        const float* dlt_s = reinterpret_cast<const float*>(
+            smem + L::delta + s * L::row_bytes);
+        float st[kBQ / 2], dpt[kBQ / 2];
+        wgmma_fence();
+        qk<DH, kBQ>(st, k_s, L::kv_chunk, q_s, L::q_chunk);    // S^T
+        qk<DH, kBQ>(dpt, v_s, L::kv_chunk, do_s, L::q_chunk);  // dP^T
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(st);
+        fence_regs(dpt);
+        // P^T and dS^T in bf16: rows are keys, columns queries
+        const bool diag = q0 == kc;
+        uint32_t pt[kBQ / 16][4], dst[kBQ / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kBQ / 16; ++kk)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            float p2[2], d2[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int i = 8 * kk + 2 * x + e;
+              const int col = (i / 4) * 8 + (lane % 4) * 2 + (i & 1);
+              const int key = kc + r_a + 8 * ((i >> 1) & 1);
+              const bool masked = diag && key > q0 + col;
+              const float p =
+                  masked ? 0.f
+                         : fast_exp2(fmaf(st[i], scale_log2,
+                                          -lse_s[col] * kLog2e));
+              p2[e] = p;
+              d2[e] = p * (dpt[i] - dlt_s[col]);
+            }
+            pt[kk][x] = pack_bf16(p2[0], p2[1]);
+            dst[kk][x] = pack_bf16(d2[0], d2[1]);
+          }
+        fence_regs(dk_acc);
+        fence_regs(dv_acc);
+        fence_regs(pt);
+        fence_regs(dst);
+        wgmma_fence();
+        pv<DH, kBQ>(dv_acc, pt, do_s);   // dV += P^T dO
+        pv<DH, kBQ>(dk_acc, dst, q_s);   // dK += dS^T Q
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(dk_acc);
+        fence_regs(dv_acc);
+        fence_regs(pt);
+        fence_regs(dst);
+      }
+      release(bar_empty + 8 * s);
+    }
+
+    // dK and dV staged in this warpgroup's own rows of the K and V tiles
+    const size_t out = (((size_t)b * T + kc) * KV + kvh) * DH;
+    const float mult_k[2] = {scale, scale}, mult_v[2] = {1.f, 1.f};
+    store_rows<DH>(dk_acc, mult_k, smem + L::k, L::kv_chunk, wg * kBQ,
+                   dk + out, (size_t)KV * DH, T - kc, t, wg);
+    store_rows<DH>(dv_acc, mult_v, smem + L::v, L::kv_chunk, wg * kBQ,
+                   dv + out, (size_t)KV * DH, T - kc, t, wg);
+  }
 }
 
 template <int DH>
@@ -369,15 +436,24 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int B, int T, int H, int KV, float scale,
                       cudaStream_t stream) {
-  const size_t smem = DqLayout<DH>::bytes;
-  cudaError_t e = allow_smem(flash_dq_kernel<DH>, smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid(T / kBlk, H, B);
-  flash_dq_kernel<DH><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), T, H, KV, scale);
+  constexpr size_t smem = DqSmem<DH>::bytes;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_dq_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (attr != cudaSuccess) return attr;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  if (!make_map(encode, &tm_q, q, DH, H, T, B, kBQ) ||
+      !make_map(encode, &tm_k, k, DH, KV, T, B, kBK) ||
+      !make_map(encode, &tm_v, v, DH, KV, T, B, kBK) ||
+      !make_map(encode, &tm_do, dout, DH, H, T, B, kBQ))
+    return cudaErrorInvalidValue;
+  flash_dq_kernel<DH><<<query_blocks(B, T, H, KV), kThreadsBwd, smem,
+                        stream>>>(
+      tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), T, H, KV, B,
+      scale * kLog2e, scale);
   return cudaGetLastError();
 }
 
@@ -386,27 +462,38 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int B, int T, int H, int KV,
                        float scale, cudaStream_t stream) {
-  const size_t smem = DkvLayout<DH>::bytes;
-  cudaError_t e = allow_smem(flash_dkv_kernel<DH>, smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid(T / kBlk, KV, B);
-  flash_dkv_kernel<DH><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), T, H, KV, scale);
+  constexpr size_t smem = DkvSmem<DH>::bytes;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_dkv_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (attr != cudaSuccess) return attr;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_lse, tm_delta;
+  if (!make_map(encode, &tm_q, q, DH, H, T, B, kBQ) ||
+      !make_map(encode, &tm_k, k, DH, KV, T, B, kBK) ||
+      !make_map(encode, &tm_v, v, DH, KV, T, B, kBK) ||
+      !make_map(encode, &tm_do, dout, DH, H, T, B, kBQ) ||
+      !make_rows_map(encode, &tm_lse, lse, T, B * H, kBQ) ||
+      !make_rows_map(encode, &tm_delta, delta, T, B * H, kBQ))
+    return cudaErrorInvalidValue;
+  const int blocks = (T + kBK - 1) / kBK * B * KV;
+  flash_dkv_kernel<DH><<<blocks, kThreadsBwd, smem, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, tm_lse, tm_delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), T, H, KV, B, scale * kLog2e, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// bf16 q/k/v/dO/dq, fp32 lse/delta [B, H, T]; T % 64 == 0, Dh in {64, 128}.
-// Returns cudaGetLastError() after launch.
+// bf16 q/k/v/dO/dq, fp32 lse/delta [B, H, T]; T % 64 == 0, Dh in {64, 128},
+// KV divides H. Returns cudaGetLastError() after launch.
 extern "C" int flash_dq(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* delta,
                         void* dq, int B, int T, int H, int KV, int Dh,
                         float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!shapes_ok(T, H, KV)) return (int)cudaErrorInvalidValue;
   if (Dh == 128)
     return (int)launch_dq<128>(q, k, v, dout, lse, delta, dq, B, T, H, KV,
                                scale, s);
@@ -423,6 +510,7 @@ extern "C" int flash_dkv(const void* q, const void* k, const void* v,
                          const void* delta, void* dk, void* dv, int B, int T,
                          int H, int KV, int Dh, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!shapes_ok(T, H, KV)) return (int)cudaErrorInvalidValue;
   if (Dh == 128)
     return (int)launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, T, H,
                                 KV, scale, s);

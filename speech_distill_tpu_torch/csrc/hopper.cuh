@@ -1,0 +1,432 @@
+// Hopper (sm_90a) building blocks shared by the flash-attention kernels
+// csrc/flash_fwd.cu and csrc/flash_bwd.cu: mbarriers, TMA loads through
+// tensor maps, wgmma descriptors and products with fp32 accumulators in
+// registers, the query-tile walk of a block of two 64-row consumer
+// warpgroups, and the epilogue that stores an accumulator as bf16 rows.
+// Inline PTX only: no CUTLASS, nothing linked beyond the CUDA runtime
+// (libcuda's cuTensorMapEncodeTiled is found through the runtime).
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kBQ = 64;          // rows of one consumer warpgroup
+constexpr int kConsumers = 2;    // consumer warpgroups a block
+constexpr int kBK = 128;         // rows of a K/V tile
+constexpr int kBox = 64;         // bf16 columns of one 128-byte swizzle box
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// spins until the phase of `bar` with the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of a 4-D tensor map (Dh, heads, T, B) into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2, int c3,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// one box of a 2-D tensor map (T, rows) into shared memory
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map, int c0,
+                                            int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets in 16-byte units
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// keeps the compiler from moving reads or writes of registers that an
+// in-flight wgmma owns across the fence/wait instructions
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// D[64 x N] (+)= A B, bf16 in, fp32 accumulators in registers: thread t of
+// the warpgroup holds rows 16 (t / 32) + (t % 32) / 4 (+ 8) and columns
+// 8 j + 2 (t % 4) (+ 1), register 4 j + {0, 1} (row) and 4 j + {2, 3}
+// (row + 8). _ss: A and B K-major in shared memory; _rs: A from registers
+// (the same layout as two k8 halves of the accumulator), B MN-major.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+      "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+      "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+      "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+      "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+      "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+      "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+      "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+      "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// S[64 x N] = A B^T over DH in k16 steps, A [64][DH] and B [N][DH] both
+// K-major in boxes of 64 columns (one 128-byte swizzle atom wide) that lie
+// `a_box` / `b_box` bytes apart: a step moves 32 bytes inside a box, 8-row
+// groups are 1024 bytes apart.
+template <int DH, int N>
+__device__ __forceinline__ void qk(float (&sc)[N / 2], uint32_t a_s,
+                                   uint32_t a_box, uint32_t b_s,
+                                   uint32_t b_box) {
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    const uint64_t a = smem_desc(a_s + (kk / 4) * a_box + off, 16, 1024);
+    const uint64_t b = smem_desc(b_s + (kk / 4) * b_box + off, 16, 1024);
+    if constexpr (N == 128)
+      wgmma_ss_n128(sc, a, b, kk > 0);
+    else
+      wgmma_ss_n64(sc, a, b, kk > 0);
+  }
+}
+
+// O[64 x DH] += P V over the ROWS rows of V in k16 steps, P in registers.
+// V [ROWS][DH] is MN-major for this product (the transpose bit): a step is
+// two 8-row swizzle atoms (2048 bytes), the next 64 columns of DH the next
+// box (ROWS * 128 bytes on: the leading offset).
+template <int DH, int ROWS>
+__device__ __forceinline__ void pv(float (&acc)[DH / 2],
+                                   const uint32_t (&p)[ROWS / 16][4],
+                                   uint32_t v_s) {
+#pragma unroll
+  for (int kk = 0; kk < ROWS / 16; ++kk) {
+    const uint64_t b = smem_desc(v_s + kk * 2048, ROWS * 128, 1024);
+    if constexpr (DH == 128)
+      wgmma_rs_n128(acc, p[kk], b);
+    else
+      wgmma_rs_n64(acc, p[kk], b);
+  }
+}
+
+// an fp32 accumulator [64 x N] in bf16 as the A fragments of the k16 steps
+// over its N columns: the accumulator's registers 8 kk .. 8 kk + 7,
+// pair-wise
+template <int N>
+__device__ __forceinline__ void to_bf16(const float (&sc)[N / 2],
+                                        uint32_t (&p)[N / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      p[kk][x] = pack_bf16(sc[8 * kk + 2 * x], sc[8 * kk + 2 * x + 1]);
+}
+
+// the warpgroup's 64 x DH fp32 accumulator, each row times mult (rows r_a
+// and r_a + 8 of thread t), as bf16 into rows row0 .. row0 + 63 of a
+// 128-byte-swizzled tile in shared memory whose 64-column boxes lie
+// `box` bytes apart (TMA's layout), then rows 0 .. n_rows - 1 of it stored
+// whole, with 16-byte writes, to `out` (rows `stride` elements apart).
+// `wg` names the warpgroup's named barrier.
+template <int DH>
+__device__ __forceinline__ void store_rows(const float (&acc)[DH / 2],
+                                           const float (&mult)[2],
+                                           unsigned char* tile, uint32_t box,
+                                           int row0, bf16* out, size_t stride,
+                                           int n_rows, int t, int wg) {
+  const int lane = t % 32;
+  const int r_a = (t / 32) * 16 + lane / 4;
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + r_a + 8 * r;
+      const int col = 8 * j + 2 * (lane % 4);
+      const uint32_t off = (col / kBox) * box + row * 128 +
+                           ((((col % kBox) / 8) ^ (row & 7)) * 16) +
+                           (col % 8) * 2;
+      *reinterpret_cast<uint32_t*>(tile + off) =
+          pack_bf16(acc[4 * j + 2 * r] * mult[r],
+                    acc[4 * j + 2 * r + 1] * mult[r]);
+    }
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+  constexpr int kUnits = DH / 8;  // 16-byte units in a row
+  for (int idx = t; idx < kBQ * kUnits; idx += 128) {
+    const int row = idx / kUnits;
+    const int u = idx % kUnits;
+    if (row < n_rows) {
+      const int srow = row0 + row;
+      const uint32_t off =
+          (u / 8) * box + srow * 128 + (((u % 8) ^ (srow & 7)) * 16);
+      *reinterpret_cast<uint4*>(out + (size_t)row * stride + u * 8) =
+          *reinterpret_cast<const uint4*>(tile + off);
+    }
+  }
+}
+
+// the query rows a block of the forward or the dq kernel works on:
+// consumer c takes head h0 + c * dh, rows from r0 + c * dr, against n_k
+// key tiles of KV head kvh of batch row b
+struct Work {
+  int b, kvh, n_k, h0, dh, r0, dr;
+  __device__ int head(int c) const { return h0 + c * dh; }
+  __device__ int row0(int c) const { return r0 + c * dr; }
+};
+
+__device__ __forceinline__ Work block_work(int T, int H, int KV, int B) {
+  const int G = H / KV;
+  const bool pair = G % 2 == 0;
+  // heaviest query tiles first: blockIdx.x runs over tiles in reverse
+  const int n_qt = pair ? T / kBQ : (T + 2 * kBQ - 1) / (2 * kBQ);
+  const int units = pair ? B * KV * (G / 2) : B * H;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / units;
+  const int u = static_cast<int>(blockIdx.x) % units;
+  Work w;
+  if (pair) {
+    // two heads of one KV group at the same 64 rows
+    const int per_b = KV * (G / 2);
+    w.b = u / per_b;
+    w.kvh = (u % per_b) / (G / 2);
+    w.h0 = w.kvh * G + 2 * ((u % per_b) % (G / 2));
+    w.dh = 1;
+    w.r0 = qt * kBQ;
+    w.dr = 0;
+    w.n_k = qt * kBQ / kBK + 1;
+  } else {
+    // 128 consecutive rows of one head
+    w.b = u / H;
+    w.h0 = u % H;
+    w.kvh = w.h0 / G;
+    w.dh = 0;
+    w.r0 = kConsumers * qt * kBQ;
+    w.dr = kBQ;
+    w.n_k = qt + 1;
+  }
+  return w;
+}
+
+// shapes the flash kernels take: whole 64-row tiles, KV dividing H
+inline bool shapes_ok(int T, int H, int KV) {
+  return T > 0 && T % kBQ == 0 && KV > 0 && H % KV == 0;
+}
+
+// blocks of the grid that block_work walks
+inline int query_blocks(int B, int T, int H, int KV) {
+  const int G = H / KV;
+  return G % 2 == 0 ? (T / kBQ) * B * KV * (G / 2)
+                    : (T + 2 * kBQ - 1) / (2 * kBQ) * B * H;
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, found through the runtime so that
+// nothing links against libcuda
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// [B, T, heads, Dh] bf16 as the 4-D map (Dh, heads, T, B): boxes of 64
+// columns x `rows` rows of one head, 128-byte swizzle, zeros past T
+inline bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
+                     int Dh, int heads, int T, int B, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)Dh, (cuuint64_t)heads,
+                              (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)Dh * 2,
+                                 (cuuint64_t)heads * Dh * 2,
+                                 (cuuint64_t)T * heads * Dh * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kBox, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// fp32 [rows, T] as the 2-D map (T, rows): boxes of `cols` values of one
+// row, no swizzle
+inline bool make_rows_map(EncodeTiled encode, CUtensorMap* map,
+                          const void* ptr, int T, int rows, int cols) {
+  const cuuint64_t dims[2] = {(cuuint64_t)T, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)T * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)cols, 1};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace

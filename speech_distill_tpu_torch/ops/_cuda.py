@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels in ``csrc/``.
 
 Each ``csrc/<source>.cu`` exposes plain C entry points (:data:`SOURCES`
-says which) and is compiled by
+says which; ``csrc/*.cuh`` holds what several sources share) and is
+compiled by
 ``nvcc -gencode arch=compute_90a,code=sm_90a -shared`` into
 ``build/lib<source>-<source hash>.so`` at first use, then loaded with
 ctypes. Pointers and the stream cross the boundary as ``c_void_p``; each C
@@ -80,7 +81,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(source: str) -> Path:
-    src = (CSRC / f"{source}.cu").read_bytes()
+    """The library of ``csrc/<source>.cu``, named by a hash of the source,
+    the headers in ``csrc/`` (any of them may be included) and the flags,
+    so that an edit to any of them builds anew."""
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{source}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD / f"lib{source}-{digest[:12]}.so"
 

@@ -24,9 +24,8 @@ import torch
 from speech_distill_tpu_torch.ops import _cuda
 
 NEG_INF = -1e30
-# T granularity of the kernels: flash_bwd.cu's query/key tile and
-# flash_fwd.cu's 64-row warpgroup tile (its 128-key tiles zero-fill
-# past T)
+# T granularity of the kernels: their 64-row warpgroup tiles (the
+# 128-row tiles of flash_fwd.cu and flash_bwd.cu zero-fill past T)
 KERNEL_BLOCK = 64
 
 

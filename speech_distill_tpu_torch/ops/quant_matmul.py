@@ -11,8 +11,10 @@ hand-written kernel ``csrc/int4_matmul.cu`` (the counterpart of the TPU
 The route :func:`quantized_matmul` and ``models/qwen3._proj`` take for a
 2-D int4 leaf is set by :func:`int4_route`:
 
-* ``"auto"`` (default): CUDA inputs launch the kernel; CPU inputs take
-  dequantize-then-matmul, the route the JAX model takes off the TPU;
+* ``"auto"`` (default): CUDA inputs launch the kernel where it takes the
+  leaf (:func:`kernel_takes`, as JAX takes its kernel only where the
+  shape fits); other leaves, and CPU inputs, take dequantize-then-matmul,
+  the route the JAX model takes off the TPU;
 * ``"plain"``: :func:`int4_matmul_plain` on any device (the kernel's
   function in plain tensor code, the reference the kernel is held to).
 """
@@ -32,6 +34,18 @@ BLOCK_N, BLOCK_K2 = 128, 32
 ROUTES = ("auto", "plain")
 _route = ["auto"]
 _sm_count: Dict[int, int] = {}       # streaming multiprocessors by device
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    return t.is_cuda
+
+
+def kernel_takes(x: torch.Tensor, packed: torch.Tensor) -> bool:
+    """Whether :func:`int4_matmul` takes x and the packed [K/2, N] grid:
+    whole 32-row packed steps, whole 128-column tiles, fp32/bf16 x."""
+    K2, N = packed.shape
+    return (K2 % BLOCK_K2 == 0 and N % BLOCK_N == 0
+            and x.dtype in _OUT_CODE)
 
 
 @contextlib.contextmanager
@@ -74,14 +88,13 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor,
     if K != 2 * K2 or scale.numel() != N:
         raise ValueError(f"x {tuple(x.shape)}, packed {tuple(packed.shape)} "
                          f"and scale {tuple(scale.shape)} do not match")
-    if K2 % BLOCK_K2 or N % BLOCK_N:
-        raise ValueError(f"int4_matmul needs K/2 % {BLOCK_K2} == 0 and "
-                         f"N % {BLOCK_N} == 0, got K/2={K2}, N={N}")
-    if x.dtype not in _OUT_CODE or packed.dtype != torch.uint8 \
-            or scale.dtype != torch.float32:
-        raise ValueError(f"int4_matmul takes fp32/bf16 x, uint8 packed, "
-                         f"fp32 scale; got {x.dtype}/{packed.dtype}/"
-                         f"{scale.dtype}")
+    if not kernel_takes(x, packed):
+        raise ValueError(f"int4_matmul needs K/2 % {BLOCK_K2} == 0, "
+                         f"N % {BLOCK_N} == 0 and fp32/bf16 x, got "
+                         f"K/2={K2}, N={N}, {x.dtype}")
+    if packed.dtype != torch.uint8 or scale.dtype != torch.float32:
+        raise ValueError(f"int4_matmul takes uint8 packed and fp32 scale, "
+                         f"got {packed.dtype}/{scale.dtype}")
     for name, t in (("packed", packed), ("scale", scale)):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {x.device}")
@@ -120,11 +133,13 @@ def split_k(M: int, N: int, K2: int, device) -> int:
 def quantized_matmul(x: torch.Tensor, leaf: Dict[str, torch.Tensor]
                      ) -> torch.Tensor:
     """``x @ dequant(leaf)`` with leading batch dims on x. A 2-D int4 leaf
-    takes the route of :func:`int4_route`; other leaves dequantize to
-    x.dtype and multiply (no kernel exists for them)."""
+    takes the route of :func:`int4_route` ("auto" launches the kernel only
+    on a card and where :func:`kernel_takes` the leaf); other leaves
+    dequantize to x.dtype and multiply (no kernel exists for them)."""
     route = _route[0]
-    if "q4" not in leaf or leaf["q4"].dim() != 2 \
-            or (route == "auto" and not x.is_cuda):
+    if "q4" not in leaf or leaf["q4"].dim() != 2 or (
+            route == "auto" and not (_on_cuda(x)
+                                     and kernel_takes(x, leaf["q4"]))):
         return x @ dequantize_array(leaf, x.dtype)
     N = leaf["q4"].shape[1]
     fn = int4_matmul_plain if route == "plain" else int4_matmul

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from speech_distill_tpu_torch.distill.losses import IGNORE_INDEX
+from speech_distill_tpu_torch.ops.pallas_lm_loss import KERNEL_DIMS
 
 FUSED_MIN_SEQ = 2048        # the CLI's threshold for the fused CE
 
@@ -86,11 +87,16 @@ def make_eval_fn(eval_step: Callable, eval_packed: np.ndarray,
     return eval_fn
 
 
-def fused_route(max_seq_length: int, device) -> Tuple[bool, str]:
+def fused_route(max_seq_length: int, device, dtype: torch.dtype,
+                hidden_size: int) -> Tuple[bool, str]:
     """(fused_loss, fused_backend) as the CLI picks them: the fused CE from
     ``max_seq_length`` 2048 on (materialised logits would take ~10 GB at
-    B 4, T 4096), through the K2 kernels ("pallas") on the card, as JAX
-    picks its Pallas kernels on its accelerator, else the chunked plain
-    route ("xla")."""
+    B 4, T 4096), through the K2 kernels ("pallas") on the card where they
+    take the model's ``dtype`` and ``hidden_size`` (bf16, D in
+    ``KERNEL_DIMS``), as JAX picks its Pallas kernels on its accelerator,
+    else the chunked plain route ("xla"), as ``ops/attention.use_flash``
+    picks K1's."""
     on_card = torch.device(device).type == "cuda"
-    return max_seq_length >= FUSED_MIN_SEQ, "pallas" if on_card else "xla"
+    takes = dtype == torch.bfloat16 and hidden_size in KERNEL_DIMS
+    return (max_seq_length >= FUSED_MIN_SEQ,
+            "pallas" if on_card and takes else "xla")

@@ -107,14 +107,25 @@ def _rel_err(got, ref):
     return ((got.float() - ref).abs().max() / ref.abs().max()).item()
 
 
-@pytest.mark.parametrize("H,KV", [(16, 8), (4, 4)])
-def test_flash_bwd_kernels_match_plain(dev, H, KV):
-    rng = np.random.default_rng(2)
-    B, T, Dh = 2, 256, 128
+def _flash_bwd_inputs(dev, B, T, H, KV, Dh, seed):
+    """q, k, v, dO in bf16 and the forward kernel's o and lse."""
+    rng = np.random.default_rng(seed)
     q, k, v, do = (torch.from_numpy(rng.normal(size=(B, T, n, Dh))
                                     ).to(dev, torch.bfloat16)
                    for n in (H, KV, KV, H))
     o, lse = flash_attention_fwd(q, k, v)
+    return q, k, v, do, o, lse
+
+
+# the forward's grid: T 64, one key tile half past T (dk/dv: the second
+# warpgroup's keys all past T); T 320, a half last 128-row tile in both
+# kernels; G 2 and 4 pair two query heads a dq block, G 1 takes 128 rows
+# of one head; Dh 64, one swizzle box a row
+@pytest.mark.parametrize("H,KV", [(16, 8), (4, 4), (16, 4)])
+@pytest.mark.parametrize("T", [64, 320, 1024])
+@pytest.mark.parametrize("Dh", [64, 128])
+def test_flash_bwd_kernels_match_plain(dev, H, KV, T, Dh):
+    q, k, v, do, o, lse = _flash_bwd_inputs(dev, 2, T, H, KV, Dh, seed=2)
     before = {n: _cuda.launches[n] for n in ("flash_dq", "flash_dkv")}
     dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do)
     torch.cuda.synchronize()
@@ -126,6 +137,17 @@ def test_flash_bwd_kernels_match_plain(dev, H, KV):
     for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
         assert got.dtype == torch.bfloat16 and got.shape == ref.shape
         assert _rel_err(got, ref) <= BWD_REL_TOL, name
+
+
+def test_flash_bwd_kernels_are_deterministic(dev):
+    """Two backward calls on the same inputs give bitwise the same dq, dk
+    and dv (no atomics, a fixed order of every sum)."""
+    q, k, v, do, o, lse = _flash_bwd_inputs(dev, 2, 320, 16, 4, 128, seed=5)
+    first = flash_attention_bwd(q, k, v, o, lse, do)
+    second = flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.parametrize("T", [512, 320])

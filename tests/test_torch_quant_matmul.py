@@ -10,7 +10,8 @@ import torch
 from speech_distill_tpu.ops import quant as jquant
 from speech_distill_tpu.ops.quant_matmul import (
     int4_matmul as jax_int4_matmul, quantized_matmul as jax_quantized_matmul)
-from speech_distill_tpu_torch.ops import _cuda
+from speech_distill_tpu_torch.core.config import qwen3_tiny
+from speech_distill_tpu_torch.ops import _cuda, quant_matmul
 from speech_distill_tpu_torch.ops.quant import (dequantize_array,
                                                 quantize_array_int4,
                                                 quantize_array_int8)
@@ -94,6 +95,40 @@ def test_routes():
     with pytest.raises(ValueError, match="route"):
         with int4_route("pallas"):
             pass
+
+
+def test_auto_route_on_a_card_takes_the_kernel_only_where_it_fits(
+        monkeypatch):
+    """'auto' with the CUDA check stubbed: the int4 leaf of qwen3_tiny's k
+    projection (64 -> 32, packed [32, 32]) is off the kernel's tiles, so
+    it takes dequantize-then-matmul, exactly, as JAX falls back where its
+    kernel does not fit (it raised in the kernel wrapper before); a leaf
+    of whole tiles still goes to the kernel."""
+    cfg = qwen3_tiny()
+    d_in = cfg.hidden_size
+    d_out = cfg.num_key_value_heads * cfg.head_dim
+    rng = np.random.default_rng(11)
+    small = quantize_array_int4(torch.from_numpy(
+        rng.normal(size=(d_in, d_out)).astype(np.float32)))
+    assert tuple(small["q4"].shape) == (32, 32)
+    x = torch.from_numpy(rng.normal(size=(3, d_in)).astype(np.float32))
+    calls = []
+
+    def kernel(x, packed, scale):
+        calls.append(tuple(packed.shape))
+        return int4_matmul_plain(x, packed, scale)
+
+    monkeypatch.setattr(quant_matmul, "_on_cuda", lambda t: True)
+    monkeypatch.setattr(quant_matmul, "int4_matmul", kernel)
+    got = quantized_matmul(x, small)
+    torch.testing.assert_close(got, x @ dequantize_array(small,
+                                                         torch.float32),
+                               atol=0, rtol=0)
+    assert calls == []
+    _, leaf = _leaf(seed=12)
+    xk = torch.from_numpy(rng.normal(size=(3, K)).astype(np.float32))
+    quantized_matmul(xk, leaf)
+    assert calls == [(K // 2, N)]
 
 
 def test_zero_codes_and_zero_columns():

@@ -241,6 +241,27 @@ def test_train_loop_takes_what_the_cli_passes(setup, tmp_path):
 
 
 def test_fused_route_choice():
-    assert stage1.fused_route(4096, "cuda") == (True, "pallas")
-    assert stage1.fused_route(2048, "cpu") == (True, "xla")
-    assert stage1.fused_route(1024, "cuda") == (False, "pallas")
+    bf = torch.bfloat16
+    assert stage1.fused_route(4096, "cuda", bf, 1024) == (True, "pallas")
+    assert stage1.fused_route(2048, "cpu", bf, 1024) == (True, "xla")
+    assert stage1.fused_route(1024, "cuda", bf, 1024) == (False, "pallas")
+
+
+@pytest.mark.parametrize("dtype,hidden,backend", [
+    ("bfloat16", 1024, "pallas"),     # the 0.6B: K2 takes it
+    ("bfloat16", 64, "pallas"),       # qwen3_tiny's width is on the list
+    ("float32", 1024, "xla"),         # K2 takes bf16 h and W only
+    ("float32", 64, "xla"),           # the JAX pipeline tests' tiny model
+    ("bfloat16", 96, "xla"),          # a hidden size off KERNEL_DIMS
+])
+def test_fused_route_on_a_card_follows_what_k2_takes(dtype, hidden,
+                                                     backend):
+    """On a card (a "cuda" device, no card needed to choose), the route
+    sends a model to K2 only where its wrappers take the model's dtype
+    and hidden size; the rest take the chunked plain route, which JAX's
+    K2 computes for any D and dtype (it raised in the K2 wrappers
+    before)."""
+    cfg = qwen3_tiny(hidden_size=hidden, dtype=dtype)
+    fused, got = stage1.fused_route(4096, "cuda", cfg.torch_dtype,
+                                    cfg.hidden_size)
+    assert fused and got == backend
