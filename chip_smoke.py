@@ -93,7 +93,7 @@ from speech_distill_tpu_torch.ops.fused_lm_loss import (fused_cross_entropy,
 from speech_distill_tpu_torch.ops.paged_attention import (
     paged_attention, paged_attention_plain, quantize_kv)
 from speech_distill_tpu_torch.ops.pallas_lm_loss import (
-    _n_split, lm_head_dh, lm_head_dw, lm_head_stats_bwd_plain,
+    _bwd_plan, _n_split, lm_head_dh, lm_head_dw, lm_head_stats_bwd_plain,
     lm_head_stats_kernel, lm_head_stats_plain)
 from speech_distill_tpu_torch.ops.quant import (dequantize_array,
                                                 param_bytes, quantize_params)
@@ -212,6 +212,19 @@ def graph_ms(fn, side, iters: int = 20, replays: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (iters * replays)
+
+
+def scratch_bytes(fn) -> int:
+    """Device memory that one call of ``fn`` takes and gives back: its
+    peak less what stays allocated after it (its outputs held), from the
+    caching allocator's counts."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    del out
+    return torch.cuda.max_memory_allocated() - held
 
 
 def bound(nbytes: float, flops: float):
@@ -1319,7 +1332,12 @@ def stage1(cfg, dev):
         torch.cuda.synchronize()
     profile_step("stage1 step", run, {"flash": "flash_",
                                       "flash_fwd": "flash_fwd",
-                                      "lm_head": "lm_head_"}, warm=False)
+                                      "lm_head": "lm_head_",
+                                      "lm_head_stats": "lm_head_stats_",
+                                      "lm_head_combine": "lm_head_combine_",
+                                      "lm_head_dl": "lm_head_dl_",
+                                      "lm_head_gemm": "lm_head_gemm_"},
+                 warm=False)
     return counts, model, rows
 
 
@@ -1404,6 +1422,13 @@ def check_lm_head(dev, model, counts: dict, side) -> list:
                                       iters=3, replays=2)}
     nvd = N * V * D
     opnd = (N + V) * D * 2 + N * 4            # h, W, labels
+    # device scratch of one call, measured: the stats' vocab-split
+    # partials; dh's dl chunk and fp32 partial, dW's dl chunk
+    scratch = {"lm_head_stats": scratch_bytes(
+                   lambda: lm_head_stats_kernel(h, w, labels, T)),
+               "lm_head_dh": scratch_bytes(lambda: lm_head_dh(*args)),
+               "lm_head_dw": scratch_bytes(lambda: lm_head_dw(*args))}
+    plan = _bwd_plan(N, V, D)
     rows = []
     for name, line, nbytes, flops, plain_ms, outs in (
             ("lm_head_stats", 34, opnd + 3 * N * 4, 2 * nvd, plain_fwd,
@@ -1423,14 +1448,17 @@ def check_lm_head(dev, model, counts: dict, side) -> list:
             "kernel_ms": ms[name], "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library[name], "checked_n": [K2_CHECK_N, N],
-            "timed_shape": [N, V, D]})
+            "timed_shape": [N, V, D], "scratch_bytes": scratch[name]})
     log("lm_head K2 at N " + str(N) + ": " + ", ".join(
         f"{r['name']} ms={r['ms']:.3f} bound_ms={r['bound_ms']:.3f}"
         for r in rows) + f"; plain stats ms={plain_fwd:.3f}, plain bwd "
         f"(dh and dW) ms={plain_bwd:.3f}; library: cuBLAS h @ W^T "
         f"ms={library_ms:.3f} (events), (h @ W^T) @ W ms="
         f"{library['lm_head_dh']:.3f}, (h @ W^T)^T @ h ms="
-        f"{library['lm_head_dw']:.3f} (graph replays)")
+        f"{library['lm_head_dw']:.3f} (graph replays); scratch measured: "
+        f"stats {scratch['lm_head_stats']} B, dh {scratch['lm_head_dh']} B, "
+        f"dW {scratch['lm_head_dw']} B (planned: dh {plan.dh_bytes} B, dW "
+        f"{plan.dw_bytes} B, vocab chunks of {plan.chunk})")
     return rows
 
 

@@ -66,22 +66,6 @@ namespace {
 
 constexpr int kStagesDq = 2;     // K/V tiles in flight (dq)
 constexpr int kStagesKv = 2;     // Q/dO/lse/delta stages in flight (dk/dv)
-// two consumer warpgroups and a producer warpgroup; ptxas budgets wgmma
-// kernels by whole warpgroups, so a producer warp alone would leave 168
-// registers a thread. setmaxnreg moves the producer's to the consumers:
-// 128 x 24 + 256 x 240 = 64,512 of the SM's 65,536.
-constexpr int kThreadsBwd = 128 * (kConsumers + 1);
-constexpr int kProducerRegs = 24, kConsumerRegs = 240;
-
-template <int N>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
-}
-template <int N>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
-}
-
 // byte offsets in shared memory from a 1024-aligned base
 template <int DH>
 struct DqSmem {
@@ -117,7 +101,7 @@ struct DkvSmem {
 };
 
 template <int DH>
-__global__ void __launch_bounds__(kThreadsBwd, 1) flash_dq_kernel(
+__global__ void __launch_bounds__(kThreadsWs, 1) flash_dq_kernel(
     const __grid_constant__ CUtensorMap tm_q,
     const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v,
@@ -267,7 +251,7 @@ __global__ void __launch_bounds__(kThreadsBwd, 1) flash_dq_kernel(
 }
 
 template <int DH>
-__global__ void __launch_bounds__(kThreadsBwd, 1) flash_dkv_kernel(
+__global__ void __launch_bounds__(kThreadsWs, 1) flash_dkv_kernel(
     const __grid_constant__ CUtensorMap tm_q,
     const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v,
@@ -449,7 +433,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
       !make_map(encode, &tm_v, v, DH, KV, T, B, kBK) ||
       !make_map(encode, &tm_do, dout, DH, H, T, B, kBQ))
     return cudaErrorInvalidValue;
-  flash_dq_kernel<DH><<<query_blocks(B, T, H, KV), kThreadsBwd, smem,
+  flash_dq_kernel<DH><<<query_blocks(B, T, H, KV), kThreadsWs, smem,
                         stream>>>(
       tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dq), T, H, KV, B,
@@ -478,7 +462,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
       !make_rows_map(encode, &tm_delta, delta, T, B * H, kBQ))
     return cudaErrorInvalidValue;
   const int blocks = (T + kBK - 1) / kBK * B * KV;
-  flash_dkv_kernel<DH><<<blocks, kThreadsBwd, smem, stream>>>(
+  flash_dkv_kernel<DH><<<blocks, kThreadsWs, smem, stream>>>(
       tm_q, tm_k, tm_v, tm_do, tm_lse, tm_delta, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), T, H, KV, B, scale * kLog2e, scale);
   return cudaGetLastError();

@@ -9,53 +9,71 @@
 //   lm_head_dh:    dh = dl W     -> bf16 [N, D]
 //   lm_head_dw:    dW = dl^T h   -> bf16 [V, D], every row
 // where dl = a1 exp(z - lse1) + (aT / T) exp(z / T - lseT) + b [c == label]
-// is rounded to bf16 before the product, as the TPU kernels round it. The
-// [N, V] logits never reach device memory in either direction.
+// is rounded to bf16 before the product, as the TPU kernels round it, and
+// dh and dW are fp32 sums over the whole contraction rounded once.
 //
 // What bounds them on the card: tensor-core operations. At N 16,380,
 // V 159,488, D 1024 the statistics are 2 N V D = 5.35 TFLOP and dh and dW
-// 4 N V D each (the tile is recomputed), against ~0.4 GB of operands. Every
-// product is a 16x16x16 bf16 WMMA with fp32 accumulation; the TPU design's
-// [1024, 1024] fp32 VMEM tile does not fit an SM, so the tiling differs:
-//   * stats: a block owns 128 rows and sweeps its share of the vocab in
-//     128-column tiles; h and W stream through a two-stage cp.async ring of
-//     32-deep slices. Taller rows halve the re-reads of W against 64-row
-//     tiles, and the vocab is split over gridDim.y so that the whole grid is
-//     one wave of two blocks an SM: blocks of one split sweep the same W
-//     columns together and share them in L2. Each thread keeps the running
+// 4 N V D each (the logits are recomputed), against ~0.4 GB of operands.
+//   * stats (WMMA, cp.async; its Hopper redesign is later work): a block
+//     owns 128 rows and sweeps its share of the vocab in 128-column tiles;
+//     h and W stream through a two-stage cp.async ring of 32-deep slices.
+//     The vocab is split over gridDim.y so that the whole grid is one wave
+//     of two blocks an SM: blocks of one split sweep the same W columns
+//     together and share them in L2. Each thread keeps the running
 //     (max, sum) at T = 1 and at T and the label logit for half of one row;
 //     the halves merge by a warp shuffle and the splits in a small combine
-//     pass (lm_head_combine_kernel).
-//   * dh and dW are one kernel with the roles of h and W swapped: a block
-//     keeps 32 rows of one operand resident in shared memory and streams
-//     32-row tiles of the other through a two-stage ring. Per tile: the
-//     32 x 32 logits (8 warps: 4 fragments x 2 halves of D), then dl in
-//     bf16, then acc += dl x tile. The [32, D] fp32 accumulator lives in
-//     WMMA fragments in registers (128 a thread at D 1024), so D is never
-//     split over blocks and each logit is computed once a kernel. dh sweeps
-//     W (V/32 tiles for each of N/32 blocks); dW sweeps h, which stays in
-//     L2. dW covers all V rows; the caller masks rows it does not train.
+//     pass (lm_head_combine_kernel). The [N, V] logits never reach memory.
+//   * dh and dW: two wgmma GEMMs a vocab chunk with dl in device memory
+//     between them, one bf16 chunk at a time. A fully fused kernel does not
+//     fit at D 1024: a 64-row accumulator over all of D is 64 x 1024 fp32,
+//     the whole register file of an SM, and 128 resident rows of bf16
+//     operand are 256 KB, more than a block's 227 KB of shared memory; it
+//     would recompute the logits once for each slice of D or sum partial
+//     logits across a cluster every tile. So for each chunk of `chunk`
+//     vocab columns (8,192 at N 16,380: a 268 MB dl chunk; 0.31 GiB of
+//     scratch for dh with its fp32 partial, 0.25 GiB for dW):
+//       1. lm_head_dl_kernel: z = h W_c^T as 128 x 256 tiles (wgmma
+//          m64n256k16, h and W both K-major), dl formed in registers with
+//          the rows' lse, cotangents and label read once a tile and exp2
+//          with log2(e) folded in, 0 at rows >= N and columns >= V,
+//          rounded to bf16 and stored transposed, dl^T [chunk, ld], ld = N
+//          rounded up to 128, through swizzled shared memory with 16-byte
+//          writes;
+//       2. lm_head_gemm_kernel: C = A B with B MN-major (W_c for dh, h for
+//          dW) and A the dl chunk, 128 x min(D, 256) tiles. dW (M = chunk
+//          rows, K = ld tokens) reads dl^T K-major and writes its rows
+//          once in bf16; dh (M = N, K = chunk) reads it MN-major (wgmma's
+//          transpose bit), adds the previous chunks' fp32 partial [N, D]
+//          and rounds the last chunk to bf16: no atomics and a fixed chunk
+//          order, so the result is bitwise repeatable.
+//     Both kernels: 384 threads, two 64-row consumer warpgroups with fp32
+//     accumulators in registers and a producer warpgroup (setmaxnreg
+//     24 / 240) whose one thread streams 64-deep stages through a ring of
+//     TMA loads (128-byte swizzle, zeros past N or V) completed on
+//     mbarriers; persistent blocks (one an SM), the producer running ahead
+//     across tiles. The work is the TPU design's 4 N V D a backward; the
+//     extra traffic is the dl chunk written once and read once or more
+//     (D / 256 column tiles) from L2, and dh's partial, about 10 GB for
+//     dh or dW at N 16,380.
 // Masking: columns >= V and rows >= N get no contribution (the TPU kernels
 // mask padded columns with -1e30 and pad rows with label -1 and zero
 // cotangents; the results are the same). Shared memory: stats ~106 KB a
-// block (two an SM), dh/dW ~205 KB at D 1024 (one an SM). wgmma, TMA and a
-// deeper pipeline are later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// block (two an SM), dl 209 KB, the GEMM 193 KB at D >= 256.
 #include <mma.h>
-#include <stdint.h>
+
+#include <algorithm>
+
+#include "hopper.cuh"
 
 namespace {
 
 using namespace nvcuda;
-using bf16 = __nv_bfloat16;
 
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 256;
 
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragBRow =
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
 using FragBCol =
     wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragAcc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
@@ -277,159 +295,245 @@ __global__ void lm_head_combine_kernel(const float* __restrict__ part,
 // K2-dh and K2-dW
 // ---------------------------------------------------------------------------
 
-constexpr int kRows = 32;        // resident rows a block, streamed rows a tile
-constexpr int kLDZB = kRows + 4;  // fp32 row of a logits half
-constexpr int kLDP = kRows + 8;   // bf16 row of dl
+constexpr int kTileM = kConsumers * kBQ;   // rows of a tile: 128
+constexpr int kTileV = 256;                // vocab columns of a dl tile
+constexpr int kStagesDl = 3;               // 48 KB stages + 64 KB staging
+constexpr int kStagesGemm = 4;             // 48 KB stages at BN 256
 
-template <int D>
-struct BwdLayout {
-  static constexpr int LD = D + 8;                    // bf16 operand row
-  static constexpr size_t tile = (size_t)kRows * LD * 2;
-  static constexpr size_t r = 0;                      // resident rows
-  static constexpr size_t s = r + tile;               // streamed, 2 stages
-  static constexpr size_t z = s + 2 * tile;           // 2 halves of logits
-  static constexpr size_t p = z + 2 * (size_t)kRows * kLDZB * 4;
-  static constexpr size_t bytes = p + (size_t)kRows * kLDP * 2;
-  static_assert(tile % 32 == 0 && z % 32 == 0 && p % 32 == 0,
-                "WMMA needs 32-byte tiles");
-  static_assert((size_t)kRows * (D + 4) * 4 <= 2 * tile,
-                "the epilogue staging reuses the streamed stages");
+// byte offsets in shared memory from a 1024-aligned base
+struct DlSmem {
+  static constexpr uint32_t a_bytes = kTileM * 128;  // 128 rows x 64 of h
+  static constexpr uint32_t b_bytes = kTileV * 128;  // 256 rows x 64 of W
+  static constexpr uint32_t stage = a_bytes + b_bytes;
+  static constexpr uint32_t out_wg = kBQ * kTileV * 2;  // a warpgroup's dl
+  static constexpr uint32_t out = kStagesDl * stage;
+  // mbarriers: full, then empty, a stage
+  static constexpr uint32_t bar = out + kConsumers * out_wg;
+  static constexpr uint32_t bytes = bar + 16 * kStagesDl + 1024;
 };
 
-// rows row0 .. row0 + 31 of a [nrows, D] bf16 matrix into shared memory
-template <int D>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
-                                           int row0, int nrows, int tid) {
-  constexpr int kVec = D / 8;
-  constexpr int LD = BwdLayout<D>::LD;
-  for (int i = tid; i < kRows * kVec; i += kThreads) {
-    const int r = i / kVec;
-    const int c = (i - r * kVec) * 8;
-    const bool ok = row0 + r < nrows;
-    cp_async16(dst + r * LD + c, ok ? src + (size_t)(row0 + r) * D + c : src,
-               ok);
+template <int BN>
+struct GemmSmem {
+  static constexpr uint32_t a_bytes = kTileM * 128;  // 128 x 64 of A
+  static constexpr uint32_t b_bytes = kBox * BN * 2;  // 64 rows x BN of B
+  static constexpr uint32_t stage = a_bytes + b_bytes;
+  static constexpr uint32_t bar = kStagesGemm * stage;
+  static constexpr uint32_t bytes = bar + 16 * kStagesGemm + 1024;
+};
+
+// the ring of a kernel's shared memory, barriers at `bar`
+__device__ __forceinline__ Ring make_ring(uint32_t base, uint32_t stage,
+                                          uint32_t bar, int stages) {
+  return Ring{base, stage, base + bar, base + bar + 8 * stages, stages};
+}
+
+struct DlArgs {
+  const int* labels;
+  const float *lse1, *lset, *a1, *at, *b;
+  bf16* dl;
+  int N, V, D;
+  int c0, vc;      // the chunk's first vocab column and width (% kTileV)
+  int ld;          // elements between rows of dl
+  float log2e_t;   // log2(e) / T
+  float inv_t;     // 1 / T
+};
+
+// dl[R][C] of the warpgroup's 64 x 256 tile as bf16 into its staging tile
+// transposed: staging row C (128 bytes, swizzled) holds the tile's column C
+__device__ __forceinline__ void stage_dl(unsigned char* tile, int R, int C,
+                                         float d) {
+  *reinterpret_cast<bf16*>(tile + C * 128 + (((R / 8) ^ (C & 7)) * 16) +
+                           (R % 8) * 2) = __float2bfloat16(d);
+}
+
+// dl for the vocab chunk [c0, c0 + vc): z = h W^T over 128 x 256 tiles
+// (two 64-row consumer warpgroups, K = D in 64-deep TMA stages), then
+// dl = a1 exp(z - lse1) + (aT / T) exp(z / T - lseT) + b [col == label]
+// in registers, 0 at rows >= N and columns >= V, rounded to bf16 and
+// stored transposed, dl^T [vc, ld]: every row < vc and column < ld is
+// written. Persistent: block b takes tiles b, b + gridDim.x, ...; the
+// producer runs ahead across tiles.
+__global__ void __launch_bounds__(kThreadsWs, 1) lm_head_dl_kernel(
+    const __grid_constant__ CUtensorMap tm_h,
+    const __grid_constant__ CUtensorMap tm_w, const DlArgs p) {
+  using L = DlSmem;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const Ring ring = make_ring(base, L::stage, L::bar, kStagesDl);
+  const int n_n = p.vc / kTileV;
+  const int n_tiles = (p.N + kTileM - 1) / kTileM * n_n;
+  const int n_k = p.D / kBox;
+
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers * 128) {
+    // producer warpgroup: one thread issues every TMA load
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kConsumers * 128) {
+      uint32_t it = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int m0 = tile / n_n * kTileM;
+        const int v0 = p.c0 + tile % n_n * kTileV;
+        for (int ks = 0; ks < n_k; ++ks, ++it) {
+          const uint32_t full = ring.acquire(it, L::stage);
+          const uint32_t s = ring.stage(it);
+          tma_load_2d(s, &tm_h, ks * kBox, m0, full);
+          tma_load_2d(s + L::a_bytes, &tm_w, ks * kBox, v0, full);
+        }
+      }
+    }
+  } else {
+    // consumer warpgroup: 64 rows of each tile
+    setmaxnreg_inc<kConsumerRegs>();
+    const int wg = threadIdx.x / 128;
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int r_a = (t / 32) * 16 + lane / 4;  // rows r_a and r_a + 8
+    unsigned char* out_s = smem + L::out + wg * L::out_wg;
+    float acc[kTileV / 2];
+#pragma unroll
+    for (int i = 0; i < kTileV / 2; ++i) acc[i] = 0.f;
+    uint32_t it = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int m0 = tile / n_n * kTileM + wg * kBQ;
+      const int n0 = tile % n_n * kTileV;      // column in the chunk
+      mainloop<kTileV, false, false>(acc, ring, it, n_k, wg * kBQ * 128,
+                                     L::a_bytes, lane);
+      // the rows' terms, once a tile; rows >= N (zero h) get 0
+      float m1[2], mt[2], c1[2], ct[2], cb[2];
+      int lab[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = m0 + r_a + 8 * r;
+        const bool ok = row < p.N;
+        m1[r] = ok ? p.lse1[row] * kLog2e : 0.f;
+        mt[r] = ok ? p.lset[row] * kLog2e : 0.f;
+        c1[r] = ok ? p.a1[row] : 0.f;
+        ct[r] = ok ? p.at[row] * p.inv_t : 0.f;
+        cb[r] = ok ? p.b[row] : 0.f;
+        lab[r] = ok ? p.labels[row] - (p.c0 + n0) : -1;
+      }
+      const int n_valid = p.V - (p.c0 + n0);   // columns < V in the tile
+      // the staging tile is free once every thread has stored the last one
+      asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+#pragma unroll
+      for (int j = 0; j < kTileV / 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int col = 8 * j + 2 * (lane % 4);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float z = acc[4 * j + 2 * r + e];
+            const float v = c1[r] * fast_exp2(fmaf(z, kLog2e, -m1[r])) +
+                            ct[r] * fast_exp2(fmaf(z, p.log2e_t, -mt[r])) +
+                            (col + e == lab[r] ? cb[r] : 0.f);
+            stage_dl(out_s, r_a + 8 * r, col + e, col + e < n_valid ? v : 0.f);
+          }
+        }
+      asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+      // staging row c (64 tokens, 128 bytes) to dl^T row n0 + c
+      bf16* out = p.dl + (size_t)n0 * p.ld + m0;
+      for (int idx = t; idx < kTileV * 8; idx += 128) {
+        const int c = idx / 8;
+        const int u = idx % 8;
+        *reinterpret_cast<uint4*>(out + (size_t)c * p.ld + u * 8) =
+            *reinterpret_cast<const uint4*>(out_s + c * 128 +
+                                            ((u ^ (c & 7)) * 16));
+      }
+    }
   }
 }
 
-// kTokRes: the resident operand is h (dh: rows are tokens, tiles sweep the
-// vocab); else W (dW: rows are vocab entries, tiles sweep the tokens)
-template <int D, bool kTokRes>
-__global__ void __launch_bounds__(kThreads, 1) lm_head_bwd_kernel(
-    const bf16* __restrict__ h, const bf16* __restrict__ w,
-    const int* __restrict__ labels, const float* __restrict__ lse1,
-    const float* __restrict__ lset, const float* __restrict__ a1,
-    const float* __restrict__ at, const float* __restrict__ b,
-    bf16* __restrict__ out, int N, int V, float t) {
-  using L = BwdLayout<D>;
-  constexpr int LD = L::LD;
-  constexpr int FR = D / 64;   // accumulator fragments a warp
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* r_s = reinterpret_cast<bf16*>(smem + L::r);
-  bf16* s_s = reinterpret_cast<bf16*>(smem + L::s);
-  float* z_s = reinterpret_cast<float*>(smem + L::z);
-  bf16* p_s = reinterpret_cast<bf16*>(smem + L::p);
-  constexpr int kStage = kRows * LD;
+struct GemmArgs {
+  const float* prev;  // fp32 partial [m_valid, D] to add, or null
+  float* part;        // fp32 partial to write (when out is null)
+  bf16* out;          // bf16 result [m_valid, D], or null
+  int M, m_valid, K, D;
+  int b_row0;         // B's first row
+};
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int zf = warp & 3;     // logits fragment: rows (zf>>1)*16, cols (zf&1)*16
-  const int zk = warp >> 2;    // and half of D
-  const int ar = warp & 1;     // accumulator rows ar*16 ..
-  const int ac = (warp >> 1) * FR;   // and column fragments ac .. ac + FR
-  const int r0 = blockIdx.x * kRows;
-  const int res_rows = kTokRes ? N : V;
-  const int str_rows = kTokRes ? V : N;
-  const bf16* res = kTokRes ? h : w;
-  const bf16* str = kTokRes ? w : h;
-  const int n_tiles = (str_rows + kRows - 1) / kRows;
+// C[M, D] = A[M, K] B[K, D] (+ prev) with A a dl^T chunk [vc, ld]: for dW
+// A = dl^T read K-major (M = vc vocab rows, K = ld tokens), for dh
+// (kAMN) A = dl read MN-major (M = N tokens, K = vc); B MN-major (h for
+// dW, W's chunk rows for dh). Both through TMA (zeros past their rows)
+// into a 4-stage ring; 128 x BN output tiles, BN = min(D, 256), two
+// 64-row consumer warpgroups with fp32 accumulators in registers. Rows
+// >= m_valid are not written. Persistent, as lm_head_dl_kernel.
+template <int BN, bool kAMN>
+__global__ void __launch_bounds__(kThreadsWs, 1) lm_head_gemm_kernel(
+    const __grid_constant__ CUtensorMap tm_a,
+    const __grid_constant__ CUtensorMap tm_b, const GemmArgs p) {
+  using L = GemmSmem<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const Ring ring = make_ring(base, L::stage, L::bar, kStagesGemm);
+  const int n_n = p.D / BN;
+  const int n_tiles = (p.M + kTileM - 1) / kTileM * n_n;
+  const int n_k = p.K / kBox;
 
-  stage_rows<D>(r_s, res, r0, res_rows, tid);
-  cp_async_commit();
-  stage_rows<D>(s_s, str, 0, str_rows, tid);
-  cp_async_commit();
-
-  FragAcc acc[FR];
-#pragma unroll
-  for (int f = 0; f < FR; ++f) wmma::fill_fragment(acc[f], 0.f);
-
-  for (int ti = 0; ti < n_tiles; ++ti) {
-    const bf16* cur = s_s + (ti & 1) * kStage;
-    if (ti + 1 < n_tiles) {
-      stage_rows<D>(s_s + ((ti + 1) & 1) * kStage, str, (ti + 1) * kRows,
-                    str_rows, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    {   // z[zk] = resident x tile^T over this warp's half of D
-      FragAcc zacc;
-      wmma::fill_fragment(zacc, 0.f);
-      const bf16* a = r_s + (zf >> 1) * 16 * LD + zk * (D / 2);
-      const bf16* bb = cur + (zf & 1) * 16 * LD + zk * (D / 2);
-#pragma unroll 8
-      for (int kk = 0; kk < D / 32; ++kk) {
-        FragA fa;
-        FragBCol fb;
-        wmma::load_matrix_sync(fa, a + kk * 16, LD);
-        wmma::load_matrix_sync(fb, bb + kk * 16, LD);
-        wmma::mma_sync(zacc, fa, fb, zacc);
-      }
-      wmma::store_matrix_sync(
-          z_s + zk * kRows * kLDZB + (zf >> 1) * 16 * kLDZB + (zf & 1) * 16,
-          zacc, kLDZB, wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    // dl in bf16: element (i, j) pairs resident row i with streamed row j
-    for (int e = tid; e < kRows * kRows; e += kThreads) {
-      const int i = e >> 5;
-      const int j = e & 31;
-      const int tok = kTokRes ? r0 + i : ti * kRows + j;
-      const int col = kTokRes ? ti * kRows + j : r0 + i;
-      float dl = 0.f;
-      if (tok < N && col < V) {
-        const float z = z_s[i * kLDZB + j] + z_s[kRows * kLDZB + i * kLDZB + j];
-        dl = a1[tok] * expf(z - lse1[tok]) +
-             (at[tok] / t) * expf(z / t - lset[tok]);
-        if (col == labels[tok]) dl += b[tok];
-      }
-      p_s[i * kLDP + j] = __float2bfloat16(dl);
-    }
-    __syncthreads();
-
-    // acc += dl x tile
-#pragma unroll
-    for (int kk = 0; kk < kRows / 16; ++kk) {
-      FragA fa;
-      wmma::load_matrix_sync(fa, p_s + ar * 16 * kLDP + kk * 16, kLDP);
-#pragma unroll
-      for (int f = 0; f < FR; ++f) {
-        FragBRow fb;
-        wmma::load_matrix_sync(fb, cur + kk * 16 * LD + (ac + f) * 16, LD);
-        wmma::mma_sync(acc[f], fa, fb, acc[f]);
-      }
-    }
-    __syncthreads();   // this stage is refilled by the next iteration
-  }
-
-  // fp32 accumulators -> staging (the free stream stages) -> bf16 rows
-  constexpr int LDO = D + 4;
-  float* stg = reinterpret_cast<float*>(smem + L::s);
-#pragma unroll
-  for (int f = 0; f < FR; ++f)
-    wmma::store_matrix_sync(stg + ar * 16 * LDO + (ac + f) * 16, acc[f], LDO,
-                            wmma::mem_row_major);
+  if (threadIdx.x == 0) ring.init();
   __syncthreads();
-  __nv_bfloat162* out2 = reinterpret_cast<__nv_bfloat162*>(out);
-  for (int e = tid; e < kRows * D / 2; e += kThreads) {
-    const int r = e / (D / 2);
-    const int c = (e - r * (D / 2)) * 2;
-    if (r0 + r < res_rows)
-      out2[((size_t)(r0 + r) * D + c) / 2] = __floats2bfloat162_rn(
-          stg[r * LDO + c], stg[r * LDO + c + 1]);
+
+  if (threadIdx.x >= kConsumers * 128) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kConsumers * 128) {
+      uint32_t it = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int m0 = tile / n_n * kTileM;
+        const int d0 = tile % n_n * BN;
+        for (int ks = 0; ks < n_k; ++ks, ++it) {
+          const uint32_t full = ring.acquire(it, L::stage);
+          const uint32_t s = ring.stage(it);
+          if constexpr (kAMN)   // two boxes of 64 tokens x 64 vocab rows
+            for (int x = 0; x < kConsumers; ++x)
+              tma_load_2d(s + x * kBQ * 128, &tm_a, m0 + x * kBQ,
+                          ks * kBox, full);
+          else
+            tma_load_2d(s, &tm_a, ks * kBox, m0, full);
+          for (int x = 0; x < BN / kBox; ++x)
+            tma_load_2d(s + L::a_bytes + x * kBox * 128, &tm_b,
+                        d0 + x * kBox, p.b_row0 + ks * kBox, full);
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int wg = threadIdx.x / 128;
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int r_a = (t / 32) * 16 + lane / 4;
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    uint32_t it = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int m0 = tile / n_n * kTileM + wg * kBQ;
+      const int d0 = tile % n_n * BN;
+      mainloop<BN, kAMN, true>(acc, ring, it, n_k, wg * kBQ * 128,
+                               L::a_bytes, lane);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = m0 + r_a + 8 * r;
+          if (row >= p.m_valid) continue;
+          const size_t idx =
+              (size_t)row * p.D + d0 + 8 * j + 2 * (lane % 4);
+          float v0 = acc[4 * j + 2 * r], v1 = acc[4 * j + 2 * r + 1];
+          if (p.prev != nullptr) {
+            const float2 q = *reinterpret_cast<const float2*>(p.prev + idx);
+            v0 += q.x;
+            v1 += q.y;
+          }
+          if (p.out != nullptr)
+            *reinterpret_cast<uint32_t*>(p.out + idx) = pack_bf16(v0, v1);
+          else
+            *reinterpret_cast<float2*>(p.part + idx) = make_float2(v0, v1);
+        }
+    }
   }
 }
 
@@ -439,42 +543,107 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <int D, bool kTokRes>
-cudaError_t launch_bwd(const void* h, const void* w, const void* labels,
-                       const void* lse1, const void* lset, const void* a1,
-                       const void* at, const void* b, void* out, int N, int V,
-                       float t, cudaStream_t stream) {
-  const size_t smem = BwdLayout<D>::bytes;
-  auto kernel = lm_head_bwd_kernel<D, kTokRes>;
-  cudaError_t e = allow_smem(kernel, smem);
-  if (e != cudaSuccess) return e;
-  const int rows = kTokRes ? N : V;
-  kernel<<<(rows + kRows - 1) / kRows, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(h), static_cast<const bf16*>(w),
-      static_cast<const int*>(labels), static_cast<const float*>(lse1),
-      static_cast<const float*>(lset), static_cast<const float*>(a1),
-      static_cast<const float*>(at), static_cast<const float*>(b),
-      static_cast<bf16*>(out), N, V, t);
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v > 0 ? v : 1;
+  }();
+  return n;
+}
+
+cudaError_t launch_dl(const CUtensorMap& tm_h, const CUtensorMap& tm_w,
+                      const DlArgs& p, cudaStream_t stream) {
+  static const cudaError_t attr =
+      allow_smem(lm_head_dl_kernel, DlSmem::bytes);
+  if (attr != cudaSuccess) return attr;
+  const int tiles = (p.N + kTileM - 1) / kTileM * (p.vc / kTileV);
+  lm_head_dl_kernel<<<std::min(tiles, sm_count()), kThreadsWs, DlSmem::bytes,
+                      stream>>>(tm_h, tm_w, p);
   return cudaGetLastError();
 }
 
-template <bool kTokRes>
+template <int BN, bool kAMN>
+cudaError_t launch_gemm(const CUtensorMap& tm_a, const CUtensorMap& tm_b,
+                        const GemmArgs& p, cudaStream_t stream) {
+  static const cudaError_t attr =
+      allow_smem(lm_head_gemm_kernel<BN, kAMN>, GemmSmem<BN>::bytes);
+  if (attr != cudaSuccess) return attr;
+  const int tiles = (p.M + kTileM - 1) / kTileM * (p.D / BN);
+  lm_head_gemm_kernel<BN, kAMN><<<std::min(tiles, sm_count()), kThreadsWs,
+                                  GemmSmem<BN>::bytes, stream>>>(tm_a, tm_b,
+                                                                 p);
+  return cudaGetLastError();
+}
+
+// dh (kDh) or dW over vocab chunks of `chunk` columns: per chunk the dl
+// kernel into dl^T [chunk, ld], then the GEMM. dh: C = dl W_c accumulated
+// in the fp32 `part` [N, D] over the chunks in order, the last rounded to
+// bf16 into `out`. dW: C = dl^T h written as bf16 rows c0 .. of `out`.
+template <int BN, bool kDh>
+cudaError_t run_bwd(const void* h, const void* w, DlArgs p, void* out,
+                    float* part, int chunk, cudaStream_t stream) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const int N = p.N, V = p.V, D = p.D;
+  CUtensorMap tm_h, tm_w, tm_b;   // h and W K-major, B MN-major
+  if (!make_bf16_map(encode, &tm_h, h, D, N, D, kTileM) ||
+      !make_bf16_map(encode, &tm_w, w, D, V, D, kTileV) ||
+      !make_bf16_map(encode, &tm_b, kDh ? w : h, D, kDh ? V : N, D, kBox))
+    return cudaErrorInvalidValue;
+  const int n_chunks = (V + chunk - 1) / chunk;
+  for (int i = 0; i < n_chunks; ++i) {
+    p.c0 = i * chunk;
+    p.vc = std::min(chunk, (V - p.c0 + kTileV - 1) / kTileV * kTileV);
+    // dl^T [vc, ld]: boxes of 64 tokens x 64 vocab rows (dh, MN-major A)
+    // or 64 tokens x 128 vocab rows (dW, K-major A)
+    CUtensorMap tm_a;
+    if (!make_bf16_map(encode, &tm_a, p.dl, p.ld, p.vc, p.ld,
+                       kDh ? kBox : kTileM))
+      return cudaErrorInvalidValue;
+    const bool last = i + 1 == n_chunks;
+    const GemmArgs g =
+        kDh ? GemmArgs{i > 0 ? part : nullptr, last ? nullptr : part,
+                       last ? static_cast<bf16*>(out) : nullptr, N, N, p.vc,
+                       D, p.c0}
+            : GemmArgs{nullptr, nullptr,
+                       static_cast<bf16*>(out) + (size_t)p.c0 * D, p.vc,
+                       std::min(p.vc, V - p.c0), p.ld, D, 0};
+    cudaError_t e = launch_dl(tm_h, tm_w, p, stream);
+    if (e != cudaSuccess) return e;
+    e = launch_gemm<BN, kDh>(tm_a, tm_b, g, stream);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
+template <bool kDh>
 int bwd_entry(const void* h, const void* w, const void* labels,
               const void* lse1, const void* lset, const void* a1,
-              const void* at, const void* b, void* out, int N, int V, int D,
-              float t, void* stream) {
+              const void* at, const void* b, void* out, void* dl,
+              void* part, int N, int V, int D, int chunk, int ld, float t,
+              void* stream) {
+  const bool dims_ok = D == 64 || D == 128 || D == 256 || D == 512 ||
+                       D == 1024;
+  const bool multi = V > chunk;
+  if (N <= 0 || V <= 0 || !dims_ok || chunk <= 0 || chunk % kTileV != 0 ||
+      ld < N || ld % kTileM != 0 || dl == nullptr ||
+      (kDh && multi && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const DlArgs p{static_cast<const int*>(labels),
+                 static_cast<const float*>(lse1),
+                 static_cast<const float*>(lset),
+                 static_cast<const float*>(a1),
+                 static_cast<const float*>(at),
+                 static_cast<const float*>(b),
+                 static_cast<bf16*>(dl), N, V, D, 0, 0, ld, kLog2e / t,
+                 1.f / t};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LM_HEAD_BWD(DIM)                                                      \
-  if (D == DIM)                                                               \
-    return (int)launch_bwd<DIM, kTokRes>(h, w, labels, lse1, lset, a1, at, b, \
-                                         out, N, V, t, s);
-  LM_HEAD_BWD(1024)
-  LM_HEAD_BWD(512)
-  LM_HEAD_BWD(256)
-  LM_HEAD_BWD(128)
-  LM_HEAD_BWD(64)
-#undef LM_HEAD_BWD
-  return (int)cudaErrorInvalidValue;
+  float* pf = static_cast<float*>(part);
+  if (D == 64) return (int)run_bwd<64, kDh>(h, w, p, out, pf, chunk, s);
+  if (D == 128) return (int)run_bwd<128, kDh>(h, w, p, out, pf, chunk, s);
+  return (int)run_bwd<256, kDh>(h, w, p, out, pf, chunk, s);
 }
 
 }  // namespace
@@ -504,20 +673,24 @@ extern "C" int lm_head_stats(const void* h, const void* w, const void* labels,
 }
 
 // dh [N, D] bf16 from the cotangents a1, aT, b (fp32 [N]) of lse1, lseT
-// and label_logit; D in {64, 128, 256, 512, 1024}.
+// and label_logit; D in {64, 128, 256, 512, 1024}. Scratch: dl, bf16
+// [chunk, ld] with chunk % 256 == 0, ld >= N and ld % 128 == 0; part, fp32
+// [N, D] (null when V <= chunk). Launches two kernels a vocab chunk.
 extern "C" int lm_head_dh(const void* h, const void* w, const void* labels,
                           const void* lse1, const void* lset, const void* a1,
-                          const void* at, const void* b, void* dh, int N,
-                          int V, int D, float t, void* stream) {
-  return bwd_entry<true>(h, w, labels, lse1, lset, a1, at, b, dh, N, V, D, t,
-                         stream);
+                          const void* at, const void* b, void* dh, void* dl,
+                          void* part, int N, int V, int D, int chunk, int ld,
+                          float t, void* stream) {
+  return bwd_entry<true>(h, w, labels, lse1, lset, a1, at, b, dh, dl, part,
+                         N, V, D, chunk, ld, t, stream);
 }
 
-// dW [V, D] bf16, every row; as lm_head_dh otherwise.
+// dW [V, D] bf16, every row; part is unused. As lm_head_dh otherwise.
 extern "C" int lm_head_dw(const void* h, const void* w, const void* labels,
                           const void* lse1, const void* lset, const void* a1,
-                          const void* at, const void* b, void* dw, int N,
-                          int V, int D, float t, void* stream) {
-  return bwd_entry<false>(h, w, labels, lse1, lset, a1, at, b, dw, N, V, D, t,
-                          stream);
+                          const void* at, const void* b, void* dw, void* dl,
+                          void* part, int N, int V, int D, int chunk, int ld,
+                          float t, void* stream) {
+  return bwd_entry<false>(h, w, labels, lse1, lset, a1, at, b, dw, dl, part,
+                          N, V, D, chunk, ld, t, stream);
 }

@@ -51,9 +51,10 @@ SIGNATURES = {
     # h, w, labels, partials, lse1, lseT, label_logit, N, V, D, splits,
     # temperature, stream
     "lm_head_stats": [_P] * 7 + [_I] * 4 + [_F, _P],
-    # h, w, labels, lse1, lseT, a1, aT, b, out, N, V, D, temperature, stream
-    "lm_head_dh": [_P] * 9 + [_I] * 3 + [_F, _P],
-    "lm_head_dw": [_P] * 9 + [_I] * 3 + [_F, _P],
+    # h, w, labels, lse1, lseT, a1, aT, b, out, dl scratch, fp32 partial,
+    # N, V, D, chunk, ld, temperature, stream
+    "lm_head_dh": [_P] * 11 + [_I] * 5 + [_F, _P],
+    "lm_head_dw": [_P] * 11 + [_I] * 5 + [_F, _P],
 }
 # the csrc/<source>.cu that defines each entry point
 SOURCES = {"paged_decode": "paged_decode",

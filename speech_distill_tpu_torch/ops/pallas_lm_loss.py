@@ -6,20 +6,24 @@ logsumexp, never materialising the [N, V] logits (port of
             and label_logit[n], from h [N, D] and W [V, D]
   backward: dlogits = a1 * softmax_1 + (aT / T) * softmax_T + b * onehot,
             cast to W's dtype, then dh = dlogits W and dW = dlogits^T h,
-            with each logits tile recomputed from the saved lse.
+            with the logits recomputed from the saved lse.
 
-A label outside [0, V) never hits: its label_logit is -1e30 and its
-onehot term is zero. :func:`lm_head_stats` is the autograd op (the JAX
-custom VJP): CUDA tensors launch the hand-written kernels of
-``csrc/lm_head_stats.cu`` (stats, dh, dW) or raise; CPU tensors take the
-plain versions, :func:`lm_head_stats_plain` and
-:func:`lm_head_stats_bwd_plain`, which compute in fp32, chunked over the
-vocab so that they run at the real V. :func:`gathered_logits` (logits at
-given columns) is plain tensor code, not a kernel.
+The forward's [N, V] logits never reach memory. The backward kernels
+keep one vocab chunk of dlogits, bf16 [Vc, N] (transposed), in a device
+scratch between the two GEMMs of each chunk (:func:`_bwd_plan` sizes
+it), as the plain backward keeps one fp32 chunk. A label outside [0, V)
+never hits: its label_logit is -1e30 and its onehot term is zero.
+:func:`lm_head_stats` is the autograd op (the JAX custom VJP): CUDA
+tensors launch the hand-written kernels of ``csrc/lm_head_stats.cu``
+(stats, dh, dW) or raise; CPU tensors take the plain versions,
+:func:`lm_head_stats_plain` and :func:`lm_head_stats_bwd_plain`, which
+compute in fp32, chunked over the vocab so that they run at the real V.
+:func:`gathered_logits` (logits at given columns) is plain tensor code,
+not a kernel.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -29,6 +33,10 @@ from speech_distill_tpu_torch.ops import _cuda
 NEG_INF = -1e30
 PLAIN_CHUNK = 8192          # vocab columns per step of the plain versions
 KERNEL_DIMS = (64, 128, 256, 512, 1024)   # hidden sizes the kernels take
+# the backward kernels: dlogits tiles of 128 rows x 256 vocab columns and
+# a vocab chunk of at most BWD_CHUNK columns at a time
+TILE_ROWS, TILE_V = 128, 256
+BWD_CHUNK = 8192
 
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -167,28 +175,58 @@ def lm_head_stats_kernel(h: torch.Tensor, w: torch.Tensor,
     return tuple(out)
 
 
+class BwdPlan(NamedTuple):
+    """The vocab chunk of K2-dh and K2-dW and their scratch; the C entries
+    walk the chunks [c0, c0 + chunk) over [0, V) themselves."""
+    chunk: int                      # columns a chunk, a multiple of TILE_V
+    ld: int                         # tokens a row of the dl^T chunk
+    dh_bytes: int                   # dl^T [chunk, ld] bf16 + fp32 partial
+    dw_bytes: int                   # dl^T [chunk, ld] bf16
+
+
+def _bwd_plan(N: int, V: int, D: int) -> BwdPlan:
+    """Chunks of :data:`BWD_CHUNK` vocab columns, or V rounded up to the
+    tile where that is fewer; dh's fp32 partial [N, D] only when V takes
+    more than one chunk."""
+    rup = lambda x, m: -(-x // m) * m                          # noqa: E731
+    ld = rup(N, TILE_ROWS)
+    chunk = min(BWD_CHUNK, rup(V, TILE_V))
+    part = N * D * 4 if V > chunk else 0
+    return BwdPlan(chunk, ld, chunk * ld * 2 + part, chunk * ld * 2)
+
+
 def _bwd_call(name: str, h, w, labels, lse1, lse_t, a1, a_t, b,
               temperature: float, out: torch.Tensor) -> torch.Tensor:
     _check(h, w, labels, lse1, lse_t, a1, a_t, b)
+    N, D = h.shape
+    V = w.shape[0]
+    plan = _bwd_plan(N, V, D)
+    dl = torch.empty((plan.chunk, plan.ld), dtype=torch.bfloat16,
+                     device=h.device)
+    part = (torch.empty((N, D), dtype=torch.float32, device=h.device)
+            if name == "lm_head_dh" and V > plan.chunk else None)
     fn = _cuda.function(name)
     _cuda.launches[name] += 1
     _cuda.check(fn(*(_cuda.ptr(t) for t in (h, w, labels, lse1, lse_t, a1,
-                                            a_t, b, out)),
-                   h.shape[0], w.shape[0], h.shape[1], float(temperature),
+                                            a_t, b, out, dl)),
+                   None if part is None else _cuda.ptr(part), N, V, D,
+                   plan.chunk, plan.ld, float(temperature),
                    _cuda.stream_of(h)), name)
     return out
 
 
 def lm_head_dh(h, w, labels, lse1, lse_t, a1, a_t, b,
                temperature: float) -> torch.Tensor:
-    """K2-dh on the card (CUDA tensors only): dh [N, D] bf16."""
+    """K2-dh on the card (CUDA tensors only): dh [N, D] bf16, two kernels
+    a vocab chunk (dlogits, then their product with W's chunk rows)."""
     return _bwd_call("lm_head_dh", h, w, labels, lse1, lse_t, a1, a_t, b,
                      temperature, torch.empty_like(h))
 
 
 def lm_head_dw(h, w, labels, lse1, lse_t, a1, a_t, b,
                temperature: float) -> torch.Tensor:
-    """K2-dW on the card (CUDA tensors only): dW [V, D] bf16, every row."""
+    """K2-dW on the card (CUDA tensors only): dW [V, D] bf16, every row,
+    two kernels a vocab chunk (dlogits, then their transpose times h)."""
     return _bwd_call("lm_head_dw", h, w, labels, lse1, lse_t, a1, a_t, b,
                      temperature, torch.empty_like(w))
 

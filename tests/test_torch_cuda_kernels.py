@@ -13,6 +13,7 @@ from speech_distill_tpu_torch.ops.flash_attention import (
     flash_attention_fwd, flash_attention_fwd_plain)
 from speech_distill_tpu_torch.ops.paged_attention import (
     paged_attention, paged_attention_plain, quantize_kv)
+from speech_distill_tpu_torch.ops import pallas_lm_loss
 from speech_distill_tpu_torch.ops.pallas_lm_loss import (
     lm_head_stats, lm_head_stats_bwd_plain, lm_head_stats_plain)
 from speech_distill_tpu_torch.ops.quant import quantize_array_int4
@@ -189,9 +190,20 @@ def _lm_head_inputs(dev, N, V, D, seed):
     return h, w, labels, cot
 
 
-@pytest.mark.parametrize("N,V,D", [(300, 1000, 128), (129, 4099, 1024),
-                                   (70, 300, 64)])
-def test_lm_head_kernels_match_plain(dev, N, V, D):
+# chunk: the backward's vocab chunk (None: the module's 8,192, one chunk
+# here), lowered for three or more chunks with a ragged last one (1000 =
+# 3 x 256 + 232; 4099 = 4 x 1024 + 3; 1100 = 4 x 256 + 76; 2000 = 3 x 512
+# + 464); N ragged against the 128-row tiles and the 64-row halves (129,
+# 70, 257, 300); D 64 (BN 64), 128, 512 and 1024 (BN 256); labels V - 1 in
+# the last chunk and V + 7 past V
+@pytest.mark.parametrize("N,V,D,chunk", [
+    (300, 1000, 128, None), (129, 4099, 1024, None), (70, 300, 64, None),
+    (300, 1000, 128, 256), (129, 4099, 1024, 1024), (70, 1100, 64, 256),
+    (257, 2000, 512, 512)])
+def test_lm_head_kernels_match_plain(dev, monkeypatch, N, V, D, chunk):
+    if chunk is not None:
+        monkeypatch.setattr(pallas_lm_loss, "BWD_CHUNK", chunk)
+        assert -(-V // pallas_lm_loss._bwd_plan(N, V, D).chunk) >= 3
     h, w, labels, cot = _lm_head_inputs(dev, N, V, D, seed=4)
     T = 2.0
     hr, wr = h.detach().requires_grad_(), w.detach().requires_grad_()
@@ -214,6 +226,21 @@ def test_lm_head_kernels_match_plain(dev, N, V, D):
     assert hr.grad.dtype == torch.bfloat16 and wr.grad.shape == w.shape
     assert _rel_err(hr.grad, ref_dh) <= HEAD_GRAD_REL_TOL
     assert _rel_err(wr.grad, ref_dw) <= HEAD_GRAD_REL_TOL
+
+
+def test_lm_head_bwd_kernels_are_deterministic(dev, monkeypatch):
+    """Two calls of K2-dh and of K2-dW on the same inputs give bitwise the
+    same result: dh sums its chunks in order in an fp32 partial, dW writes
+    each row once, no atomics (five chunks, the last ragged)."""
+    monkeypatch.setattr(pallas_lm_loss, "BWD_CHUNK", 256)
+    N, V, D = 300, 1100, 256
+    h, w, labels, cot = _lm_head_inputs(dev, N, V, D, seed=6)
+    stats = lm_head_stats_plain(h.float(), w.float(), labels, 2.0)
+    args = (h, w, labels, stats[0], stats[1], *cot, 2.0)
+    for fn in (pallas_lm_loss.lm_head_dh, pallas_lm_loss.lm_head_dw):
+        first, second = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second), fn.__name__
 
 
 @pytest.mark.parametrize("M", [1, 16, 33, 300])

@@ -229,6 +229,44 @@ def test_checkpointed_chunks_change_nothing():
         torch.testing.assert_close(a, b, atol=0, rtol=0)
 
 
+BWD_SCRATCH_BUDGET = int(0.6 * 2**30)     # the scratch a call may take
+
+
+@pytest.mark.parametrize("n,v,d,want_chunk", [
+    (16380, 159488, 1024, 8192),     # a stage-1 microbatch
+    (4088, 159488, 1024, 8192),      # a fused-KD microbatch
+    (300, 1000, 128, 1024),          # one chunk, rounded up to the tile
+    (70, 300, 64, 512)])
+def test_bwd_plan_covers_the_vocab_within_its_budget(n, v, d, want_chunk):
+    """The K2 backward walks [0, V) in chunks of ``chunk`` columns, a
+    multiple of the 256-column tile, so that the last chunk rounded up to
+    the tile (its columns past V are zero) still fits the dl^T scratch;
+    each call's scratch stays under 0.6 GiB."""
+    plan = tpallas._bwd_plan(n, v, d)
+    assert plan.chunk == want_chunk
+    assert plan.chunk % tpallas.TILE_V == 0
+    n_chunks = -(-v // plan.chunk)
+    last = v - (n_chunks - 1) * plan.chunk
+    assert 0 < last <= plan.chunk
+    assert -(-last // tpallas.TILE_V) * tpallas.TILE_V <= plan.chunk
+    assert plan.ld % tpallas.TILE_ROWS == 0 and n <= plan.ld < n + 128
+    part = n * d * 4 if n_chunks > 1 else 0
+    assert plan.dh_bytes == plan.chunk * plan.ld * 2 + part
+    assert plan.dw_bytes == plan.chunk * plan.ld * 2
+    assert max(plan.dh_bytes, plan.dw_bytes) <= BWD_SCRATCH_BUDGET
+
+
+def test_bwd_plan_follows_a_lowered_chunk(monkeypatch):
+    """A lowered BWD_CHUNK gives that chunk and, past one chunk, dh's fp32
+    partial [N, D]; a vocab within one chunk takes no partial."""
+    monkeypatch.setattr(tpallas, "BWD_CHUNK", 256)
+    plan = tpallas._bwd_plan(300, 1000, 128)
+    assert (plan.chunk, plan.ld) == (256, 384)
+    assert plan.dh_bytes - plan.dw_bytes == 300 * 128 * 4
+    plan = tpallas._bwd_plan(300, 256, 128)
+    assert plan.chunk == 256 and plan.dh_bytes == plan.dw_bytes
+
+
 def test_unknown_backend_raises():
     hidden, lm_w, labels, logp, idx, _ = _loss_inputs(seed=4)
     with pytest.raises(ValueError, match="backend"):
