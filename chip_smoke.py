@@ -20,9 +20,10 @@
    an int8 tied embedding/head, served from an int8 page pool with the
    same traffic; fails unless K3 (``int4_matmul``) and K4-int8
    (``paged_decode_int8``) ran exactly 7 x 28 a model forward and 28 a
-   decode step. Then K3 against its plain version at M 16 and 1,024 on
-   the gate and down codes (device times beside cuBLAS), K4-int8 at K4's
-   check shape, and decode logits of the kernel and plain routes against
+   decode step, and a profile of the quantized decode with K3's kernel
+   time a step by kernel name. Then K3 against its plain version at M 16
+   and 1,024 on the q, o, gate and down codes (device times beside
+   cuBLAS), K4-int8 at K4's check shape, and decode logits of the kernel and plain routes against
    an fp32 reference on the same codes.
 6. Trains: PiSSA LoRA on the same full-width model, ``make_kd_step(mode=
    "precomputed")`` in ``train_loop`` over seeded synthetic batches (B 8,
@@ -93,8 +94,8 @@ from speech_distill_tpu_torch.ops.fused_lm_loss import (fused_cross_entropy,
 from speech_distill_tpu_torch.ops.paged_attention import (
     paged_attention, paged_attention_plain, quantize_kv)
 from speech_distill_tpu_torch.ops.pallas_lm_loss import (
-    _bwd_plan, _n_split, lm_head_dh, lm_head_dw, lm_head_stats_bwd_plain,
-    lm_head_stats_kernel, lm_head_stats_plain)
+    _bwd_plan, _sm_count, _stats_plan, lm_head_dh, lm_head_dw,
+    lm_head_stats_bwd_plain, lm_head_stats_kernel, lm_head_stats_plain)
 from speech_distill_tpu_torch.ops.quant import (dequantize_array,
                                                 param_bytes, quantize_params)
 from speech_distill_tpu_torch.ops.quant_matmul import (int4_matmul,
@@ -317,12 +318,14 @@ def serve(cfg, model):
     return counts
 
 
-def profile_decode(eng, lens, cfg, rng, what: str = "decode serve"
-                   ) -> None:
+def profile_decode(eng, lens, cfg, rng, what: str = "decode serve",
+                   groups=None) -> None:
     """Where a decode-heavy serve spends its time: the same serve (fresh
     random prompts of the given lengths, 32 tokens each) timed without the
     profiler, then traced with it for the time of each CUDA kernel. Device
-    busy share = kernel time / unprofiled wall time."""
+    busy share = kernel time / unprofiled wall time. ``groups`` maps a
+    label to a substring of kernel names whose time and launches are
+    summed, in all and a decode step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -345,6 +348,13 @@ def profile_decode(eng, lens, cfg, rng, what: str = "decode serve"
         f"{steps} steps, wall_ms={wall_us / 1e3:.2f} (unprofiled) "
         f"device_kernel_ms={busy_us / 1e3:.2f} (profiled) busy_share="
         f"{busy_us / wall_us:.3f}")
+    for label, key in (groups or {}).items():
+        sel = [e for e in rows if key in e.key]
+        us = sum(e.self_device_time_total for e in sel)
+        n = sum(e.count for e in sel)
+        log(f"  {label} ({key}): kernel_ms={us / 1e3:.3f} launches={n} "
+            f"per decode step: ms={us / 1e3 / max(steps, 1):.4f} "
+            f"launches={n / max(steps, 1):.1f}")
     for e in rows[:8]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x "
             f"{e.key[:90]}")
@@ -575,24 +585,28 @@ def serve_quant(cfg, model, dev):
         fail(f"quantized serve launches {counts} != {want} (K4-int8 once a "
              f"layer a decode step; K3 for the 7 projections of every "
              f"layer of every model forward)")
-    profile_decode(eng, lens[:13], cfg, rng, "quantized decode serve")
+    profile_decode(eng, lens[:13], cfg, rng, "quantized decode serve",
+                   {"k3_decode": "int4_decode_kernel",
+                    "k3_prefill": "int4_prefill_kernel"})
     return qmodel, counts
 
 
 def check_int4_matmul(dev, qmodel, launches: int) -> dict:
-    """K3 on the quantized model's layer-0 gate (1024 -> 3072) and down
-    (3072 -> 1024) codes at M 16 (a decode step) and M 1024 (a batched
-    prefill): the kernel on bf16 x (the serving route) and on the same
-    values in fp32 (fp32 output, so only summation order differs) against
+    """K3 on the quantized model's layer-0 gate (1024 -> 3072), down
+    (3072 -> 1024), q (1024 -> 2048) and o (2048 -> 1024) codes at M 16
+    (a decode step, the decode kernel) and M 1024 (a batched prefill,
+    the wgmma kernel): the kernel on bf16 x (the serving route) and on
+    the same values in fp32 (fp32 output, so only summation order differs) against
     ``int4_matmul_plain``. Timed on the device (:func:`graph_ms`) beside
     its bound, the plain version, cuBLAS on the weight dequantized to bf16
     once beforehand (what the bf16 model pays) and
     dequantize-then-matmul."""
     rng = np.random.default_rng(SEED + 11)
     side = torch.cuda.Stream()
-    mlp = qmodel.layers[0].mlp
+    mlp, attn = qmodel.layers[0].mlp, qmodel.layers[0].attn
     rows, err, err_bf16 = [], 0.0, 0.0
-    for name, leaf in (("gate", mlp.gate.leaf), ("down", mlp.down.leaf)):
+    for name, leaf in (("gate", mlp.gate.leaf), ("down", mlp.down.leaf),
+                       ("q", attn.q.leaf), ("o", attn.o.leaf)):
         packed, scale = leaf["q4"], leaf["scale"]
         K2, N = packed.shape
         K = 2 * K2
@@ -1378,8 +1392,10 @@ def check_lm_head(dev, model, counts: dict, side) -> list:
         abs_err = {k: (got[k].float() - refs[k]).abs().max().item()
                    for k in got}
         err = {k: abs_err[k] / refs[k].abs().max().item() for k in got}
-        log(f"lm_head K2 at N {h.shape[0]} ({_n_split(h.shape[0], dev)} "
-            f"vocab splits), V {V}, D {D}: max |kernel - plain(fp32)| / max "
+        plan = _stats_plan(h.shape[0], V, _sm_count(dev))
+        log(f"lm_head K2 at N {h.shape[0]} ({plan.splits} vocab splits, "
+            f"{plan.grid} blocks, busiest {plan.makespan} tiles), V {V}, "
+            f"D {D}: max |kernel - plain(fp32)| / max "
             "|plain|: " + ", ".join(f"{k}={e:.3e}" for k, e in err.items())
             + f" (tol {LSE_REL_TOL} for the statistics, {HEAD_GRAD_REL_TOL} "
             "for dh and dW: bf16 dlogits and outputs); max abs: "

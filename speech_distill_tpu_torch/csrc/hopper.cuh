@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels
-// csrc/flash_fwd.cu and csrc/flash_bwd.cu and the lm-head backward in
-// csrc/lm_head_stats.cu: mbarriers, TMA loads through tensor maps, wgmma
-// descriptors and products with fp32 accumulators in registers (B K-major
-// or MN-major, up to 256 columns), the setmaxnreg split of a producer and
+// csrc/flash_fwd.cu and csrc/flash_bwd.cu, the lm-head kernels in
+// csrc/lm_head_stats.cu and the int4 prefill in csrc/int4_matmul.cu:
+// mbarriers, TMA loads through tensor maps, wgmma descriptors and
+// products with fp32 accumulators in registers (B K-major or MN-major, up
+// to 256 columns), the setmaxnreg split of a producer and
 // consumer warpgroups, a ring of TMA stages and the k16 products of one
 // stage, the query-tile walk of a block of two 64-row consumer
 // warpgroups, and the epilogue that stores an accumulator as bf16 rows.
@@ -148,7 +149,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // 8 j + 2 (t % 4) (+ 1), register 4 j + {0, 1} (row) and 4 j + {2, 3}
 // (row + 8). _ss: A and B in shared memory, each K-major (TA, TB 0) or
 // MN-major (1, the transpose bits); _rs: A from registers (the same layout
-// as two k8 halves of the accumulator), B MN-major.
+// as two k8 halves of the accumulator), B MN-major (n64: K-major at TB 0),
+// always accumulating.
 template <int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
                                               uint64_t b, int scale_d) {
@@ -282,16 +284,17 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+template <int TB = 1>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                              const uint32_t (&a)[4],
-                                              uint64_t b) {
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
       "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       :
       "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
       "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -299,7 +302,7 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
       "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
       "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
 }
 
 // S[64 x N] = A B^T over DH in k16 steps, A [64][DH] and B [N][DH] both
@@ -368,11 +371,12 @@ struct Ring {
   __device__ uint32_t parity(uint32_t it) const {
     return (it / stages) & 1;
   }
-  // thread 0, before the block's __syncthreads
-  __device__ void init() const {
+  // thread 0, before the block's __syncthreads; `warps` consumer warps
+  // read each stage (each arrives once to free it)
+  __device__ void init(uint32_t warps = kConsumers * 4) const {
     for (int s = 0; s < stages; ++s) {
       mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, kConsumers * 4);  // one arrive a warp
+      mbar_init(empty + 8 * s, warps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }

@@ -15,15 +15,15 @@
 // What bounds them on the card: tensor-core operations. At N 16,380,
 // V 159,488, D 1024 the statistics are 2 N V D = 5.35 TFLOP and dh and dW
 // 4 N V D each (the logits are recomputed), against ~0.4 GB of operands.
-//   * stats (WMMA, cp.async; its Hopper redesign is later work): a block
-//     owns 128 rows and sweeps its share of the vocab in 128-column tiles;
-//     h and W stream through a two-stage cp.async ring of 32-deep slices.
-//     The vocab is split over gridDim.y so that the whole grid is one wave
-//     of two blocks an SM: blocks of one split sweep the same W columns
-//     together and share them in L2. Each thread keeps the running
-//     (max, sum) at T = 1 and at T and the label logit for half of one row;
-//     the halves merge by a warp shuffle and the splits in a small combine
-//     pass (lm_head_combine_kernel). The [N, V] logits never reach memory.
+//   * stats: z = h W^T as 128 x 256 tiles on the dl kernel's mainloop
+//     (below), the online logsumexp at T = 1 and at T and the label logit
+//     in registers (the tile's fp32 logits never leave them), the running
+//     statistics of a row carried across the vocab tiles of a unit: 128
+//     rows of h and one vocab split, the tiles walked in order. The plan
+//     (ops/pallas_lm_loss._stats_plan) picks the splits that balance the
+//     persistent grid over the SMs; the splits merge in a small combine
+//     pass (lm_head_combine_kernel) in split order. The [N, V] logits
+//     never reach memory.
 //   * dh and dW: two wgmma GEMMs a vocab chunk with dl in device memory
 //     between them, one bf16 chunk at a time. A fully fused kernel does not
 //     fit at D 1024: a 64-row accumulator over all of D is 64 x 1024 fp32,
@@ -47,249 +47,27 @@
 //          transpose bit), adds the previous chunks' fp32 partial [N, D]
 //          and rounds the last chunk to bf16: no atomics and a fixed chunk
 //          order, so the result is bitwise repeatable.
-//     Both kernels: 384 threads, two 64-row consumer warpgroups with fp32
-//     accumulators in registers and a producer warpgroup (setmaxnreg
-//     24 / 240) whose one thread streams 64-deep stages through a ring of
-//     TMA loads (128-byte swizzle, zeros past N or V) completed on
-//     mbarriers; persistent blocks (one an SM), the producer running ahead
-//     across tiles. The work is the TPU design's 4 N V D a backward; the
-//     extra traffic is the dl chunk written once and read once or more
-//     (D / 256 column tiles) from L2, and dh's partial, about 10 GB for
-//     dh or dW at N 16,380.
+//     The work is the TPU design's 4 N V D a backward; the extra traffic
+//     is the dl chunk written once and read once or more (D / 256 column
+//     tiles) from L2, and dh's partial, about 10 GB for dh or dW at
+//     N 16,380.
+// All three GEMM kernels (stats, dl, GEMM): 384 threads, two 64-row
+// consumer warpgroups with fp32 accumulators in registers and a producer
+// warpgroup (setmaxnreg 24 / 240) whose one thread streams 64-deep stages
+// through a ring of TMA loads (128-byte swizzle, zeros past N or V)
+// completed on mbarriers; persistent blocks (one an SM), the producer
+// running ahead across tiles and units.
 // Masking: columns >= V and rows >= N get no contribution (the TPU kernels
 // mask padded columns with -1e30 and pad rows with label -1 and zero
-// cotangents; the results are the same). Shared memory: stats ~106 KB a
-// block (two an SM), dl 209 KB, the GEMM 193 KB at D >= 256.
-#include <mma.h>
-
+// cotangents; the results are the same). Shared memory: stats 193 KB, dl
+// 209 KB, the GEMM 193 KB at D >= 256; one block an SM.
 #include <algorithm>
 
 #include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
-
 constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 256;
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragBCol =
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragAcc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !pred
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(n)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// ---------------------------------------------------------------------------
-// K2-stats
-// ---------------------------------------------------------------------------
-
-constexpr int kSM = 128;       // rows of h a block
-constexpr int kSN = 128;       // vocab columns a tile
-constexpr int kSK = 32;        // depth of a staged slice
-constexpr int kLDK = kSK + 8;  // bf16 row of a staged slice
-constexpr int kLDZ = kSN + 4;  // fp32 row of the logits tile
-
-struct StatsLayout {
-  static constexpr size_t stage = (size_t)kSM * kLDK * 2;  // one operand
-  static constexpr size_t a = 0;                // h slices, 2 stages
-  static constexpr size_t b = a + 2 * stage;    // W slices, 2 stages
-  static constexpr size_t z = b + 2 * stage;    // fp32 logits tile
-  static constexpr size_t bytes = z + (size_t)kSM * kLDZ * 4;
-  static_assert(stage % 32 == 0 && z % 32 == 0, "WMMA needs 32-byte tiles");
-};
-
-// stage the [128, 32] slices at depth k0 of h rows row0.. and W rows col0..
-__device__ __forceinline__ void stats_stage(bf16* a_s, bf16* b_s,
-                                            const bf16* h, const bf16* w,
-                                            int row0, int col0, int k0,
-                                            int N, int V, int D, int tid) {
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int i = tid + j * kThreads;   // 512 vectors of 8 per operand
-    const int r = i >> 2;
-    const int c = (i & 3) * 8;
-    const bool ok_h = row0 + r < N;
-    const bool ok_w = col0 + r < V;
-    cp_async16(a_s + r * kLDK + c,
-               ok_h ? h + (size_t)(row0 + r) * D + k0 + c : h, ok_h);
-    cp_async16(b_s + r * kLDK + c,
-               ok_w ? w + (size_t)(col0 + r) * D + k0 + c : w, ok_w);
-  }
-}
-
-// one online-softmax update of (m, s) with the values x[0:n] / t
-__device__ __forceinline__ void online(float& m, float& s, const float* x,
-                                       int n, float cm, float t) {
-  const float m_new = fmaxf(m, cm / t);
-  float acc = 0.f;
-  for (int c = 0; c < n; ++c) acc += expf(x[c] / t - m_new);
-  s = s * expf(m - m_new) + acc;
-  m = m_new;
-}
-
-__global__ void __launch_bounds__(kThreads, 2) lm_head_stats_kernel(
-    const bf16* __restrict__ h, const bf16* __restrict__ w,
-    const int* __restrict__ labels, float* __restrict__ part, int N, int V,
-    int D, float t) {
-  using L = StatsLayout;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* a_s = reinterpret_cast<bf16*>(smem + L::a);
-  bf16* b_s = reinterpret_cast<bf16*>(smem + L::b);
-  float* z_s = reinterpret_cast<float*>(smem + L::z);
-  constexpr int kStage = kSM * kLDK;   // elements of one stage
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = warp & 3;     // this warp's 32 rows of the logits tile
-  const int wn = warp >> 2;    // and its 64 columns
-  const int row0 = blockIdx.x * kSM;
-  const int split = blockIdx.y;
-  const int n_vt = (V + kSN - 1) / kSN;
-  const int per = (n_vt + gridDim.y - 1) / gridDim.y;
-  const int vt0 = split * per;
-  const int vt1 = min(n_vt, vt0 + per);
-  const int nk = D / kSK;
-
-  // running statistics of row r_loc over columns half*64 .. of each tile
-  const int r_loc = tid >> 1;
-  const int half = tid & 1;
-  const int row = row0 + r_loc;
-  const int label = row < N ? labels[row] : -1;
-  float m1 = kNegInf, s1 = 0.f, mt = kNegInf, st = 0.f, lab = kNegInf;
-
-  if (vt0 < vt1) {
-    stats_stage(a_s, b_s, h, w, row0, vt0 * kSN, 0, N, V, D, tid);
-    cp_async_commit();
-  }
-  for (int vt = vt0; vt < vt1; ++vt) {
-    const int col0 = vt * kSN;
-    FragAcc acc[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-    for (int kc = 0; kc < nk; ++kc) {
-      const int cur = kc & 1;
-      if (kc + 1 < nk) {
-        const int nxt = cur ^ 1;
-        stats_stage(a_s + nxt * kStage, b_s + nxt * kStage, h, w, row0, col0,
-                    (kc + 1) * kSK, N, V, D, tid);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const bf16* a = a_s + cur * kStage;
-      const bf16* b = b_s + cur * kStage;
-#pragma unroll
-      for (int kk = 0; kk < kSK / 16; ++kk) {
-        FragA fa[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(fa[i], a + (wm * 32 + i * 16) * kLDK + kk * 16,
-                                 kLDK);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          FragBCol fb;
-          wmma::load_matrix_sync(fb, b + (wn * 64 + j * 16) * kLDK + kk * 16,
-                                 kLDK);
-#pragma unroll
-          for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], fa[i], fb,
-                                                     acc[i][j]);
-        }
-      }
-      __syncthreads();   // this stage is refilled two slices later
-    }
-    // the next tile's first slice loads while this tile is reduced
-    if (vt + 1 < vt1) {
-      stats_stage(a_s, b_s, h, w, row0, col0 + kSN, 0, N, V, D, tid);
-      cp_async_commit();
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::store_matrix_sync(
-            z_s + (wm * 32 + i * 16) * kLDZ + wn * 64 + j * 16, acc[i][j],
-            kLDZ, wmma::mem_row_major);
-    __syncthreads();
-
-    const int c0 = col0 + half * 64;
-    const int n = min(64, V - c0);   // valid columns of this thread's half
-    if (n > 0) {
-      const float* x = z_s + r_loc * kLDZ + half * 64;
-      float cm = kNegInf;
-      for (int c = 0; c < n; ++c) cm = fmaxf(cm, x[c]);
-      online(m1, s1, x, n, cm, 1.f);
-      online(mt, st, x, n, cm, t);
-      const int lc = label - c0;
-      if (lc >= 0 && lc < n) lab = fmaxf(lab, x[lc]);
-    }
-    __syncthreads();   // z_s is rewritten by the next tile
-  }
-
-  // merge the two halves of each row (neighbouring lanes)
-  const float pm1 = __shfl_xor_sync(0xffffffffu, m1, 1);
-  const float ps1 = __shfl_xor_sync(0xffffffffu, s1, 1);
-  const float pmt = __shfl_xor_sync(0xffffffffu, mt, 1);
-  const float pst = __shfl_xor_sync(0xffffffffu, st, 1);
-  const float plab = __shfl_xor_sync(0xffffffffu, lab, 1);
-  if (half == 0 && row < N) {
-    const float m = fmaxf(m1, pm1);
-    const float mm = fmaxf(mt, pmt);
-    float* p = part + (size_t)split * 5 * N + row;
-    p[0] = m;
-    p[(size_t)N] = s1 * expf(m1 - m) + ps1 * expf(pm1 - m);
-    p[(size_t)2 * N] = mm;
-    p[(size_t)3 * N] = st * expf(mt - mm) + pst * expf(pmt - mm);
-    p[(size_t)4 * N] = fmaxf(lab, plab);
-  }
-}
-
-// merge the vocab splits of each row into (lse1, lseT, label_logit)
-__global__ void lm_head_combine_kernel(const float* __restrict__ part,
-                                       float* __restrict__ lse1,
-                                       float* __restrict__ lset,
-                                       float* __restrict__ lab, int N,
-                                       int splits) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  float m1 = kNegInf, s1 = 0.f, mt = kNegInf, st = 0.f, lb = kNegInf;
-  for (int k = 0; k < splits; ++k) {
-    const float* p = part + (size_t)k * 5 * N + n;
-    const float pm1 = p[0], pmt = p[(size_t)2 * N];
-    const float m = fmaxf(m1, pm1);
-    s1 = s1 * expf(m1 - m) + p[(size_t)N] * expf(pm1 - m);
-    m1 = m;
-    const float mm = fmaxf(mt, pmt);
-    st = st * expf(mt - mm) + p[(size_t)3 * N] * expf(pmt - mm);
-    mt = mm;
-    lb = fmaxf(lb, p[(size_t)4 * N]);
-  }
-  lse1[n] = m1 + logf(fmaxf(s1, 1e-30f));
-  lset[n] = mt + logf(fmaxf(st, 1e-30f));
-  lab[n] = lb;
-}
 
 // ---------------------------------------------------------------------------
 // K2-dh and K2-dW
@@ -325,6 +103,208 @@ struct GemmSmem {
 __device__ __forceinline__ Ring make_ring(uint32_t base, uint32_t stage,
                                           uint32_t bar, int stages) {
   return Ring{base, stage, base + bar, base + bar + 8 * stages, stages};
+}
+
+// ---------------------------------------------------------------------------
+// K2-stats
+// ---------------------------------------------------------------------------
+
+constexpr int kStagesStats = 4;            // 48 KB stages
+
+struct StatsSmem {
+  static constexpr uint32_t a_bytes = kTileM * 128;  // 128 rows x 64 of h
+  static constexpr uint32_t b_bytes = kTileV * 128;  // 256 rows x 64 of W
+  static constexpr uint32_t stage = a_bytes + b_bytes;
+  static constexpr uint32_t bar = kStagesStats * stage;
+  static constexpr uint32_t bytes = bar + 16 * kStagesStats + 1024;
+};
+
+struct StatsArgs {
+  const int* labels;
+  float* part;     // [splits, 5, N]: m, s at T = 1, m / T, s at T, label
+  int N, V, D;
+  int splits;      // vocab splits
+  int per;         // vocab tiles a split (the last may have fewer)
+  float t;         // the temperature T
+  float log2e_t;   // log2(e) / T
+};
+
+// The work of a block: units u = blockIdx.x, blockIdx.x + gridDim.x, ...
+// of n_rt * splits, split-major (u = split * n_rt + row tile), so that
+// the blocks running together sweep the same W tiles and share them in
+// L2; a unit is the vocab tiles [split * per, min(n_vt, (split + 1) per))
+// of 128 rows of h, walked in order.
+struct StatsUnit {
+  int rt, split, vt0, vt1;
+};
+
+__device__ __forceinline__ StatsUnit stats_unit(const StatsArgs& p, int u) {
+  const int n_rt = (p.N + kTileM - 1) / kTileM;
+  const int n_vt = (p.V + kTileV - 1) / kTileV;
+  StatsUnit w;
+  w.rt = u % n_rt;
+  w.split = u / n_rt;
+  w.vt0 = w.split * p.per;
+  w.vt1 = min(n_vt, w.vt0 + p.per);
+  return w;
+}
+
+// (lse1, lseT, label logit) partials of every unit: z = h W^T as 128 x 256
+// tiles (the dl kernel's mainloop: two 64-row consumer warpgroups, K = D in
+// 64-deep TMA stages), then an online logsumexp in registers. Thread t of
+// a warpgroup holds rows r_a and r_a + 8 and 64 of the tile's columns; a
+// row's four threads share its running max m (the tile max, reduced over
+// the four lanes by shuffles) and each keeps its own sums of exp2 at
+// T = 1 and at T, with log2(e) (and log2(e) / T) folded into one fmaf; the
+// label logit is kept by a compare. Columns >= V (zeros from TMA) are set
+// to -1e30 before the max and the sums; rows >= N are not written. At a
+// unit's end the four lanes' sums are added and the five partials stored.
+__global__ void __launch_bounds__(kThreadsWs, 1) lm_head_stats_kernel(
+    const __grid_constant__ CUtensorMap tm_h,
+    const __grid_constant__ CUtensorMap tm_w, const StatsArgs p) {
+  using L = StatsSmem;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const Ring ring = make_ring(base, L::stage, L::bar, kStagesStats);
+  const int n_units = (p.N + kTileM - 1) / kTileM * p.splits;
+  const int n_k = p.D / kBox;
+
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers * 128) {
+    // producer warpgroup: one thread issues every TMA load
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kConsumers * 128) {
+      uint32_t it = 0;
+      for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+        const StatsUnit w = stats_unit(p, u);
+        for (int vt = w.vt0; vt < w.vt1; ++vt)
+          for (int ks = 0; ks < n_k; ++ks, ++it) {
+            const uint32_t full = ring.acquire(it, L::stage);
+            const uint32_t s = ring.stage(it);
+            tma_load_2d(s, &tm_h, ks * kBox, w.rt * kTileM, full);
+            tma_load_2d(s + L::a_bytes, &tm_w, ks * kBox, vt * kTileV, full);
+          }
+      }
+    }
+  } else {
+    // consumer warpgroup: 64 rows of each tile
+    setmaxnreg_inc<kConsumerRegs>();
+    const int wg = threadIdx.x / 128;
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int r_a = (t / 32) * 16 + lane / 4;  // rows r_a and r_a + 8
+    const int c_a = 2 * (lane % 4);            // columns 8 j + c_a (+ 1)
+    float acc[kTileV / 2];
+#pragma unroll
+    for (int i = 0; i < kTileV / 2; ++i) acc[i] = 0.f;
+    uint32_t it = 0;
+    for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+      const StatsUnit w = stats_unit(p, u);
+      const int row0 = w.rt * kTileM + wg * kBQ + r_a;
+      float m[2], s1[2], st[2], lab[2];
+      int label[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        label[r] = row < p.N ? p.labels[row] : -1;
+        m[r] = kNegInf;
+        s1[r] = st[r] = 0.f;
+        lab[r] = kNegInf;
+      }
+      for (int vt = w.vt0; vt < w.vt1; ++vt) {
+        mainloop<kTileV, false, false>(acc, ring, it, n_k, wg * kBQ * 128,
+                                       L::a_bytes, lane);
+        const int v0 = vt * kTileV;
+        const int n_valid = p.V - v0;   // columns < V in the tile
+        if (n_valid < kTileV) {
+#pragma unroll
+          for (int j = 0; j < kTileV / 8; ++j)
+#pragma unroll
+            for (int x = 0; x < 4; ++x)
+              if (8 * j + c_a + (x & 1) >= n_valid) acc[4 * j + x] = kNegInf;
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float tmax = kNegInf;
+#pragma unroll
+          for (int j = 0; j < kTileV / 8; ++j)
+            tmax = fmaxf(tmax, fmaxf(acc[4 * j + 2 * r],
+                                     acc[4 * j + 2 * r + 1]));
+          tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+          tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+          const float mn = fmaxf(m[r], tmax);
+          s1[r] *= fast_exp2((m[r] - mn) * kLog2e);
+          st[r] *= fast_exp2((m[r] - mn) * p.log2e_t);
+          m[r] = mn;
+          const float b1 = mn * kLog2e, bt = mn * p.log2e_t;
+          float a1 = 0.f, at = 0.f;
+#pragma unroll
+          for (int j = 0; j < kTileV / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float z = acc[4 * j + 2 * r + e];
+              a1 += fast_exp2(fmaf(z, kLog2e, -b1));
+              at += fast_exp2(fmaf(z, p.log2e_t, -bt));
+            }
+          s1[r] += a1;
+          st[r] += at;
+          const int lc = label[r] - v0;
+          if (lc >= 0 && lc < n_valid && (lc & 6) == c_a) {
+#pragma unroll
+            for (int j = 0; j < kTileV / 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                if (8 * j + c_a + e == lc) lab[r] = acc[4 * j + 2 * r + e];
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+#pragma unroll
+        for (int x = 1; x <= 2; x *= 2) {
+          s1[r] += __shfl_xor_sync(0xffffffffu, s1[r], x);
+          st[r] += __shfl_xor_sync(0xffffffffu, st[r], x);
+          lab[r] = fmaxf(lab[r], __shfl_xor_sync(0xffffffffu, lab[r], x));
+        }
+        const int row = row0 + 8 * r;
+        if (lane % 4 == 0 && row < p.N) {
+          float* q = p.part + (size_t)w.split * 5 * p.N + row;
+          q[0] = m[r];
+          q[(size_t)p.N] = s1[r];
+          q[(size_t)2 * p.N] = m[r] / p.t;
+          q[(size_t)3 * p.N] = st[r];
+          q[(size_t)4 * p.N] = lab[r];
+        }
+      }
+    }
+  }
+}
+
+// merge the vocab splits of each row into (lse1, lseT, label_logit)
+__global__ void lm_head_combine_kernel(const float* __restrict__ part,
+                                       float* __restrict__ lse1,
+                                       float* __restrict__ lset,
+                                       float* __restrict__ lab, int N,
+                                       int splits) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  float m1 = kNegInf, s1 = 0.f, mt = kNegInf, st = 0.f, lb = kNegInf;
+  for (int k = 0; k < splits; ++k) {
+    const float* p = part + (size_t)k * 5 * N + n;
+    const float pm1 = p[0], pmt = p[(size_t)2 * N];
+    const float m = fmaxf(m1, pm1);
+    s1 = s1 * expf(m1 - m) + p[(size_t)N] * expf(pm1 - m);
+    m1 = m;
+    const float mm = fmaxf(mt, pmt);
+    st = st * expf(mt - mm) + p[(size_t)3 * N] * expf(pmt - mm);
+    mt = mm;
+    lb = fmaxf(lb, p[(size_t)4 * N]);
+  }
+  lse1[n] = m1 + logf(fmaxf(s1, 1e-30f));
+  lset[n] = mt + logf(fmaxf(st, 1e-30f));
+  lab[n] = lb;
 }
 
 struct DlArgs {
@@ -648,23 +628,39 @@ int bwd_entry(const void* h, const void* w, const void* labels,
 
 }  // namespace
 
-// bf16 h [N, D], W [V, D], int32 labels [N]; D % 32 == 0. `part` is fp32
-// scratch [splits, 5, N]; writes fp32 lse1, lseT and label_logit [N].
-// Returns cudaGetLastError() after the launches.
+// bf16 h [N, D], W [V, D], int32 labels [N]; D in {64, 128, 256, 512,
+// 1024}. `part` is fp32 scratch [splits, 5, N]; every split holds at
+// least one of the ceil(V / 256) vocab tiles (per = ceil(n_vt / splits)).
+// Writes fp32 lse1, lseT and label_logit [N]. Launches the stats kernel
+// (persistent, min(units, SMs) blocks) and the combine pass. Returns
+// cudaGetLastError() after the launches.
 extern "C" int lm_head_stats(const void* h, const void* w, const void* labels,
                              void* part, void* lse1, void* lset, void* lab,
                              int N, int V, int D, int splits, float t,
                              void* stream) {
-  if (D % kSK != 0 || splits < 1) return (int)cudaErrorInvalidValue;
+  const bool dims_ok = D == 64 || D == 128 || D == 256 || D == 512 ||
+                       D == 1024;
+  const int n_vt = (V + kTileV - 1) / kTileV;
+  if (N <= 0 || V <= 0 || !dims_ok || splits < 1 || splits > n_vt)
+    return (int)cudaErrorInvalidValue;
+  const int per = (n_vt + splits - 1) / splits;
+  if ((splits - 1) * per >= n_vt) return (int)cudaErrorInvalidValue;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap tm_h, tm_w;   // both K-major
+  if (!make_bf16_map(encode, &tm_h, h, D, N, D, kTileM) ||
+      !make_bf16_map(encode, &tm_w, w, D, V, D, kTileV))
+    return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr =
+      allow_smem(lm_head_stats_kernel, StatsSmem::bytes);
+  if (attr != cudaSuccess) return (int)attr;
+  const StatsArgs p{static_cast<const int*>(labels), static_cast<float*>(part),
+                    N, V, D, splits, per, t, kLog2e / t};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = StatsLayout::bytes;
-  cudaError_t e = allow_smem(lm_head_stats_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((N + kSM - 1) / kSM, splits);
-  lm_head_stats_kernel<<<grid, kThreads, smem, s>>>(
-      static_cast<const bf16*>(h), static_cast<const bf16*>(w),
-      static_cast<const int*>(labels), static_cast<float*>(part), N, V, D, t);
-  e = cudaGetLastError();
+  const int units = (N + kTileM - 1) / kTileM * splits;
+  lm_head_stats_kernel<<<std::min(units, sm_count()), kThreadsWs,
+                         StatsSmem::bytes, s>>>(tm_h, tm_w, p);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   lm_head_combine_kernel<<<(N + 255) / 256, 256, 0, s>>>(
       static_cast<const float*>(part), static_cast<float*>(lse1),

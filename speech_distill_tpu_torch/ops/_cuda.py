@@ -40,8 +40,8 @@ SIGNATURES = {
     # q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths, out,
     # B, KV, G, Dh, P, ps, max_pages, layer, scale, q dtype, stream
     "paged_decode_int8": [_P] * 8 + [_I] * 8 + [_F, _I, _P],
-    # x, packed, scale, out, work, M, N, K2, ldx, splits, out dtype, stream
-    "int4_matmul": [_P] * 5 + [_I] * 6 + [_P],
+    # x, packed, scale, out, M, N, K2, ldx, splits, out dtype, stream
+    "int4_matmul": [_P] * 4 + [_I] * 6 + [_P],
     # q, k, v, o, lse, B, T, H, KV, Dh, scale, stream
     "flash_fwd": [_P] * 5 + [_I] * 5 + [_F, _P],
     # q, k, v, dO, lse, delta, dq, B, T, H, KV, Dh, scale, stream

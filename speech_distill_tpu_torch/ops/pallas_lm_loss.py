@@ -23,6 +23,7 @@ not a kernel.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -37,6 +38,9 @@ KERNEL_DIMS = (64, 128, 256, 512, 1024)   # hidden sizes the kernels take
 # a vocab chunk of at most BWD_CHUNK columns at a time
 TILE_ROWS, TILE_V = 128, 256
 BWD_CHUNK = 8192
+# the stats kernel's vocab splits: at most this many, and the fewest whose
+# busiest block sweeps within this share of the best split's tiles
+STATS_MAX_SPLITS, STATS_BALANCE = 64, 0.01
 
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -149,21 +153,55 @@ def _check(h, w, labels, *rows) -> None:
                              f"{tuple(t.shape)}")
 
 
-def _n_split(n_rows: int, device) -> int:
-    """Vocab splits of the stats kernel: enough blocks for two an SM."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles = -(-n_rows // 128)
-    return max(1, min(64, (2 * sms) // tiles))
+class StatsPlan(NamedTuple):
+    """The work of K2-stats: units of 128 rows x one vocab split, walked
+    by a persistent grid of ``grid`` blocks (unit u = split * row_tiles +
+    row tile; block b takes units b, b + grid, ...)."""
+    splits: int                     # vocab splits, none empty
+    per: int                        # vocab tiles a split (the last fewer)
+    row_tiles: int
+    vocab_tiles: int
+    grid: int                       # blocks, min(units, SMs)
+    makespan: int                   # most vocab tiles one block sweeps
+
+
+@functools.lru_cache(maxsize=64)
+def _stats_plan(N: int, V: int, sms: int) -> StatsPlan:
+    """The vocab splits of the stats kernel that balance its persistent
+    grid: for each split count up to :data:`STATS_MAX_SPLITS` with no
+    empty split, the most 128 x 256 tiles any block sweeps; the fewest
+    splits within :data:`STATS_BALANCE` of the best (each split adds a
+    [5, N] fp32 partial and its unit's pipeline start)."""
+    n_rt = -(-N // TILE_ROWS)
+    n_vt = -(-V // TILE_V)
+    plans = []
+    for splits in range(1, min(STATS_MAX_SPLITS, n_vt) + 1):
+        per = -(-n_vt // splits)
+        if (splits - 1) * per >= n_vt:
+            continue                                # an empty split
+        grid = min(n_rt * splits, sms)
+        load = [0] * grid
+        for u in range(n_rt * splits):
+            load[u % grid] += min(per, n_vt - (u // n_rt) * per)
+        plans.append(StatsPlan(splits, per, n_rt, n_vt, grid, max(load)))
+    best = min(p.makespan for p in plans)
+    return next(p for p in plans
+                if p.makespan <= best * (1 + STATS_BALANCE))
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def lm_head_stats_kernel(h: torch.Tensor, w: torch.Tensor,
                          labels: torch.Tensor, temperature: float) -> Stats:
     """K2-stats on the card (CUDA tensors only): ``lm_head_stats`` over
-    vocab splits, then the small combine pass."""
+    the vocab splits of :func:`_stats_plan`, then the small combine
+    pass."""
     _check(h, w, labels)
     N, D = h.shape
     V = w.shape[0]
-    splits = _n_split(N, h.device)
+    splits = _stats_plan(N, V, _sm_count(h.device)).splits
     part = torch.empty((splits, 5, N), dtype=torch.float32, device=h.device)
     out = [torch.empty(N, dtype=torch.float32, device=h.device)
            for _ in range(3)]

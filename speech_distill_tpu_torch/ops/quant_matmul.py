@@ -6,7 +6,10 @@ packed split-halves weight (``ops/quant.quantize_array_int4``: the high
 nibble is contraction row r, the low nibble row K/2 + r) without ever
 writing the bf16 weight to memory: on CUDA tensors it launches the
 hand-written kernel ``csrc/int4_matmul.cu`` (the counterpart of the TPU
-``_kernel``) or raises; on CPU tensors it runs :func:`int4_matmul_plain`.
+``_kernel``: a decode kernel for M <= 16 whose contraction splits,
+:func:`k3_plan`, meet in one thread-block cluster, and a wgmma
+prefill kernel) or raises; on CPU tensors it runs
+:func:`int4_matmul_plain`.
 
 The route :func:`quantized_matmul` and ``models/qwen3._proj`` take for a
 2-D int4 leaf is set by :func:`int4_route`:
@@ -21,7 +24,7 @@ The route :func:`quantized_matmul` and ``models/qwen3._proj`` take for a
 from __future__ import annotations
 
 import contextlib
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
 
@@ -29,11 +32,14 @@ from speech_distill_tpu_torch.ops import _cuda
 from speech_distill_tpu_torch.ops.quant import dequantize_array, unpack_int4
 
 _OUT_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# tile of the kernel: 128 output columns, 32 packed rows a step
-BLOCK_N, BLOCK_K2 = 128, 32
+# what the kernel takes: whole 128-column tiles and 64-row packed stages
+BLOCK_N, BLOCK_K2 = 128, 64
+# decode (M <= DECODE_ROWS): 16-row packed steps over the DECODE_WARPS
+# warps of a block of 128 columns, at most MAX_SPLITS contraction splits
+# (one portable thread-block cluster a column tile)
+DECODE_ROWS, DECODE_STEP, DECODE_WARPS, MAX_SPLITS = 16, 16, 8, 8
 ROUTES = ("auto", "plain")
 _route = ["auto"]
-_sm_count: Dict[int, int] = {}       # streaming multiprocessors by device
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -42,7 +48,7 @@ def _on_cuda(t: torch.Tensor) -> bool:
 
 def kernel_takes(x: torch.Tensor, packed: torch.Tensor) -> bool:
     """Whether :func:`int4_matmul` takes x and the packed [K/2, N] grid:
-    whole 32-row packed steps, whole 128-column tiles, fp32/bf16 x."""
+    whole 64-row packed stages, whole 128-column tiles, fp32/bf16 x."""
     K2, N = packed.shape
     return (K2 % BLOCK_K2 == 0 and N % BLOCK_N == 0
             and x.dtype in _OUT_CODE)
@@ -104,30 +110,41 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor,
     if xb.data_ptr() % 16 or packed.data_ptr() % 16:
         raise ValueError("int4_matmul needs 16-byte aligned x and packed")
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    splits = split_k(M, N, K2, x.device)
-    work = (torch.empty((splits, M, N), dtype=torch.float32,
-                        device=x.device) if splits > 1 else out)
+    splits = k3_plan(M, N, K2).splits
     fn = _cuda.function("int4_matmul")
     _cuda.launches["int4_matmul"] += 1
     _cuda.check(fn(_cuda.ptr(xb), _cuda.ptr(packed), _cuda.ptr(scale),
-                   _cuda.ptr(out), _cuda.ptr(work), M, N, K2, K, splits,
-                   _OUT_CODE[x.dtype], _cuda.stream_of(x)), "int4_matmul")
+                   _cuda.ptr(out), M, N, K2, K, splits, _OUT_CODE[x.dtype],
+                   _cuda.stream_of(x)), "int4_matmul")
     return out
 
 
-def split_k(M: int, N: int, K2: int, device) -> int:
-    """Contraction splits: enough blocks for two a streaming
-    multiprocessor when M is small (decode), each split at least 4
-    steps of 32 packed rows; 1 when the output tiles already fill the
-    card (their partial sums would cost more than they save)."""
-    bm = 16 if M <= 16 else 64
-    tiles = (N // BLOCK_N) * -(-M // bm)
-    sms = _sm_count.get(device.index)
-    if sms is None:
-        sms = _sm_count[device.index] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    steps = K2 // BLOCK_K2
-    return max(1, min(-(-2 * sms // tiles), steps // 4))
+class K3Plan(NamedTuple):
+    """How one call of the kernel walks the packed rows: the decode
+    kernel (M <= :data:`DECODE_ROWS`) over ``splits`` contraction splits
+    of ``per`` 16-row steps (the last may have fewer), one cluster a
+    128-column tile; the prefill kernel over all ``steps`` 64-row stages
+    (``splits`` 1)."""
+    route: str                      # "decode" or "prefill"
+    splits: int
+    per: int                        # steps a split
+    steps: int                      # packed steps of the contraction
+
+
+def k3_plan(M: int, N: int, K2: int) -> K3Plan:
+    """The kernel's plan for x [M, 2 K2] and packed [K2, N]. Decode is
+    latency-bound (one projection is ~1.6 MB of weight): one step a warp
+    where :data:`MAX_SPLITS` (a portable cluster) allows, then as few
+    splits as give the same steps a split (so none is empty); their sums
+    meet in the cluster's shared memory. The blocks of every split fit
+    on the card at once (at most 8 x N / 128 blocks of 256 threads)."""
+    if M > DECODE_ROWS:
+        steps = K2 // BLOCK_K2
+        return K3Plan("prefill", 1, steps, steps)
+    steps = K2 // DECODE_STEP
+    want = max(1, min(MAX_SPLITS, -(-steps // DECODE_WARPS)))
+    per = -(-steps // want)
+    return K3Plan("decode", -(-steps // per), per, steps)
 
 
 def quantized_matmul(x: torch.Tensor, leaf: Dict[str, torch.Tensor]

@@ -243,27 +243,77 @@ def test_lm_head_bwd_kernels_are_deterministic(dev, monkeypatch):
         assert torch.equal(first, second), fn.__name__
 
 
-@pytest.mark.parametrize("M", [1, 16, 33, 300])
-@pytest.mark.parametrize("K,N", [(1024, 3072), (3072, 1024)])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_int4_matmul_kernel_matches_plain(dev, M, K, N, dtype):
-    """Decode (M <= 16, contraction split over blocks) and prefill tiles,
-    a ragged last row tile, nibble 0 (-8) and an all-zero column."""
-    rng = np.random.default_rng(M + K)
+@pytest.mark.parametrize("N,V", [(300, 1000), (16380, 159488)])
+def test_lm_head_stats_kernel_matches_plain_and_repeats(dev, N, V):
+    """K2-stats alone at a ragged shape and at the stage-1 microbatch's
+    N 16,380 over the full vocabulary (33 vocab splits): against the plain
+    version, and two calls bitwise equal (each split sums its tiles in
+    order, the combine adds the splits in order)."""
+    h, w, labels, _ = _lm_head_inputs(dev, N, V, 1024, seed=7)
+    before = _cuda.launches["lm_head_stats"]
+    first = pallas_lm_loss.lm_head_stats_kernel(h, w, labels, 2.0)
+    second = pallas_lm_loss.lm_head_stats_kernel(h, w, labels, 2.0)
+    torch.cuda.synchronize()
+    assert _cuda.launches["lm_head_stats"] == before + 2
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    ref = lm_head_stats_plain(h.float(), w.float(), labels, 2.0)
+    hits = ref[2] > -1e29
+    assert first[2][1].item() == float(np.float32(-1e30))  # label past V
+    for name, got, r in zip(("lse1", "lseT", "label"),
+                            (first[0], first[1], first[2][hits]),
+                            (ref[0], ref[1], ref[2][hits])):
+        assert _rel_err(got, r) <= LSE_REL_TOL, name
+
+
+# the 0.6B's projections (K, N): q, k/v, o, gate/up, down
+PROJ_06B = [(1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072),
+            (3072, 1024)]
+
+
+def _int4_inputs(dev, M, K, N, dtype, seed):
+    """A quantized N(0, 0.02) weight with an all-zero column (7) and
+    nibble 0 (-8) in packed row 0's first 64 columns, and x [M, K]."""
+    rng = np.random.default_rng(seed)
     w = torch.from_numpy(rng.normal(0, 0.02, (K, N))).float()
     w[:, 7] = 0.0
     leaf = quantize_array_int4(w.to(dev))
     packed = leaf["q4"].clone()
     packed[0, :64] = 0x08
     x = torch.from_numpy(rng.normal(size=(M, K))).to(dev, dtype)
+    return x, packed, leaf["scale"]
+
+
+# M: a decode row, a decode step, the prefill tile's edges (17, 64, 65),
+# a ragged prefill and a 1,024-token batched prefill
+@pytest.mark.parametrize("M", [1, 16, 17, 64, 65, 300, 1024])
+@pytest.mark.parametrize("K,N", PROJ_06B)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int4_matmul_kernel_matches_plain(dev, M, K, N, dtype):
+    """Decode (M <= 16, contraction splits in one cluster) and prefill
+    (wgmma) at every 0.6B projection, nibble 0 (-8) and an all-zero
+    column."""
+    x, packed, scale = _int4_inputs(dev, M, K, N, dtype, seed=M + K)
     before = _cuda.launches["int4_matmul"]
-    got = int4_matmul(x, packed, leaf["scale"])
+    got = int4_matmul(x, packed, scale)
     torch.cuda.synchronize()
     assert _cuda.launches["int4_matmul"] == before + 1
-    ref = int4_matmul_plain(x.float(), packed, leaf["scale"])
+    ref = int4_matmul_plain(x.float(), packed, scale)
     assert got.dtype == dtype and got.shape == (M, N)
     assert torch.all(got[:, 7] == 0)
     assert _rel_err(got, ref) <= INT4_REL_TOL[dtype]
+
+
+@pytest.mark.parametrize("M", [16, 1024])
+@pytest.mark.parametrize("K,N", [(1024, 3072), (3072, 1024)])
+def test_int4_matmul_kernel_is_deterministic(dev, M, K, N):
+    """Two calls on the same inputs are bitwise equal: the decode splits
+    are added in split order in the cluster, the prefill sums in one
+    order."""
+    x, packed, scale = _int4_inputs(dev, M, K, N, torch.bfloat16, seed=3)
+    first, second = (int4_matmul(x, packed, scale) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_int4_matmul_refuses_what_the_kernel_cannot_take(dev):

@@ -278,3 +278,65 @@ def test_unknown_backend_raises():
         tfused.fused_cross_entropy(
             torch.from_numpy(hidden), torch.from_numpy(lm_w),
             torch.from_numpy(labels), backend="ring")
+
+
+@pytest.mark.parametrize("sms", [132, 7])
+@pytest.mark.parametrize("n,v", [
+    (16380, 159488),     # a stage-1 microbatch
+    (4088, 159488),      # a fused-KD microbatch
+    (300, 1000),         # N and V ragged against the 128 x 256 tiles
+    (129, 4099),
+    (70, 300),
+    (1, 257)])
+def test_stats_plan_covers_every_tile_once(n, v, sms):
+    """K2-stats' persistent grid, walked as the kernel walks it (block b
+    takes units b, b + grid, ...; unit u = split * row_tiles + row tile,
+    the split's vocab tiles in order): every (row tile, vocab tile) pair
+    once (so the [splits, 5, N] partials are each written once), no empty
+    split, the busiest block as planned and within 1% of a perfect spread
+    (or, on a grid smaller than the card, one split's tiles)."""
+    plan = tpallas._stats_plan(n, v, sms)
+    n_rt, n_vt = -(-n // tpallas.TILE_ROWS), -(-v // tpallas.TILE_V)
+    assert (plan.row_tiles, plan.vocab_tiles) == (n_rt, n_vt)
+    assert 1 <= plan.splits <= min(tpallas.STATS_MAX_SPLITS, n_vt)
+    assert plan.per == -(-n_vt // plan.splits)
+    assert (plan.splits - 1) * plan.per < n_vt          # no empty split
+    units = n_rt * plan.splits
+    assert plan.grid == min(units, sms)
+    seen = {}
+    load = [0] * plan.grid
+    for u in range(units):
+        rt, split = u % n_rt, u // n_rt
+        tiles = range(split * plan.per, min(n_vt, (split + 1) * plan.per))
+        assert len(tiles) > 0
+        for vt in tiles:
+            seen[rt, vt] = seen.get((rt, vt), 0) + 1
+        load[u % plan.grid] += len(tiles)
+    assert seen == {(rt, vt): 1 for rt in range(n_rt) for vt in range(n_vt)}
+    assert max(load) == plan.makespan
+    # within 1% (and a tile) of a perfect spread of the tiles over the SMs
+    assert plan.makespan <= 1.01 * n_rt * n_vt / sms + 1 or \
+        plan.grid < sms and plan.makespan == plan.per
+
+
+@pytest.mark.parametrize("v,bv", [(600, 256), (257, 128)])
+def test_plain_stats_match_interpret_ragged_vocab(v, bv):
+    """V ragged against the kernel's 256-column tiles (600 = 2 x 256 + 88;
+    257 = 256 + 1, one column in the last tile) with labels at V - 1 and
+    past V, against the JAX kernel in interpret mode."""
+    rng = np.random.default_rng(v)
+    h = rng.normal(size=(N, D)).astype(np.float32)
+    w = rng.normal(size=(v, D)).astype(np.float32)
+    labels = rng.integers(0, v, N).astype(np.int32)
+    labels[:3] = [v - 1, v, v + 300]
+    ref = jpallas.lm_head_stats(jnp.asarray(h), jnp.asarray(w),
+                                jnp.asarray(labels), TEMP, BN, bv, True)
+    got = tpallas.lm_head_stats_plain(torch.from_numpy(h),
+                                      torch.from_numpy(w),
+                                      torch.from_numpy(labels), TEMP,
+                                      chunk=256)
+    for name, a, b in zip(("lse1", "lseT", "label"), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5,
+                                   rtol=0, err_msg=name)
+    assert abs(got[2][0].item() - float(h[0] @ w[v - 1])) < 1e-4
+    assert got[2][1].item() == got[2][2].item() == float(np.float32(-1e30))

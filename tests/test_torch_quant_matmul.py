@@ -12,7 +12,7 @@ from speech_distill_tpu.ops.quant_matmul import (
     int4_matmul as jax_int4_matmul, quantized_matmul as jax_quantized_matmul)
 from speech_distill_tpu_torch.core.config import qwen3_tiny
 from speech_distill_tpu_torch.ops import _cuda, quant_matmul
-from speech_distill_tpu_torch.ops.quant import (dequantize_array,
+from speech_distill_tpu_torch.ops.quant import (dequantize_array, unpack_int4,
                                                 quantize_array_int4,
                                                 quantize_array_int8)
 from speech_distill_tpu_torch.ops.quant_matmul import (
@@ -147,3 +147,101 @@ def test_zero_codes_and_zero_columns():
                          torch.float32).double())
     assert torch.all(got[:, 5] == 0)
     torch.testing.assert_close(got.double(), want, atol=1e-4, rtol=1e-5)
+
+
+# the 0.6B's projections (K, N): q, k/v, o, gate/up, down
+PROJ_06B = [(1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072),
+            (3072, 1024)]
+
+
+@pytest.mark.parametrize("K_,N_", [(256, 512), (512, 256), (256, 768),
+                                   (768, 256)], ids=["q", "o", "gate",
+                                                     "down"])
+@pytest.mark.parametrize("M", [17, 64, 65])
+def test_plain_matches_pallas_interpret_at_tile_edges(M, K_, N_):
+    """M on the kernel's tile edges (16 decode rows, 64-row prefill tiles)
+    at the 0.6B's projection aspect ratios scaled down by 4."""
+    w = np.random.default_rng(K_ + N_).normal(size=(K_, N_)).astype(
+        np.float32)
+    jleaf = jquant.quantize_array_int4(jnp.asarray(w))
+    leaf = {k: torch.from_numpy(np.array(v)) for k, v in jleaf.items()}
+    x = np.random.default_rng(M).normal(size=(M, K_)).astype(np.float32)
+    ref = np.asarray(jax_int4_matmul(jnp.asarray(x), jleaf["q4"],
+                                     jleaf["scale"].reshape(1, N_), bm=64,
+                                     bn=128, bk2=64, interpret=True))
+    got = int4_matmul_plain(torch.from_numpy(x), leaf["q4"], leaf["scale"])
+    assert got.shape == (M, N_)
+    # sums of K_ <= 768 products of magnitude ~7 (|y| ~ 100)
+    np.testing.assert_allclose(got.numpy(), ref, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("M", [16, 1024])
+@pytest.mark.parametrize("K_,N_", PROJ_06B)
+def test_k3_plan_covers_every_packed_step_once(K_, N_, M):
+    """The kernel's plan at every 0.6B projection, a decode step (M 16)
+    and a 1,024-token prefill: no empty split, every 16-row decode step
+    (64-row prefill stage) of the packed rows in exactly one split, at
+    most a portable cluster of splits, and at most two decode steps for
+    any warp of a block (the two it has in flight at once)."""
+    K2 = K_ // 2
+    plan = quant_matmul.k3_plan(M, N_, K2)
+    rows = quant_matmul.DECODE_STEP if M <= 16 else quant_matmul.BLOCK_K2
+    assert plan.route == ("decode" if M <= 16 else "prefill")
+    assert plan.steps * rows == K2
+    assert 1 <= plan.splits <= quant_matmul.MAX_SPLITS
+    covered = []
+    for split in range(plan.splits):
+        steps = range(split * plan.per,
+                      min(plan.steps, (split + 1) * plan.per))
+        assert len(steps) > 0
+        covered += steps
+    assert covered == list(range(plan.steps))
+    if M <= 16:
+        assert plan.per <= 2 * quant_matmul.DECODE_WARPS
+    else:
+        assert plan.splits == 1
+
+
+def test_bit_trick_dequant_is_exact_for_every_nibble():
+    """The kernel's conversion emulated on the CPU: (nibble | 0x4300) as
+    bf16 is 128 + nibble, and one bf16 subtraction of 136 (0x4308) gives
+    nibble - 8 exactly, for all 16 nibbles."""
+    nib = torch.arange(16, dtype=torch.int32)
+    biased = (nib | 0x4300).to(torch.int16).view(torch.bfloat16)
+    assert torch.equal(biased.float(), 128.0 + nib.float())
+    k136 = torch.tensor([0x4308], dtype=torch.int16).view(torch.bfloat16)
+    assert k136.item() == 136.0
+    got = biased - k136                       # bf16 arithmetic
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.float(), nib.float() - 8)
+
+
+def _byte_perm(a: int, b: int, sel: int) -> int:
+    """CUDA's __byte_perm: result byte n is byte (sel >> 4n) & 7 of the
+    eight bytes of b:a."""
+    src = a | (b << 32)
+    return sum(((src >> (8 * ((sel >> (4 * n)) & 7))) & 0xFF) << (8 * n)
+               for n in range(4))
+
+
+def test_word_dequant_matches_unpack():
+    """The kernel's word path emulated: byte i of packed rows r and r + 1
+    (one 32-bit word of each) permuted into the two halves of a word,
+    masked (high nibbles after a shift by 4), or-ed with 0x4300 and less
+    136 in bf16, gives the k pair (r, r + 1) of both nibble planes as
+    ``unpack_int4`` does."""
+    rng = np.random.default_rng(0)
+    packed = torch.from_numpy(rng.integers(0, 256, (2, 4), dtype=np.uint8))
+    grid = unpack_int4(packed).float()          # [4, 4]: rows 0, 1, 2, 3
+    a, b = (int.from_bytes(bytes(packed[r].tolist()), "little")
+            for r in range(2))
+    k136 = torch.tensor([0x4308], dtype=torch.int16).view(torch.bfloat16)
+    for i in range(4):
+        r = _byte_perm(a, b, i | (i << 4) | ((4 + i) << 8) | ((4 + i) << 12))
+        for plane, word in ((0, ((r >> 4) & 0x000F000F) | 0x43004300),
+                            (1, (r & 0x000F000F) | 0x43004300)):
+            halves = torch.tensor([word & 0xFFFF, word >> 16],
+                                  dtype=torch.int32).to(torch.int16)
+            vals = (halves.view(torch.bfloat16) - k136).float()
+            # plane 0: contraction rows 0, 1; plane 1: K/2 + 0, K/2 + 1
+            assert vals.tolist() == grid[2 * plane:2 * plane + 2, i].tolist()
