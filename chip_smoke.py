@@ -8,23 +8,27 @@
    (one nvcc per source, all started together).
 3. Serves 16 seeded requests through ``PagedEngine`` on the full-width
    Qwen3-0.6B student (random weights from a seed; the default sampler),
-   and fails unless both serving kernels were launched during the serve.
+   and fails unless both serving kernels were launched during the serve;
+   a profile of a decode-heavy serve fails unless K4 ran 28 times a
+   decode step by kernel name.
 4. Holds each serving kernel against its plain PyTorch version on the
    card at the serving path's shapes, and times kernel, plain version,
    bound and (for flash attention) the library SDPA call as a yardstick;
-   K1 (fwd, dq, dkv) and SDPA (forward, backward) by CUDA-graph replays,
-   here and at the KD and stage-1 shapes.
+   K4, K4-int8 (with their split plan and GB/s), K1 (fwd, dq, dkv) and
+   SDPA (forward, backward) by CUDA-graph replays, here and at the KD and
+   stage-1 shapes. Fails if ptxas reports a spill in ``paged_decode``.
 5. Teacher-forces decode steps of ``paged_forward`` through the kernel and
    through the plain version, and compares the logits.
 5b. Quantized serving: the same model quantized to int4 projections and
    an int8 tied embedding/head, served from an int8 page pool with the
    same traffic; fails unless K3 (``int4_matmul``) and K4-int8
    (``paged_decode_int8``) ran exactly 7 x 28 a model forward and 28 a
-   decode step, and a profile of the quantized decode with K3's kernel
-   time a step by kernel name. Then K3 against its plain version at M 16
-   and 1,024 on the q, o, gate and down codes (device times beside
-   cuBLAS), K4-int8 at K4's check shape, and decode logits of the kernel and plain routes against
-   an fp32 reference on the same codes.
+   decode step, and a profile of the quantized decode with K3's and
+   K4-int8's kernel time a step by kernel name (K4-int8: 28 launches).
+   Then K3 against its plain version at M 16 and 1,024 on the q, o, gate
+   and down codes (device times beside cuBLAS), K4-int8 at K4's check
+   shape, and decode logits of the kernel and plain routes against an
+   fp32 reference on the same codes.
 6. Trains: PiSSA LoRA on the same full-width model, ``make_kd_step(mode=
    "precomputed")`` in ``train_loop`` over seeded synthetic batches (B 8,
    T 512, K 128), with checkpoints; fails unless the flash forward and
@@ -63,6 +67,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -92,7 +97,7 @@ from speech_distill_tpu_torch.ops.flash_attention import (
 from speech_distill_tpu_torch.ops.fused_lm_loss import (fused_cross_entropy,
                                                         head_sparse_kd_loss)
 from speech_distill_tpu_torch.ops.paged_attention import (
-    paged_attention, paged_attention_plain, quantize_kv)
+    k4_plan, paged_attention, paged_attention_plain, quantize_kv)
 from speech_distill_tpu_torch.ops.pallas_lm_loss import (
     _bwd_plan, _sm_count, _stats_plan, lm_head_dh, lm_head_dw,
     lm_head_stats_bwd_plain, lm_head_stats_kernel, lm_head_stats_plain)
@@ -256,6 +261,12 @@ def build_kernels() -> None:
                                        "Function properties",
                                        "Performance Loss")):
                 log(f"ptxas {name}: {line.strip()}")
+    # every K4 instantiation keeps its state in registers
+    spills = [line.strip() for line in
+              reports.get("paged_decode", "").splitlines()
+              if re.search(r"\b[1-9]\d* bytes spill", line)]
+    if spills:
+        fail(f"ptxas paged_decode spills: {spills}")
     log(f"build s={time.perf_counter() - t0:.2f} "
         f"built={sorted(reports)}")
 
@@ -314,18 +325,29 @@ def serve(cfg, model):
     if counts["paged_decode"] != L * eng.n_decode_steps:
         fail(f"paged_decode launches {counts['paged_decode']} != layers x "
              f"decode steps {L * eng.n_decode_steps}")
-    profile_decode(eng, lens[:13], cfg, rng)
+    per_step = profile_decode(eng, lens[:13], cfg, rng,
+                              groups={"k4": "paged_decode_kernel"})
+    check_k4_per_step(per_step["k4"], L, "serve")
     return counts
 
 
+def check_k4_per_step(k4, L: int, what: str) -> None:
+    """K4 by kernel name in a decode profile: once a layer a decode step."""
+    if k4["launches_per_step"] != L:
+        fail(f"{what}: paged_decode_kernel launched "
+             f"{k4['launches_per_step']} times a decode step by kernel "
+             f"name, not {L}")
+
+
 def profile_decode(eng, lens, cfg, rng, what: str = "decode serve",
-                   groups=None) -> None:
+                   groups=None) -> dict:
     """Where a decode-heavy serve spends its time: the same serve (fresh
     random prompts of the given lengths, 32 tokens each) timed without the
     profiler, then traced with it for the time of each CUDA kernel. Device
     busy share = kernel time / unprofiled wall time. ``groups`` maps a
     label to a substring of kernel names whose time and launches are
-    summed, in all and a decode step."""
+    summed, in all and a decode step (the profiled serve's steps);
+    returns {label: {"ms_per_step", "launches_per_step"}}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -336,10 +358,10 @@ def profile_decode(eng, lens, cfg, rng, what: str = "decode serve",
     t0 = time.perf_counter()
     run()
     wall_us = (time.perf_counter() - t0) * 1e6
-    steps = eng.n_decode_steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run()
+    steps = eng.n_decode_steps
     rows = sorted((e for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA),
                   key=lambda e: -e.self_device_time_total)
@@ -348,10 +370,13 @@ def profile_decode(eng, lens, cfg, rng, what: str = "decode serve",
         f"{steps} steps, wall_ms={wall_us / 1e3:.2f} (unprofiled) "
         f"device_kernel_ms={busy_us / 1e3:.2f} (profiled) busy_share="
         f"{busy_us / wall_us:.3f}")
+    per_step = {}
     for label, key in (groups or {}).items():
         sel = [e for e in rows if key in e.key]
         us = sum(e.self_device_time_total for e in sel)
         n = sum(e.count for e in sel)
+        per_step[label] = {"ms_per_step": us / 1e3 / max(steps, 1),
+                           "launches_per_step": n / max(steps, 1)}
         log(f"  {label} ({key}): kernel_ms={us / 1e3:.3f} launches={n} "
             f"per decode step: ms={us / 1e3 / max(steps, 1):.4f} "
             f"launches={n / max(steps, 1):.1f}")
@@ -366,53 +391,80 @@ def profile_decode(eng, lens, cfg, rng, what: str = "decode serve",
     for e in host[:8]:
         log(f"  {e.self_cpu_time_total / 1e3:9.3f} ms {e.count:6d}x "
             f"{e.key[:90]}")
+    return per_step
 
 
-def check_paged_decode(dev, launches: int) -> dict:
-    """K4 at the serve's shapes: 16 rows, KV 8, G 2, Dh 128, page 128,
-    lengths 0..2048 (idle row, page boundaries), layer 1 of 2."""
-    rng = np.random.default_rng(SEED + 1)
+K4_CHECK_LENS = [0, 1, 127, 128, 129, 255, 256, 511, 640, 1000, 1023, 1024,
+                 1500, 1920, 2047, 2048]
+
+
+def k4_check(dev, side, launches: int, quantized: bool) -> dict:
+    """K4 (bf16 pool) or K4-int8 (int8 pool and scales from
+    ``quantize_kv`` of seeded bf16 K/V) at the serve's shapes: 16 rows,
+    KV 8, G 2, Dh 128, page 128, lengths 0..2048 (idle row, page
+    boundaries), layer 1 of 2, against the plain version in fp32 on the
+    same bf16 inputs or int8 codes. Timed by CUDA-graph replays on
+    ``side`` (``ms``) beside eager calls between CUDA events
+    (``host_ms``, what a call costs with its host work)."""
+    name = "paged_decode_int8" if quantized else "paged_decode"
+    rng = np.random.default_rng(SEED + (12 if quantized else 1))
     B, KV, G, Dh, ps, mp, L = 16, 8, 2, 128, 128, 16, 2
     P = B * mp
 
     def rnd(*shape):
         return torch.from_numpy(rng.standard_normal(shape, np.float32)
                                 ).to(dev, torch.bfloat16)
-    q, kp, vp = rnd(B, KV, G, Dh), rnd(L, P + 1, KV, ps, Dh), \
-        rnd(L, P + 1, KV, ps, Dh)
+    q = rnd(B, KV, G, Dh)
+    if quantized:
+        kp, ks = quantize_kv(rnd(L, P + 1, KV, ps, Dh))
+        vp, vs = quantize_kv(rnd(L, P + 1, KV, ps, Dh))
+        kw = dict(layer=1, k_scale=ks, v_scale=vs)
+        ref_pools = (kp, vp)
+    else:
+        kp, vp = rnd(L, P + 1, KV, ps, Dh), rnd(L, P + 1, KV, ps, Dh)
+        kw = dict(layer=1)
+        ref_pools = (kp.float(), vp.float())
     bt = torch.from_numpy(rng.permutation(P).reshape(B, mp).astype(
         np.int32)).to(dev)
-    lens = [0, 1, 127, 128, 129, 255, 256, 511, 640, 1000, 1023, 1024,
-            1500, 1920, 2047, 2048]
-    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    lengths = torch.tensor(K4_CHECK_LENS, dtype=torch.int32, device=dev)
     args = (q, kp, vp, bt, lengths)
-    got = paged_attention(*args, layer=1)
+    got = paged_attention(*args, **kw)
     torch.cuda.synchronize()
-    ref = paged_attention_plain(q.float(), kp.float(), vp.float(), bt,
-                                lengths, layer=1)
+    ref = paged_attention_plain(q.float(), *ref_pools, bt, lengths, **kw)
     err = (got.float() - ref).abs().max().item()
     if not bool(torch.all(got[0] == 0)):
-        fail("paged_decode: idle row is not exact zeros")
-    log(f"paged_decode max_abs_err={err:.3e} tol={KERNEL_ATOL} (bf16 "
-        f"output rounding vs the plain version in fp32 on the same bf16 "
-        f"inputs)")
+        fail(f"{name}: idle row is not exact zeros")
+    log(f"{name} max_abs_err={err:.3e} tol={KERNEL_ATOL} (bf16 output "
+        f"rounding vs the plain version in fp32 on the same "
+        f"{'int8 codes and scales' if quantized else 'bf16 inputs'})")
     if not err <= KERNEL_ATOL:
-        fail(f"paged_decode disagrees with its plain version: {err}")
-    ms = time_ms(lambda: paged_attention(*args, layer=1))
-    plain_ms = time_ms(lambda: paged_attention_plain(*args, layer=1))
-    resident = sum(lens)
-    pages_read = sum(-(-n // ps) for n in lens)
-    nbytes = (resident * KV * Dh * 2 * 2          # K and V rows, bf16
+        fail(f"{name} disagrees with its plain version: {err}")
+    ms = graph_ms(lambda: paged_attention(*args, **kw), side)
+    host_ms = time_ms(lambda: paged_attention(*args, **kw))
+    plain_ms = graph_ms(lambda: paged_attention_plain(*args, **kw), side)
+    resident = sum(K4_CHECK_LENS)
+    pages_read = sum(-(-n // ps) for n in K4_CHECK_LENS)
+    row_bytes = Dh * (1 if quantized else 2)
+    nbytes = (resident * KV * row_bytes * 2       # K and V rows
+              + (resident * KV * 4 * 2 if quantized else 0)   # scales
               + 2 * q.numel() * 2                 # q in, out
               + pages_read * 4 + B * 4)           # block tables, lengths
     flops = 4 * G * Dh * KV * resident
     bound_ms, bound_by = bound(nbytes, flops)
-    return {"name": "paged_decode", "route": "cuda",
+    plan = k4_plan(B, KV, mp, ps, Dh, kp.dtype, _sm_count(dev))
+    log(f"{name} plan: splits={plan.splits} pages_per_split="
+        f"{plan.pages_per_split} stage_tokens={plan.stage_tokens} "
+        f"stages={plan.stages}; ms={ms:.5f} (graph) host_ms={host_ms:.4f} "
+        f"(events, eager calls) plain_ms={plain_ms:.4f} bound_ms="
+        f"{bound_ms:.5f} ({bound_by}, {nbytes / 1e6:.2f} MB) GB/s="
+        f"{nbytes / ms / 1e6:.1f}")
+    return {"name": name, "route": "cuda",
             "source": "speech_distill_tpu_torch/csrc/paged_decode.cu",
             "replaces": "speech_distill_tpu/ops/paged_attention.py:55",
             "launches": launches, "max_abs_err": err, "ms": ms,
-            "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "kernel_ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "plan": plan._asdict(), "gb_per_s": nbytes / ms / 1e6}
 
 
 def flash_inputs(rng, dev, B: int, T: int, n: int = 3, H: int = 16,
@@ -585,9 +637,12 @@ def serve_quant(cfg, model, dev):
         fail(f"quantized serve launches {counts} != {want} (K4-int8 once a "
              f"layer a decode step; K3 for the 7 projections of every "
              f"layer of every model forward)")
-    profile_decode(eng, lens[:13], cfg, rng, "quantized decode serve",
-                   {"k3_decode": "int4_decode_kernel",
-                    "k3_prefill": "int4_prefill_kernel"})
+    per_step = profile_decode(eng, lens[:13], cfg, rng,
+                              "quantized decode serve",
+                              {"k3_decode": "int4_decode_kernel",
+                               "k3_prefill": "int4_prefill_kernel",
+                               "k4_int8": "paged_decode_kernel"})
+    check_k4_per_step(per_step["k4_int8"], L, "quantized serve")
     return qmodel, counts
 
 
@@ -663,59 +718,6 @@ def check_int4_matmul(dev, qmodel, launches: int) -> dict:
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "shapes": rows}
-
-
-def check_paged_decode_int8(dev, launches: int) -> dict:
-    """K4-int8 at K4's check shape (16 rows, KV 8, G 2, Dh 128, page 128,
-    lengths 0..2048, layer 1 of 2), int8 pools and scales from
-    ``quantize_kv`` of seeded bf16 K/V, against the plain version in fp32
-    on the same codes."""
-    rng = np.random.default_rng(SEED + 12)
-    B, KV, G, Dh, ps, mp, L = 16, 8, 2, 128, 128, 16, 2
-    P = B * mp
-
-    def rnd(*shape):
-        return torch.from_numpy(rng.standard_normal(shape, np.float32)
-                                ).to(dev, torch.bfloat16)
-    q = rnd(B, KV, G, Dh)
-    kq, ks = quantize_kv(rnd(L, P + 1, KV, ps, Dh))
-    vq, vs = quantize_kv(rnd(L, P + 1, KV, ps, Dh))
-    bt = torch.from_numpy(rng.permutation(P).reshape(B, mp).astype(
-        np.int32)).to(dev)
-    lens = [0, 1, 127, 128, 129, 255, 256, 511, 640, 1000, 1023, 1024,
-            1500, 1920, 2047, 2048]
-    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-    args = (q, kq, vq, bt, lengths)
-    kw = dict(layer=1, k_scale=ks, v_scale=vs)
-    got = paged_attention(*args, **kw)
-    torch.cuda.synchronize()
-    ref = paged_attention_plain(q.float(), kq, vq, bt, lengths, **kw)
-    err = (got.float() - ref).abs().max().item()
-    if not bool(torch.all(got[0] == 0)):
-        fail("paged_decode_int8: idle row is not exact zeros")
-    log(f"paged_decode_int8 max_abs_err={err:.3e} tol={KERNEL_ATOL} (bf16 "
-        f"output rounding vs the plain version in fp32 on the same int8 "
-        f"codes and scales)")
-    if not err <= KERNEL_ATOL:
-        fail(f"paged_decode_int8 disagrees with its plain version: {err}")
-    ms = time_ms(lambda: paged_attention(*args, **kw))
-    plain_ms = time_ms(lambda: paged_attention_plain(*args, **kw))
-    resident = sum(lens)
-    pages_read = sum(-(-n // ps) for n in lens)
-    nbytes = (resident * KV * Dh * 2              # K and V rows, int8
-              + resident * KV * 4 * 2             # their fp32 scales
-              + 2 * q.numel() * 2                 # q in, out
-              + pages_read * 4 + B * 4)           # block tables, lengths
-    flops = 4 * G * Dh * KV * resident
-    bound_ms, bound_by = bound(nbytes, flops)
-    log(f"paged_decode_int8 ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"bound_ms={bound_ms:.5f} ({bound_by}, {nbytes / 1e6:.2f} MB)")
-    return {"name": "paged_decode_int8", "route": "cuda",
-            "source": "speech_distill_tpu_torch/csrc/paged_decode.cu",
-            "replaces": "speech_distill_tpu/ops/paged_attention.py:55",
-            "launches": launches, "max_abs_err": err, "ms": ms,
-            "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
 
 
 def check_quant_model_path(cfg, qmodel, dev) -> None:
@@ -1559,13 +1561,13 @@ def main() -> None:
         f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
 
     side = torch.cuda.Stream()          # warm-ups of every graph timing
-    kernels = [check_paged_decode(dev, counts["paged_decode"]),
+    kernels = [k4_check(dev, side, counts["paged_decode"], False),
                check_flash_serve(dev, counts["flash_fwd"], side)]
     check_model_path(cfg, model, dev)
     t0 = time.perf_counter()
     qmodel, qcounts = serve_quant(cfg, model, dev)
     kernels += [check_int4_matmul(dev, qmodel, qcounts["int4_matmul"]),
-                check_paged_decode_int8(dev, qcounts["paged_decode_int8"])]
+                k4_check(dev, side, qcounts["paged_decode_int8"], True)]
     check_quant_model_path(cfg, qmodel, dev)
     del qmodel
     log(f"quantized serving phases s={time.perf_counter() - t0:.2f}, "

@@ -35,11 +35,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of each entry point
 SIGNATURES = {
     # q, k_pool, v_pool, block_tables, lengths, out,
-    # B, KV, G, Dh, P, ps, max_pages, layer, scale, dtype, stream
-    "paged_decode": [_P] * 6 + [_I] * 8 + [_F, _I, _P],
+    # B, KV, G, Dh, P, ps, max_pages, layer, then the plan: splits, pages
+    # per split, stage tokens, stages; scale, dtype, stream
+    "paged_decode": [_P] * 6 + [_I] * 12 + [_F, _I, _P],
     # q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths, out,
-    # B, KV, G, Dh, P, ps, max_pages, layer, scale, q dtype, stream
-    "paged_decode_int8": [_P] * 8 + [_I] * 8 + [_F, _I, _P],
+    # B, KV, G, Dh, P, ps, max_pages, layer, the plan, scale, q dtype,
+    # stream
+    "paged_decode_int8": [_P] * 8 + [_I] * 12 + [_F, _I, _P],
     # x, packed, scale, out, M, N, K2, ldx, splits, out dtype, stream
     "int4_matmul": [_P] * 4 + [_I] * 6 + [_P],
     # q, k, v, o, lse, B, T, H, KV, Dh, scale, stream

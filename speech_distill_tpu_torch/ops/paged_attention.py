@@ -21,11 +21,13 @@ read as a pool of one layer, as the JAX ``layer=None``.
 :func:`paged_attention` launches the hand-written CUDA kernels of
 ``csrc/paged_decode.cu`` (the counterpart of the TPU ``_decode_kernel``):
 ``paged_decode`` for bf16/fp32 pools, ``paged_decode_int8`` for int8
-pools; for CPU tensors it runs :func:`paged_attention_plain`.
+pools, each a flash-decoding kernel whose key-range splits
+(:func:`k4_plan`) meet in one thread-block cluster; for CPU tensors it
+runs :func:`paged_attention_plain`.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -33,6 +35,47 @@ from speech_distill_tpu_torch.ops import _cuda
 
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# K4's plan: at most MAX_SPLITS splits of a row's pages (one portable
+# thread-block cluster), enough to put BLOCKS_PER_SM blocks a SM on the
+# card; stages of about STAGE_BYTES of K and V rows, at most MAX_STAGES in
+# a block's ring (the fastest stage size and depth of those measured on
+# an H100, PERF.md section 6)
+MAX_SPLITS, BLOCKS_PER_SM, STAGE_BYTES, MAX_STAGES = 8, 8, 32768, 2
+
+
+class K4Plan(NamedTuple):
+    """How one call of the kernel walks a row's pages: split r of the
+    row's cluster owns pages [r * pages_per_split, (r + 1) *
+    pages_per_split) below ceil(len / page_size), streamed in stages of
+    ``stage_tokens`` rows of one page through a ring of ``stages``."""
+    splits: int
+    pages_per_split: int
+    stage_tokens: int
+    stages: int
+
+
+def k4_plan(B: int, KV: int, max_pages: int, page_size: int, Dh: int,
+            dtype: torch.dtype, sms: int) -> K4Plan:
+    """The kernel's plan for B rows of KV heads over a block table of
+    ``max_pages`` pages of ``page_size`` rows of Dh values of the pool's
+    ``dtype``, on a card of ``sms`` SMs. From static shapes only: the
+    launch never reads ``lengths`` on the host (no sync, capturable in a
+    CUDA graph). As many splits as put BLOCKS_PER_SM blocks a SM on the
+    card, at most MAX_SPLITS and at most one a page, then as few as give
+    the same pages a split (so no split lies past the last page). A stage
+    is the largest divisor of the page of at most STAGE_BYTES of K and V
+    rows (int8: a multiple of 4 rows, so each scale run starts 16-byte
+    aligned)."""
+    want = max(1, min(MAX_SPLITS, max_pages,
+                      -(-BLOCKS_PER_SM * sms // max(1, B * KV))))
+    pps = -(-max_pages // want)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    step = 4 if dtype == torch.int8 else 1
+    target = max(step, STAGE_BYTES // (2 * Dh * itemsize))
+    st = max([t for t in range(step, page_size + 1, step)
+              if page_size % t == 0 and t <= target] or [page_size])
+    stages = max(1, min(MAX_STAGES, pps * (page_size // st)))
+    return K4Plan(-(-max_pages // pps), pps, st, stages)
 
 
 def quantize_kv(x: torch.Tensor, dim: int = -1):
@@ -148,6 +191,16 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     ("block_tables", block_tables), ("lengths", lengths)):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {q.device}")
+    # the bulk copies need 16-byte aligned sources: the bases of q, the
+    # pools and the scales, and (int8) every page's run of ps scales
+    if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)) or quantized and (
+            ps % 4 or k_scale.data_ptr() % 16 or v_scale.data_ptr() % 16):
+        raise ValueError(f"paged_decode needs 16-byte aligned q, pools and "
+                         f"scales, and (int8) page_size % 4 == 0; got "
+                         f"page_size={ps}")
+    mp = block_tables.shape[1]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    plan = k4_plan(B, KV, mp, ps, Dh, k_pool.dtype, sms)
     out = torch.empty_like(q)
     if quantized:
         fn = _cuda.function("paged_decode_int8")
@@ -155,17 +208,15 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         _cuda.check(fn(_cuda.ptr(q), _cuda.ptr(k_pool), _cuda.ptr(v_pool),
                        _cuda.ptr(k_scale), _cuda.ptr(v_scale),
                        _cuda.ptr(block_tables), _cuda.ptr(lengths),
-                       _cuda.ptr(out), B, KV, G, Dh, P, ps,
-                       block_tables.shape[1], int(layer), Dh ** -0.5,
-                       _DTYPE_CODE[q.dtype], _cuda.stream_of(q)),
-                    "paged_decode_int8")
+                       _cuda.ptr(out), B, KV, G, Dh, P, ps, mp, int(layer),
+                       *plan, Dh ** -0.5, _DTYPE_CODE[q.dtype],
+                       _cuda.stream_of(q)), "paged_decode_int8")
         return out
     fn = _cuda.function("paged_decode")
     _cuda.launches["paged_decode"] += 1
     _cuda.check(fn(_cuda.ptr(q), _cuda.ptr(k_pool), _cuda.ptr(v_pool),
                    _cuda.ptr(block_tables), _cuda.ptr(lengths),
-                   _cuda.ptr(out), B, KV, G, Dh, P, ps,
-                   block_tables.shape[1], int(layer), Dh ** -0.5,
-                   _DTYPE_CODE[q.dtype], _cuda.stream_of(q)),
-                "paged_decode")
+                   _cuda.ptr(out), B, KV, G, Dh, P, ps, mp, int(layer),
+                   *plan, Dh ** -0.5, _DTYPE_CODE[q.dtype],
+                   _cuda.stream_of(q)), "paged_decode")
     return out

@@ -12,7 +12,7 @@ from speech_distill_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
     flash_attention_fwd, flash_attention_fwd_plain)
 from speech_distill_tpu_torch.ops.paged_attention import (
-    paged_attention, paged_attention_plain, quantize_kv)
+    k4_plan, paged_attention, paged_attention_plain, quantize_kv)
 from speech_distill_tpu_torch.ops import pallas_lm_loss
 from speech_distill_tpu_torch.ops.pallas_lm_loss import (
     lm_head_stats, lm_head_stats_bwd_plain, lm_head_stats_plain)
@@ -49,26 +49,111 @@ def dev():
     return torch.device("cuda")
 
 
+def _paged_case(dev, pool, G, Dh, ps, mp, seed, q_dtype=None):
+    """Inputs of one K4 call over a pool whose every row past a length,
+    and every page no table names, holds NaN (int8: NaN scales), and
+    whose table entries past ceil(len / ps) name such a page; and the
+    same call's inputs with that junk set to zero, which the plain
+    version (it gathers whole pages) takes. Six rows of 2 KV heads on
+    layer 1 of 2: lengths 0, 1, ps + 1, one token in the plan's last
+    split, half the table plus 3, the whole table. Returns (kernel
+    arguments, plain arguments, keyword arguments of each)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    B, KV, L = 6, 2, 2
+    P = B * mp + 2
+    q_dtype = q_dtype or pool
+    plan = k4_plan(B, KV, mp, ps, Dh, pool, 132)
+    last = (plan.splits - 1) * plan.pages_per_split * ps + 1
+    lens = [0, 1, ps + 1, last, mp * ps // 2 + 3, mp * ps]
+    perm = torch.randperm(B * mp, generator=gen, device=dev)
+    bt = perm.reshape(B, mp).to(torch.int32)
+    real = torch.zeros(L, P, KV, ps, dtype=torch.bool, device=dev)
+    bt_junk = bt.clone()
+    for row, n in enumerate(lens):
+        pages = -(-n // ps)
+        for j in range(pages):
+            real[:, bt[row, j], :, :min(ps, n - j * ps)] = True
+        bt_junk[row, pages:] = P - 1          # an all-NaN page
+    q = torch.randn(B, KV, G, Dh, generator=gen, device=dev).to(q_dtype)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    shape = (L, P, KV, ps, Dh)
+    vals = [torch.randn(shape, generator=gen, device=dev) for _ in range(2)]
+    if pool == torch.int8:
+        codes, scales = zip(*(quantize_kv(v) for v in vals))
+        junk = [s.masked_fill(~real, float("nan")) for s in scales]
+        zero = [s.masked_fill(~real, 0.0) for s in scales]
+        kern = (q, *codes, bt_junk, lengths)
+        plain = (q.float(), *codes, bt_junk, lengths)
+        return (kern, plain, dict(layer=1, k_scale=junk[0], v_scale=junk[1]),
+                dict(layer=1, k_scale=zero[0], v_scale=zero[1]))
+    kern = [v.masked_fill(~real[..., None], float("nan")).to(pool)
+            for v in vals]
+    plain = [v.masked_fill(~real[..., None], 0.0).to(pool).float()
+             for v in vals]
+    return ((q, *kern, bt_junk, lengths), (q.float(), *plain, bt_junk,
+                                           lengths),
+            dict(layer=1), dict(layer=1))
+
+
+# page sizes 16-128, tables of 16 (the serve's) and 64 pages, G 1, 2
+# (the 0.6B) and 8, Dh 64 and 128; bf16 and fp32 pools, and int8 pools
+# under bf16 and fp32 queries
+K4_GRID = [pytest.mark.parametrize("ps", [16, 64, 128]),
+           pytest.mark.parametrize("mp", [16, 64]),
+           pytest.mark.parametrize("G", [1, 2, 8]),
+           pytest.mark.parametrize("Dh", [64, 128])]
+
+
+def _k4_grid(fn):
+    for mark in K4_GRID:
+        fn = mark(fn)
+    return fn
+
+
+@_k4_grid
 @pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, BF16_ATOL),
                                         (torch.float32, FP32_ATOL)])
-def test_paged_decode_kernel_matches_plain(dev, dtype, atol):
-    rng = np.random.default_rng(0)
-    B, KV, G, Dh, L, P, ps, mp = 5, 8, 2, 128, 3, 40, 16, 8
-    q = torch.from_numpy(rng.normal(size=(B, KV, G, Dh))).to(dev, dtype)
-    kp = torch.from_numpy(rng.normal(size=(L, P, KV, ps, Dh))).to(dev, dtype)
-    vp = torch.from_numpy(rng.normal(size=(L, P, KV, ps, Dh))).to(dev, dtype)
-    bt = torch.from_numpy(rng.permutation(P)[:B * mp].reshape(B, mp)
-                          ).to(dev, torch.int32)
-    lengths = torch.tensor([0, 1, ps, ps + 1, mp * ps], dtype=torch.int32,
-                           device=dev)
-    before = _cuda.launches["paged_decode"]
-    got = paged_attention(q, kp, vp, bt, lengths, layer=2)
+def test_paged_decode_kernel_matches_plain(dev, dtype, atol, ps, mp, G, Dh):
+    """Finite over a pool whose slack is NaN, equal to the plain version
+    on the same pool with the slack zeroed; the idle row exact zeros; one
+    launch a call."""
+    kern, plain, kw, plain_kw = _paged_case(dev, dtype, G, Dh, ps, mp,
+                                            seed=ps + mp + G + Dh)
+    before = dict(_cuda.launches)
+    got = paged_attention(*kern, **kw)
     torch.cuda.synchronize()
-    assert _cuda.launches["paged_decode"] == before + 1
-    ref = paged_attention_plain(q.float(), kp.float(), vp.float(), bt,
-                                lengths, layer=2)
+    assert {n: _cuda.launches[n] - before[n] for n in (
+        "paged_decode", "paged_decode_int8")} == {
+        "paged_decode": 1, "paged_decode_int8": 0}
+    ref = paged_attention_plain(*plain, **plain_kw)
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
     assert torch.all(got[0] == 0)
     torch.testing.assert_close(got.float(), ref, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("pool,q_dtype", [(torch.bfloat16, torch.bfloat16),
+                                          (torch.float32, torch.float32),
+                                          (torch.int8, torch.bfloat16)])
+def test_paged_decode_kernels_are_deterministic(dev, pool, q_dtype):
+    """Two calls on the same inputs are bitwise equal: the lane groups,
+    the warps and the cluster's splits merge in a fixed order."""
+    kern, _, kw, _ = _paged_case(dev, pool, 2, 128, 128, 16, seed=9,
+                                 q_dtype=q_dtype)
+    first, second = (paged_attention(*kern, **kw) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_paged_decode_refuses_unaligned_int8_pages(dev):
+    """An int8 page of ps scales must start 16-byte aligned (ps % 4)."""
+    kern, _, kw, _ = _paged_case(dev, torch.int8, 2, 64, 16, 2, seed=2,
+                                 q_dtype=torch.bfloat16)
+    q, kq, vq, bt, lengths = kern
+    cut = [t[..., :6, :].contiguous() for t in (kq, vq)]
+    ks, vs = (kw[n][..., :6].contiguous() for n in ("k_scale", "v_scale"))
+    with pytest.raises(ValueError, match="page_size % 4"):
+        paged_attention(q, *cut, bt, lengths, layer=1, k_scale=ks,
+                        v_scale=vs)
 
 
 def _flash_qkv(dev, B, T, H, KV, Dh, seed):
@@ -323,28 +408,23 @@ def test_int4_matmul_refuses_what_the_kernel_cannot_take(dev):
                     leaf["scale"])
 
 
+@_k4_grid
 @pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, BF16_ATOL),
                                         (torch.float32, FP32_ATOL)])
-def test_paged_decode_int8_kernel_matches_plain(dev, dtype, atol):
-    rng = np.random.default_rng(5)
-    B, KV, G, Dh, L, P, ps, mp = 5, 8, 2, 128, 3, 40, 16, 8
-    q = torch.from_numpy(rng.normal(size=(B, KV, G, Dh))).to(dev, dtype)
-    kq, ks = quantize_kv(torch.from_numpy(
-        rng.normal(size=(L, P, KV, ps, Dh))).to(dev))
-    vq, vs = quantize_kv(torch.from_numpy(
-        rng.normal(size=(L, P, KV, ps, Dh))).to(dev))
-    bt = torch.from_numpy(rng.permutation(P)[:B * mp].reshape(B, mp)
-                          ).to(dev, torch.int32)
-    lengths = torch.tensor([0, 1, ps, ps + 1, mp * ps], dtype=torch.int32,
-                           device=dev)
+def test_paged_decode_int8_kernel_matches_plain(dev, dtype, atol, ps, mp, G,
+                                                Dh):
+    """int8 codes with NaN scales past each length and on unnamed pages:
+    finite, equal to the plain version with those scales zeroed."""
+    kern, plain, kw, plain_kw = _paged_case(dev, torch.int8, G, Dh, ps, mp,
+                                            seed=5 + ps + mp + G + Dh,
+                                            q_dtype=dtype)
     before = dict(_cuda.launches)
-    got = paged_attention(q, kq, vq, bt, lengths, layer=2, k_scale=ks,
-                          v_scale=vs)
+    got = paged_attention(*kern, **kw)
     torch.cuda.synchronize()
     assert {n: _cuda.launches[n] - before[n] for n in (
         "paged_decode", "paged_decode_int8")} == {
         "paged_decode": 0, "paged_decode_int8": 1}
-    ref = paged_attention_plain(q.float(), kq, vq, bt, lengths, layer=2,
-                                k_scale=ks, v_scale=vs)
-    assert got.dtype == dtype and torch.all(got[0] == 0)
+    ref = paged_attention_plain(*plain, **plain_kw)
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    assert torch.all(got[0] == 0)
     torch.testing.assert_close(got.float(), ref, atol=atol, rtol=0)
