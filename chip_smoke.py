@@ -11,6 +11,18 @@
    and fails unless both serving kernels were launched during the serve;
    a profile of a decode-heavy serve fails unless K4 ran 28 times a
    decode step by kernel name.
+3b. The feature serve: 24 seeded requests arriving open-loop over ~2 s
+   (16 short, 4 of 1,200-1,900 tokens prefilled in 512-token pieces, 4
+   with an expired TTFT deadline) through an engine with every serving
+   feature on (EDF admission with shedding, chunked prefill, the early
+   chunk exit, per-request sampling overrides on half the requests,
+   streamed logprobs, ``on_chunk``, the native runtime) and a pool small
+   enough to preempt; fails unless exactly the 4 are shed, the streams
+   equal the outputs and logprobs, the logprobs are finite and <= 0, the
+   pieces, preemption and K4 counts hold and K1-fwd ran. Then one long
+   prompt's last logits after chunked and whole-prompt prefill (bf16 and
+   fp32) against the fp32 whole prompt, and the registry's host time,
+   native against Python, over the phase's prompts.
 4. Holds each serving kernel against its plain PyTorch version on the
    card at the serving path's shapes, and times kernel, plain version,
    bound and (for flash attention) the library SDPA call as a yardstick;
@@ -21,9 +33,10 @@
    through the plain version, and compares the logits.
 5b. Quantized serving: the same model quantized to int4 projections and
    an int8 tied embedding/head, served from an int8 page pool with the
-   same traffic; fails unless K3 (``int4_matmul``) and K4-int8
-   (``paged_decode_int8``) ran exactly 7 x 28 a model forward and 28 a
-   decode step, and a profile of the quantized decode with K3's and
+   same traffic in 512-token prefill pieces with logprobs; fails unless
+   K3 (``int4_matmul``) and K4-int8 (``paged_decode_int8``) ran exactly
+   7 x 28 a model forward (prefill pieces included) and 28 a decode
+   step, the pieces ran and the logprobs are finite and <= 0, and a profile of the quantized decode with K3's and
    K4-int8's kernel time a step by kernel name (K4-int8: 28 launches).
    Then K3 against its plain version at M 16 and 1,024 on the q, o, gate
    and down codes (device times beside cuBLAS), K4-int8 at K4's check
@@ -86,10 +99,13 @@ from speech_distill_tpu_torch.data.collator import DistillCollator
 from speech_distill_tpu_torch.distill import train_step
 from speech_distill_tpu_torch.distill.lora import init_lora, lora_scaling
 from speech_distill_tpu_torch.infer.paged import (PagedEngine, PagedKVCache,
+                                                  PagePool, PrefixRegistry,
                                                   paged_forward)
 from speech_distill_tpu_torch.models import qwen3
 from speech_distill_tpu_torch.models.convert import (model_to_tree,
                                                      params_from_jax)
+from speech_distill_tpu_torch.native.serving import (NativePagePool,
+                                                     NativePrefixRegistry)
 from speech_distill_tpu_torch.ops import _cuda
 from speech_distill_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_plain, flash_attention_fwd, flash_attention_fwd_plain,
@@ -300,7 +316,8 @@ def serve_traffic(cfg, eng, what: str, **extra):
         eng.n_decode_steps, "chunks": eng.n_chunks, "exit_syncs":
         eng.n_exit_syncs, "preemptions": eng.preemptions,
         "batched_prefills": eng.n_batched_prefills,
-        "prefill_forwards": eng.n_prefill_forwards, **extra,
+        "prefill_forwards": eng.n_prefill_forwards,
+        "prefill_pieces": eng.n_prefill_chunks, **extra,
         "launches": counts}))
     for rid, (o, c) in enumerate(zip(outs, caps)):
         if not 0 < len(o) <= c:
@@ -328,6 +345,248 @@ def serve(cfg, model):
     per_step = profile_decode(eng, lens[:13], cfg, rng,
                               groups={"k4": "paged_decode_kernel"})
     check_k4_per_step(per_step["k4"], L, "serve")
+    return counts
+
+
+# phase 3b, the feature serve: 24 requests arriving open-loop over ~2 s,
+# 4 of them with an already expired TTFT deadline (shed before prefill)
+FEATURE_SHORT, FEATURE_LONG, FEATURE_SHED = 16, 4, 4
+FEATURE_SPREAD_S, FEATURE_DEADLINE_S = 2.0, 60.0
+# a pool small enough that the serve preempts: 48 pages (a CPU rehearsal
+# of the schedule at several step times preempted at 40-48, not at 56-64)
+FEATURE_PAGES, FEATURE_CHUNK, FEATURE_EXIT_FREE = 48, 512, 4
+# token budgets, drawn in [lo, hi): the short requests' are long enough
+# that sixteen of them resident at once outgrow the pool
+FEATURE_SHORT_CAPS, FEATURE_LONG_CAPS = (256, 385), (32, 129)
+
+
+def feature_traffic(cfg, rng):
+    """The feature serve's requests: (prompts, caps, arrivals, deadlines,
+    overrides, shed rids). Seeded order; long prompts of 1,200-1,900
+    tokens prefill in 512-token pieces; half the requests override
+    temperature, top_p, repetition penalty and min_tokens."""
+    n = FEATURE_SHORT + FEATURE_LONG + FEATURE_SHED
+    short = FEATURE_SHORT + FEATURE_SHED
+    lens = ([int(x) for x in rng.integers(64, 129, short)]
+            + [int(x) for x in rng.integers(1200, 1901, FEATURE_LONG)])
+    caps = ([int(x) for x in rng.integers(*FEATURE_SHORT_CAPS, short)]
+            + [int(x) for x in rng.integers(*FEATURE_LONG_CAPS,
+                                            FEATURE_LONG)])
+    order = rng.permutation(n)
+    lens, caps = [lens[i] for i in order], [caps[i] for i in order]
+    shed = sorted(int(np.nonzero(order == i)[0][0])
+                  for i in range(FEATURE_SHORT, short))
+    prompts = [rng.integers(1, cfg.vocab_size - 2, k).tolist() for k in lens]
+    gaps = np.cumsum(rng.exponential(1.0, n))
+    arrivals = ((gaps - gaps[0]) / (gaps[-1] - gaps[0])
+                * FEATURE_SPREAD_S).tolist()
+    deadlines = [0.0 if rid in shed else FEATURE_DEADLINE_S
+                 for rid in range(n)]
+    with_overrides = set(rng.permutation(n)[:n // 2].tolist())
+    overrides = [{"temperature": float(rng.uniform(0.3, 1.0)),
+                  "top_p": float(rng.uniform(0.7, 1.0)),
+                  "repetition_penalty": float(rng.uniform(1.0, 1.3)),
+                  "min_tokens": int(rng.integers(0, 17))}
+                 if rid in with_overrides else None for rid in range(n)]
+    return prompts, caps, arrivals, deadlines, overrides, shed
+
+
+def pieces_needed(n: int, chunk: int, ps: int) -> int:
+    """Chunked-prefill pieces of a fresh n-token prompt (no prefix hit):
+    the engine's 2a loop."""
+    done = pieces = 0
+    while n - done * ps > chunk:
+        done += min(chunk // ps, (n - 1) // ps - done)
+        pieces += 1
+    return pieces
+
+
+def registry_host_ms(prompts, ps: int) -> dict:
+    """Host ms of the prefix registry over the phase's prompts, for the
+    native runtime and the Python twins: match then register each prompt
+    (cold), then match each again (every full page a hit)."""
+    out, matches = {}, {}
+    n_pages = sum(len(p) // ps + 1 for p in prompts)
+    for name, make in (("native", lambda: (NativePagePool(n_pages),
+                                           NativePrefixRegistry())),
+                       ("python", lambda: (PagePool(n_pages),
+                                           PrefixRegistry()))):
+        pool, reg = make()
+        t0 = time.perf_counter()
+        for ids in prompts:
+            reg.match(ids, ps, (len(ids) - 1) // ps)
+            reg.register(ids, pool.alloc(len(ids) // ps), ps, pool)
+        matches[name] = [reg.match(ids, ps, len(ids) // ps)
+                         for ids in prompts]
+        out[name] = (time.perf_counter() - t0) * 1e3
+    if matches["native"] != matches["python"]:
+        fail("native and Python prefix registries disagree")
+    return out
+
+
+def prefill_logits(model, cfg, ids, chunk, dev) -> torch.Tensor:
+    """Last-position logits of ``ids`` after the engine's admission
+    (chunked in ``chunk``-token pieces, or whole when None): the row that
+    ``_admit`` leaves in ``last_logits``."""
+    eng = PagedEngine(model, cfg, SamplingParams(stop_token_ids=(
+        cfg.eos_token_id,)), slots=1, max_len=2048, page_size=128,
+        num_pages=16, prefix_sharing=False, prefill_chunk=chunk,
+        device=dev, native_runtime=False)
+    rows = []
+    admit = eng._admit
+
+    def spy(state, b, *args, **kw):
+        admit(state, b, *args, **kw)
+        rows.append(state.last_logits[b].clone())
+    eng._admit = spy
+    eng.serve([ids], max_new=1)
+    if chunk and eng.n_prefill_chunks != pieces_needed(len(ids), chunk, 128):
+        fail(f"teacher-forced prefill ran {eng.n_prefill_chunks} pieces")
+    return rows[0]
+
+
+def check_chunked_prefill(cfg, model, ids, dev) -> None:
+    """One long prompt's last-position logits after the chunked prefill
+    and after the whole-prompt prefill, in bf16 (flash for the first
+    piece and the whole prompt, ``sdpa_plain`` over gathered pages for
+    the later pieces) and in fp32 (same weights upcast), against the fp32
+    whole-prompt route."""
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = qwen3.Qwen3(cfg32, dev)
+    for p32, p in zip(model32.parameters(), model.parameters()):
+        p32.data.copy_(p.float())
+    ref = prefill_logits(model32, cfg32, ids, None, dev)
+    err = {"fp32_chunked": prefill_logits(model32, cfg32, ids,
+                                          FEATURE_CHUNK, dev),
+           "bf16_chunked": prefill_logits(model, cfg, ids, FEATURE_CHUNK,
+                                          dev),
+           "bf16_whole": prefill_logits(model, cfg, ids, None, dev)}
+    del model32
+    if not all(bool(torch.isfinite(v).all()) for v in err.values()):
+        fail("chunked prefill produced non-finite logits")
+    err = {k: (v - ref).abs().max().item() for k, v in err.items()}
+    log(f"chunked prefill ({len(ids)} tokens, {FEATURE_CHUNK}-token "
+        f"pieces): max |logits - fp32 whole|: fp32 chunked "
+        f"{err['fp32_chunked']:.3e} (tol {FP32_LOGITS_ATOL}), bf16 chunked "
+        f"{err['bf16_chunked']:.3e}, bf16 whole {err['bf16_whole']:.3e} "
+        f"(chunked must stay within {BF16_ERR_RATIO}x the whole route's "
+        f"error)")
+    if not err["fp32_chunked"] <= FP32_LOGITS_ATOL:
+        fail(f"fp32 chunked prefill disagrees with the whole prompt: {err}")
+    if not err["bf16_chunked"] <= BF16_ERR_RATIO * err["bf16_whole"]:
+        fail(f"bf16 chunked prefill is less accurate: {err}")
+
+
+def serve_features(cfg, model, dev) -> dict:
+    """Phase 3b: the engine's serving features on the full-width model:
+    open-loop arrivals, EDF admission with shedding, chunked prefill, the
+    early chunk exit, per-request sampling, streamed logprobs, on_chunk
+    and the native runtime, through a pool that preempts. Returns the
+    launch counts of the serve."""
+    rng = np.random.default_rng(SEED + 21)
+    prompts, caps, arrivals, deadlines, overrides, shed = \
+        feature_traffic(cfg, rng)
+    sp = SamplingParams(stop_token_ids=(cfg.eos_token_id,))
+    eng = PagedEngine(model, cfg, sp, slots=16, max_len=2048, page_size=128,
+                      num_pages=FEATURE_PAGES, seed=SEED, device=dev,
+                      prefill_chunk=FEATURE_CHUNK,
+                      chunk_exit_free=FEATURE_EXIT_FREE,
+                      admission_policy="deadline",
+                      per_request_sampling=True, return_logprobs=True,
+                      native_runtime=True)
+    n = len(prompts)
+    toks, lps = [[] for _ in range(n)], [[] for _ in range(n)]
+    closed = [0] * n
+    chunk_calls = []
+
+    def on_tokens(rid, new, done):
+        toks[rid] += new
+        closed[rid] += done
+
+    def on_logprobs(rid, new, done):
+        lps[rid] += new
+
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    outs = eng.serve(prompts, max_new_per_request=caps, on_tokens=on_tokens,
+                     on_logprobs=on_logprobs,
+                     on_chunk=lambda: chunk_calls.append(1),
+                     sampling_per_request=overrides,
+                     deadline_per_request=deadlines,
+                     arrival_per_request=arrivals)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(_cuda.launches)
+    served = [rid for rid in range(n) if rid not in shed]
+    n_gen = sum(len(o) for o in outs)
+    met = [m for m in eng.request_metrics if not m.get("shed")]
+    ttft = np.asarray([m["ttft_s"] for m in met])
+    e2e = np.asarray([m["e2e_s"] for m in met])
+    lens = [len(p) for p in prompts]
+    long_rids = [rid for rid in range(n) if lens[rid] >= 1200]
+    need = sum(pieces_needed(lens[rid], FEATURE_CHUNK, eng.ps)
+               for rid in long_rids)
+    host = registry_host_ms(prompts, eng.ps)
+    log("serve_features " + json.dumps({
+        "requests": n, "shed": eng.shed_requests, "prompt_tokens": sum(lens),
+        "generated_tokens": n_gen, "seconds": dt, "tokens_per_s": n_gen / dt,
+        "ttft_s": {"p50": float(np.percentile(ttft, 50)),
+                   "p90": float(np.percentile(ttft, 90)),
+                   "max": float(ttft.max())},
+        "e2e_s": {"p50": float(np.percentile(e2e, 50)),
+                  "p90": float(np.percentile(e2e, 90)),
+                  "max": float(e2e.max())},
+        "chunks": eng.n_chunks, "decode_steps": eng.n_decode_steps,
+        "exit_syncs": eng.n_exit_syncs,
+        "prefill_pieces": eng.n_prefill_chunks, "pieces_needed": need,
+        "prefill_forwards": eng.n_prefill_forwards,
+        "preemptions": eng.preemptions, "runtime": eng.runtime,
+        "phase_seconds": eng.phase_seconds,
+        "registry_host_ms": host, "pool_pages": eng.num_pages,
+        "launches": counts}))
+    if sorted(rid for rid in range(n) if outs[rid] == []) != shed \
+            or eng.shed_requests != len(shed):
+        fail(f"feature serve shed {eng.shed_requests} requests, not "
+             f"exactly {shed}")
+    if any(eng.request_metrics[rid].get("shed") is not True for rid in shed):
+        fail("a shed request has no shed record")
+    if closed != [1] * n:
+        fail(f"streams not closed exactly once: {closed}")
+    for rid in served:
+        o = outs[rid]
+        if not 0 < len(o) <= caps[rid]:
+            fail(f"feature serve request {rid}: {len(o)} tokens for cap "
+                 f"{caps[rid]}")
+        if not all(0 <= t < cfg.vocab_size for t in o):
+            fail(f"feature serve request {rid}: token outside the vocab")
+        if (len(o) < caps[rid] and o[-1] != cfg.eos_token_id
+                and len(prompts[rid]) + len(o) < eng.max_len):
+            fail(f"feature serve request {rid} stopped early without EOS")
+    if toks != outs or lps != eng.request_logprobs:
+        fail("streamed tokens or logprobs differ from the outputs")
+    flat = np.asarray([x for lp in lps for x in lp])
+    if len(flat) != n_gen or not (np.isfinite(flat).all()
+                                  and (flat <= 0).all()):
+        fail("logprobs not finite and <= 0, one a token")
+    if len(chunk_calls) != eng.n_chunks:
+        fail(f"on_chunk ran {len(chunk_calls)} times over "
+             f"{eng.n_chunks} scheduler passes")
+    if eng.n_prefill_chunks < need:
+        fail(f"{eng.n_prefill_chunks} prefill pieces < the {need} the long "
+             f"prompts need")
+    if eng.preemptions < 1:
+        fail("the feature serve did not preempt")
+    if counts["flash_fwd"] < 1:
+        fail(f"flash_fwd not launched in the feature serve: {counts}")
+    L = cfg.num_hidden_layers
+    if counts["paged_decode"] != L * eng.n_decode_steps:
+        fail(f"feature serve paged_decode launches {counts['paged_decode']}"
+             f" != layers x decode steps {L * eng.n_decode_steps}")
+    if eng.runtime != "native":
+        fail(f"feature serve ran the {eng.runtime} runtime")
+    del eng
+    check_chunked_prefill(cfg, model, prompts[long_rids[0]], dev)
     return counts
 
 
@@ -602,12 +861,12 @@ def check_model_path(cfg, model, dev) -> None:
 
 
 def serve_quant(cfg, model, dev):
-    """Quantized serving, this slice's main path: the same seeded model
-    quantized as ``quantize_params(bits=4, method="int4",
-    quantize_embed=True)`` (int4 projections through K3, an int8 tied
-    embed/head), served from an int8 page pool (decode through K4-int8)
-    with the bf16 serve's traffic. Returns the quantized model and the
-    launch counts of the serve."""
+    """Quantized serving: the same seeded model quantized as
+    ``quantize_params(bits=4, method="int4", quantize_embed=True)`` (int4
+    projections through K3, an int8 tied embed/head), served from an int8
+    page pool (decode through K4-int8) with the bf16 serve's traffic, in
+    512-token prefill pieces and with logprobs. Returns the quantized
+    model and the launch counts of the serve."""
     t0 = time.perf_counter()
     tree = model_to_tree(model)
     dense_bytes = param_bytes(tree)
@@ -621,7 +880,8 @@ def serve_quant(cfg, model, dev):
     sp = SamplingParams(stop_token_ids=(cfg.eos_token_id,))
     eng = PagedEngine(qmodel, cfg, sp, slots=16, max_len=2048,
                       page_size=128, seed=SEED, device=dev,
-                      cache_dtype=torch.int8)
+                      cache_dtype=torch.int8, prefill_chunk=FEATURE_CHUNK,
+                      return_logprobs=True)
     L, P = cfg.num_hidden_layers, eng.num_pages + 1
     kv_elems = L * P * cfg.num_key_value_heads * eng.ps * cfg.head_dim
     pool_bytes = 2 * kv_elems + 2 * (kv_elems // cfg.head_dim) * 4
@@ -637,6 +897,14 @@ def serve_quant(cfg, model, dev):
         fail(f"quantized serve launches {counts} != {want} (K4-int8 once a "
              f"layer a decode step; K3 for the 7 projections of every "
              f"layer of every model forward)")
+    need = sum(pieces_needed(n, FEATURE_CHUNK, eng.ps) for n in lens)
+    if eng.n_prefill_chunks < need:
+        fail(f"quantized serve ran {eng.n_prefill_chunks} prefill pieces, "
+             f"its long prompts need {need}")
+    lps = eng.request_logprobs
+    if [len(lp) for lp in lps] != [m["n_gen"] for m in eng.request_metrics] \
+            or not all(np.isfinite(x) and x <= 0 for lp in lps for x in lp):
+        fail("quantized serve logprobs not finite and <= 0, one a token")
     per_step = profile_decode(eng, lens[:13], cfg, rng,
                               "quantized decode serve",
                               {"k3_decode": "int4_decode_kernel",
@@ -1557,12 +1825,17 @@ def main() -> None:
         f"{cfg.num_key_value_heads} vocab={cfg.vocab_size} bf16 random "
         f"init seed={SEED} s={time.perf_counter() - t0:.2f}")
     counts = serve(cfg, model)
-    log(f"device memory allocated after the bf16 serve "
+    t0 = time.perf_counter()
+    feature_counts = serve_features(cfg, model, dev)
+    log(f"feature serve phase s={time.perf_counter() - t0:.2f}")
+    log(f"device memory allocated after the bf16 serves "
         f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
 
     side = torch.cuda.Stream()          # warm-ups of every graph timing
     kernels = [k4_check(dev, side, counts["paged_decode"], False),
                check_flash_serve(dev, counts["flash_fwd"], side)]
+    for entry in kernels:           # launches in phase 3b beside phase 3's
+        entry["feature_serve_launches"] = feature_counts[entry["name"]]
     check_model_path(cfg, model, dev)
     t0 = time.perf_counter()
     qmodel, qcounts = serve_quant(cfg, model, dev)

@@ -15,23 +15,35 @@ Differences from the JAX engine, by design:
   * JAX scatters with ``mode="drop"`` at out-of-range indices to discard
     dead rows; torch's ``index_put_`` would raise or corrupt memory there.
     The pool holds one extra page, index P, that no block table names:
-    dead rows write their KV there. Token and presence writes of dead
-    rows write the current value back.
-  * The decode chunk is a Python loop; its early-exit test (every slot
-    finished) is one host read per step, counted in ``n_exit_syncs``.
-    CUDA graphs come later.
+    dead rows write their KV there. Token, presence and logprob writes of
+    dead rows write the current value back.
+  * The decode chunk is a Python loop; its exit test (every slot
+    finished, or ``exit_free`` slots retired in the chunk) is one host
+    read per step, counted in ``n_exit_syncs``. CUDA graphs come later.
   * The pool holds the model's dtype (bf16 or fp32), or int8 with one
     fp32 scale per (token, KV head) (``cache_dtype=torch.int8``, the
     vLLM quantized KV cache; decode through ``paged_decode_int8``).
-  * Admission is fifo (the JAX ``_AdmissionQueue`` under fifo is exactly a
-    deque). Chunked prefill, tensor parallelism,
-    per-request sampling, logprobs, deadlines and shedding, open-loop
-    arrivals, the other admission policies, the early chunk exit and the
-    native C++ runtime come with later slices; asking for one raises
-    ``NotImplementedError``.
+  * Pending batched prefills are flushed before a prefix hit gathers
+    their pages (the JAX engine gathers first and reads unwritten pages).
+  * With ``prefill_chunk``, a prompt longer than the chunk that becomes
+    the head of the queue during admission waits a pass and prefills in
+    pieces (the JAX engine prefills it whole there, past the chunk
+    bound). Tokens are the same; the scheduling and
+    ``n_prefill_chunks`` may differ.
+  * ``attn_impl`` and ``attn_win_pages`` have no counterpart: the decode
+    attention wrapper launches K4 on CUDA tensors and runs its plain
+    version on CPU ones, and K4 sizes its stages from the shapes
+    (``k4_plan``). ``mesh`` (tensor parallelism) is not ported and
+    raises ``NotImplementedError``.
+Every other option and ``serve`` argument is the JAX engine's: chunked
+prefill, the early chunk exit, the four admission policies with TTFT
+deadlines and shedding, open-loop arrivals, per-request sampling,
+logprobs (``on_logprobs``), ``on_chunk``, and the native C++ allocator
+and prefix trie (``native/serving.py``).
 """
 from __future__ import annotations
 
+import os
 import time
 from collections import deque
 from dataclasses import dataclass
@@ -46,11 +58,6 @@ from speech_distill_tpu_torch.infer.engine import sample_next_token
 from speech_distill_tpu_torch.models import qwen3
 from speech_distill_tpu_torch.ops.paged_attention import (
     paged_attention, paged_attention_plain, quantize_kv)
-
-
-# zero-shared-prefix prompts up to this page-aligned width prefill in
-# batches; longer ones (compute-bound already) prefill one by one
-ADMIT_BATCH_MAX_WIDTH = 1024
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -106,6 +113,12 @@ class PagedState:
     num_generated: torch.Tensor  # [B] int64 (request total across preemption)
     cap: torch.Tensor            # [B] int64 — request token budget
     finished: torch.Tensor       # [B] bool
+    samp: Optional[torch.Tensor] = None   # [B, 4] fp32 per-request
+    #  (temperature, top_p, repetition penalty, min_tokens); None unless
+    #  the engine was built with per_request_sampling
+    logps: Optional[torch.Tensor] = None  # [B, max_len] fp32: each
+    #  generated token's logprob at its column; None unless the engine was
+    #  built with return_logprobs
 
 
 @torch.no_grad()
@@ -161,28 +174,38 @@ def paged_forward(model: qwen3.Qwen3, token: torch.Tensor,
 
 
 def make_paged_decode_fn(sp: SamplingParams):
-    """``decode_chunk(model, state, n_steps, generator) -> (steps_run,
-    exit_tests)``: up to ``n_steps`` decode steps over the page pool,
-    updating ``state`` in place, exiting early once every slot is
-    finished. The host allocator guarantees every live row has pages for
-    ``n_steps`` more tokens."""
+    """``decode_chunk(model, state, n_steps, generator, exit_free) ->
+    (steps_run, exit_tests)``: up to ``n_steps`` decode steps over the page
+    pool, updating ``state`` in place. The chunk exits early once every
+    slot is finished, or once ``exit_free`` slots retired inside it (the
+    scheduler passes ``slots + 1`` to run to the boundary). The host
+    allocator guarantees every live row has pages for ``n_steps`` more
+    tokens."""
     win = sp.win_size
     eos_ids = tuple(sp.stop_token_ids)
     pad_id = eos_ids[0]
 
+    def write(buf: torch.Tensor, col, live, value) -> None:
+        """buf[b, col[b]] = value[b] for live rows; dead rows write their
+        current value back (JAX: mode="drop")."""
+        buf.scatter_(1, col, torch.where(live[:, None], value[:, None],
+                                         buf.gather(1, col)))
+
     @torch.no_grad()
     def step(model, st: PagedState, generator) -> None:
         max_len = st.tokens.shape[1]
-        tok = sample_next_token(sp, st, win, eos_ids, generator)
+        if st.logps is not None:
+            tok, logp = sample_next_token(sp, st, win, eos_ids, generator,
+                                          want_logprob=True)
+        else:
+            tok = sample_next_token(sp, st, win, eos_ids, generator)
         live = ~st.finished & (st.length < max_len)
         token = torch.where(live, tok, pad_id)
-        # dead rows write their current value back (JAX: mode="drop")
         col = torch.clamp(st.length, max=max_len - 1)[:, None]
-        st.tokens.scatter_(1, col, torch.where(
-            live[:, None], token[:, None], st.tokens.gather(1, col)))
-        st.presence.scatter_(1, token[:, None],
-                             st.presence.gather(1, token[:, None])
-                             | live[:, None])
+        write(st.tokens, col, live, token)
+        if st.logps is not None:
+            write(st.logps, col, live, logp)
+        write(st.presence, token[:, None], live, torch.ones_like(live))
         is_eos = torch.zeros_like(live)
         for e in eos_ids:
             is_eos |= token == e
@@ -193,19 +216,91 @@ def make_paged_decode_fn(sp: SamplingParams):
         st.length += live
         st.num_generated += live
 
-    def decode_chunk(model, st: PagedState, n_steps: int, generator):
+    def decode_chunk(model, st: PagedState, n_steps: int, generator,
+                     exit_free: int):
+        fin0 = st.finished.clone()
         steps = tests = 0
         while steps < n_steps:
             # the JAX while_loop tests this on the device; here it is one
             # host read per step
             tests += 1
-            if bool(st.finished.all()):
+            retired = (st.finished & ~fin0).sum()
+            if bool(st.finished.all() | (retired >= exit_free)):
                 break
             step(model, st, generator)
             steps += 1
         return steps, tests
 
     return decode_chunk
+
+
+class _AdmissionQueue:
+    """Admission-ordered request queue (``PagedEngine.admission_policy``).
+
+    fifo keeps deque semantics exactly (appendleft = front of the queue,
+    where a preempted request goes). The priority policies keep the queue
+    sorted by key with a stable arrival tiebreak; preempted requests
+    re-insert by their CURRENT key (a shortest_job request's remaining
+    budget shrinks while resident, so it re-queues ahead of equal-length
+    fresh work)."""
+
+    def __init__(self, policy: str):
+        self.policy = policy
+        self._items = deque()
+        self._seq = 0
+
+    def _key(self, r):
+        if self.policy == "shortest_job":
+            return r["cap"] - len(r["gen"])
+        if self.policy == "deadline":
+            dl = r.get("dl")
+            return dl if dl is not None else float("inf")
+        return len(r["ids"])
+
+    def append(self, r) -> None:
+        if "_seq" not in r:
+            r["_seq"] = self._seq
+            self._seq += 1
+        if self.policy == "fifo":
+            self._items.append(r)
+            return
+        k = (self._key(r), r["_seq"])
+        for i, q in enumerate(self._items):
+            if (self._key(q), q["_seq"]) > k:
+                self._items.insert(i, r)
+                return
+        self._items.append(r)
+
+    def appendleft(self, r) -> None:
+        if self.policy == "fifo":
+            self._items.appendleft(r)
+        else:
+            self.append(r)
+
+    def popleft(self):
+        return self._items.popleft()
+
+    def shed_expired(self, t_now: float):
+        """Remove and return queued requests whose TTFT deadline passed
+        before they produced ANY token (load shedding under overload).
+        Requests already holding generated tokens (preempted residents)
+        met their first-token deadline and are never shed."""
+        def past_due(r):
+            return (r.get("dl") is not None and t_now > r["dl"]
+                    and not r["gen"] and "t_first" not in r)
+        expired = [r for r in self._items if past_due(r)]
+        if expired:
+            self._items = deque(r for r in self._items if not past_due(r))
+        return expired
+
+    def __getitem__(self, i):
+        return self._items[i]
+
+    def __len__(self) -> int:
+        return len(self._items)
+
+    def __iter__(self):
+        return iter(self._items)
 
 
 class PagePool:
@@ -316,7 +411,27 @@ class PagedEngine:
     run to max_len. ``cache_dtype``: the pool's dtype, the model's when
     None, or ``torch.int8`` (prefill then runs over a bf16 cache that is
     quantized at the page scatter). ``device`` defaults to CUDA and
-    raises without it."""
+    raises without it.
+
+    ``prefill_chunk``: chunked prefill — a longer prompt prefills in
+    pieces of at most this many (page-aligned) tokens, one piece a
+    scheduler pass while it heads the queue, so live slots get a decode
+    chunk between the pieces (None: whole prompts). ``chunk_exit_free``: a decode chunk returns once this many
+    slots retired inside it while requests queue (None/0: chunks run to
+    the boundary). ``admit_batch_max_width``: fresh prompts up to this
+    page-aligned width prefill in batches, longer ones one by one.
+    ``per_request_sampling``: the state carries a [B, 4] row of
+    (temperature, top_p, repetition penalty, min_tokens) per slot, filled
+    from ``serve(sampling_per_request=...)``; top_k and RAS stay global.
+    ``return_logprobs``: each generated token's logprob under the
+    sampler's closed-form output distribution is kept
+    (``request_logprobs``, ``on_logprobs``). ``admission_policy``: who is
+    seated first under contention — "fifo" (arrival order),
+    "shortest_job" (remaining budget), "shortest_prompt" (prompt length)
+    or "deadline" (earliest TTFT deadline first); ties keep arrival
+    order. ``native_runtime``: the allocator and prefix registry — None:
+    the C++ runtime if it builds (``SDT_NATIVE=0`` turns it off), True:
+    the C++ runtime or raise, False: the Python twins."""
 
     def __init__(self, model: qwen3.Qwen3, cfg: Qwen3Config,
                  sp: SamplingParams, slots: int = 8, max_len: int = 4096,
@@ -329,18 +444,15 @@ class PagedEngine:
                  return_logprobs: bool = False,
                  admission_policy: str = "fifo",
                  chunk_exit_free: Optional[int] = None,
-                 cache_dtype: Optional[torch.dtype] = None):
-        deferred = {"prefill_chunk": prefill_chunk is not None,
-                    "mesh": mesh is not None,
-                    "chunk_exit_free": bool(chunk_exit_free),
-                    "native_runtime": native_runtime is True,
-                    "per_request_sampling": per_request_sampling,
-                    "return_logprobs": return_logprobs,
-                    "admission_policy": admission_policy != "fifo"}
-        asked = [k for k, v in deferred.items() if v]
-        if asked:
+                 cache_dtype: Optional[torch.dtype] = None,
+                 admit_batch_max_width: int = 1024):
+        if mesh is not None:
             raise NotImplementedError(
-                f"{asked}: not ported yet (later slices of the port)")
+                "mesh (engine tensor parallelism) is not ported yet")
+        if admission_policy not in ("fifo", "shortest_job",
+                                    "shortest_prompt", "deadline"):
+            raise ValueError(f"unknown admission_policy "
+                             f"{admission_policy!r}")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, engine on "
@@ -359,6 +471,12 @@ class PagedEngine:
                 f"num_pages={self.num_pages} cannot hold one max_len stream "
                 f"({self.max_pages} pages)")
         self.chunk_steps = chunk_steps
+        self.chunk_exit_free = chunk_exit_free
+        self.admit_batch_max_width = admit_batch_max_width
+        self.per_request_sampling = per_request_sampling
+        self.return_logprobs = return_logprobs
+        self.request_logprobs: List[Optional[List[float]]] = []
+        self.admission_policy = admission_policy
         # the pool holds the model dtype (the bf16/fp32 decode kernel takes
         # one dtype for q and pool) or int8; the contiguous prefill cache
         # of an int8 pool is bf16 (quantized at the page scatter)
@@ -368,6 +486,16 @@ class PagedEngine:
                                  if self.cache_dtype == torch.int8
                                  else self.cache_dtype)
         self.prefix_sharing = prefix_sharing
+        # page-aligned, so partial pages never exist
+        if prefill_chunk is not None:
+            prefill_chunk = max(page_size,
+                                (prefill_chunk // page_size) * page_size)
+        self.prefill_chunk = prefill_chunk
+        if native_runtime is None and os.environ.get("SDT_NATIVE",
+                                                     "1") == "0":
+            native_runtime = False
+        self.native_runtime = native_runtime
+        self.runtime: Optional[str] = None   # "native" or "python", at serve
         self._decode = make_paged_decode_fn(sp)
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed)
@@ -375,6 +503,30 @@ class PagedEngine:
         self._state: Optional[PagedState] = None
         self._pool: Optional[PagePool] = None
         self._registry: Optional[PrefixRegistry] = None
+
+    def _make_runtime(self):
+        """(page pool, prefix registry): the native C++ runtime
+        (``native/serving.py``) when it builds, else the Python twins.
+        Both behave identically (tested); the trie walks O(n) tokens per
+        match/register where the Python map hashes every full prefix
+        (O(n^2/ps) per admission). Sets ``self.runtime``."""
+        if self.native_runtime is not False:
+            from speech_distill_tpu_torch.native import serving
+            if serving.available():
+                self.runtime = "native"
+                return (serving.NativePagePool(self.num_pages),
+                        serving.NativePrefixRegistry())
+            if self.native_runtime is True:     # explicitly requested
+                raise RuntimeError(f"native serving runtime unavailable: "
+                                   f"{serving.unavailable_reason()}")
+        self.runtime = "python"
+        return PagePool(self.num_pages), PrefixRegistry()
+
+    def _default_samp(self) -> List[float]:
+        """Engine-global sampling params as a [4] row (the per-request
+        default when a request specifies nothing)."""
+        return [float(self.sp.temperature), float(self.sp.top_p),
+                float(self.sp.repetition_penalty), float(self.sp.min_tokens)]
 
     def new_state(self) -> PagedState:
         B, V, dev = self.slots, self.cfg.vocab_size, self.device
@@ -390,7 +542,13 @@ class PagedEngine:
             presence=torch.zeros((B, V), dtype=torch.bool, device=dev),
             num_generated=torch.zeros((B,), **i64),
             cap=torch.zeros((B,), **i64),
-            finished=torch.ones((B,), dtype=torch.bool, device=dev))
+            finished=torch.ones((B,), dtype=torch.bool, device=dev),
+            samp=(torch.tensor(self._default_samp(), dtype=torch.float32,
+                               device=dev).repeat(B, 1)
+                  if self.per_request_sampling else None),
+            logps=(torch.zeros((B, self.max_len), dtype=torch.float32,
+                               device=dev)
+                   if self.return_logprobs else None))
 
     @staticmethod
     def _scatter_impl(pool: PagedKVCache, tmp_k, tmp_v, page_ids) -> None:
@@ -436,23 +594,35 @@ class PagedEngine:
         return qwen3.KVCache(gx(pool.k, pool.ks), gx(pool.v, pool.vs),
                              m * ps)
 
-    def _admit(self, state: PagedState, b: int, arr, mask, pages, n: int,
-               token_row, presence_row, n_gen0: int, cap: int, *, m: int,
-               width: int) -> None:
-        """Gather-or-create -> suffix prefill -> page scatter -> slot
-        insert, for one slot."""
+    def _prefill_pages(self, state: PagedState, arr, mask, pages, *,
+                       m: int, width: int) -> torch.Tensor:
+        """Gather-or-create -> forward of the fresh tokens ``arr`` ->
+        scatter of the fresh pages. The first ``m`` of ``pages`` already
+        hold this prompt's KV (a prefix hit or earlier prefill pieces): the
+        fresh tokens attend over them, and only ``pages[m:]`` are written.
+        Returns the fresh tokens' hidden states [1, width - m*ps, D]."""
         pre = m * self.ps
         if m > 0:
             tmp = self._gather_impl(state.pool, pages[:m], width)
         else:
             tmp = qwen3.KVCache.create(self.cfg, 1, width,
                                        self._tmp_cache_dtype, self.device)
-        # unembed ONLY the last prompt position
         self.n_prefill_forwards += 1
         hidden, tmp = qwen3.forward(self.model, arr, attention_mask=mask,
                                     cache=tmp, return_hidden=True)
         self._scatter_impl(state.pool, tmp.k[:, :, pre:], tmp.v[:, :, pre:],
                            pages[m:])
+        return hidden
+
+    def _admit(self, state: PagedState, b: int, arr, mask, pages, n: int,
+               token_row, presence_row, n_gen0: int, cap: int, samp_row, *,
+               m: int, width: int) -> None:
+        """Prefill (:meth:`_prefill_pages`) and slot insert, for one
+        slot."""
+        hidden = self._prefill_pages(state, arr, mask, pages, m=m,
+                                     width=width)
+        # unembed ONLY the last prompt position
+        pre = m * self.ps
         h_row = hidden[:, n - pre - 1:n - pre]                 # [1, 1, D]
         state.tokens[b] = token_row
         state.length[b] = n
@@ -461,9 +631,30 @@ class PagedEngine:
         state.num_generated[b] = n_gen0
         state.cap[b] = cap
         state.finished[b] = False
+        if state.samp is not None:
+            state.samp[b] = torch.as_tensor(samp_row, dtype=torch.float32)
+        if state.logps is not None:
+            # prompt columns carry no logprobs; a resumed request's earlier
+            # logprobs were harvested at preemption
+            state.logps[b] = 0.0
+
+    def _prefill_part(self, state: PagedState, ids: Sequence[int],
+                      pages: List[int], m: int) -> None:
+        """Chunked-prefill piece: prefill ``ids[m*ps : len(pages)*ps]``
+        over the ``m`` pages already holding the prompt's first tokens and
+        write the fresh pages, with no slot insert. The final piece goes
+        through the normal admission with these pages as its shared
+        prefix, so chunked and whole-prompt prefill compute the same KV
+        (int8 pools quantize per token, so the STORED pages do not depend
+        on the chunking, but a later piece attends over the dequantized
+        earlier pages)."""
+        width = len(pages) * self.ps
+        arr = self._dev(np.asarray(ids[m * self.ps:width])[None])
+        self._prefill_pages(state, arr, None, self._dev(pages), m=m,
+                            width=width)
 
     def _admit_batch(self, state: PagedState, bs, arrs, pages_flat, ns,
-                     caps, *, width: int) -> None:
+                     caps, samps, *, width: int) -> None:
         """Batched admission: ``n`` FRESH (no shared prefix, no resumed
         generation) requests of one width bucket prefill as a single
         [n, width] forward + ONE page scatter + vectorized slot inserts.
@@ -488,6 +679,10 @@ class PagedEngine:
         state.num_generated[bs] = 0
         state.cap[bs] = caps
         state.finished[bs] = False
+        if state.samp is not None:
+            state.samp[bs] = samps
+        if state.logps is not None:
+            state.logps[bs] = 0.0
 
     def _dev(self, a, dtype=torch.int64) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype,
@@ -495,11 +690,13 @@ class PagedEngine:
 
     def _prefill_slot(self, state: PagedState, b: int, ids: Sequence[int],
                       pages: List[int], prev_gen: Sequence[int],
-                      shared: int = 0, cap: int = 1 << 30) -> None:
+                      shared: int = 0, cap: int = 1 << 30,
+                      samp=None) -> None:
         """Prefill slot ``b``. The first ``shared`` entries of ``pages``
-        are prefix-cache hits already holding this prompt's KV: only the
-        suffix runs through the model (attending over the gathered shared
-        pages), and only the fresh pages are scattered back."""
+        are prefix-cache hits (or chunked-prefill pieces) already holding
+        this prompt's KV: only the suffix runs through the model (attending
+        over the gathered shared pages), and only the fresh pages are
+        scattered back."""
         n = len(ids)
         if n >= self.max_len:
             raise ValueError(f"prompt length {n} leaves no room to "
@@ -518,7 +715,8 @@ class PagedEngine:
         self._admit(state, b, self._dev(arr), self._dev(mask, torch.int32),
                     self._dev(pages[:width // self.ps]), n,
                     self._dev(token_row), self._dev(presence_row, torch.bool),
-                    len(prev_gen), min(cap, 1 << 30), m=shared, width=width)
+                    len(prev_gen), min(cap, 1 << 30),
+                    samp or self._default_samp(), m=shared, width=width)
 
     def _flush_admissions(self, state: PagedState, pending,
                           slot_pages) -> None:
@@ -528,11 +726,12 @@ class PagedEngine:
         groups: dict = {}
         for b, r in pending:
             width = _ceil_div(len(r["ids"]), self.ps) * self.ps
-            if r["gen"] or width > ADMIT_BATCH_MAX_WIDTH:
+            if r["gen"] or width > self.admit_batch_max_width:
                 # single-row path for resumed-after-preemption rows (they
                 # carry a presence set + generation count) and LONG prompts
                 self._prefill_slot(state, b, r["ids"], slot_pages[b],
-                                   r["gen"], 0, cap=r["cap"])
+                                   r["gen"], 0, cap=r["cap"],
+                                   samp=r.get("samp"))
                 continue
             groups.setdefault(width, []).append((b, r))
         for width, jobs in groups.items():
@@ -544,7 +743,8 @@ class PagedEngine:
                 if sz == 1:
                     b, r = chunk[0]
                     self._prefill_slot(state, b, r["ids"], slot_pages[b],
-                                       r["gen"], 0, cap=r["cap"])
+                                       r["gen"], 0, cap=r["cap"],
+                                       samp=r.get("samp"))
                     continue
                 self.n_batched_prefills += sz
                 self._prefill_batch(state, chunk, slot_pages, width)
@@ -559,6 +759,7 @@ class PagedEngine:
         bs = np.empty(n, np.int64)
         ns = np.empty(n, np.int64)
         caps = np.empty(n, np.int64)
+        samps = np.empty((n, 4), np.float32)
         pages_flat = np.empty(n * npg, np.int64)
         for i, (b, r) in enumerate(jobs):
             ids = r["ids"]
@@ -570,10 +771,12 @@ class PagedEngine:
             bs[i] = b
             ns[i] = ln
             caps[i] = min(r["cap"], 1 << 30)
+            samps[i] = r.get("samp") or self._default_samp()
             pages_flat[i * npg:(i + 1) * npg] = slot_pages[b][:npg]
         self._admit_batch(state, self._dev(bs), self._dev(arrs),
                           self._dev(pages_flat), self._dev(ns),
-                          self._dev(caps), width=width)
+                          self._dev(caps), self._dev(samps, torch.float32),
+                          width=width)
 
     # ------------------------------------------------------------------
     # Scheduler
@@ -589,15 +792,42 @@ class PagedEngine:
         """Single-request API, STATELESS: pass the full context each call.
         Multi-turn sessions stay incremental through the persistent prefix
         cache (a finished request registers its full prompt+generated
-        pages)."""
+        pages). Returns "logprobs" too when the engine keeps them."""
         gen = self.serve([list(ids)], max_new=max_new)[0]
-        return {"token_ids": gen, "state": None}
+        out = {"token_ids": gen, "state": None}
+        if self.return_logprobs:
+            out["logprobs"] = self.request_logprobs[0]
+        return out
+
+    def _request_samp(self, overrides: Optional[dict]
+                      ) -> Optional[List[float]]:
+        """A request's [4] sampling row from its overrides (None: the
+        engine's)."""
+        if not overrides:
+            return None
+        o = dict(overrides)
+        d = self._default_samp()
+        samp = [float(o.pop("temperature", d[0])),
+                float(o.pop("top_p", d[1])),
+                float(o.pop("repetition_penalty", d[2])),
+                float(o.pop("min_tokens", d[3]))]
+        if o:
+            raise ValueError(f"unknown sampling overrides: {sorted(o)} "
+                             f"(top_k/RAS are engine-global)")
+        return samp
 
     @torch.no_grad()
     def serve(self, prompts: Sequence[Sequence[int]],
               max_new: Optional[int] = None,
               max_new_per_request: Optional[Sequence[int]] = None,
-              on_tokens=None) -> List[List[int]]:
+              on_tokens=None, on_logprobs=None, on_chunk=None,
+              sampling_per_request: Optional[Sequence[Optional[dict]]]
+              = None,
+              ttft_deadline_s: Optional[float] = None,
+              deadline_per_request: Optional[Sequence[Optional[float]]]
+              = None,
+              arrival_per_request: Optional[Sequence[float]] = None
+              ) -> List[List[int]]:
         """Run every prompt to completion through the slot pool; returns
         generated token ids per prompt (order-preserving).
 
@@ -605,38 +835,99 @@ class PagedEngine:
         callback invoked at decode-chunk granularity with each request's
         newly generated ids, in order, exactly once per token (preemption
         and resume included). The concatenation of a request's callbacks
-        equals its entry in the returned outputs."""
+        equals its entry in the returned outputs.
+
+        With ``return_logprobs`` the engine keeps each generated token's
+        logprob: ``self.request_logprobs[rid]`` holds one float per token
+        of ``outputs[rid]`` (exact across preemption). ``on_logprobs(rid,
+        new_logprobs, done)`` streams them, aligned one to one with the
+        ``on_tokens`` call of the same chunk (it needs ``on_tokens``).
+
+        ``on_chunk()``: called once a scheduler pass, after every
+        per-request callback of the chunk (the hook for one batched
+        downstream tick); its host time goes to
+        ``phase_seconds["downstream"]``.
+
+        ``sampling_per_request``: per-request overrides of temperature,
+        top_p, repetition_penalty and min_tokens (needs
+        ``per_request_sampling``).
+
+        ``ttft_deadline_s`` / ``deadline_per_request``: TTFT deadlines
+        (seconds from arrival). A queued request whose deadline passes
+        before it produced any token is shed: ``outputs[rid] == []``,
+        ``request_metrics[rid]["shed"]``, ``on_tokens(rid, [], True)``
+        closes its stream, and its chunked-prefill pages return to the
+        pool. ``self.shed_requests`` counts them.
+
+        ``arrival_per_request``: open-loop arrivals, seconds from the
+        start of the serve at which each request becomes visible to the
+        scheduler; its TTFT/e2e clocks and deadline start then. With
+        nothing queued and nothing resident the scheduler sleeps until
+        the next arrival."""
         cap_default = max_new or self.sp.max_tokens
+        if on_logprobs is not None and not self.return_logprobs:
+            raise ValueError("on_logprobs needs "
+                             "PagedEngine(return_logprobs=True)")
+        if on_logprobs is not None and on_tokens is None:
+            raise ValueError("on_logprobs is a companion callback: pass "
+                             "on_tokens too (emission is aligned to it)")
+        if sampling_per_request is not None \
+                and not self.per_request_sampling:
+            raise ValueError("sampling_per_request needs "
+                             "PagedEngine(per_request_sampling=True)")
         t_serve0 = time.perf_counter()
-        queue = deque()
+        queue = _AdmissionQueue(self.admission_policy)
+        pending_arrivals: List[dict] = []      # future arrivals, by t_arr
         for rid, p in enumerate(prompts):
-            queue.append({"rid": rid, "ids": list(p), "plen0": len(p),
-                          "cap": (max_new_per_request[rid]
-                                  if max_new_per_request is not None
-                                  else cap_default),
-                          "gen": [], "n_emitted": 0, "t_enq": t_serve0})
+            dl = (deadline_per_request[rid]
+                  if deadline_per_request is not None else ttft_deadline_s)
+            arr = (float(arrival_per_request[rid] or 0.0)
+                   if arrival_per_request is not None else 0.0)
+            t_arr = t_serve0 + arr
+            r = {"rid": rid, "ids": list(p), "plen0": len(p),
+                 "cap": (max_new_per_request[rid]
+                         if max_new_per_request is not None
+                         else cap_default),
+                 "samp": self._request_samp(
+                     sampling_per_request[rid]
+                     if sampling_per_request is not None else None),
+                 "gen": [], "lps": [], "n_emitted": 0,
+                 "t_enq": t_arr, "t_arr": t_arr,
+                 "dl": (t_arr + dl if dl is not None else None)}
+            if arr <= 0.0:
+                queue.append(r)
+            else:
+                pending_arrivals.append(r)
+        pending_arrivals.sort(key=lambda r: (r["t_arr"], r["rid"]))
+        any_deadlines = (ttft_deadline_s is not None
+                         or (deadline_per_request is not None
+                             and any(d is not None
+                                     for d in deadline_per_request)))
         outputs: List[Optional[List[int]]] = [None] * len(prompts)
+        self.request_logprobs = [None] * len(prompts)
         self.preemptions = 0               # serve-level metrics
+        self.shed_requests = 0
         self.prefix_hits = 0
         self.prefix_hit_tokens = 0
         # wall-time anatomy of the scheduler loop (decode_sync includes the
         # device chunk; everything else is host time)
         self.phase_seconds = {"grow": 0.0, "admit": 0.0,
-                              "decode_sync": 0.0, "retire": 0.0}
+                              "decode_sync": 0.0, "retire": 0.0,
+                              "downstream": 0.0}
         self.n_chunks = 0
         self.n_decode_steps = 0
         self.n_exit_syncs = 0
         self.n_prefills = 0
+        self.n_prefill_chunks = 0
         self.n_batched_prefills = 0
         self.n_prefill_forwards = 0        # model forwards of admission
-        # per-request latency records, chunk-granularity: ttft = enqueue ->
+        # per-request latency records, chunk-granularity: ttft = arrival ->
         # end of the first chunk that produced this request's token(s);
-        # e2e = enqueue -> retire
+        # e2e = arrival -> retire
         self.request_metrics: List[Optional[dict]] = [None] * len(prompts)
         # pool, registry and device state PERSIST across serve() calls
         if self._state is None:
-            self._pool, self._registry = PagePool(self.num_pages), \
-                PrefixRegistry()
+            self._pool, self._registry = self._make_runtime()
             self._state = self.new_state()
         registry = self._registry
         pool = self._pool
@@ -655,40 +946,66 @@ class PagedEngine:
             bt[b, :] = 0
             meta[b] = None
 
-        # host mirrors of state.length / state.tokens, refreshed once per
+        # host mirrors of state.length / tokens / logps, refreshed once per
         # chunk
         lengths_h = np.zeros((self.slots,), np.int64)
         tokens_h = np.zeros((self.slots, self.max_len), np.int64)
+        lps_h = np.zeros((self.slots, self.max_len), np.float32)
+
+        def emit(r, new, new_lps, done):
+            if on_tokens is not None:
+                if on_logprobs is not None:
+                    on_logprobs(r["rid"], new_lps, done)
+                on_tokens(r["rid"], new, done)
 
         def finish(r, t_done):
             outputs[r["rid"]] = r["gen"]
-            if on_tokens is not None:
-                on_tokens(r["rid"], r["gen"][r["n_emitted"]:], True)
-                r["n_emitted"] = len(r["gen"])
+            if self.return_logprobs:
+                self.request_logprobs[r["rid"]] = r["lps"]
+            lo = r["n_emitted"]
+            emit(r, r["gen"][lo:], r["lps"][lo:], True)
+            r["n_emitted"] = len(r["gen"])
             self.request_metrics[r["rid"]] = {
                 "ttft_s": r.get("t_first", t_done) - r["t_enq"],
                 "e2e_s": t_done - r["t_enq"],
                 "n_prompt": r["plen0"], "n_gen": len(r["gen"])}
+
+        def harvest(r, b, n):
+            """Append the first ``n`` tokens (and logprobs) this residency
+            generated in slot ``b`` to the request."""
+            s0 = r["plen"]
+            r["gen"] += tokens_h[b, s0:s0 + n].tolist()
+            if self.return_logprobs:
+                r["lps"] += lps_h[b, s0:s0 + n].tolist()
 
         def preempt(b):
             """Recompute preemption: fold generated tokens back into the
             request and re-queue it at the front."""
             self.preemptions += 1
             r = meta[b]
-            L = int(lengths_h[b])
-            gen = tokens_h[b, r["plen"]:L].tolist()
-            keep = min(len(r["gen"]) + len(gen), r["cap"]) - len(r["gen"])
-            r["gen"] += gen[:keep]
+            made = int(lengths_h[b]) - r["plen"]
+            keep = min(len(r["gen"]) + made, r["cap"]) - len(r["gen"])
+            harvest(r, b, keep)
             if len(r["gen"]) >= r["cap"]:
                 finish(r, time.perf_counter())   # cap reached mid-chunk
             else:
-                r["ids"] = r["ids"] + gen[:keep]
+                r["ids"] = r["ids"] + r["gen"][len(r["gen"]) - keep:]
                 queue.appendleft(r)
             release(b)
             state.finished[b] = True
 
-        while queue or any(m is not None for m in meta):
+        while queue or pending_arrivals or any(m is not None for m in meta):
             t_phase = time.perf_counter()
+            # 0. open-loop arrivals join the queue; with nothing queued
+            # and nothing resident, sleep to the next one
+            if pending_arrivals:
+                if (not queue and all(m is None for m in meta)
+                        and pending_arrivals[0]["t_arr"] > t_phase):
+                    time.sleep(pending_arrivals[0]["t_arr"] - t_phase)
+                    t_phase = time.perf_counter()
+                while (pending_arrivals
+                       and pending_arrivals[0]["t_arr"] <= t_phase):
+                    queue.append(pending_arrivals.pop(0))
             # 1. grow live slots (oldest joins first — they keep latency)
             order = sorted((b for b in range(self.slots)
                             if meta[b] is not None),
@@ -708,6 +1025,13 @@ class PagedEngine:
                     victims = [j for j in range(self.slots)
                                if j != b and meta[j] is not None]
                     if not victims:
+                        # last resort: reclaim the pages of half-prefilled
+                        # queued requests (they prefill again later)
+                        if any(rq.get("pf") for rq in queue):
+                            for rq in queue:
+                                if rq.get("pf"):
+                                    pool.free(rq.pop("pf"))
+                            continue
                         raise RuntimeError(
                             "page pool exhausted by a single stream — "
                             "increase num_pages")
@@ -716,6 +1040,50 @@ class PagedEngine:
             t_now = time.perf_counter()
             self.phase_seconds["grow"] += t_now - t_phase
             t_phase = t_now
+
+            # 1b. load shedding, BEFORE any prefill is spent on doomed work
+            if any_deadlines:
+                for r in queue.shed_expired(t_now):
+                    if r.get("pf"):
+                        pool.free(r.pop("pf"))
+                    self.shed_requests += 1
+                    outputs[r["rid"]] = []
+                    if self.return_logprobs:
+                        self.request_logprobs[r["rid"]] = []
+                    self.request_metrics[r["rid"]] = {
+                        "shed": True, "wait_s": t_now - r["t_enq"],
+                        "n_prompt": r["plen0"], "n_gen": 0}
+                    emit(r, [], [], True)
+
+            # 2a. chunked prefill: advance the head-of-queue request by at
+            # most one prefill_chunk of page-aligned prompt tokens a pass.
+            # The pieces accumulate in r["pf"]; the final piece goes
+            # through the admission below with r["pf"] as shared prefix.
+            if self.prefill_chunk is not None and queue:
+                r = queue[0]
+                n = len(r["ids"])
+                pf = r.setdefault("pf", [])
+                if not pf and self.prefix_sharing:
+                    hits = registry.match(r["ids"], self.ps,
+                                          (n - 1) // self.ps)
+                    pool.share(hits)           # the request's own reference
+                    pf.extend(hits)
+                    if hits:
+                        self.prefix_hits += 1
+                        self.prefix_hit_tokens += len(hits) * self.ps
+                if n - len(pf) * self.ps > self.prefill_chunk:
+                    # fresh pages this piece; >= 1 token stays for admission
+                    cp = min(self.prefill_chunk // self.ps,
+                             (n - 1) // self.ps - len(pf))
+                    got = registry.alloc(pool, cp) if cp > 0 else None
+                    if got is not None:
+                        self._prefill_part(state, r["ids"], pf + got,
+                                           len(pf))
+                        pf.extend(got)
+                        self.n_prefill_chunks += 1
+                        if self.prefix_sharing:
+                            registry.register(r["ids"][:len(pf) * self.ps],
+                                              pf, self.ps, pool)
 
             # 2. admit queued requests into free slots. Allocation and
             # bookkeeping stay sequential (pool state feeds each next
@@ -728,21 +1096,34 @@ class PagedEngine:
                     continue
                 r = queue[0]
                 n = len(r["ids"])
-                shared = []
-                if self.prefix_sharing:
-                    # cap so >= 1 suffix token remains to prefill
-                    shared = registry.match(r["ids"], self.ps,
-                                            (n - 1) // self.ps)
-                    pool.share(shared)         # the stream's own reference
+                if "pf" in r:                  # chunked-prefill pages
+                    if n - len(r["pf"]) * self.ps > (self.prefill_chunk
+                                                     or n):
+                        break                  # still mid-prefill
+                    shared = r["pf"]
+                elif self.prefill_chunk is not None and n > self.prefill_chunk:
+                    # it became the head in this loop: 2a prefills it in
+                    # pieces from the next pass (the JAX engine prefills
+                    # it whole here, unbounded by prefill_chunk)
+                    break
+                else:
+                    shared = []
+                    if self.prefix_sharing:
+                        # cap so >= 1 suffix token remains to prefill
+                        shared = registry.match(r["ids"], self.ps,
+                                                (n - 1) // self.ps)
+                        pool.share(shared)     # the stream's own reference
                 got = registry.alloc(pool, self._pages_needed(n)
                                      - len(shared))
                 if got is None:
-                    pool.free(shared)
+                    if "pf" not in r:
+                        pool.free(shared)
                     break                      # pool full; retry next chunk
                 queue.popleft()
-                if shared:
+                if "pf" not in r and shared:
                     self.prefix_hits += 1
                     self.prefix_hit_tokens += len(shared) * self.ps
+                r.pop("pf", None)
                 slot_pages[b] = shared + got
                 bt[b, :len(slot_pages[b])] = slot_pages[b]
                 bt[b, len(slot_pages[b]):] = 0
@@ -754,7 +1135,8 @@ class PagedEngine:
                     self._flush_admissions(state, pending, slot_pages)
                     pending = []
                     self._prefill_slot(state, b, r["ids"], slot_pages[b],
-                                       r["gen"], len(shared), cap=r["cap"])
+                                       r["gen"], len(shared), cap=r["cap"],
+                                       samp=r.get("samp"))
                 else:
                     pending.append((b, r))
                 self.n_prefills += 1
@@ -770,10 +1152,17 @@ class PagedEngine:
             self.phase_seconds["admit"] += t_now - t_phase
             t_phase = t_now
 
-            # 3. one decode chunk
+            # 3. one decode chunk. With requests still queued it exits once
+            # enough slots retire to seat them (capped by chunk_exit_free);
+            # with an empty queue it runs to the boundary (slots + 1 can
+            # never be reached)
             state.block_tables.copy_(torch.from_numpy(bt))
+            if self.chunk_exit_free and queue:
+                exit_free = max(1, min(self.chunk_exit_free, len(queue)))
+            else:
+                exit_free = self.slots + 1
             steps, tests = self._decode(self.model, state, self.chunk_steps,
-                                        self._generator)
+                                        self._generator, exit_free)
             self.n_chunks += 1
             self.n_decode_steps += steps
             self.n_exit_syncs += tests
@@ -785,6 +1174,8 @@ class PagedEngine:
             ngen = state.num_generated.cpu().numpy()
             fin = state.finished.cpu().numpy()
             tokens_h = state.tokens.cpu().numpy()
+            if self.return_logprobs:
+                lps_h = state.logps.cpu().numpy()
             t_now = time.perf_counter()
             self.phase_seconds["decode_sync"] += t_now - t_phase
             t_phase = t_now
@@ -802,18 +1193,18 @@ class PagedEngine:
                     if total_now > r["n_emitted"]:
                         lo, g = r["n_emitted"], len(r["gen"])
                         new = list(r["gen"][lo:min(total_now, g)])
+                        new_lps = list(r["lps"][lo:min(total_now, g)])
                         if total_now > g:
                             s0 = r["plen"] + max(lo, g) - g
-                            new += tokens_h[
-                                b, s0:r["plen"] + total_now - g].tolist()
+                            s1 = r["plen"] + total_now - g
+                            new += tokens_h[b, s0:s1].tolist()
+                            new_lps += lps_h[b, s0:s1].tolist()
                         r["n_emitted"] = total_now
-                        on_tokens(r["rid"], new, False)
+                        emit(r, new, new_lps, False)
             for b in [b for b in range(self.slots)
                       if meta[b] is not None and fin[b]]:
                 r = meta[b]
-                fresh = min(int(ngen[b]), r["cap"]) - len(r["gen"])
-                start = r["plen"]
-                r["gen"] += tokens_h[b, start:start + fresh].tolist()
+                harvest(r, b, min(int(ngen[b]), r["cap"]) - len(r["gen"]))
                 finish(r, t_now)
                 if self.prefix_sharing:
                     # register the full pages of prompt + GENERATED tokens,
@@ -824,5 +1215,10 @@ class PagedEngine:
                                       slot_pages[b], self.ps, pool)
                 release(b)
             self.phase_seconds["retire"] += time.perf_counter() - t_phase
+            if on_chunk is not None:
+                t_phase = time.perf_counter()
+                on_chunk()
+                self.phase_seconds["downstream"] += (time.perf_counter()
+                                                     - t_phase)
         self._state = state
         return outputs  # type: ignore[return-value]

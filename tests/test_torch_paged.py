@@ -158,7 +158,7 @@ def test_per_request_caps_and_streaming():
     assert streamed == dict(enumerate(got)) and done == set(range(4))
     assert all(m["n_gen"] == c for m, c in zip(teng.request_metrics, caps))
     assert set(teng.phase_seconds) == {"grow", "admit", "decode_sync",
-                                       "retire"}
+                                       "retire", "downstream"}
     # single-request API: a stateless serve of one prompt
     assert teng.generate(prompts[1], max_new=5)["token_ids"] == got[1]
 
@@ -176,12 +176,33 @@ def test_allocator_refcounts():
     assert pool.free_pages == 4
 
 
-@pytest.mark.parametrize("kw", [
-    {"prefill_chunk": 8}, {"mesh": object()}, {"native_runtime": True},
-    {"per_request_sampling": True}, {"return_logprobs": True},
-    {"admission_policy": "shortest_job"}, {"chunk_exit_free": 2}],
-    ids=lambda kw: next(iter(kw)))
+@pytest.mark.parametrize("kw", [{"mesh": object()}],
+                         ids=lambda kw: next(iter(kw)))
 def test_deferred_features_raise(kw):
     _, _, _, cfg, model, sp = _setup()
     with pytest.raises(NotImplementedError):
         tpaged.PagedEngine(model, cfg, sp, device="cpu", **kw)
+
+
+def _noop(*_):
+    pass
+
+
+@pytest.mark.parametrize("engine_kw,serve_kw,match", [
+    ({"admission_policy": "lottery"}, None, "admission_policy"),
+    ({}, {"on_tokens": _noop, "on_logprobs": _noop}, "return_logprobs"),
+    ({"return_logprobs": True}, {"on_logprobs": _noop}, "companion"),
+    ({}, {"sampling_per_request": [{"temperature": 0.5}]},
+     "per_request_sampling"),
+    ({"per_request_sampling": True},
+     {"sampling_per_request": [{"top_k": 3}]}, "unknown sampling")],
+    ids=["unknown_policy", "logprobs_without_flag",
+         "logprobs_without_on_tokens", "overrides_without_flag",
+         "unknown_override"])
+def test_misuse_raises_value_error(engine_kw, serve_kw, match):
+    """The JAX engine's ValueErrors: at construction, or at serve()."""
+    _, _, _, cfg, model, sp = _setup()
+    with pytest.raises(ValueError, match=match):
+        eng = tpaged.PagedEngine(model, cfg, sp, slots=2, max_len=32,
+                                 page_size=8, device="cpu", **engine_kw)
+        eng.serve([[1, 2, 3]], max_new=2, **serve_kw)
