@@ -23,6 +23,21 @@
    prompt's last logits after chunked and whole-prompt prefill (bf16 and
    fp32) against the fp32 whole prompt, and the registry's host time,
    native against Python, over the phase's prompts.
+3c. The TTS serve: ``MultiSessionTTS`` over ``PagedEngine`` (8 slots,
+   chunk_steps 16, logprobs) on the same student with the full-size flow
+   and HiFT (random weights, fp32, TF32 off): 8 sessions (six 128-token
+   LLM prompts, two of 700 and 1,000 tokens; 75-token flow prompts, 150
+   prompt mel frames padded to 160), 150 tokens each, the confidence gate
+   at -3.0; generated ids are folded into the flow's speech range by a
+   thin adapter. Fails unless every wav is finite and (2 n_tok - 150) x
+   480 samples long, the streamed chunks make the wav, every session gave
+   >= 2 chunks, the streamed tokens equal the outputs, K4 ran exactly 28
+   a decode step and K1-fwd 28 a fresh long admission, and the gate
+   deferred. Logs x-realtime, TTFA, LLM tokens/s, tick ms by row count,
+   the decode stall a tick and device memory. Then session 0 replayed
+   alone against its batched row, and a 400-token stream through the
+   incremental flow (fp32 caches) against the recompute (mel error and
+   each chunk's ms), and a profile of an 8-row flow and HiFT tick.
 4. Holds each serving kernel against its plain PyTorch version on the
    card at the serving path's shapes, and times kernel, plain version,
    bound and (for flash attention) the library SDPA call as a yardstick;
@@ -101,12 +116,18 @@ from speech_distill_tpu_torch.distill.lora import init_lora, lora_scaling
 from speech_distill_tpu_torch.infer.paged import (PagedEngine, PagedKVCache,
                                                   PagePool, PrefixRegistry,
                                                   paged_forward)
+from speech_distill_tpu_torch.infer.streaming_tts import StreamingTokenToWav
+from speech_distill_tpu_torch.infer.tts_serve import (MultiSessionTTS,
+                                                      TTSSession)
+from speech_distill_tpu_torch.models import flow as flow_lib
+from speech_distill_tpu_torch.models import hift as hift_lib
 from speech_distill_tpu_torch.models import qwen3
 from speech_distill_tpu_torch.models.convert import (model_to_tree,
                                                      params_from_jax)
 from speech_distill_tpu_torch.native.serving import (NativePagePool,
                                                      NativePrefixRegistry)
 from speech_distill_tpu_torch.ops import _cuda
+from speech_distill_tpu_torch.ops.attention import FLASH_BLOCK, FLASH_MIN_SEQ
 from speech_distill_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_plain, flash_attention_fwd, flash_attention_fwd_plain,
     flash_dkv, flash_dq)
@@ -587,6 +608,308 @@ def serve_features(cfg, model, dev) -> dict:
         fail(f"feature serve ran the {eng.runtime} runtime")
     del eng
     check_chunked_prefill(cfg, model, prompts[long_rids[0]], dev)
+    return counts
+
+
+# phase 3c, the TTS serve: the traffic of the JAX package's own benchmark
+# of the serving product (bench.py bench_tts_serve) at its N = 8, over the
+# phase-3 student, with the reference's full-size flow and HiFT (random
+# weights from the smoke's seed, fp32, TF32 off)
+TTS_SESSIONS, TTS_PROMPT, TTS_LONG = 8, 128, (700, 1000)
+TTS_FLOW_PROMPT, TTS_PROMPT_MEL, TTS_MEL_PAD = 75, 150, 160
+TTS_GEN, TTS_CHUNK_STEPS, TTS_GATE = 150, 16, -3.0
+# one 400-token stream in 16 chunks of 25, incremental against recompute
+TTS_INC_TOKENS, TTS_INC_CHUNK, TTS_INC_FRAMES = 400, 25, 1024
+# a session replayed alone against its batched row, max |wav difference|:
+# the two differ only in how cuBLAS and cuDNN block the fp32 products of
+# an 8-row and a 1-row call (~1e-6 relative each), carried through 15
+# Euler steps of 70 blocks and HiFT's exp(magnitude) head into a wav
+# clipped at 0.99 (the JAX test allows 2e-4 on its tiny config)
+TTS_REPLAY_WAV_ATOL = 1e-3
+# the incremental flow (fp32 K/V caches) against the recompute, max |mel
+# difference|: the same fp32 arithmetic on other shapes (F new rows
+# against cached keys instead of the whole prefix)
+TTS_INC_MEL_ATOL = 1e-3
+
+
+class FoldSpeechIds:
+    """The engine, with every generated id outside the flow's speech range
+    folded into it (offset + id % vocab) in the token callbacks and the
+    outputs: a random-weight student samples its whole vocabulary, and a
+    flow id past the flow vocabulary raises. Counts the ids it folded,
+    keeps the raw streams, and times each ``on_chunk`` tick (decode waits
+    for it: the synthesis runs on the engine's stream)."""
+
+    def __init__(self, eng, offset: int, vocab: int):
+        self.eng, self.offset, self.vocab = eng, offset, vocab
+        self.folded = 0
+        self.raw, self.outputs, self.tick_s = [], [], []
+
+    def fold(self, ids):
+        return [t if 0 <= t - self.offset < self.vocab
+                else self.offset + t % self.vocab for t in ids]
+
+    def serve(self, prompts, max_new=None, on_tokens=None, on_chunk=None,
+              on_logprobs=None):
+        self.raw = [[] for _ in prompts]
+        self.tick_s = []
+
+        def tokens(rid, new, done):
+            self.raw[rid] += new
+            folded = self.fold(new)
+            self.folded += sum(a != b for a, b in zip(new, folded))
+            on_tokens(rid, folded, done)
+
+        def chunk():
+            t0 = time.perf_counter()
+            on_chunk()
+            self.tick_s.append(time.perf_counter() - t0)
+        self.outputs = self.eng.serve(prompts, max_new=max_new,
+                                      on_tokens=tokens, on_chunk=chunk,
+                                      on_logprobs=on_logprobs)
+        return [self.fold(o) for o in self.outputs]
+
+
+def tts_sessions(cfg, fcfg, rng) -> list:
+    """Six 128-token LLM prompts and two long ones (page-aligned widths 768
+    and 1,024 take K1-fwd), each with a 75-token flow prompt, 150 prompt
+    mel frames and a 192-dim speaker embedding; int seeds for the draws."""
+    lens = [TTS_PROMPT] * (TTS_SESSIONS - len(TTS_LONG)) + list(TTS_LONG)
+    return [TTSSession(
+        llm_ids=rng.integers(1, cfg.vocab_size - 2, n).tolist(),
+        flow_prompt_tokens=rng.integers(0, fcfg.vocab_size,
+                                        TTS_FLOW_PROMPT).tolist(),
+        prompt_mel=(rng.normal(size=(TTS_PROMPT_MEL, fcfg.output_size))
+                    * 0.1).astype(np.float32),
+        prompt_mel_len=TTS_PROMPT_MEL,
+        spk_emb=rng.normal(size=(fcfg.spk_embed_dim,)).astype(np.float32),
+        rng=SEED + 100 + i) for i, n in enumerate(lens)]
+
+
+def ms_by_rows(tick_ms: dict) -> dict:
+    return {what: {rows: {"calls": len(v), "mean": float(np.mean(v)),
+                          "max": float(np.max(v))}
+                   for rows, v in sorted(d.items())}
+            for what, d in tick_ms.items()}
+
+
+def stream_timed(synth, gen, cadence) -> tuple:
+    """Push ``gen`` through ``synth`` at ``cadence`` [(n_tokens, final)]:
+    (mel [1, F, 80] the flow emitted, wav chunks, ms of each push; every
+    push ends with its results read back to the host)."""
+    mels, wavs, ms = [], [], []
+    for n, final in cadence:
+        t0 = time.perf_counter()
+        job = synth.flow_job(gen[:n], final)
+        if job is not None:
+            mels.append(synth.run_flow(job))
+        job = synth.vocode_job(final)
+        if job is not None:
+            wavs.append(synth.run_vocode(job))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return np.concatenate(mels, axis=1), wavs, ms
+
+
+def check_tts_replay(coord, sessions, res, flow, fcfg, hift, hcfg, offset,
+                     dev) -> float:
+    """Session 0 replayed alone through StreamingTokenToWav at its recorded
+    cadence, against its batched row; returns the max |wav difference|."""
+    s = sessions[0]
+    gen = [t - offset for t in res[0]["tokens"]]
+    synth = StreamingTokenToWav(
+        flow, fcfg, hift, hcfg, s.flow_prompt_tokens, s.prompt_mel,
+        s.prompt_mel_len, s.spk_emb, s.rng, mel_pad_to=TTS_MEL_PAD,
+        device=dev)
+    wav = np.concatenate([w for n, final in coord.cadence[0]
+                          for w in synth.push(gen[:n], final)])
+    if wav.shape != res[0]["wav"].shape:
+        fail(f"replayed session: wav {wav.shape} != batched row "
+             f"{res[0]['wav'].shape}")
+    return float(np.abs(wav - res[0]["wav"]).max())
+
+
+def check_tts_incremental(s, flow, fcfg, hift, hcfg, dev) -> dict:
+    """One 400-token stream (16 chunks of 25 tokens, then the flush)
+    through the recompute and the incremental flow with fp32 K/V caches:
+    the mel and wav of the two, and each chunk's ms."""
+    gen = np.random.default_rng(SEED + 32).integers(
+        0, fcfg.vocab_size, TTS_INC_TOKENS).tolist()
+    cadence = [(n, False) for n in range(TTS_INC_CHUNK, TTS_INC_TOKENS + 1,
+                                         TTS_INC_CHUNK)]
+    cadence.append((TTS_INC_TOKENS, True))
+    out = {}
+    for inc in (False, True):
+        synth = StreamingTokenToWav(
+            flow, fcfg, hift, hcfg, s.flow_prompt_tokens, s.prompt_mel,
+            s.prompt_mel_len, s.spk_emb, SEED + 200, incremental=inc,
+            inc_max_frames=TTS_INC_FRAMES, inc_kv_dtype=torch.float32,
+            device=dev)
+        out["incremental" if inc else "recompute"] = stream_timed(
+            synth, gen, cadence)
+        del synth
+    (mel_r, wav_r, ms_r), (mel_i, wav_i, ms_i) = (out["recompute"],
+                                                  out["incremental"])
+    if mel_r.shape != mel_i.shape or len(wav_r) != len(wav_i):
+        fail(f"incremental stream: mel {mel_i.shape} / {len(wav_i)} chunks "
+             f"vs recompute {mel_r.shape} / {len(wav_r)}")
+    if not (np.isfinite(mel_i).all() and np.isfinite(mel_r).all()):
+        fail("incremental or recompute mel is not finite")
+    return {"tokens": TTS_INC_TOKENS, "mel_frames": mel_r.shape[1],
+            "max_mel_err": float(np.abs(mel_i - mel_r).max()),
+            "max_wav_err": float(max(np.abs(a - b).max()
+                                     for a, b in zip(wav_i, wav_r))),
+            "chunk_ms": {"recompute": ms_r, "incremental": ms_i}}
+
+
+def profile_tts_ticks(flow, fcfg, hift, hcfg, dev) -> None:
+    """Device busy share of the serve's largest ticks under
+    :func:`profile_step`: one 8-row flow call at the final width (W 256
+    tokens, 160 prompt frames) and one 8-row HiFT call over a steady
+    window (a 25-token chunk's 50 frames and the 8 held)."""
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    B, W = TTS_SESSIONS, 256
+    tok = torch.randint(0, fcfg.vocab_size, (B, W), device=dev, generator=g)
+    n = torch.full((B,), TTS_FLOW_PROMPT + TTS_GEN - 1, device=dev)
+    pm = torch.randn((B, TTS_MEL_PAD, fcfg.output_size), device=dev,
+                     generator=g)
+    plen = torch.full((B,), TTS_PROMPT_MEL, device=dev)
+    spk = torch.randn((B, fcfg.spk_embed_dim), device=dev, generator=g)
+    noise = torch.randn((B, 2 * W, fcfg.output_size), device=dev,
+                        generator=g)
+    mel = torch.randn((B, 58, hcfg.in_channels), device=dev, generator=g)
+
+    def flow_call():
+        flow_lib.forward_flow(flow, tok, n, pm, plen, spk, fcfg,
+                              streaming=True, noise=noise, enc_len=n)
+        torch.cuda.synchronize()
+
+    def hift_call():
+        hift_lib.forward(hift, mel, hcfg, generator=g)
+        torch.cuda.synchronize()
+    profile_step("tts flow tick (8 rows, W 256)", flow_call, {}, top=6)
+    profile_step("tts vocode tick (8 rows, 58 frames)", hift_call, {},
+                 top=6)
+
+
+def tts_serve(cfg, model, dev, fcfg=None, hcfg=None) -> dict:
+    """Phase 3c: MultiSessionTTS over PagedEngine, the serving product:
+    8 sessions through the full-width student, batched flow and HiFT
+    ticks at every decode-chunk boundary, the confidence gate on the
+    streamed logprobs. Then a session replayed alone, and the incremental
+    flow against the recompute at full width. Returns the serve's launch
+    counts."""
+    t_phase = time.perf_counter()
+    fcfg = fcfg or flow_lib.FlowConfig()
+    hcfg = hcfg or hift_lib.HiFTConfig()
+    flow = flow_lib.init_params(fcfg, seed=SEED, device=dev)
+    hift = hift_lib.init_params(hcfg, seed=SEED, device=dev)
+    sessions = tts_sessions(cfg, fcfg, np.random.default_rng(SEED + 31))
+    offset = cfg.speech_token_offset
+    sp = SamplingParams(stop_token_ids=(cfg.eos_token_id,),
+                        min_tokens=TTS_GEN, max_tokens=TTS_GEN)
+    eng = PagedEngine(model, cfg, sp, slots=TTS_SESSIONS, max_len=2048,
+                      page_size=128, chunk_steps=TTS_CHUNK_STEPS, seed=SEED,
+                      device=dev, return_logprobs=True)
+    folder = FoldSpeechIds(eng, offset, fcfg.vocab_size)
+    coord = MultiSessionTTS(folder, flow, fcfg, hift, hcfg, offset,
+                            mel_pad_to=TTS_MEL_PAD,
+                            confidence_gate=TTS_GATE, device=dev)
+    # warm-up: cuBLAS / cuDNN handles and plans of the flow and HiFT
+    s = sessions[0]
+    warm = StreamingTokenToWav(flow, fcfg, hift, hcfg, s.flow_prompt_tokens,
+                               s.prompt_mel, s.prompt_mel_len, s.spk_emb, 0,
+                               mel_pad_to=TTS_MEL_PAD, device=dev)
+    warm.push(list(range(50)), final=True)
+    del warm
+    streamed = [[] for _ in sessions]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    res = coord.serve(sessions,
+                      on_wav=lambda sid, w: streamed[sid].append(w))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_cuda.launches)
+    peak = torch.cuda.max_memory_allocated()
+
+    L = cfg.num_hidden_layers
+    widths = [-(-len(x.llm_ids) // eng.ps) * eng.ps for x in sessions]
+    flash_widths = [w for w in widths
+                    if w >= FLASH_MIN_SEQ and w % FLASH_BLOCK == 0]
+    audio_s = sum(r["wav"].shape[0] for r in res) / hcfg.sampling_rate
+    ttfa = np.asarray([r["ttfa_s"] for r in res], np.float64)
+    n_gen = sum(len(o) for o in folder.outputs)
+    stall = np.asarray(folder.tick_s)
+    log("tts_serve " + json.dumps({
+        "sessions": len(sessions), "generated_tokens": n_gen,
+        "audio_s": audio_s, "wall_s": wall, "x_realtime": audio_s / wall,
+        "ttfa_s": {"p50": float(np.percentile(ttfa, 50)),
+                   "max": float(ttfa.max())},
+        "llm_tokens_per_s": n_gen / wall,
+        "chunks": [r["n_chunks"] for r in res],
+        "gate_deferrals": sum(r["gate_deferrals"] for r in res),
+        "folded_ids": folder.folded,
+        "tick_ms": ms_by_rows(coord.tick_ms),
+        "decode_stall_ms_a_tick": {"ticks": len(stall),
+                                   "mean": float(stall.mean() * 1e3),
+                                   "max": float(stall.max() * 1e3),
+                                   "total": float(stall.sum() * 1e3)},
+        "decode_steps": eng.n_decode_steps, "chunks_llm": eng.n_chunks,
+        "phase_seconds": eng.phase_seconds,
+        "device_memory_gib": {
+            "allocated": torch.cuda.memory_allocated() / 2**30,
+            "peak": peak / 2**30},
+        "tf32": False, "launches": counts}))
+
+    for sid, r in enumerate(res):
+        n_tok = TTS_FLOW_PROMPT + len(r["tokens"]) - 1
+        want = (2 * n_tok - TTS_PROMPT_MEL) * hcfg.upsample_scale
+        if not np.isfinite(r["wav"]).all() or r["wav"].shape != (want,):
+            fail(f"tts session {sid}: wav {r['wav'].shape} (finite "
+                 f"{bool(np.isfinite(r['wav']).all())}), want ({want},)")
+        if not np.array_equal(np.concatenate(streamed[sid]), r["wav"]):
+            fail(f"tts session {sid}: streamed chunks != returned wav")
+        if r["n_chunks"] < 2:
+            fail(f"tts session {sid} gave {r['n_chunks']} chunks")
+        if len(r["tokens"]) != TTS_GEN:
+            fail(f"tts session {sid}: {len(r['tokens'])} tokens")
+    if folder.raw != folder.outputs or [r["tokens"] for r in res] != [
+            folder.fold(o) for o in folder.outputs]:
+        fail("tts serve: streamed tokens differ from the engine outputs")
+    if eng.preemptions or eng.prefix_hits or len(set(flash_widths)) != len(
+            flash_widths):
+        fail("tts serve: the K1-fwd count is not exact (preemption, a "
+             "prefix hit or a batched long prefill)")
+    if counts["paged_decode"] != L * eng.n_decode_steps:
+        fail(f"tts serve paged_decode launches {counts['paged_decode']} != "
+             f"layers x decode steps {L * eng.n_decode_steps}")
+    if counts["flash_fwd"] != L * len(flash_widths) or not flash_widths:
+        fail(f"tts serve flash_fwd launches {counts['flash_fwd']} != "
+             f"layers x fresh long admissions {L * len(flash_widths)}")
+    if sum(r["gate_deferrals"] for r in res) <= 0:
+        fail("tts serve: the confidence gate never deferred")
+    del eng, folder
+
+    replay_err = check_tts_replay(coord, sessions, res, flow, fcfg, hift,
+                                  hcfg, offset, dev)
+    inc = check_tts_incremental(sessions[0], flow, fcfg, hift, hcfg, dev)
+    profile_tts_ticks(flow, fcfg, hift, hcfg, dev)
+    log("tts_check " + json.dumps({
+        "replay_max_wav_err": replay_err,
+        "replay_tol": TTS_REPLAY_WAV_ATOL, "incremental": inc,
+        "incremental_mel_tol": TTS_INC_MEL_ATOL}))
+    if not replay_err <= TTS_REPLAY_WAV_ATOL:
+        fail(f"replayed session differs from its batched row by "
+             f"{replay_err:.3e} > {TTS_REPLAY_WAV_ATOL}")
+    if not inc["max_mel_err"] <= TTS_INC_MEL_ATOL:
+        fail(f"incremental mel differs from the recompute by "
+             f"{inc['max_mel_err']:.3e} > {TTS_INC_MEL_ATOL}")
+    del coord, flow, hift
+    torch.cuda.empty_cache()
+    log(f"tts serve phase s={time.perf_counter() - t_phase:.2f} (fp32 "
+        f"flow and HiFT, TF32 off), device memory still allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
     return counts
 
 
@@ -1828,14 +2151,16 @@ def main() -> None:
     t0 = time.perf_counter()
     feature_counts = serve_features(cfg, model, dev)
     log(f"feature serve phase s={time.perf_counter() - t0:.2f}")
+    tts_counts = tts_serve(cfg, model, dev)
     log(f"device memory allocated after the bf16 serves "
         f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
 
     side = torch.cuda.Stream()          # warm-ups of every graph timing
     kernels = [k4_check(dev, side, counts["paged_decode"], False),
                check_flash_serve(dev, counts["flash_fwd"], side)]
-    for entry in kernels:           # launches in phase 3b beside phase 3's
+    for entry in kernels:       # launches in phases 3b, 3c beside phase 3's
         entry["feature_serve_launches"] = feature_counts[entry["name"]]
+        entry["tts_serve_launches"] = tts_counts[entry["name"]]
     check_model_path(cfg, model, dev)
     t0 = time.perf_counter()
     qmodel, qcounts = serve_quant(cfg, model, dev)

@@ -38,7 +38,8 @@ class Qwen3Config:
     rms_norm_eps: float = 1e-6
     rope_theta: float = 1_000_000.0
     tie_word_embeddings: bool = True
-    eos_token_id: int = 151675
+    eos_token_id: int = 151675         # speech eos
+    speech_token_offset: int = 152927  # first semantic speech token id
     dtype: str = "bfloat16"
     logits_dtype: str = "float32"
     # training forward: activation checkpointing of each layer; only the
@@ -93,6 +94,7 @@ def qwen3_tiny(vocab_size: int = 512, **kw) -> Qwen3Config:
         num_attention_heads=4,
         num_key_value_heads=2,
         head_dim=16,
+        speech_token_offset=vocab_size // 2,
         eos_token_id=vocab_size - 1,
     )
     base.update(kw)

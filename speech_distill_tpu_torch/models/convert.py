@@ -132,3 +132,183 @@ def trainable_from_jax(tree: dict, cfg: Qwen3Config, device="cuda") -> dict:
 def tree_to_numpy(tree: dict) -> dict:
     """A tree of tensors as fp32 numpy, for comparison with JAX."""
     return tree_map(lambda t: t.detach().float().cpu().numpy(), tree)
+
+
+# ---------------------------------------------------------------------------
+# The TTS tail: flow and HiFT. A JAX pytree (numpy leaves, conv kernels
+# [k, Cin, Cout], matrices [din, dout], stacked blocks) becomes a
+# reference-format state dict (torch names, conv weights [Cout, Cin, k],
+# Linear weights [dout, din]): the inverse of the JAX
+# ``convert_torch_state``, which reads those names. The port's modules
+# then load it with ``load_state_dict``.
+# ---------------------------------------------------------------------------
+
+
+def _np(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        a = a.detach().float().cpu().numpy()
+    return np.array(a, np.float32)
+
+
+def _pick(tree, *idx):
+    """``tree`` with every leaf indexed by ``idx`` (a slice of stacked
+    blocks)."""
+    if isinstance(tree, dict):
+        return {k: _pick(v, *idx) for k, v in tree.items()}
+    a = tree
+    for i in idx:
+        a = a[i]
+    return a
+
+
+def _lin(s: dict, name: str, p: dict) -> None:
+    s[name + ".weight"] = _np(p["w"]).T
+    if "b" in p:
+        s[name + ".bias"] = _np(p["b"])
+
+
+def _conv(s: dict, name: str, p: dict) -> None:
+    """A conv kernel [k, Cin, Cout] (or a transposed conv's [k, Cout,
+    Cin]) reversed to torch's [Cout, Cin, k] ([Cin, Cout, k])."""
+    s[name + ".weight"] = _np(p["w"]).transpose(2, 1, 0)
+    s[name + ".bias"] = _np(p["b"])
+
+
+def _norm(s: dict, name: str, p: dict) -> None:
+    s[name + ".weight"] = _np(p["scale"])
+    s[name + ".bias"] = _np(p["bias"])
+
+
+def _flow_encoder_state(s: dict, t: dict, cfg, prefix: str) -> None:
+    def embed(name, p):
+        _lin(s, f"{prefix}{name}.out.0", p)
+        _norm(s, f"{prefix}{name}.out.1", p["ln"])
+
+    def layers(fmt, lt, n):
+        for i in range(n):
+            p, lp = prefix + fmt.format(i), _pick(lt, i)
+            _norm(s, p + ".norm_mha", lp["norm_mha"])
+            _norm(s, p + ".norm_ff", lp["norm_ff"])
+            a = lp["attn"]
+            for ours, theirs in (("q", "linear_q"), ("k", "linear_k"),
+                                 ("v", "linear_v"), ("out", "linear_out"),
+                                 ("pos", "linear_pos")):
+                _lin(s, f"{p}.self_attn.{theirs}", a[ours])
+            s[p + ".self_attn.pos_bias_u"] = _np(a["pos_bias_u"])
+            s[p + ".self_attn.pos_bias_v"] = _np(a["pos_bias_v"])
+            _lin(s, p + ".feed_forward.w_1", {"w": lp["ff"]["w1"],
+                                              "b": lp["ff"]["b1"]})
+            _lin(s, p + ".feed_forward.w_2", {"w": lp["ff"]["w2"],
+                                              "b": lp["ff"]["b2"]})
+
+    embed("embed", t["embed"])
+    _conv(s, prefix + "pre_lookahead_layer.conv1",
+          t["pre_lookahead"]["conv1"])
+    _conv(s, prefix + "pre_lookahead_layer.conv2",
+          t["pre_lookahead"]["conv2"])
+    layers("encoders.{}", t["encoders"], cfg.num_blocks)
+    _conv(s, prefix + "up_layer.conv", t["up_layer"]["conv"])
+    embed("up_embed", t["up_embed"])
+    layers("up_encoders.{}", t["up_encoders"], cfg.num_up_blocks)
+    _norm(s, prefix + "after_norm", t["after_norm"])
+
+
+def flow_state_from_jax(tree: dict, cfg) -> dict:
+    """A JAX flow ``init_params``-shaped tree as a reference ``flow.pt``
+    state dict of fp32 numpy arrays."""
+    s: dict = {"input_embedding.weight": _np(tree["input_embedding"])}
+    _lin(s, "spk_embed_affine_layer", tree["spk_affine"])
+    _flow_encoder_state(s, tree["encoder"], cfg.encoder, "encoder.")
+    _lin(s, "encoder_proj", tree["encoder_proj"])
+
+    est = "decoder.estimator."
+    e = tree["estimator"]
+
+    def causal_block(pref, p):
+        _conv(s, pref + ".block.0", p["conv"])
+        _norm(s, pref + ".block.2", p["ln"])
+
+    def resnet(pref, p):
+        causal_block(pref + ".block1", p["block1"])
+        causal_block(pref + ".block2", p["block2"])
+        _lin(s, pref + ".mlp.1", p["mlp"])
+        _conv(s, pref + ".res_conv", p["res"])
+
+    def tf_stack(fmt, bt):
+        for j in range(cfg.est_n_blocks):
+            pref, p = fmt.format(j), _pick(bt, j)
+            _norm(s, pref + ".norm1", p["norm1"])
+            _norm(s, pref + ".norm3", p["norm3"])
+            for ours in ("q", "k", "v"):
+                _lin(s, f"{pref}.attn1.to_{ours}", p["attn"][ours])
+            _lin(s, pref + ".attn1.to_out.0", p["attn"]["out"])
+            _lin(s, pref + ".ff.net.0.proj", p["ff1"])
+            _lin(s, pref + ".ff.net.2", p["ff2"])
+
+    _lin(s, est + "time_mlp.linear_1", e["time_mlp"]["lin1"])
+    _lin(s, est + "time_mlp.linear_2", e["time_mlp"]["lin2"])
+    for stage in ("down", "up"):
+        pref = f"{est}{stage}_blocks.0"
+        resnet(pref + ".0", e[stage]["resnet"])
+        tf_stack(pref + ".1.{}", e[stage]["blocks"])
+        _conv(s, pref + ".2", e[stage]["conv"])
+    for i in range(cfg.est_num_mid_blocks):
+        resnet(f"{est}mid_blocks.{i}.0", _pick(e["mid"]["resnet"], i))
+        tf_stack(f"{est}mid_blocks.{i}.1.{{}}", _pick(e["mid"]["blocks"], i))
+    causal_block(est + "final_block", e["final_block"])
+    _conv(s, est + "final_proj", e["final_proj"])
+    return s
+
+
+def hift_state_from_jax(tree: dict, cfg) -> dict:
+    """A JAX HiFT ``init_params``-shaped tree as a reference ``hift.pt``
+    state dict (weight norm folded) of fp32 numpy arrays."""
+    s: dict = {}
+
+    def resblock(pref, p, n):
+        for j in range(n):
+            _conv(s, f"{pref}.convs1.{j}", _pick(p["convs1"], j))
+            _conv(s, f"{pref}.convs2.{j}", _pick(p["convs2"], j))
+            s[f"{pref}.activations1.{j}.alpha"] = _np(p["alpha1"][j])
+            s[f"{pref}.activations2.{j}.alpha"] = _np(p["alpha2"][j])
+
+    for i, p in enumerate(tree["f0_predictor"]["conv"]):
+        _conv(s, f"f0_predictor.condnet.{2 * i}", p)
+    _lin(s, "f0_predictor.classifier", tree["f0_predictor"]["cls"])
+    _lin(s, "m_source.l_linear", tree["m_source"]["linear"])
+    _conv(s, "conv_pre", tree["conv_pre"])
+    nk = len(cfg.resblock_kernel_sizes)
+    for i in range(len(cfg.upsample_rates)):
+        _conv(s, f"ups.{i}", tree["ups"][i])
+        _conv(s, f"source_downs.{i}", tree["source_downs"][i])
+        resblock(f"source_resblocks.{i}", tree["source_resblocks"][i],
+                 len(cfg.source_resblock_dilations[i]))
+        for j in range(nk):
+            resblock(f"resblocks.{i * nk + j}", tree["resblocks"][i][j],
+                     len(cfg.resblock_dilations[j]))
+    _conv(s, "conv_post", tree["conv_post"])
+    return s
+
+
+def _load(module: torch.nn.Module, state: dict) -> None:
+    module.load_state_dict({k: torch.from_numpy(v) if isinstance(
+        v, np.ndarray) else v for k, v in state.items()}, strict=True)
+
+
+def flow_params_from_jax(tree: dict, cfg, device="cuda"):
+    """A :class:`~speech_distill_tpu_torch.models.flow.Flow` (fp32) holding
+    the weights of a JAX flow ``init_params``-shaped tree."""
+    from speech_distill_tpu_torch.models.flow import Flow
+    model = Flow(cfg, device)
+    _load(model, flow_state_from_jax(tree, cfg))
+    return model
+
+
+def hift_params_from_jax(tree: dict, cfg, device="cuda"):
+    """A :class:`~speech_distill_tpu_torch.models.hift.HiFTGenerator`
+    (fp32) holding the weights of a JAX HiFT ``init_params``-shaped
+    tree."""
+    from speech_distill_tpu_torch.models.hift import HiFTGenerator
+    model = HiFTGenerator(cfg, device)
+    _load(model, hift_state_from_jax(tree, cfg))
+    return model

@@ -85,12 +85,58 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_loop(lambda *a: None, None, (), lambda epoch: iter(()),
                    LoopConfig(output_dir=str(tmp_path)))
+    _tts_entry_points_raise()
     # the explicit CPU request runs
     eng = PagedEngine(model, cfg, SamplingParams(top_k=4,
                                                  stop_token_ids=(31,)),
                       slots=2, max_len=32, page_size=8, device="cpu")
     out = eng.serve([np.arange(1, 6).tolist()], max_new=3)
     assert len(out[0]) == 3
+
+
+def _tts_entry_points_raise():
+    """The TTS tail's entry points (models, weight carry-over, the
+    incremental cache, the synthesizer and the coordinator) with CUDA
+    reported missing."""
+    from speech_distill_tpu_torch.infer.streaming_tts import (
+        StreamingTokenToWav)
+    from speech_distill_tpu_torch.infer.tts_serve import MultiSessionTTS
+    from speech_distill_tpu_torch.models import flow, hift
+    from speech_distill_tpu_torch.models.convert import (
+        flow_params_from_jax, hift_params_from_jax)
+    from speech_distill_tpu_torch.models.flow_encoder import (
+        FlowEncoderConfig)
+
+    fc = flow.FlowConfig(
+        input_size=8, output_size=4, spk_embed_dim=3, vocab_size=10,
+        n_timesteps=1, est_in_channels=16, est_channels=8, est_n_blocks=1,
+        est_num_mid_blocks=1, est_num_heads=1, est_head_dim=4,
+        static_chunk_size=4, encoder=FlowEncoderConfig(
+            input_size=8, output_size=8, attention_heads=1, linear_units=8,
+            num_blocks=1, num_up_blocks=1, static_chunk_size=2))
+    hc = hift.HiFTConfig(in_channels=4, base_channels=8, nb_harmonics=1,
+                         resblock_kernel_sizes=(3,),
+                         resblock_dilations=((1,),),
+                         source_resblock_kernel_sizes=(3, 3, 3),
+                         source_resblock_dilations=((1,), (1,), (1,)),
+                         f0_cond_channels=4)
+    fm, hm = flow.init_params(fc, 0, "cpu"), hift.init_params(hc, 0, "cpu")
+    raising = [
+        lambda: flow.init_params(fc, 0),
+        lambda: hift.init_params(hc, 0),
+        lambda: flow_params_from_jax(flow.numpy_init_tree(fc), fc),
+        lambda: hift_params_from_jax(hift.numpy_init_tree(hc), hc),
+        lambda: flow.init_incremental_cache(fc, 1, 8),
+        lambda: StreamingTokenToWav(fm, fc, hm, hc, [1],
+                                    np.zeros((2, 4), np.float32), 2,
+                                    np.ones(3, np.float32), 0),
+        lambda: MultiSessionTTS(None, fm, fc, hm, hc, 0)]
+    for make in raising:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    # on the CPU when asked
+    StreamingTokenToWav(fm, fc, hm, hc, [1], np.zeros((2, 4), np.float32),
+                        2, np.ones(3, np.float32), 0, device="cpu")
 
 
 def test_lm_head_kernel_wrappers_refuse_what_the_kernels_cannot_take():

@@ -215,3 +215,30 @@ def test_full_vocab_ras_draws_follow_exp_logprob():
                                   t[4][:1], **ras))
     _check_frequencies(tok.numpy(), dist)
     np.testing.assert_allclose(lp.numpy(), dist[tok.numpy()], atol=1e-6)
+
+
+@pytest.mark.parametrize("p", [0.0, 1e-8])
+def test_top_p_at_a_tiny_p_keeps_the_argmax(p):
+    """Standing divergence F3 (ROADMAP.md section 3), pinned on both
+    sides: on a row whose fp32 cumulative probability at its last sorted
+    token rounds to <= 1 - p, the JAX filter's threshold index runs one
+    past the row, reads NaN and keeps the whole vocabulary (which rows do
+    so depends on each row's rounding); the port clamps the index and
+    keeps the argmax on every row, as HF's TopPLogitsWarper keeps at
+    least one token."""
+    vocab = 159_488
+    logits = (np.random.default_rng(0).normal(size=(4, vocab)) * 3).astype(
+        np.float32)
+    srt = jnp.sort(jnp.asarray(logits), axis=-1)
+    cum_last = np.asarray(jnp.cumsum(jax.nn.softmax(srt, axis=-1),
+                                     axis=-1)[:, -1])
+    overflow = cum_last <= 1.0 - p
+    assert overflow.any()                 # the divergence shows here
+    kept_j = (np.asarray(js.top_p_filter(jnp.asarray(logits), p))
+              > js.NEG_INF).sum(-1)
+    got = ts.top_p_filter(torch.from_numpy(logits), p)
+    kept_t = (got > ts.NEG_INF).sum(-1).numpy()
+    np.testing.assert_array_equal(kept_j, np.where(overflow, vocab, 1))
+    np.testing.assert_array_equal(kept_t, [1] * 4)
+    np.testing.assert_array_equal(torch.argmax(got, -1).numpy(),
+                                  logits.argmax(-1))
