@@ -38,6 +38,21 @@
    alone against its batched row, and a 400-token stream through the
    incremental flow (fp32 caches) against the recompute (mel error and
    each chunk's ms), and a profile of an 8-row flow and HiFT tick.
+3d. The contiguous-cache engines on the JAX benchmark's decode modes,
+   bf16 caches: ``DecodeEngine`` B 1 (128-token prompt, 256 tokens, the
+   default sampler) with a profile of its step; greedy speculative
+   decoding (gamma 7, a repetitive motif prompt: the plain decode and
+   the ngram draft over 256 tokens, layer_skip over 7 layers for 64);
+   ``generate_batch`` of 16 prompts with a 700-token shared prefix (128
+   tokens; with the prefix cache and without); ``ContinuousEngine`` (16
+   slots, 32 + 2 long requests); ``stream_tts`` over ``DecodeEngine``
+   with the full-size flow and HiFT, recompute and incremental. Fails
+   unless K1-fwd ran 28 times a flash-width prefill (the prefix, the
+   two long admissions) and K3 and K4 never, the wavs are finite and
+   of the expected length and the streamed tokens equal ``generate``;
+   then, on the model upcast to fp32, the drafts' greedy streams must
+   equal the plain decode's and the first continuous requests their
+   streams decoded alone.
 4. Holds each serving kernel against its plain PyTorch version on the
    card at the serving path's shapes, and times kernel, plain version,
    bound and (for flash attention) the library SDPA call as a yardstick;
@@ -113,10 +128,13 @@ from speech_distill_tpu_torch.core.tree import tree_leaves, tree_map
 from speech_distill_tpu_torch.data.collator import DistillCollator
 from speech_distill_tpu_torch.distill import train_step
 from speech_distill_tpu_torch.distill.lora import init_lora, lora_scaling
+from speech_distill_tpu_torch.infer.continuous import ContinuousEngine
+from speech_distill_tpu_torch.infer.engine import DecodeEngine
 from speech_distill_tpu_torch.infer.paged import (PagedEngine, PagedKVCache,
                                                   PagePool, PrefixRegistry,
                                                   paged_forward)
-from speech_distill_tpu_torch.infer.streaming_tts import StreamingTokenToWav
+from speech_distill_tpu_torch.infer.streaming_tts import (StreamingTokenToWav,
+                                                          stream_tts)
 from speech_distill_tpu_torch.infer.tts_serve import (MultiSessionTTS,
                                                       TTSSession)
 from speech_distill_tpu_torch.models import flow as flow_lib
@@ -276,6 +294,11 @@ def bound(nbytes: float, flops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def is_flash_width(w: int) -> bool:
+    """Whether a fresh prefill this wide takes K1-fwd (ops/attention)."""
+    return w >= FLASH_MIN_SEQ and w % FLASH_BLOCK == 0
 
 
 def record_card() -> str:
@@ -669,6 +692,15 @@ class FoldSpeechIds:
                                       on_logprobs=on_logprobs)
         return [self.fold(o) for o in self.outputs]
 
+    def generate_stream(self, prompt_ids, chunk=25, **kw):
+        """The engine's token stream, folded; keeps the raw chunks."""
+        self.raw_chunks = []
+        for new in self.eng.generate_stream(prompt_ids, chunk=chunk, **kw):
+            self.raw_chunks.append(new)
+            folded = self.fold(new)
+            self.folded += sum(a != b for a, b in zip(new, folded))
+            yield folded
+
 
 def tts_sessions(cfg, fcfg, rng) -> list:
     """Six 128-token LLM prompts and two long ones (page-aligned widths 768
@@ -835,8 +867,7 @@ def tts_serve(cfg, model, dev, fcfg=None, hcfg=None) -> dict:
 
     L = cfg.num_hidden_layers
     widths = [-(-len(x.llm_ids) // eng.ps) * eng.ps for x in sessions]
-    flash_widths = [w for w in widths
-                    if w >= FLASH_MIN_SEQ and w % FLASH_BLOCK == 0]
+    flash_widths = [w for w in widths if is_flash_width(w)]
     audio_s = sum(r["wav"].shape[0] for r in res) / hcfg.sampling_rate
     ttfa = np.asarray([r["ttfa_s"] for r in res], np.float64)
     n_gen = sum(len(o) for o in folder.outputs)
@@ -909,6 +940,378 @@ def tts_serve(cfg, model, dev, fcfg=None, hcfg=None) -> dict:
     torch.cuda.empty_cache()
     log(f"tts serve phase s={time.perf_counter() - t_phase:.2f} (fp32 "
         f"flow and HiFT, TF32 off), device memory still allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    return counts
+
+
+# phase 3d, the contiguous-cache engines on the JAX benchmark's decode
+# modes (bench.py: decode, decode_spec_greedy, decode_serving16, serve
+# --serve_phase continuous, tts_streaming)
+# Cut to keep the phase near its budget (a B = 1 step is host-bound at
+# ~32 ms): layer_skip decodes 64 of the 256 tokens, decode_serving16 128,
+# the continuous workload has factor 2 (32 requests + the 2 long ones)
+DEC_PROMPT, DEC_TOKENS, DEC_MAX_LEN = 128, 256, 4096
+SPEC_GAMMA, SPEC_LAYERS, SPEC_MOTIF, SPEC_MAX_LEN = 7, 7, 8, 1024
+SPEC_SKIP_TOKENS = 64
+B16_STREAMS, B16_PREFIX, B16_MAX_LEN, B16_TOKENS = 16, 700, 2048, 128
+CONT_SLOTS, CONT_FACTOR, CONT_CHUNK, CONT_MAX_LEN = 16, 2, 32, 2048
+CONT_LONG = (700, 1000)
+TTS_STREAM_PROMPT, TTS_STREAM_GEN, TTS_STREAM_MAX_LEN = 128, 151, 1024
+# The greedy gates (speculative and continuous against the plain
+# single-stream decode) run on the model upcast to fp32 with TF32 off: a
+# greedy argmax over 159,488 random-weight logits flips on bf16 rounding
+# differences between GEMM shapes (an 8-token verify or a 16-row step
+# against a 1-token step; on the H100 the bf16 drafts left the plain
+# stream at token 231 of 256, a continuous request at token 2), which is
+# no fault of either engine. The bf16 drafts' agreement is logged. The
+# gates' depths: 128 tokens for the plain and ngram streams, 32 for
+# layer_skip, 32 for the first 3 continuous requests.
+GATE_TOKENS, GATE_SKIP_TOKENS, CONT_CHECK_N, CONT_CHECK_NEW = 128, 32, 3, 32
+
+
+def greedy_sp(cfg, n: int) -> SamplingParams:
+    """bench.py's greedy decode: argmax, penalty and RAS off, n tokens."""
+    return SamplingParams(temperature=1.0, top_k=1, top_p=1.0,
+                          use_ras=False, repetition_penalty=1.0,
+                          min_tokens=n, max_tokens=n,
+                          stop_token_ids=(cfg.eos_token_id,))
+
+
+def common_prefix(a, b) -> int:
+    n = 0
+    for x, y in zip(a, b):
+        if x != y:
+            break
+        n += 1
+    return n
+
+
+def decode_single(cfg, model, dev) -> dict:
+    """bench.py ``decode``: B 1, a 128-token random prompt, 256 tokens
+    (min = max), the default sampler with topk_method "approx"; a
+    warm-up, then one timed generate."""
+    sp = SamplingParams(max_tokens=DEC_TOKENS, min_tokens=DEC_TOKENS,
+                        stop_token_ids=(cfg.eos_token_id,),
+                        topk_method="approx")
+    prompt = np.random.default_rng(SEED + 40).integers(
+        0, cfg.vocab_size, DEC_PROMPT).tolist()
+    # how much of a B = 1 step the card is busy (8 steps a run; its
+    # first run is the warm-up)
+    short = DecodeEngine(model, cfg, dataclasses.replace(
+        sp, max_tokens=8, min_tokens=8), max_len=DEC_MAX_LEN, seed=SEED,
+        device=dev)
+
+    def run():
+        short.generate(prompt)
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    profile_step("decode engine B 1 (prefill 128 + 8 steps)", run, {},
+                 top=6)
+    log(f"decode engine profile s={time.perf_counter() - t0:.2f}")
+    eng = DecodeEngine(model, cfg, sp, max_len=DEC_MAX_LEN, seed=SEED,
+                       device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = len(eng.generate(prompt)["token_ids"])
+    dt = time.perf_counter() - t0
+    if n != DEC_TOKENS:
+        fail(f"decode: {n} tokens for min = max {DEC_TOKENS}")
+    return {"tokens": n, "seconds": dt, "tokens_per_s": n / dt,
+            "step_ms": dt / n * 1e3, "audio_rtf": n / 25.0 / dt}
+
+
+def spec_engines(cfg, model, dev, n: int, skip_n: int, **kw):
+    """(name, engine) of the plain greedy decode (n tokens) and of the
+    ngram (n) and layer_skip (skip_n, 7 layers) drafts at gamma 7."""
+    drafts = {"plain": (n, {}), "ngram": (n, {}),
+              "layer_skip": (skip_n, {"spec_draft": "layer_skip",
+                                      "spec_layers": SPEC_LAYERS})}
+    for name, (tokens, extra) in drafts.items():
+        gamma = 0 if name == "plain" else SPEC_GAMMA
+        yield name, DecodeEngine(model, cfg, greedy_sp(cfg, tokens),
+                                 max_len=SPEC_MAX_LEN, seed=SEED,
+                                 spec_gamma=gamma, device=dev, **kw,
+                                 **extra)
+
+
+def decode_spec(cfg, model, dev) -> dict:
+    """bench.py ``decode_spec_greedy``: gamma 7, greedy, a repetitive
+    8-token speech motif prompt, max_len 1024; the plain decode and the
+    ngram draft over 256 tokens, the layer_skip draft (7 layers) over 64,
+    timed, with the drafts' verify iterations."""
+    rng = np.random.default_rng(SEED + 41)
+    motif = rng.integers(cfg.speech_token_offset, cfg.vocab_size,
+                         SPEC_MOTIF).tolist()
+    prompt = (motif * 16)[:DEC_PROMPT]
+    res, streams = {}, {}
+    for name, eng in spec_engines(cfg, model, dev, DEC_TOKENS,
+                                  SPEC_SKIP_TOKENS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = eng.generate(prompt)["token_ids"]
+        dt = time.perf_counter() - t0
+        streams[name] = toks
+        res[name] = {"tokens": len(toks), "seconds": dt,
+                     "tokens_per_s": len(toks) / dt}
+        if name != "plain":
+            res[name].update(
+                verify_iterations=eng.n_spec_iterations,
+                tokens_per_iteration=len(toks) / max(eng.n_spec_iterations,
+                                                     1),
+                bf16_equal_prefix=common_prefix(toks, streams["plain"]),
+                speedup=len(toks) / dt / res["plain"]["tokens_per_s"])
+    res["prompt"] = prompt
+    return res
+
+
+def decode_serving16(cfg, model, dev) -> tuple:
+    """bench.py ``decode_serving16`` in bf16: generate_batch of 16 prompts,
+    a 700-token shared prefix + 64-128 distinct tokens each, max_len
+    2048, 128 tokens (bench: 256). The first call (8 tokens) prefills the
+    prefix alone (width 768: K1-fwd) into the prefix cache; then one
+    timed call without the prefix cache (``cold_seconds``) and one with
+    it. Returns (flash-width prefills, the line's fields)."""
+    rng = np.random.default_rng(SEED + 42)
+    shared = rng.integers(0, cfg.vocab_size, B16_PREFIX).tolist()
+    prompts = [shared + rng.integers(0, cfg.vocab_size, int(
+        rng.integers(64, 128))).tolist() for _ in range(B16_STREAMS)]
+    sp = SamplingParams(max_tokens=B16_TOKENS, min_tokens=B16_TOKENS,
+                        stop_token_ids=(cfg.eos_token_id,),
+                        topk_method="approx")
+    eng = DecodeEngine(model, cfg, sp, max_len=B16_MAX_LEN, seed=SEED,
+                       device=dev)
+    eng.generate_batch(prompts, max_new=8)      # warm-up, fills the cache
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cold = eng.generate_batch(prompts, use_prefix_cache=False)
+    cold_s = time.perf_counter() - t0
+    del cold
+    t0 = time.perf_counter()
+    outs = eng.generate_batch(prompts)
+    dt = time.perf_counter() - t0
+    n = sum(len(o) for o in outs)
+    if [len(o) for o in outs] != [B16_TOKENS] * B16_STREAMS:
+        fail(f"decode_serving16: {[len(o) for o in outs]} tokens")
+    width = eng._bucketed(B16_PREFIX)
+    del eng, outs
+    torch.cuda.empty_cache()
+    return int(is_flash_width(width)), {
+        "streams": B16_STREAMS, "prefix_len": B16_PREFIX,
+        "prefix_width": width, "tokens": n, "seconds": dt,
+        "tokens_per_s": n / dt, "step_ms": dt / B16_TOKENS * 1e3,
+        "audio_rtf": n / B16_STREAMS / 25.0 / dt, "cold_seconds": cold_s,
+        "prefix_cache_speedup": cold_s / dt}
+
+
+def continuous_workload(cfg):
+    """bench.py's ``_serve_workload`` at 16 slots (factor 2, bench's 3:
+    32 requests of 64-128 tokens, caps clip(exp(160), 32, 448)), then two
+    long prompts of 700 and 1,000 tokens (flash widths 768 and
+    1,024)."""
+    rng = np.random.default_rng(SEED + 43)
+    N = CONT_FACTOR * CONT_SLOTS
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(
+        64, 128))).tolist() for _ in range(N)]
+    caps = np.clip(rng.exponential(160, N).astype(int), 32, 448).tolist()
+    for n in CONT_LONG:
+        prompts.append(rng.integers(0, cfg.vocab_size, n).tolist())
+        caps.append(int(np.clip(rng.exponential(160), 32, 448)))
+    return prompts, caps
+
+
+def serve_continuous(cfg, model, dev) -> tuple:
+    """bench.py ``serve --serve_phase continuous``: ContinuousEngine(slots
+    16, max_len 2048, chunk_steps 32), bench's sampler (max 512, min 1,
+    topk_method "approx"); a warm-up over the first 16 prompts (8
+    tokens), then the workload. Returns (flash-width prefills, fields)."""
+    prompts, caps = continuous_workload(cfg)
+    sp = SamplingParams(max_tokens=512, min_tokens=1,
+                        stop_token_ids=(cfg.eos_token_id,),
+                        topk_method="approx")
+    eng = ContinuousEngine(model, cfg, sp, slots=CONT_SLOTS,
+                           max_len=CONT_MAX_LEN, chunk_steps=CONT_CHUNK,
+                           seed=SEED, device=dev)
+    eng.serve(prompts[:CONT_SLOTS], max_new=8)
+    eng.n_decode_steps = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = eng.serve(prompts, max_new_per_request=caps)
+    dt = time.perf_counter() - t0
+    n = sum(len(o) for o in outs)
+    for rid, (o, c) in enumerate(zip(outs, caps)):
+        if not 0 < len(o) <= c or (len(o) < c
+                                   and o[-1] != cfg.eos_token_id):
+            fail(f"continuous request {rid}: {len(o)} tokens for cap {c}")
+    widths = [eng._bucketed(len(p)) for p in prompts[:CONT_SLOTS]
+              + prompts]
+    steps = eng.n_decode_steps
+    del eng, outs
+    torch.cuda.empty_cache()
+    return sum(map(is_flash_width, widths)), {
+        "requests": len(prompts), "slots": CONT_SLOTS,
+        "prompt_tokens": sum(map(len, prompts)), "generated_tokens": n,
+        "seconds": dt, "tokens_per_s": n / dt, "decode_steps": steps,
+        "slot_steps": CONT_SLOTS * steps, "slot_use": n / max(
+            CONT_SLOTS * steps, 1)}
+
+
+def tts_streaming(cfg, model, dev, fcfg=None, hcfg=None) -> dict:
+    """bench.py ``tts_streaming``: stream_tts over DecodeEngine(max_len
+    1024), a 128-token LLM prompt, 151 tokens (min = max, the default
+    sampler), a 75-token flow prompt, 150 prompt mel frames, a 192-dim
+    speaker vector; the full-size flow and HiFT in fp32 (TF32 off), in
+    the recompute and the incremental form (fp32 caches). The random
+    student's ids are folded into the speech range. Fails unless each
+    wav is finite and (2 (75 + 150) - 150) x 480 samples long and the
+    streamed tokens equal generate() under the same seed."""
+    fcfg = fcfg or flow_lib.FlowConfig()
+    hcfg = hcfg or hift_lib.HiFTConfig()
+    flow = flow_lib.init_params(fcfg, seed=SEED, device=dev)
+    hift = hift_lib.init_params(hcfg, seed=SEED, device=dev)
+    rng = np.random.default_rng(SEED + 44)
+    ftoks = rng.integers(0, fcfg.vocab_size, TTS_FLOW_PROMPT).tolist()
+    pmel = (rng.normal(size=(TTS_PROMPT_MEL, fcfg.output_size))
+            * 0.1).astype(np.float32)
+    spk = rng.normal(size=(fcfg.spk_embed_dim,)).astype(np.float32)
+    llm_prompt = rng.integers(0, cfg.vocab_size, TTS_STREAM_PROMPT).tolist()
+    sp = SamplingParams(max_tokens=TTS_STREAM_GEN, min_tokens=TTS_STREAM_GEN,
+                        stop_token_ids=(cfg.eos_token_id,),
+                        topk_method="approx")
+    offset = cfg.speech_token_offset
+
+    def engine():
+        return DecodeEngine(model, cfg, sp, max_len=TTS_STREAM_MAX_LEN,
+                            seed=SEED, device=dev)
+    want = (2 * (TTS_FLOW_PROMPT + TTS_STREAM_GEN - 1)
+            - TTS_PROMPT_MEL) * hcfg.upsample_scale
+    # warm-up: one flow and one HiFT call at one stream (cuDNN plans)
+    StreamingTokenToWav(flow, fcfg, hift, hcfg, ftoks, pmel, TTS_PROMPT_MEL,
+                        spk, 0, device=dev).push(list(range(50)), final=True)
+    res, wavs, raw = {}, {}, []
+    for form, kw in (("recompute", {}), ("incremental", dict(
+            incremental=True, inc_kv_dtype=torch.float32,
+            inc_max_frames=2 * (TTS_FLOW_PROMPT + TTS_STREAM_GEN) + 512))):
+        folder = FoldSpeechIds(engine(), offset, fcfg.vocab_size)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        marks, chunks = [], []
+        for wav in stream_tts(folder, flow, fcfg, hift, hcfg, llm_prompt,
+                              offset, ftoks, pmel, TTS_PROMPT_MEL, spk,
+                              SEED + 300, device=dev, **kw):
+            chunks.append(wav)
+            marks.append(time.perf_counter() - t0)
+        wall = marks[-1]
+        wav = np.concatenate(chunks)
+        raw.append([t for c in folder.raw_chunks for t in c])
+        if not np.isfinite(wav).all() or wav.shape != (want,):
+            fail(f"tts_streaming {form}: wav {wav.shape} (finite "
+                 f"{bool(np.isfinite(wav).all())}), want ({want},)")
+        gaps = np.diff(marks) * 1e3
+        k = min(10, max(1, len(gaps) // 3))
+        wavs[form] = wav
+        res[form] = {"ttfa_s": marks[0], "wall_s": wall,
+                     "x_realtime": wav.shape[0] / hcfg.sampling_rate / wall,
+                     "chunks": len(chunks),
+                     "gap_ms_first": float(np.median(gaps[:k])),
+                     "gap_ms_last": float(np.median(gaps[-k:]))}
+    ref = engine().generate(llm_prompt)["token_ids"]
+    if not raw[0] == raw[1] == ref or len(ref) != TTS_STREAM_GEN:
+        fail(f"tts_streaming: streamed tokens differ from generate() under "
+             f"the same seed (equal prefix "
+             f"{common_prefix(raw[0], ref)} / {common_prefix(raw[1], ref)}"
+             f" of {len(ref)})")
+    res["audio_s"] = want / hcfg.sampling_rate
+    res["incremental_max_wav_err"] = float(
+        np.abs(wavs["incremental"] - wavs["recompute"]).max())
+    del flow, hift
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_greedy_gates(cfg, model, dev, spec_prompt) -> dict:
+    """On the model upcast to fp32: the ngram and layer_skip drafts
+    against the plain decode on the spec prompt, and the first 3
+    continuous requests (16 slots) against each decoded alone, greedy
+    (depths: see the constants); fails unless the token lists are
+    equal."""
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = qwen3.Qwen3(cfg32, dev)
+    for p32, p in zip(model32.parameters(), model.parameters()):
+        p32.data.copy_(p.float())
+    streams = {name: eng.generate(spec_prompt)["token_ids"]
+               for name, eng in spec_engines(
+                   cfg32, model32, dev, GATE_TOKENS, GATE_SKIP_TOKENS,
+                   cache_dtype=torch.float32)}
+    out = {f"spec_{name}_fp32_equal": streams[name] == streams["plain"][
+        :len(streams[name])] for name in ("ngram", "layer_skip")}
+    prompts = continuous_workload(cfg)[0][:CONT_CHECK_N]
+    sp = greedy_sp(cfg, CONT_CHECK_NEW)
+    got = ContinuousEngine(model32, cfg32, sp, slots=CONT_SLOTS,
+                           max_len=CONT_MAX_LEN, chunk_steps=CONT_CHUNK,
+                           seed=SEED, cache_dtype=torch.float32,
+                           device=dev).serve(prompts)
+    alone = [DecodeEngine(model32, cfg32, sp, max_len=CONT_MAX_LEN,
+                          seed=SEED, cache_dtype=torch.float32,
+                          device=dev).generate(p)["token_ids"]
+             for p in prompts]
+    out["continuous_fp32_equal_prefix"] = [common_prefix(a, b)
+                                           for a, b in zip(got, alone)]
+    out["continuous_fp32_equal"] = got == alone
+    del model32
+    torch.cuda.empty_cache()
+    log("decode_engines_check " + json.dumps(out))
+    if not all(v for k, v in out.items() if k.endswith("_equal")):
+        fail(f"a greedy gate failed: {out}")
+    return out
+
+
+def decode_engines(cfg, model, dev, fcfg=None, hcfg=None) -> dict:
+    """Phase 3d: the contiguous-cache engines at full width, bf16 caches.
+    The launch counts are set to 0 before the first engine runs and read
+    after the last; fails unless K1-fwd ran 28 times a flash-width
+    prefill (the serving16 prefix, the continuous long prompts) and K3
+    and K4 never. Then the greedy gates. Returns the launch counts."""
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    res = {}
+    t0 = time.perf_counter()
+    res["decode"] = decode_single(cfg, model, dev)
+    res["decode"]["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spec = decode_spec(cfg, model, dev)
+    spec_prompt = spec.pop("prompt")
+    res["spec_greedy"] = spec
+    res["spec_greedy"]["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flash_b16, res["serving16"] = decode_serving16(cfg, model, dev)
+    res["serving16"]["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flash_cont, res["continuous"] = serve_continuous(cfg, model, dev)
+    res["continuous"]["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["tts_streaming"] = tts_streaming(cfg, model, dev, fcfg, hcfg)
+    res["tts_streaming"]["phase_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = dict(_cuda.launches)
+    res["device_memory_gib"] = {
+        "peak": torch.cuda.max_memory_allocated() / 2**30,
+        "allocated": torch.cuda.memory_allocated() / 2**30}
+    res["launches"] = counts
+    log("decode_engines " + json.dumps(res))
+    L = cfg.num_hidden_layers
+    want = L * (flash_b16 + flash_cont)
+    if counts.get("flash_fwd", 0) != want or not want:
+        fail(f"decode engines flash_fwd launches "
+             f"{counts.get('flash_fwd', 0)} != layers x flash-width "
+             f"prefills {want}")
+    for k in ("paged_decode", "paged_decode_int8", "int4_matmul"):
+        if counts.get(k, 0):
+            fail(f"decode engines launched {k} {counts[k]} times")
+    check_greedy_gates(cfg, model, dev, spec_prompt)
+    log(f"decode engines phase s={time.perf_counter() - t_phase:.2f}, "
+        f"device memory still allocated "
         f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
     return counts
 
@@ -2152,15 +2555,18 @@ def main() -> None:
     feature_counts = serve_features(cfg, model, dev)
     log(f"feature serve phase s={time.perf_counter() - t0:.2f}")
     tts_counts = tts_serve(cfg, model, dev)
+    engine_counts = decode_engines(cfg, model, dev)
     log(f"device memory allocated after the bf16 serves "
         f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
 
     side = torch.cuda.Stream()          # warm-ups of every graph timing
     kernels = [k4_check(dev, side, counts["paged_decode"], False),
                check_flash_serve(dev, counts["flash_fwd"], side)]
-    for entry in kernels:       # launches in phases 3b, 3c beside phase 3's
+    for entry in kernels:   # launches in phases 3b-3d beside phase 3's
         entry["feature_serve_launches"] = feature_counts[entry["name"]]
         entry["tts_serve_launches"] = tts_counts[entry["name"]]
+        entry["decode_engines_launches"] = engine_counts.get(entry["name"],
+                                                             0)
     check_model_path(cfg, model, dev)
     t0 = time.perf_counter()
     qmodel, qcounts = serve_quant(cfg, model, dev)

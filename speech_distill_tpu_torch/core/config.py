@@ -130,7 +130,11 @@ class DistillConfig:
 
 @dataclass
 class SamplingParams:
-    """Decode sampling params (HF generate processors + VALL-E 2 RAS)."""
+    """Decode sampling params (HF generate processors + VALL-E 2 RAS).
+
+    ``topk_method``: "exact" or "approx". JAX's "approx" is the TPU's
+    ``lax.approx_max_k``, which the port has no counterpart of: both map
+    to the exact top-k (``ops/sampling.top_k_top_p``)."""
 
     temperature: float = 0.6
     repetition_penalty: float = 1.25
@@ -142,3 +146,4 @@ class SamplingParams:
     use_ras: bool = True
     win_size: int = 25
     tau_r: float = 0.2
+    topk_method: str = "exact"         # exact | approx (both exact here)

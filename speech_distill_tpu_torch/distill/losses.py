@@ -88,3 +88,30 @@ def sparse_distill_loss(student_logits: torch.Tensor,
                           torch.zeros_like(n_hits))
     total = alpha * task + (1.0 - alpha) * distill
     return DistillLossOutput(total, task, distill, teacher)
+
+
+def segmented_top_k(x: torch.Tensor, k: int, group: int = 64):
+    """Exact top-k over a large last dim by two-level segmented selection
+    (the JAX ``segmented_top_k``): the maxima of ``group``-wide segments,
+    the k winning segments among them (a segment holding a global top-k
+    element ranks in the top-k of segment maxima), re-sorted ascending,
+    then the exact top-k over their k * group candidates. Returns
+    (values, indices) [..., k], descending.
+
+    Values equal ``torch.topk``'s (and ``lax.top_k``'s) exactly; indices
+    too where the values have no ties. Tie order follows ``torch.topk``,
+    not ``lax.top_k``'s smallest-index-first."""
+    V = x.shape[-1]
+    S = -(-V // group)
+    if S <= 2 * k or V <= 8 * k:
+        return torch.topk(x, k, dim=-1)
+    pad = S * group - V
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad), value=-float("inf"))
+    lead = x.shape[:-1]
+    xg = x.reshape(*lead, S, group)
+    seg = torch.topk(xg.amax(dim=-1), k, dim=-1).indices
+    seg = torch.sort(seg, dim=-1).values          # ascending global order
+    cand = torch.gather(xg, -2, seg[..., None].expand(*lead, k, group))
+    v, p = torch.topk(cand.reshape(*lead, k * group), k, dim=-1)
+    return v, seg.gather(-1, p // group) * group + p % group

@@ -54,7 +54,9 @@ import torch
 
 from speech_distill_tpu_torch.core.config import Qwen3Config, SamplingParams
 from speech_distill_tpu_torch.core.device import resolve_device
-from speech_distill_tpu_torch.infer.engine import sample_next_token
+from speech_distill_tpu_torch.infer.engine import (is_eos,
+                                                   sample_next_token,
+                                                   write_live)
 from speech_distill_tpu_torch.models import qwen3
 from speech_distill_tpu_torch.ops.paged_attention import (
     paged_attention, paged_attention_plain, quantize_kv)
@@ -185,12 +187,6 @@ def make_paged_decode_fn(sp: SamplingParams):
     eos_ids = tuple(sp.stop_token_ids)
     pad_id = eos_ids[0]
 
-    def write(buf: torch.Tensor, col, live, value) -> None:
-        """buf[b, col[b]] = value[b] for live rows; dead rows write their
-        current value back (JAX: mode="drop")."""
-        buf.scatter_(1, col, torch.where(live[:, None], value[:, None],
-                                         buf.gather(1, col)))
-
     @torch.no_grad()
     def step(model, st: PagedState, generator) -> None:
         max_len = st.tokens.shape[1]
@@ -202,15 +198,13 @@ def make_paged_decode_fn(sp: SamplingParams):
         live = ~st.finished & (st.length < max_len)
         token = torch.where(live, tok, pad_id)
         col = torch.clamp(st.length, max=max_len - 1)[:, None]
-        write(st.tokens, col, live, token)
+        write_live(st.tokens, col, live, token)
         if st.logps is not None:
-            write(st.logps, col, live, logp)
-        write(st.presence, token[:, None], live, torch.ones_like(live))
-        is_eos = torch.zeros_like(live)
-        for e in eos_ids:
-            is_eos |= token == e
+            write_live(st.logps, col, live, logp)
+        write_live(st.presence, token[:, None], live, torch.ones_like(live))
         capped = live & (st.num_generated + 1 >= st.cap)
-        st.finished |= (live & is_eos) | capped | (st.length + 1 >= max_len)
+        st.finished |= ((live & is_eos(token, eos_ids)) | capped
+                        | (st.length + 1 >= max_len))
         st.last_logits = paged_forward(model, token, st.pool,
                                        st.block_tables, st.length, live)
         st.length += live

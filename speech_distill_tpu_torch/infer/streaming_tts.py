@@ -21,6 +21,9 @@ so wav chunks are emitted while the LLM is still generating:
   the NSF source is spliced through ``cache_source``, and the overlap is
   Hamming cross-faded.
 
+:func:`stream_tts` drives one turn end to end: an engine's
+``generate_stream`` token chunks into a :class:`StreamingTokenToWav`.
+
 The stream state between calls (pending and cached mel, the emitted wav
 tail) lives on the host as numpy, as in JAX; the noise buffer and the
 source tail stay on the device. The programs of
@@ -39,7 +42,7 @@ from __future__ import annotations
 
 import math
 from functools import partial
-from typing import List, Optional, Sequence
+from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -394,3 +397,36 @@ class StreamingTokenToWav:
             self.run_flow(fj)
         vj = self.vocode_job(final)
         return [] if vj is None else [self.run_vocode(vj)]
+
+
+def stream_tts(llm_engine, flow_model: flow_lib.Flow,
+               flow_cfg: flow_lib.FlowConfig,
+               hift_model: hift_lib.HiFTGenerator,
+               hift_cfg: hift_lib.HiFTConfig, llm_inputs: Sequence[int],
+               speech_token_offset: int, prompt_tokens: Sequence[int],
+               prompt_mel: np.ndarray, prompt_mel_len: int,
+               spk_emb: np.ndarray, rng, llm_chunk: Optional[int] = None,
+               programs: Optional[dict] = None,
+               **kw) -> Iterator[np.ndarray]:
+    """End-to-end streaming TTS for one turn: the token chunks of
+    ``llm_engine.generate_stream`` (any engine with one, such as
+    ``infer/engine.DecodeEngine``) feed a :class:`StreamingTokenToWav`;
+    yields wav chunks as they complete. ``kw`` goes to the synthesizer
+    (``device`` defaults to CUDA there).
+
+    The trailing token of the generated stream is withheld from the flow
+    until the end: it is the EOS in the reference grammar, which drops it
+    before the flow."""
+    synth = StreamingTokenToWav(flow_model, flow_cfg, hift_model, hift_cfg,
+                                prompt_tokens, prompt_mel, prompt_mel_len,
+                                spk_emb, rng, programs=programs, **kw)
+    # la + 1 tokens must exist past a boundary before it flushes (the
+    # withheld possible EOS + la lookahead); poll the LLM in chunk-sized
+    # pieces so wav chunks come at a steady cadence
+    chunk = llm_chunk or synth.chunk
+    gen: List[int] = []
+    for new in llm_engine.generate_stream(list(llm_inputs), chunk=chunk):
+        gen.extend(new)
+        yield from synth.push([t - speech_token_offset for t in gen[:-1]])
+    yield from synth.push([t - speech_token_offset for t in gen[:-1]],
+                          final=True)

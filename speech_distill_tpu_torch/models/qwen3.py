@@ -1,12 +1,13 @@
 """Qwen3 decoder in PyTorch (port of ``speech_distill_tpu/models/qwen3.py``).
 
 GQA + per-head q/k RMSNorm + NeoX RoPE + SwiGLU, norms and softmax in
-fp32. Two forwards: the serving :func:`forward` (no-cache and
-cache-prefill, under ``torch.no_grad``) and the grad-enabled
-:func:`forward_train` of the KD step (embed and head overrides, unmerged
-LoRA adapters through ``ops/lora_linear``, per-layer activation
-checkpointing). The per-row ``cache_positions`` path, ring attention and
-pipelining belong to later slices.
+fp32. Two forwards: the serving :func:`forward` (no cache; or a
+contiguous cache with per-row RoPE ``positions``, per-row write columns
+``cache_positions`` and the layer-skip draft's ``num_layers``, under
+``torch.no_grad``) and the grad-enabled :func:`forward_train` of the KD
+step (embed and head overrides, unmerged LoRA adapters through
+``ops/lora_linear``, per-layer activation checkpointing). Ring attention
+and pipelining belong to later slices.
 
 Quantized weights (``ops/quant`` leaves: int4/int8/nf4 projections, an
 int8 embed/head) sit where the dense weights sit, as :class:`QuantWeight`
@@ -32,7 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from speech_distill_tpu_torch.core.config import Qwen3Config, torch_dtype
 from speech_distill_tpu_torch.core.device import resolve_device
-from speech_distill_tpu_torch.ops.attention import sdpa
+from speech_distill_tpu_torch.ops.attention import sdpa, use_flash
 from speech_distill_tpu_torch.ops.lora_linear import lora_linear
 from speech_distill_tpu_torch.ops.matmul import matmul_f32
 from speech_distill_tpu_torch.ops.quant import dequantize_array
@@ -318,17 +319,51 @@ def layer_forward(layer: DecoderLayer, x: torch.Tensor, cos, sin,
                           cfg, la, scale, merge)
 
 
+def _check_flash_prefill(attention_mask: Optional[torch.Tensor],
+                         start: int) -> None:
+    """The flash route of a cache prefill (T == S) applies causality from
+    column 0 and ignores the mask: exact only for a fresh cache (``start``
+    0) with right padding (every row's keep mask a run of ones from
+    column 0). Raises otherwise; costs one host read of the mask."""
+    if start != 0:
+        raise ValueError(f"flash prefill at cache column {start}: the "
+                         f"kernel's causality starts at column 0")
+    if attention_mask is not None:
+        m = attention_mask.bool()
+        if bool((m[:, 1:] & ~m[:, :-1]).any()):
+            raise ValueError("flash prefill with a left-padded mask: the "
+                             "kernel assumes right padding")
+
+
 @torch.no_grad()
 def forward(model: Qwen3, input_ids: torch.Tensor, *,
             attention_mask: Optional[torch.Tensor] = None,
+            positions: Optional[torch.Tensor] = None,
             cache: Optional[KVCache] = None,
+            cache_positions: Optional[torch.Tensor] = None,
+            num_layers: Optional[int] = None,
             return_hidden: bool = False):
     """Run the decoder.
 
     ``cache=None``: full causal attention over [B, T]. With a
     :class:`KVCache`, ``input_ids`` is the fresh chunk appended at
-    ``cache.length`` (prefill on top of a gathered prefix);
-    ``attention_mask`` then covers the full cache window [B, S].
+    ``cache.length`` (prefill on top of a gathered prefix, or a decode
+    step); ``attention_mask`` then covers the full cache window [B, S]
+    and queries see keys at columns <= their own. ``positions`` [B, T]:
+    per-row RoPE positions (left-padded rows count real tokens, not
+    columns); default ``cache.length + t`` (``t`` without a cache).
+    ``cache_positions`` [B]: per-row write columns instead of
+    ``cache.length`` (the continuous-batching slots; T must be 1), each
+    row's query at its own column; RoPE defaults to that column.
+    ``num_layers`` (cache path only): run the first K layers, then the
+    final norm and head (the layer-skip draft); layers < K write exactly
+    what a full forward writes, layers >= K keep their cache contents.
+
+    The cache is updated in place; the returned :class:`KVCache` shares
+    its tensors with length ``cache.length + T`` (callers may rewind it
+    to the real end of a padded prefill). A T == S call on CUDA takes
+    the flash kernel (``ops/attention.use_flash``), which is exact only
+    for a fresh right-padded cache, and is checked to be one.
 
     Returns logits [B, T, V] (``cfg.logits_dtype``) or hidden states with
     ``return_hidden``, plus the updated cache when one was given.
@@ -338,32 +373,55 @@ def forward(model: Qwen3, input_ids: torch.Tensor, *,
     dev = input_ids.device
     x = embed_tokens(model, input_ids)
     if cache is None:
-        positions = torch.arange(T, device=dev)[None].expand(B, T)
+        if num_layers is not None or cache_positions is not None:
+            raise NotImplementedError(
+                "num_layers and cache_positions are cache-path features")
+        if positions is None:
+            positions = torch.arange(T, device=dev)[None].expand(B, T)
         cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
         mask_bias = causal_bias(attention_mask, B, T, dev)
         for layer in model.layers:
             x = layer_forward(layer, x, cos, sin, mask_bias, cfg)
     else:
         S, start = cache.k.shape[2], cache.length
-        steps = start + torch.arange(T, device=dev)
-        cos, sin = rope_angles(steps[None].expand(B, T), cfg.head_dim,
-                               cfg.rope_theta)
-        # keys live at absolute positions [0, S); queries at start + t
-        keep = (torch.arange(S, device=dev)[None, :]
-                <= steps[:, None]).expand(B, 1, T, S)
+        k_pos = torch.arange(S, device=dev)
+        if cache_positions is not None:
+            if T != 1:
+                raise ValueError("cache_positions requires T == 1")
+            cols = cache_positions.long()
+            q_cols = cols[:, None]                              # [B, 1]
+            if positions is None:
+                positions = q_cols
+            rows = torch.arange(B, device=dev)
+        else:
+            q_cols = (start + torch.arange(T, device=dev))[None]  # [1, T]
+            if positions is None:
+                positions = q_cols.expand(B, T)
+        cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+        # keys live at absolute columns [0, S); each query at its column
+        keep = (k_pos[None, None, :] <= q_cols[:, :, None])[:, None]
+        keep = keep.expand(B, 1, T, S)
         if attention_mask is not None:
             keep = keep & attention_mask.bool()[:, None, None, :]
         mask_bias = _bias(keep)
-        for li, layer in enumerate(model.layers):
+        layers = model.layers if num_layers is None else \
+            model.layers[:num_layers]
+        for li, layer in enumerate(layers):
             y = rms_norm(x, layer.input_ln, cfg.rms_norm_eps)
             q, k, v = qkv_proj(layer.attn, y, cos, sin, cfg)
-            cache.k[li, :, start:start + T] = k
-            cache.v[li, :, start:start + T] = v
+            if cache_positions is not None:
+                cache.k[li, rows, cols] = k[:, 0].to(cache.k.dtype)
+                cache.v[li, rows, cols] = v[:, 0].to(cache.v.dtype)
+            else:
+                cache.k[li, :, start:start + T] = k
+                cache.v[li, :, start:start + T] = v
             # read back in the compute dtype (an fp32 cache never promotes
             # the hidden state)
-            o = sdpa(q, cache.k[li].to(q.dtype), cache.v[li].to(q.dtype),
-                     mask_bias, cfg.attn_impl)
-            x = o_proj_and_mlp(layer, x, o, cfg)
+            ck, cv = cache.k[li].to(q.dtype), cache.v[li].to(q.dtype)
+            if li == 0 and use_flash(q, ck, cfg.attn_impl):
+                _check_flash_prefill(attention_mask, start)
+            x = o_proj_and_mlp(layer, x, sdpa(q, ck, cv, mask_bias,
+                                              cfg.attn_impl), cfg)
         cache = KVCache(cache.k, cache.v, start + T)
     x = rms_norm(x, model.final_ln, cfg.rms_norm_eps)
     out = x if return_hidden else unembed(model, x)

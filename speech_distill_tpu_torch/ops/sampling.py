@@ -111,14 +111,22 @@ def process_logits(raw: torch.Tensor, presence: torch.Tensor,
     return top_p_filter(top_k_filter(x, top_k), top_p)
 
 
-def top_k_top_p(x: torch.Tensor, top_k: int, temperature, top_p
+TOPK_METHODS = ("exact", "approx")
+
+
+def top_k_top_p(x: torch.Tensor, top_k: int, temperature, top_p,
+                topk_method: str = "exact"
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k candidates (descending), temperature, and the HF top-p
     set in k-space: removed candidates get NEG_INF. Returns (vals, idx).
 
     ``torch.topk`` orders ties differently from ``lax.top_k`` (which puts
     the smallest index first); with ties the two may keep a different
-    member of a tied boundary group."""
+    member of a tied boundary group. ``topk_method`` "approx" (JAX:
+    ``lax.approx_max_k``, a TPU primitive) takes the exact top-k too."""
+    if topk_method not in TOPK_METHODS:
+        raise ValueError(f"topk_method {topk_method!r}: one of "
+                         f"{TOPK_METHODS}")
     vals, idx = torch.topk(x, top_k, dim=-1)
     vals = _divide_temperature(vals, temperature)
     if not _is_scalar(top_p) or top_p < 1.0:
@@ -188,14 +196,16 @@ def sample_token_topk(generator: torch.Generator, raw: torch.Tensor,
                       *, temperature, top_k: int, top_p, repetition_penalty,
                       min_tokens, eos_ids: Sequence[int], use_ras: bool,
                       win_size: int, tau_r: float,
+                      topk_method: str = "exact",
                       return_logprob: bool = False):
     """Fused decode-step sampler for top_k > 0: processors, k-space
-    warping and the draw, plus the RAS fallback to the raw full-vocab
-    distribution. Returns [B] int64 tokens, or (tokens, logprobs) with
+    warping (``topk_method`` as :func:`top_k_top_p` takes it) and the
+    draw, plus the RAS fallback to the raw full-vocab distribution.
+    Returns [B] int64 tokens, or (tokens, logprobs) with
     ``return_logprob`` (:func:`topk_logprob`)."""
     x = suppress_eos_before_min(raw, eos_ids, num_generated, min_tokens)
     x = apply_repetition_penalty(x, presence, repetition_penalty)
-    vals, idx = top_k_top_p(x, top_k, temperature, top_p)
+    vals, idx = top_k_top_p(x, top_k, temperature, top_p, topk_method)
     choice = categorical(generator, vals)
     token = idx.gather(1, choice[:, None])[:, 0]
     if use_ras:

@@ -40,6 +40,10 @@ BWD_REL_TOL = 2e-2
 # fp32 output; for a bf16 output one rounding of each element (at most
 # 2^-8 of it) of sums that may differ in their last fp32 bits
 INT4_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+# a model prefill through K1-fwd against the plain route, max |diff| /
+# max |plain|: bf16 attention outputs rounded at different points (the
+# kernel's bf16 P, the plain route's fp32 softmax), through 2 layers
+PREFILL_REL_TOL = 2e-2
 
 
 @pytest.fixture
@@ -191,6 +195,43 @@ def test_flash_fwd_kernel_is_deterministic(dev):
 
 def _rel_err(got, ref):
     return ((got.float() - ref).abs().max() / ref.abs().max()).item()
+
+
+def test_continuous_admission_prefills_through_flash(dev):
+    """ContinuousEngine's admission of a 700-token prompt prefills a fresh
+    cache one bucket (768) wide: K1-fwd once a layer; the plain route
+    (attn_impl "xla") on the same model launches none. The slot's K/V
+    and last logits agree within bf16 rounding of the attention
+    outputs (layer 0's K/V are the same computation)."""
+    import dataclasses
+    from speech_distill_tpu_torch.core.config import (SamplingParams,
+                                                      qwen3_tiny)
+    from speech_distill_tpu_torch.infer.continuous import ContinuousEngine
+    from speech_distill_tpu_torch.models import qwen3
+    cfg = qwen3_tiny(1024, hidden_size=256, head_dim=128,
+                     num_attention_heads=4, num_key_value_heads=2)
+    model = qwen3.init_params(cfg, seed=0, device=dev)
+    prompt = np.random.default_rng(0).integers(1, 1000, 700).tolist()
+    states, launches = {}, {}
+    for impl in ("auto", "xla"):
+        model.cfg = dataclasses.replace(cfg, attn_impl=impl)
+        eng = ContinuousEngine(model, model.cfg, SamplingParams(),
+                               slots=2, max_len=1024, device=dev)
+        st = eng.new_state()
+        before = _cuda.launches["flash_fwd"]
+        eng._prefill_slot(st, 1, prompt)
+        torch.cuda.synchronize()
+        launches[impl] = _cuda.launches["flash_fwd"] - before
+        states[impl] = st
+    assert launches == {"auto": cfg.num_hidden_layers, "xla": 0}
+    got, ref = states["auto"], states["xla"]
+    assert torch.equal(got.cache.k[0, 1, :700], ref.cache.k[0, 1, :700])
+    for a, b in ((got.cache.k, ref.cache.k), (got.cache.v, ref.cache.v)):
+        assert _rel_err(a[:, 1, :700], b[:, 1, :700].float()) \
+            <= PREFILL_REL_TOL
+    assert _rel_err(got.last_logits[1], ref.last_logits[1]) \
+        <= PREFILL_REL_TOL
+    assert torch.equal(got.valid, ref.valid) and int(got.length[1]) == 700
 
 
 def _flash_bwd_inputs(dev, B, T, H, KV, Dh, seed):

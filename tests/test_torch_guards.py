@@ -139,6 +139,35 @@ def _tts_entry_points_raise():
                         2, np.ones(3, np.float32), 0, device="cpu")
 
 
+def test_decode_engines_raise_without_cuda(monkeypatch):
+    """DecodeEngine, ContinuousEngine and the stream_tts path default to
+    the card; asked for the CPU, they run."""
+    from speech_distill_tpu_torch.core.config import (SamplingParams,
+                                                      qwen3_tiny)
+    from speech_distill_tpu_torch.infer.continuous import ContinuousEngine
+    from speech_distill_tpu_torch.infer.engine import DecodeEngine
+    from speech_distill_tpu_torch.infer.streaming_tts import stream_tts
+    from speech_distill_tpu_torch.models import qwen3
+
+    cfg = qwen3_tiny(32, dtype="float32")
+    model = qwen3.init_params(cfg, seed=0, device="cpu")
+    sp = SamplingParams(top_k=4, stop_token_ids=(31,), max_tokens=3)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (DecodeEngine, ContinuousEngine):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make(model, cfg, sp)
+    eng = DecodeEngine(model, cfg, sp, max_len=32, prefill_bucket=8,
+                       device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        next(stream_tts(eng, None, None, None, None, [1, 2], 0, [1],
+                        np.zeros((2, 4), np.float32), 2,
+                        np.ones(3, np.float32), 0))
+    assert len(eng.generate([1, 2, 3])["token_ids"]) == 3
+    ceng = ContinuousEngine(model, cfg, sp, slots=2, max_len=32,
+                            prefill_bucket=8, device="cpu")
+    assert [len(o) for o in ceng.serve([[1, 2], [3]])] == [3, 3]
+
+
 def test_lm_head_kernel_wrappers_refuse_what_the_kernels_cannot_take():
     """On the card the K2 wrappers launch or raise; the checks before the
     launch run anywhere (the CPU has no kernel to reach)."""
