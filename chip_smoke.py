@@ -121,12 +121,14 @@ import torch
 
 from speech_distill_tpu_torch.core.config import (DistillConfig, LoraConfig,
                                                   SamplingParams,
-                                                  qwen3_student_0p6b)
+                                                  qwen3_student_0p6b,
+                                                  qwen3_teacher_1p7b)
 from speech_distill_tpu_torch.core.trainer import (LoopConfig, batches_from,
                                                    train_loop)
 from speech_distill_tpu_torch.core.tree import tree_leaves, tree_map
-from speech_distill_tpu_torch.data.collator import DistillCollator
-from speech_distill_tpu_torch.distill import train_step
+from speech_distill_tpu_torch.data.collator import (DistillCollator,
+                                                    pad_sequences)
+from speech_distill_tpu_torch.distill import evaluate, losses, train_step
 from speech_distill_tpu_torch.distill.lora import init_lora, lora_scaling
 from speech_distill_tpu_torch.infer.continuous import ContinuousEngine
 from speech_distill_tpu_torch.infer.engine import DecodeEngine
@@ -150,6 +152,8 @@ from speech_distill_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_plain, flash_attention_fwd, flash_attention_fwd_plain,
     flash_dkv, flash_dq)
 from speech_distill_tpu_torch.ops.fused_lm_loss import (fused_cross_entropy,
+                                                        fused_extract_top_k,
+                                                        head_dense_kd_loss,
                                                         head_sparse_kd_loss)
 from speech_distill_tpu_torch.ops.paged_attention import (
     k4_plan, paged_attention, paged_attention_plain, quantize_kv)
@@ -162,6 +166,8 @@ from speech_distill_tpu_torch.ops.quant_matmul import (int4_matmul,
                                                        int4_matmul_plain,
                                                        int4_route)
 from speech_distill_tpu_torch.pipelines import stage1 as stage1_data
+from speech_distill_tpu_torch.pipelines.extract_logits import (
+    extract_teacher_logprobs)
 
 SEED = 0
 # H100 SXM published peaks (dense): HBM bandwidth and bf16 tensor cores
@@ -2078,20 +2084,17 @@ def check_flash_stage1(dev, counts: dict, side) -> list:
     return rows
 
 
-def check_grad_path(cfg, model, lora, dev) -> None:
-    """Phase 8: one KD loss-and-grad of the full width at 4 layers, B 2,
-    T 512, from the same weights, LoRA and batch: (a) the kernel route in
-    bf16, (b) the plain route in bf16, (c) the plain route in fp32."""
-    depth = 4
-    rng = np.random.default_rng(SEED + 6)
-    feats = kd_features(cfg, 2, rng)
-    batch = DistillCollator(pad_token_id=cfg.eos_token_id,
-                            speech_bos_id=SPEECH_BOS)(feats)
-    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-    if batch["input_ids"].shape[1] != TRAIN_T:
-        fail(f"grad path batch is not T = {TRAIN_T}")
-    dcfg = DistillConfig()
-    g = lora_scaling(dcfg.lora)
+def grad_path_errors(cfg, model, lora, batch, head_loss, depth: int,
+                     dev) -> tuple:
+    """One KD loss-and-grad of the full width at ``depth`` layers from the
+    same weights (``model``'s first layers), LoRA (``lora``'s layers cut to
+    the depth, and its embed) and ``batch`` (tensors on the card): (a) the
+    kernel route in bf16, (b) the plain route in bf16, (c) the plain route
+    in fp32; ``head_loss(hidden, embed)`` gives the loss. Returns the fp32
+    plain loss and, for (a) and (b), the errors against (c): |loss|, and
+    max |grad - fp32| / max |fp32 grad| over the LoRA leaves and the
+    embed."""
+    g = lora_scaling(DistillConfig().lora)
 
     def run(dtype, impl):
         c = dataclasses.replace(cfg, num_hidden_layers=depth,
@@ -2109,10 +2112,7 @@ def check_grad_path(cfg, model, lora, dev) -> None:
         hidden = qwen3.forward_train(
             m, batch["input_ids"], attention_mask=batch["attention_mask"],
             embed=emb, adapters=tr["layers"], adapter_scale=g, device=dev)
-        out = head_sparse_kd_loss(hidden, emb, batch["labels"],
-                                  batch["teacher_top_k_v"],
-                                  batch["teacher_top_k_i"], None,
-                                  dcfg.temperature, dcfg.alpha)
+        out = head_loss(hidden, emb)
         leaves = tree_leaves(tr["layers"])
         grads = torch.autograd.grad(out.total, leaves + [emb])
         torch.cuda.synchronize()
@@ -2134,16 +2134,47 @@ def check_grad_path(cfg, model, lora, dev) -> None:
                                      .item() for a, b in zip(lg, ref_lora)),
                     "embed_grad": ((eg - ref_emb).abs().max()
                                    / ref_emb.abs().max()).item()}
-    log("grad path: " + json.dumps({"layers": depth, "B": 2, "T": TRAIN_T,
-                                    "fp32_plain_loss": ref_loss,
-                                    "errors_vs_fp32_plain": err}) +
+    return ref_loss, err
+
+
+def check_grad_errors(what: str, depth: int, ref_loss: float,
+                      err: dict) -> None:
+    """Log the grad path's errors; fail unless the kernel route is within
+    ``BF16_ERR_RATIO`` of the plain route's error, for both grads."""
+    log(f"{what}: " + json.dumps({"layers": depth, "B": 2, "T": TRAIN_T,
+                                  "fp32_plain_loss": ref_loss,
+                                  "errors_vs_fp32_plain": err}) +
         f" (max |grad - fp32| / max |fp32 grad| over the LoRA leaves and "
         f"the embed; the kernel route must stay within {BF16_ERR_RATIO}x "
         f"the plain route's error)")
-    for what in ("lora_grad", "embed_grad"):
-        if not err["bf16_kernel"][what] <= \
-                BF16_ERR_RATIO * err["bf16_plain"][what]:
-            fail(f"bf16 {what} through the kernels is less accurate: {err}")
+    for key in ("lora_grad", "embed_grad"):
+        if not err["bf16_kernel"][key] <= \
+                BF16_ERR_RATIO * err["bf16_plain"][key]:
+            fail(f"{what}: bf16 {key} through the kernels is less "
+                 f"accurate: {err}")
+
+
+def check_grad_path(cfg, model, lora, dev) -> None:
+    """Phase 8: one KD loss-and-grad of the full width at 4 layers, B 2,
+    T 512, from the same weights, LoRA and batch: (a) the kernel route in
+    bf16, (b) the plain route in bf16, (c) the plain route in fp32."""
+    depth = 4
+    rng = np.random.default_rng(SEED + 6)
+    feats = kd_features(cfg, 2, rng)
+    batch = DistillCollator(pad_token_id=cfg.eos_token_id,
+                            speech_bos_id=SPEECH_BOS)(feats)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    if batch["input_ids"].shape[1] != TRAIN_T:
+        fail(f"grad path batch is not T = {TRAIN_T}")
+    dcfg = DistillConfig()
+
+    def head_loss(hidden, emb):
+        return head_sparse_kd_loss(hidden, emb, batch["labels"],
+                                   batch["teacher_top_k_v"],
+                                   batch["teacher_top_k_i"], None,
+                                   dcfg.temperature, dcfg.alpha)
+    check_grad_errors("grad path", depth, *grad_path_errors(
+        cfg, model, lora, batch, head_loss, depth, dev))
 
 
 def check_fused_kd(cfg, base, lora, dev) -> dict:
@@ -2195,6 +2226,491 @@ def check_fused_kd(cfg, base, lora, dev) -> dict:
             and err["grad_norm"] <= FUSED_KD_GRAD_NORM_RTOL):
         fail(f"the fused KD route disagrees with the head route: {err}")
     return counts
+
+
+# phase 9b, the teacher in the loop: the JAX benchmark's online modes
+# (bench.py --mode online_sparse / online_dense, --teacher_quant, eval,
+# extract: B 8, T 512, top-K 128, gaussian LoRA r 32, make_optimizer(5e-5,
+# 10, 1000), 2 warm-up steps) on a fresh full-width student and the
+# full-width 1.7B teacher, both drawn on the card
+TEACHER_SEED = 2
+ONLINE_WARMUP, ONLINE_STEPS, QUANT_STEPS, FULL_FT_STEPS = 2, 8, 4, 4
+# full finetuning at the bench's 5e-5 (10 warm-up steps) moves a bf16
+# weight of size 0.02 by less than half its ulp (~1.2e-4): nothing would
+# visibly change, so the phase trains at 1e-3 from the second step
+FULL_FT_LR = 1e-3
+# one online_sparse step and one precomputed step from the same state and
+# batch, the precomputed top-K extracted from the same teacher at the same
+# shape: the same numbers up to summation order
+ONLINE_PRE_RTOL = 1e-3
+AGREE_K, AGREE_STEPS = 10, 5
+SELF_KL_TOL = 1e-3
+# the extraction routes against each other: the same index set wherever
+# the K-th and (K+1)-th teacher logits differ by more than EXTRACT_GAP
+# (the routes sum their head products in other orders), sorted values
+# within EXTRACT_ULPS fp16 ulps
+EXTRACT_GAP, EXTRACT_ULPS, EXTRACT_ITERS = 1e-3, 2, 3
+EXTRACT_SEQS, EXTRACT_BATCH = 10, 4
+# a sequence extracted in a padded batch against it extracted alone: a
+# lone row padded to 128 may be off the flash widths (384, 896) where its
+# batch is on them, and the two bf16 routes round attention apart, so the
+# logits differ by a measured eps (0.18-0.22 on such rows of the random
+# 1.7B teacher on an H100, 0 where both take one route). Sets must
+# agree where the K / K+1 gap exceeds 2 eps, values within 2 eps +
+# EXTRACT_ULPS fp16 ulps, and eps stay below ALONE_EPS_MAX: a wrong row
+# or truncation differs by the logits' own spread (std ~0.9, max ~6)
+ALONE_EPS_MAX = 1.0
+
+
+def bench_kd_batch(cfg, rng) -> dict:
+    """bench.py's KD batch: [1, B, T] ids and labels drawn in that order
+    from ``rng``, a mask of ones."""
+    shape = (1, TRAIN_B, TRAIN_T)
+    return {"input_ids": rng.integers(0, cfg.vocab_size, shape).astype(
+                np.int32),
+            "attention_mask": np.ones(shape, np.int32),
+            "labels": rng.integers(0, cfg.vocab_size, shape).astype(
+                np.int64)}
+
+
+def teacher_forward(teacher, ids, mask):
+    return qwen3.forward(teacher, ids, attention_mask=mask)
+
+
+def module_bytes(model) -> int:
+    """Bytes of a model's parameters and buffers (quantized codes and
+    scales)."""
+    return sum(t.numel() * t.element_size()
+               for t in list(model.parameters()) + list(model.buffers()))
+
+
+def online_loop(what: str, step, state, base, teacher, batch, steps: int,
+                cfg, tcfg, profile: bool = False) -> tuple:
+    """``ONLINE_WARMUP`` steps, then ``steps`` timed ones with the launch
+    counts reset just before them; fails unless K1-fwd ran teacher + 2 x
+    student layers a step (the student's recompute), K1-dq and K1-dkv the
+    student's layers, K3 never, and the losses are finite. Returns the
+    state, the logged record and the counts."""
+    for _ in range(ONLINE_WARMUP):
+        state, _ = step(state, base, teacher, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    times, metrics = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        state, m = step(state, base, teacher, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        metrics.append({k: float(v) for k, v in m.items()})
+    counts = dict(_cuda.launches)
+    L, Lt = cfg.num_hidden_layers, tcfg.num_hidden_layers
+    step_s = float(np.median(times))
+    tok_s = TRAIN_B * TRAIN_T / step_s
+    flops = (3 * qwen3.flops_per_token(cfg, TRAIN_T)
+             + qwen3.flops_per_token(tcfg, TRAIN_T))
+    rec = {"mode": what, "steps": steps, "step_ms_median": step_s * 1e3,
+           "step_ms": [t * 1e3 for t in times], "tokens_per_s": tok_s,
+           "mfu": tok_s * flops / BF16_FLOP_PER_S,
+           "mfu_flops": "3 x student + teacher flops_per_token",
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "loss": [m["loss"] for m in metrics],
+           "grad_norm": [m["grad_norm"] for m in metrics],
+           "launches": {k: counts[k] for k in ("flash_fwd", "flash_dq",
+                                               "flash_dkv", "int4_matmul")}}
+    log("online kd " + json.dumps(rec))
+    want = {"flash_fwd": (Lt + 2 * L) * steps, "flash_dq": L * steps,
+            "flash_dkv": L * steps, "int4_matmul": 0}
+    if rec["launches"] != want:
+        fail(f"{what} launches {rec['launches']} != {want} (teacher + 2 x "
+             f"student layers forward, student layers backward, no K3)")
+    if not all(np.isfinite([m["loss"], m["grad_norm"]]).all()
+               for m in metrics):
+        fail(f"{what}: a loss or grad_norm is not finite")
+    if profile:
+        def run():
+            nonlocal state
+            state, _ = step(state, base, teacher, batch)
+            torch.cuda.synchronize()
+        profile_step(f"online kd {what} step", run, {"flash": "flash_"},
+                     warm=False)
+    return state, rec, counts
+
+
+def check_online_equals_precomputed(cfg, dcfg, opt, base, lora0, teacher,
+                                    batch, dev) -> dict:
+    """One online_sparse step and one precomputed step from the same state
+    on the same batch, the precomputed top-K from
+    ``extract_teacher_logprobs`` on the teacher: loss and grad_norm within
+    ``ONLINE_PRE_RTOL``. Returns the precomputed batch."""
+    feats = [{"input_ids": row.tolist()} for row in batch["input_ids"][0]]
+    v, i = extract_teacher_logprobs(
+        teacher, teacher_forward, feats, top_k=dcfg.top_k,
+        batch_size=TRAIN_B, pad_to_multiple_of=128,
+        vocab_limit=cfg.vocab_size, progress=False, device=dev)
+    pre = dict(batch, teacher_top_k_v=np.stack(v)[None],
+               teacher_top_k_i=np.stack(i)[None])
+    out = {}
+    for mode, bt in (("online_sparse", batch), ("precomputed", pre)):
+        step = train_step.make_kd_step(cfg, dcfg, opt, mode=mode,
+                                       donate=False, device=dev)
+        state = train_step.init_state(
+            tree_map(lambda t: t.detach().clone().requires_grad_(), lora0),
+            opt)
+        _, m = step(state, base, teacher, bt)
+        out[mode] = {k: float(x) for k, x in m.items()}
+        del state
+    err = {k: abs(out["online_sparse"][k] - out["precomputed"][k])
+           / abs(out["precomputed"][k]) for k in ("loss", "grad_norm")}
+    log("online vs precomputed: " + json.dumps({**out, "rel_err": err}) +
+        f" (tol {ONLINE_PRE_RTOL})")
+    if not max(err.values()) <= ONLINE_PRE_RTOL:
+        fail(f"online_sparse disagrees with precomputed: {err}")
+    return pre
+
+
+def check_dense_grad_path(cfg, base, lora0, teacher, batch, dev) -> None:
+    """Phase 8's check for online_dense: the dense KD loss and grads at 4
+    layers, B 2, T 512, through the kernel route and the plain route in
+    bf16 against the plain route in fp32, the teacher's logits (its
+    kernel route, truncated to the student vocab) held fixed. The
+    adapters' B factors are drawn N(0, 0.02) (gaussian init starts them
+    at 0, where the A grads vanish)."""
+    depth = 4
+    b = {k: torch.as_tensor(v[0, :2], device=dev) for k, v in batch.items()}
+    t_logits = teacher_forward(teacher, b["input_ids"], b["attention_mask"]
+                               )[..., :cfg.vocab_size]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    lora = {"embed": lora0["embed"],
+            "layers": tree_map(lambda t: t, lora0["layers"])}
+    for mods in lora["layers"].values():
+        for key, ab in mods.items():
+            mods[key] = {"a": ab["a"], "b": torch.randn(
+                ab["b"].shape, generator=gen, device=dev) * 0.02}
+    dcfg = DistillConfig()
+
+    def head_loss(hidden, emb):
+        return head_dense_kd_loss(hidden, emb, t_logits, b["labels"], None,
+                                  dcfg.temperature, dcfg.alpha)
+    check_grad_errors("online dense grad path", depth, *grad_path_errors(
+        cfg, base, lora, b, head_loss, depth, dev))
+
+
+def sorted_sets(v, i):
+    return (torch.sort(v.float(), dim=-1, descending=True).values,
+            torch.sort(i.long(), dim=-1).values)
+
+
+def compare_topk(what: str, got, ref, gap_ok, tol) -> dict:
+    """Index sets equal wherever ``gap_ok``, sorted values within ``tol``
+    (a tensor broadcast against them). Returns the errors."""
+    gv, gi = sorted_sets(*got)
+    rv, ri = sorted_sets(*ref)
+    set_diff = int(((gi != ri).any(-1) & gap_ok).sum())
+    excess = float(((gv - rv).abs() - tol).max())
+    if set_diff or excess > 0:
+        fail(f"{what}: {set_diff} positions with another top-K set, values "
+             f"over their tolerance by {excess}")
+    return {"max_value_diff": float((gv - rv).abs().max()),
+            "set_differs_at_excluded": int((gi != ri).any(-1).sum())}
+
+
+def fp16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """The fp16 spacing at each value."""
+    a = v.float().abs().clamp_min(2.0 ** -14)
+    return torch.exp2(torch.floor(torch.log2(a)) - 10)
+
+
+def check_extraction(cfg, tcfg, teacher, batch, dev) -> dict:
+    """Teacher top-K extraction at B 8, T 512, K 128 through the
+    materialized, chunked and fused routes (bench.py ``--mode extract``),
+    timed, and held to each other; then ``extract_teacher_logprobs`` over
+    ragged sequences against each sequence extracted alone."""
+    V, K = cfg.vocab_size, TRAIN_K
+    ids = torch.as_tensor(batch["input_ids"][0], device=dev)
+    mask = torch.ones_like(ids)
+
+    def chunked():
+        logits = teacher_forward(teacher, ids, mask)[..., :V].float()
+        lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+        v, i = losses.chunked_top_k(logits, K)
+        return (v - lse).to(torch.float16), i.to(torch.int32)
+    routes = {
+        "materialized": lambda: losses.extract_top_k(
+            teacher_forward(teacher, ids, mask), K, V, method="exact"),
+        "chunked": chunked,
+        "fused": lambda: fused_extract_top_k(
+            qwen3.forward(teacher, ids, attention_mask=mask,
+                          return_hidden=True),
+            qwen3.lm_head_weight(teacher), K, V)}
+    out, res = {}, {}
+    for name, fn in routes.items():
+        res[name] = fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(EXTRACT_ITERS):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = {"tokens_per_s": EXTRACT_ITERS * ids.numel()
+                     / (time.perf_counter() - t0)}
+    top = torch.topk(teacher_forward(teacher, ids, mask)[..., :V].float(),
+                     K + 1, dim=-1).values
+    gap_ok = (top[..., K - 1] - top[..., K]) > EXTRACT_GAP
+    del top
+    ref = res["materialized"]
+    tol = EXTRACT_ULPS * fp16_ulp(sorted_sets(*ref)[0])
+    for name in ("chunked", "fused"):
+        out[name].update(compare_topk(f"extraction {name}", res[name], ref,
+                                      gap_ok, tol))
+    out["excluded_share"] = 1.0 - float(gap_ok.float().mean())
+    out["alone"] = check_extraction_alone(cfg, teacher, dev)
+    log("extraction " + json.dumps(out) + f" (B {TRAIN_B} T {TRAIN_T} K "
+        f"{K}; sets held where the K-th and (K+1)-th logits differ by > "
+        f"{EXTRACT_GAP}, values within {EXTRACT_ULPS} fp16 ulps)")
+    return out
+
+
+def check_extraction_alone(cfg, teacher, dev) -> dict:
+    """``extract_teacher_logprobs`` over ``EXTRACT_SEQS`` sequences of
+    300-1,000 tokens, batch 4, padded to 128 (the last batch
+    repeat-padded): every example its own length, and its values and
+    indices those of the example extracted alone, within the measured
+    difference eps of the two forwards' logits."""
+    V, K = cfg.vocab_size, TRAIN_K
+    rng = np.random.default_rng(SEED + 13)
+    feats = [{"input_ids": rng.integers(0, V, int(n)).tolist()}
+             for n in rng.integers(300, 1001, EXTRACT_SEQS)]
+    kw = dict(top_k=K, pad_to_multiple_of=128, vocab_limit=V,
+              progress=False, device=dev)
+    t0 = time.perf_counter()
+    v_b, i_b = extract_teacher_logprobs(teacher, teacher_forward, feats,
+                                        batch_size=EXTRACT_BATCH, **kw)
+    batched_s = time.perf_counter() - t0
+    lengths = [len(f["input_ids"]) for f in feats]
+    if [len(v) for v in v_b] != lengths or [len(i) for i in i_b] != lengths:
+        fail(f"extracted lengths {[len(v) for v in v_b]} != {lengths}")
+    eps_all, diffs, routes = [], [], []
+    for j, f in enumerate(feats):
+        n = lengths[j]
+        v_a, i_a = extract_teacher_logprobs(teacher, teacher_forward, [f],
+                                            batch_size=1, **kw)
+        group = feats[j - j % EXTRACT_BATCH:][:EXTRACT_BATCH]
+        ids_b, mask_b = pad_sequences([g["input_ids"] for g in group], None,
+                                      0, 128)
+        row = j % EXTRACT_BATCH
+        lb = teacher_forward(teacher, torch.as_tensor(ids_b[row:row + 1],
+                                                      device=dev),
+                             torch.as_tensor(mask_b[row:row + 1],
+                                             device=dev))[0, :n, :V]
+        ids_a, mask_a = pad_sequences([f["input_ids"]], None, 0, 128)
+        la = teacher_forward(teacher, torch.as_tensor(ids_a, device=dev),
+                             torch.as_tensor(mask_a, device=dev))[0, :n, :V]
+        eps = float((lb.float() - la.float()).abs().max())
+        routes.append((is_flash_width(ids_b.shape[1]),
+                       is_flash_width(ids_a.shape[1])))
+        top = torch.topk(la.float(), K + 1, dim=-1).values
+        gap_ok = (top[:, K - 1] - top[:, K]) > 2 * eps
+        del lb, la, top
+        got = (torch.as_tensor(v_b[j], device=dev),
+               torch.as_tensor(i_b[j], device=dev))
+        ref = (torch.as_tensor(v_a[0], device=dev),
+               torch.as_tensor(i_a[0], device=dev))
+        tol = 2 * eps + EXTRACT_ULPS * fp16_ulp(sorted_sets(*ref)[0])
+        diffs.append(compare_topk(f"extraction of sequence {j} in a batch",
+                                  got, ref, gap_ok, tol))
+        eps_all.append(eps)
+    if not max(eps_all) <= ALONE_EPS_MAX:
+        fail(f"batched and lone teacher logits differ by {max(eps_all)}")
+    return {"sequences": EXTRACT_SEQS, "lengths": lengths,
+            "batched_seconds": batched_s, "logits_eps": eps_all,
+            "flash_batched_alone": routes,
+            "max_value_diff": max(d["max_value_diff"] for d in diffs),
+            "set_differs_at_excluded": sum(d["set_differs_at_excluded"]
+                                           for d in diffs)}
+
+
+def check_eval_and_agreement(cfg, tcfg, dcfg, trainable, base, teacher,
+                             batch, pre, dev) -> dict:
+    """``make_kd_eval_step`` in the three modes on one batch (the online
+    sparse loss must equal the precomputed one on the extracted top-K);
+    ``make_agreement_step`` (k 10, the speech mask on the second half, as
+    bench.py ``--mode eval``) timed over ``AGREE_STEPS``; the teacher
+    scored against itself; ``make_sparse_agreement_step`` against the
+    extracted top-K."""
+    out = {}
+    for mode in train_step.MODES:
+        ev = train_step.make_kd_eval_step(cfg, dcfg, mode=mode, device=dev)
+        m = ev(trainable, base, teacher,
+               pre if mode == "precomputed" else batch)
+        out[mode] = {k: float(v) for k, v in m.items()}
+        if not np.isfinite(list(out[mode].values())).all():
+            fail(f"kd eval {mode}: non-finite {out[mode]}")
+    err = abs(out["online_sparse"]["loss"] - out["precomputed"]["loss"]) \
+        / abs(out["precomputed"]["loss"])
+    log("kd eval " + json.dumps(out) + f" online_sparse vs precomputed "
+        f"rel_err={err:.3e} (tol {ONLINE_PRE_RTOL})")
+    if not err <= ONLINE_PRE_RTOL:
+        fail(f"kd eval: online_sparse {out['online_sparse']['loss']} != "
+             f"precomputed {out['precomputed']['loss']}")
+    B, T = TRAIN_B, TRAIN_T
+    smask = np.zeros((B, T), np.float32)
+    smask[:, T // 2:] = 1.0
+    ab = {"input_ids": batch["input_ids"][0],
+          "attention_mask": batch["attention_mask"][0],
+          "labels": batch["labels"][0], "speech_token_mask": smask}
+    step = evaluate.make_agreement_step(cfg, tcfg, k=AGREE_K, device=dev)
+    sums = step(base, teacher, ab)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(AGREE_STEPS):
+        sums = step(base, teacher, ab)
+    torch.cuda.synchronize()
+    pos_s = AGREE_STEPS * B * T / (time.perf_counter() - t0)
+    agree = {"positions_per_s": pos_s,
+             "metrics": evaluate.finalize_metrics(sums, AGREE_K)}
+    self_m = evaluate.finalize_metrics(evaluate.make_agreement_step(
+        tcfg, k=AGREE_K, device=dev)(teacher, teacher, ab), AGREE_K)
+    sparse = dict(ab, teacher_top_k_v=pre["teacher_top_k_v"][0],
+                  teacher_top_k_i=pre["teacher_top_k_i"][0])
+    agree["sparse_metrics"] = evaluate.finalize_metrics(
+        evaluate.make_sparse_agreement_step(cfg, k=AGREE_K, device=dev)(
+            base, sparse), AGREE_K)
+    agree["teacher_vs_itself"] = self_m
+    log("agreement " + json.dumps(agree) + f" (teacher vs itself: top-1 "
+        f"1.0 and kl_t1 < {SELF_KL_TOL} on both slices)")
+    for sl in ("all", "speech"):
+        if not (self_m[sl]["top1_agreement"] == 1.0
+                and abs(self_m[sl]["kl_t1"]) < SELF_KL_TOL):
+            fail(f"the teacher disagrees with itself: {self_m}")
+        for m in (agree["metrics"], agree["sparse_metrics"]):
+            if not np.isfinite([m[sl]["kl_t1"], m[sl]["student_ce"]]).all():
+                fail(f"agreement metrics not finite: {m}")
+    return agree
+
+
+def online_kd(cfg, dev) -> dict:
+    """Phase 9b: the teacher in the loop at full width. Returns the K1
+    launch counts of the phase's step loops."""
+    t_phase = time.perf_counter()
+    tcfg = qwen3_teacher_1p7b()
+    # the earlier phases' cached blocks go back to the device before the
+    # timed loops, so no loop pays for releasing them
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    base = qwen3.init_params_on_device(SEED, cfg, dev)
+    teacher = qwen3.init_params_on_device(TEACHER_SEED, tcfg, dev)
+    torch.cuda.synchronize()
+    log(f"online kd: student qwen3_student_0p6b (seed {SEED}) and teacher "
+        f"qwen3_teacher_1p7b hidden={tcfg.hidden_size} layers="
+        f"{tcfg.num_hidden_layers} (seed {TEACHER_SEED}, "
+        f"{module_bytes(teacher) / 1e9:.3f} GB bf16) drawn on the card "
+        f"s={time.perf_counter() - t0:.2f}")
+    lcfg = LoraConfig(init_weights="gaussian")
+    lora0, base = init_lora(base, cfg, lcfg,
+                            generator=torch.Generator().manual_seed(1),
+                            device=dev)
+    teacher_ref = [p.detach().clone() for p in teacher.parameters()]
+    frozen = [p.detach().clone() for p in base.parameters()]
+    batch = bench_kd_batch(cfg, np.random.default_rng(SEED))
+    dcfg = DistillConfig(top_k=TRAIN_K, lora=lcfg)
+    opt = train_step.make_optimizer(5e-5, 10, 1000)
+    totals = dict.fromkeys(("flash_fwd", "flash_dq", "flash_dkv"), 0)
+    records = {}
+
+    def fresh_state(optimizer):
+        return train_step.init_state(
+            tree_map(lambda t: t.detach().clone().requires_grad_(), lora0),
+            optimizer)
+
+    def run(what, step, state, tch, steps, profile=False):
+        state, rec, counts = online_loop(what, step, state, base, tch,
+                                         batch, steps, cfg, tcfg, profile)
+        records[what] = rec
+        for k in totals:
+            totals[k] += counts[k]
+        return state
+
+    # 1. online_sparse
+    step = train_step.make_kd_step(cfg, dcfg, opt, mode="online_sparse",
+                                   device=dev)
+    state = run("online_sparse", step, fresh_state(opt), teacher,
+                ONLINE_STEPS, profile=True)
+    moved = [not torch.equal(a, b) for a, b in zip(
+        tree_leaves(lora0["layers"]), tree_leaves(state.trainable["layers"]))]
+    if not all(moved):
+        fail(f"online_sparse: {moved.count(False)} adapter leaves did not "
+             f"change")
+    trained = state.trainable
+    del state
+    pre = check_online_equals_precomputed(cfg, dcfg, opt, base, lora0,
+                                          teacher, batch, dev)
+    # 2. online_dense
+    step = train_step.make_kd_step(cfg, dcfg, opt, mode="online_dense",
+                                   device=dev)
+    state = run("online_dense", step, fresh_state(opt), teacher,
+                ONLINE_STEPS, profile=True)
+    del state
+    check_dense_grad_path(cfg, base, lora0, teacher, batch, dev)
+    # 3. the quantized teacher: dense KD, K3 never runs
+    for quant in ("int8", "nf4"):
+        qteacher = train_step.quantize_teacher(teacher, quant)
+        qcfg = dataclasses.replace(dcfg, teacher_quant=quant)
+        mode = "online_dense" if qcfg.use_dense else "online_sparse"
+        if mode != "online_dense":
+            fail(f"teacher_quant={quant} did not force dense KD")
+        step = train_step.make_kd_step(cfg, qcfg, opt, mode=mode,
+                                       device=dev)
+        state = run(f"online_dense {quant} teacher", step, fresh_state(opt),
+                    qteacher, QUANT_STEPS)
+        records[f"online_dense {quant} teacher"]["teacher_weight_bytes"] = \
+            module_bytes(qteacher)
+        log(f"{quant} teacher weight bytes {module_bytes(qteacher)} (bf16 "
+            f"{module_bytes(teacher)})")
+        del state, qteacher
+    # 4. eval and agreement; 5. extraction
+    check_eval_and_agreement(cfg, tcfg, dcfg, trained, base, teacher,
+                             batch, pre, dev)
+    del trained
+    check_extraction(cfg, tcfg, teacher, batch, dev)
+    if not all(torch.equal(a, b) for a, b in zip(frozen,
+                                                 base.parameters())):
+        fail("the frozen student base changed in the LoRA modes")
+    del frozen
+    # 6. full finetuning: every weight of the student trains
+    ft_opt = train_step.make_optimizer(FULL_FT_LR, 1, 1000)
+    step = train_step.make_kd_step(cfg, dcfg, ft_opt, mode="online_sparse",
+                                   use_lora=False, device=dev)
+    trainable = train_step.full_trainable(base)
+    # the matrices, updated in place (the norm scales, ones in bf16, move
+    # by less than half their ulp of 2^-7 at this rate)
+    layers = trainable["layers"]
+    matrices = ([trainable["embed"]["weight"]]
+                + [layers["attn"][n] for n in ("q", "k", "v", "o")]
+                + list(layers["mlp"].values()))
+    before = [t.detach().clone() for t in matrices]
+    state = run("full_finetune", step, train_step.init_state(trainable,
+                                                             ft_opt),
+                teacher, FULL_FT_STEPS)
+    mus = tree_leaves(state.opt_state["mu"])
+    bad = [k for k, m in enumerate(mus)
+           if not (bool(torch.isfinite(m).all()) and bool((m != 0).any()))]
+    if bad:
+        fail(f"full finetuning: leaves {bad} got a non-finite or zero "
+             f"gradient (first moments)")
+    still = [k for k, (a, b) in enumerate(zip(before, matrices))
+             if torch.equal(a, b)]
+    if still:
+        fail(f"full finetuning: matrix leaves {still} did not move")
+    del state, trainable, layers, matrices, before
+    if not all(torch.equal(a, b) for a, b in zip(teacher_ref,
+                                                 teacher.parameters())):
+        fail("the teacher's weights changed")
+    if any(p.grad is not None or p.requires_grad
+           for p in teacher.parameters()):
+        fail("the teacher has gradients")
+    log(f"online kd phase s={time.perf_counter() - t_phase:.2f} "
+        f"launches {totals}")
+    return totals
 
 
 def stage1_rows(cfg, old_vocab: int, n_rows: int, rng) -> np.ndarray:
@@ -2584,6 +3100,10 @@ def main() -> None:
     check_fused_kd(cfg, base, lora, dev)
     del lora, base, model
     log(f"train phases s={time.perf_counter() - t0:.2f}")
+    online_counts = online_kd(cfg, dev)
+    for entry in kernels:   # K1 at the KD shape: phase 9b's step loops
+        if entry.get("path") == "KD":
+            entry["online_kd_launches"] = online_counts[entry["name"]]
     t0 = time.perf_counter()
     s1_counts, model, rows = stage1(cfg, dev)
     kernels += check_lm_head(dev, model, s1_counts, side)

@@ -70,6 +70,12 @@ class Qwen3Config:
         return torch_dtype(self.logits_dtype)
 
 
+def qwen3_teacher_1p7b() -> Qwen3Config:
+    """The SoulX-Podcast-1.7B-dialect teacher: the :class:`Qwen3Config`
+    defaults (hidden 2048, FFN 6144, 28 layers, 16 / 8 heads, tied)."""
+    return Qwen3Config()
+
+
 def qwen3_student_0p6b(vocab_size: int = 159488) -> Qwen3Config:
     """Qwen3-0.6B after the speech-vocab expansion."""
     return Qwen3Config(
@@ -117,15 +123,36 @@ class LoraConfig:
     modules_to_save: tuple = ("embed_tokens", "lm_head")
 
 
+TEACHER_QUANTS = ("none", "int8", "int4", "nf4")
+
+
 @dataclass
 class DistillConfig:
     """Stage-2 KD knobs the training step reads (the reference's
-    defaults); the CLI's other knobs come with the CLI."""
+    defaults); the CLI's other knobs come with the CLI.
+
+    ``online_topk_method``: "exact" or "approx". JAX's "approx" is the
+    TPU's ``lax.approx_max_k`` (``online_topk_recall`` its recall target),
+    which the port has no counterpart of: both take the exact top-K.
+    ``online_extract``: "materialized" (the teacher's fp32 logits, then the
+    top-K) or "fused" (``ops/fused_lm_loss.fused_extract_top_k`` over vocab
+    chunks). ``teacher_quant``: "none", "int8" or "nf4" ("int4" is nf4, as
+    in JAX); a quantized teacher forces dense distillation."""
 
     temperature: float = 2.0
     alpha: float = 0.5
+    top_k: int = 128                   # <= 0: dense distillation
+    online_topk_method: str = "approx"  # exact | approx (both exact here)
+    online_topk_recall: float = 0.95
+    online_extract: str = "materialized"  # materialized | fused
+    teacher_quant: str = "none"        # none | int8 | int4 == nf4
     learning_rate: float = 5e-5
     lora: LoraConfig = field(default_factory=LoraConfig)
+
+    @property
+    def use_dense(self) -> bool:
+        """Dense KD: no top-K, or a quantized teacher."""
+        return self.top_k <= 0 or self.teacher_quant != "none"
 
 
 @dataclass

@@ -5,13 +5,15 @@ Every reduction is a masked mean over a fixed-shape row set:
   * causal shift: logits[t] predicts labels[t+1]
   * valid = speech_token_mask[1:] AND labels[1:] != -100
   * task_loss      = CE(student, labels), mean over valid rows
+  * dense distill  = full-vocab KL at temperature T, x T^2
   * sparse distill = teacher top-K renormalised KL at temperature T, x T^2
-  * teacher_loss   = -mean top-K logprob of the gold label over the valid
-                     rows where it appears in the top-K
+  * teacher_loss   = dense: the teacher's CE; sparse: -mean top-K logprob
+                     of the gold label over the valid rows where it
+                     appears in the top-K
   * total = alpha * task + (1 - alpha) * distill
 
-All math in fp32 whatever the input dtype. The dense path waits for the
-online modes.
+All math in fp32 whatever the input dtype. The online top-K extraction
+(:func:`extract_top_k`) lives here too.
 """
 from __future__ import annotations
 
@@ -52,6 +54,31 @@ def _ce_per_pos(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     lse = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
     return lse - gold
+
+
+def dense_distill_loss(student_logits: torch.Tensor,
+                       teacher_logits: torch.Tensor,
+                       labels: torch.Tensor,
+                       speech_token_mask: Optional[torch.Tensor] = None,
+                       temperature: float = 2.0,
+                       alpha: float = 0.5) -> DistillLossOutput:
+    """Dense path: the KL of the student against the teacher's full
+    softmax at temperature T. Both logits [B, T, V] (the teacher's already
+    truncated to the student vocab); the teacher gets no gradient."""
+    T = temperature
+    s = student_logits[:, :-1, :].float()
+    t = teacher_logits[:, :-1, :].float().detach()
+    shift_labels, valid = _shift_and_mask(labels, speech_token_mask)
+
+    log_q = torch.log_softmax(s / T, dim=-1)
+    log_p = torch.log_softmax(t / T, dim=-1)
+    kl_per_pos = (log_p.exp() * (log_p - log_q)).sum(-1)
+    distill = _masked_mean(kl_per_pos, valid) * (T * T)
+
+    task = _masked_mean(_ce_per_pos(s, shift_labels), valid)
+    teacher = _masked_mean(_ce_per_pos(t, shift_labels), valid)
+    total = alpha * task + (1.0 - alpha) * distill
+    return DistillLossOutput(total, task, distill, teacher)
 
 
 def sparse_distill_loss(student_logits: torch.Tensor,
@@ -115,3 +142,49 @@ def segmented_top_k(x: torch.Tensor, k: int, group: int = 64):
     cand = torch.gather(xg, -2, seg[..., None].expand(*lead, k, group))
     v, p = torch.topk(cand.reshape(*lead, k * group), k, dim=-1)
     return v, seg.gather(-1, p // group) * group + p % group
+
+
+def chunked_top_k(x: torch.Tensor, k: int, n_chunks: int = 16):
+    """Exact top-k over a large last dim in two stages (the JAX
+    ``chunked_top_k``): the top-k of each of ``n_chunks`` vocab chunks,
+    then the top-k of the k * n_chunks candidates. Every global top-k
+    element is in its chunk's top-k, so the set is exact. Tie order
+    follows ``torch.topk``."""
+    V = x.shape[-1]
+    if V <= k * n_chunks * 2:
+        return torch.topk(x, k, dim=-1)
+    chunk = -(-V // n_chunks)
+    pad = chunk * n_chunks - V
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad), value=-float("inf"))
+    lead = x.shape[:-1]
+    cv, ci = torch.topk(x.reshape(*lead, n_chunks, chunk), k, dim=-1)
+    ci = ci + torch.arange(n_chunks, device=x.device)[:, None] * chunk
+    v, pos = torch.topk(cv.reshape(*lead, n_chunks * k), k, dim=-1)
+    return v, ci.reshape(*lead, n_chunks * k).gather(-1, pos)
+
+
+TOPK_METHODS = ("exact", "approx")
+
+
+def extract_top_k(teacher_logits: torch.Tensor, k: int,
+                  student_vocab_size: Optional[int] = None,
+                  method: str = "exact", recall: float = 0.99):
+    """On-the-fly sparse extraction (the JAX ``extract_top_k``): truncate
+    to the student vocab, take the top-k of the fp32 logits
+    (:func:`segmented_top_k`), and subtract the logsumexp from the k
+    winners only. Returns (fp16 logprobs, int32 indices) [..., k], as the
+    reference stores them.
+
+    ``method`` "approx" (JAX: the TPU's ``lax.approx_max_k`` at
+    ``recall``) takes the exact top-k as well: the port has no
+    counterpart."""
+    if method not in TOPK_METHODS:
+        raise ValueError(f"unknown top-k method {method!r}")
+    del recall
+    if student_vocab_size is not None:
+        teacher_logits = teacher_logits[..., :student_vocab_size]
+    logits = teacher_logits.float()
+    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+    v, i = segmented_top_k(logits, k)
+    return (v - lse).to(torch.float16), i.to(torch.int32)

@@ -1,14 +1,19 @@
-"""The stage-2 KD training step in precomputed mode (port of
+"""The stage-2 KD training and eval steps, and the stage-1 step (port of
 ``speech_distill_tpu/distill/train_step.py``).
 
-``make_kd_step(mode="precomputed")`` returns
-``step(state, base, teacher_params, batch) -> (state, metrics)``: the
-student forward with unmerged LoRA adapters (``models/qwen3.
-forward_train``), the sparse top-K KD loss against the batch's teacher
-top-K columns (the fused head op by default), gradients of the trainable
-tree accumulated over the batch's leading microbatch axis [A, B, T], and
-the optax chain of the JAX package — clip by global norm, then AdamW on a
-warmup-linear / linear-decay schedule — applied to the trainable tree.
+``make_kd_step(mode=...)`` returns ``step(state, base, teacher, batch) ->
+(state, metrics)``: the student forward with unmerged LoRA adapters
+(``models/qwen3.forward_train``), or with every weight trainable
+(``use_lora=False``, the tree of :func:`full_trainable`), the KD loss,
+gradients of the trainable tree accumulated over the batch's leading
+microbatch axis [A, B, T], and the optax chain of the JAX package — clip
+by global norm, then AdamW on a warmup-linear / linear-decay schedule —
+applied to the trainable tree. The teacher's top-K rides the batch
+("precomputed"), or the teacher :class:`~speech_distill_tpu_torch.models.
+qwen3.Qwen3` runs in the step under ``torch.no_grad`` ("online_sparse":
+its top-K extracted on the device; "online_dense": its full softmax, the
+mode a quantized teacher forces, :func:`quantize_teacher`).
+``make_kd_eval_step`` computes the same losses without gradients.
 
 ``make_stage1_step`` is the stage-1 warm-up: next-token CE with only the
 embedding (and an untied head) trainable and the gradient rows of the old
@@ -17,9 +22,8 @@ plain route, or the K2 kernels of ``ops/pallas_lm_loss``).
 
 The JAX step donates its state; the port updates the trainable tensors of
 the state in place the same way (``donate=True``), or leaves them as they
-were and returns new ones (``donate=False``). The online modes, the split
-apply, the 1F1B pipeline, full finetuning and the 8-bit and fused
-optimizers are not ported yet and raise.
+were and returns new ones (``donate=False``). The split apply, the 1F1B
+pipeline and the 8-bit and fused optimizers are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
-from speech_distill_tpu_torch.core.config import (DistillConfig, LoraConfig,
+from speech_distill_tpu_torch.core.config import (TEACHER_QUANTS,
+                                                  DistillConfig, LoraConfig,
                                                   Qwen3Config)
 from speech_distill_tpu_torch.core.device import resolve_device
 from speech_distill_tpu_torch.core.tree import (tree_leaves, tree_map,
@@ -35,27 +40,110 @@ from speech_distill_tpu_torch.core.tree import (tree_leaves, tree_map,
 from speech_distill_tpu_torch.distill import losses
 from speech_distill_tpu_torch.distill.lora import lora_scaling
 from speech_distill_tpu_torch.models import qwen3
+from speech_distill_tpu_torch.models.convert import (model_to_tree,
+                                                     params_from_jax)
 from speech_distill_tpu_torch.ops.fused_lm_loss import (
-    BACKENDS, fused_cross_entropy, fused_sparse_kd_loss, head_sparse_kd_loss)
+    BACKENDS, fused_cross_entropy, fused_extract_top_k, fused_sparse_kd_loss,
+    head_dense_kd_loss, head_sparse_kd_loss)
+from speech_distill_tpu_torch.ops.quant import quantize_params
 
 Params = Dict[str, Any]
 
 
+MODES = ("precomputed", "online_sparse", "online_dense")
+
+
 class Student(NamedTuple):
-    """What the student forward reads besides the frozen base model."""
+    """What the student forward reads besides the base model."""
     embed: Optional[torch.Tensor]
     lm_head: Optional[torch.Tensor]
     adapters: Optional[Params]
     adapter_scale: float
+    weights: Optional[Params]       # full finetuning: every weight
 
 
-def _effective_student(trainable: Params, lcfg: LoraConfig) -> Student:
-    """The trainable copies of the saved modules and the unmerged adapters
-    (the JAX ``_effective_student`` for LoRA). The base weights are the
-    frozen model's own and get no gradient."""
+def _effective_student(trainable: Params, lcfg: LoraConfig,
+                       use_lora: bool) -> Student:
+    """The JAX ``_effective_student``. LoRA: the trainable copies of the
+    saved modules and the unmerged adapters; the base weights are the
+    frozen model's own and get no gradient. Full finetuning: every weight
+    comes from the trainable tree."""
+    if not use_lora:
+        return Student(trainable["embed"]["weight"],
+                       trainable.get("lm_head", {}).get("weight"), None, 1.0,
+                       trainable)
     return Student(trainable.get("embed", {}).get("weight"),
                    trainable.get("lm_head", {}).get("weight"),
-                   trainable.get("layers"), lora_scaling(lcfg))
+                   trainable.get("layers"), lora_scaling(lcfg), None)
+
+
+def _student_forward(base: qwen3.Qwen3, st: Student, mb: dict, merge: bool,
+                     return_hidden: bool, dev):
+    return qwen3.forward_train(
+        base, mb["input_ids"], attention_mask=mb["attention_mask"],
+        embed=st.embed, lm_head=st.lm_head, adapters=st.adapters,
+        adapter_scale=st.adapter_scale, merge_adapters=merge,
+        weights=st.weights, return_hidden=return_hidden, device=dev)
+
+
+_LAYER_GROUPS = {"attn": ("q", "k", "v", "o", "q_norm", "k_norm"),
+                 "mlp": ("gate", "up", "down")}
+
+
+@torch.no_grad()
+def full_trainable(model: qwen3.Qwen3) -> Params:
+    """The trainable tree of full finetuning (``use_lora=False``): every
+    weight of ``model`` in the JAX layout ({"embed": {"weight"},
+    "final_ln": {"scale"}, "layers": stacked [L, ...] leaves, ["lm_head"]}),
+    leaves that require grad. The model's own parameters become views of
+    these leaves, so an in-place update (``donate=True``) trains the model
+    itself."""
+    if any(isinstance(m, qwen3.QuantWeight) for m in model.modules()):
+        raise ValueError("full finetuning of a quantized model")
+    layers = model.layers
+
+    def stack(get, put):
+        leaf = torch.stack([get(layer) for layer in layers])
+        for i, layer in enumerate(layers):
+            put(layer, torch.nn.Parameter(leaf[i], requires_grad=False))
+        return leaf.requires_grad_(True)
+
+    tree_layers = {}
+    for group, names in _LAYER_GROUPS.items():
+        tree_layers[group] = {
+            n: stack(lambda l, g=group, n=n: getattr(getattr(l, g), n),
+                     lambda l, p, g=group, n=n: setattr(getattr(l, g), n, p))
+            for n in names}
+    for ln in ("input_ln", "post_ln"):
+        tree_layers[ln] = {"scale": stack(
+            lambda l, ln=ln: getattr(l, ln),
+            lambda l, p, ln=ln: setattr(l, ln, p))}
+    tree = {"embed": {"weight": model.embed.detach().requires_grad_(True)},
+            "final_ln": {"scale": model.final_ln.detach()
+                         .requires_grad_(True)},
+            "layers": tree_layers}
+    if model.lm_head is not None:
+        tree["lm_head"] = {"weight": model.lm_head.detach()
+                           .requires_grad_(True)}
+    return tree
+
+
+def quantize_teacher(teacher: qwen3.Qwen3, teacher_quant: str
+                     ) -> qwen3.Qwen3:
+    """The teacher with quantized weights, as the JAX benchmark builds it:
+    "int8" quantizes the projections and the embedding to int8, "nf4" (or
+    "int4") the projections to nf4 with the embedding kept. Its forward
+    then dequantizes each weight before its product (K3 takes int4 leaves
+    only). "none" returns the teacher as it is."""
+    if teacher_quant not in TEACHER_QUANTS:
+        raise ValueError(f"unknown teacher_quant {teacher_quant!r}")
+    if teacher_quant == "none":
+        return teacher
+    int8 = teacher_quant == "int8"
+    tree = quantize_params(model_to_tree(teacher), bits=8 if int8 else 4,
+                           quantize_embed=int8,
+                           method="int8" if int8 else "nf4")
+    return params_from_jax(tree, teacher.cfg, teacher.device)
 
 
 class TrainState(NamedTuple):
@@ -180,39 +268,101 @@ def _accumulate(loss_and_grad: Callable, trainable: Params, batch: dict):
     return grads, metrics
 
 
+def _teacher_routes(student_cfg: Qwen3Config, distill_cfg: DistillConfig,
+                    mode: str, teacher_forward: Optional[Callable],
+                    teacher_extract: Optional[Callable]):
+    """(teacher_forward, teacher_extract) of an online mode: the teacher
+    forward defaults to the port's ``qwen3.forward`` (fp32 logits, no
+    grad); with that default and ``online_extract="fused"`` the sparse
+    top-K comes from the teacher's hidden states through
+    ``fused_extract_top_k``, never holding its [B, T, V] logits."""
+    if teacher_forward is not None or mode == "precomputed":
+        return teacher_forward, teacher_extract
+
+    def teacher_forward(teacher, ids, mask):
+        return qwen3.forward(teacher, ids, attention_mask=mask)
+
+    if teacher_extract is None and distill_cfg.online_extract == "fused":
+        def teacher_extract(teacher, ids, mask):
+            hidden = qwen3.forward(teacher, ids, attention_mask=mask,
+                                   return_hidden=True)
+            return fused_extract_top_k(hidden, qwen3.lm_head_weight(teacher),
+                                       distill_cfg.top_k,
+                                       student_cfg.vocab_size)
+    return teacher_forward, teacher_extract
+
+
+def _online_teacher(mode: str, student_cfg: Qwen3Config,
+                    distill_cfg: DistillConfig, teacher_forward,
+                    teacher_extract, teacher, mb: dict):
+    """The teacher's side of an online microbatch, without gradients:
+    (top-K values, indices) for "online_sparse", the logits truncated to
+    the student vocab for "online_dense". Reads ``teacher_input_ids`` and
+    ``teacher_attention_mask`` when the batch has them."""
+    ids = mb.get("teacher_input_ids", mb["input_ids"])
+    mask = mb.get("teacher_attention_mask", mb["attention_mask"])
+    with torch.no_grad():
+        if mode == "online_sparse":
+            if teacher_extract is not None:
+                return teacher_extract(teacher, ids, mask)
+            return losses.extract_top_k(
+                teacher_forward(teacher, ids, mask), distill_cfg.top_k,
+                student_vocab_size=student_cfg.vocab_size,
+                method=distill_cfg.online_topk_method,
+                recall=distill_cfg.online_topk_recall)
+        logits = teacher_forward(teacher, ids, mask)
+        return logits[..., :student_cfg.vocab_size]
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r} ({MODES})")
+
+
 def make_kd_step(student_cfg: Qwen3Config, distill_cfg: DistillConfig,
                  optimizer: Optimizer, *, mode: str,
+                 teacher_forward: Optional[Callable] = None,
+                 teacher_extract: Optional[Callable] = None,
                  use_lora: bool = True, merge_weights: bool = False,
                  donate: bool = True, fused_loss: bool = False,
                  fused_backend: str = "xla", loss_chunk_size: int = 16384,
                  head_loss: str = "fused", split_apply: bool = False,
                  pp_schedule: str = "gpipe", device="cuda"):
-    """Build the KD step ``step(state, base, teacher_params, batch) ->
-    (state, metrics)``.
+    """Build the KD step ``step(state, base, teacher, batch) -> (state,
+    metrics)``.
 
-    ``base`` is the frozen :class:`~speech_distill_tpu_torch.models.qwen3.
-    Qwen3` (after ``init_lora``); ``teacher_params`` is unused in
-    precomputed mode. ``batch`` maps names to [A, B, T(, K)] arrays or
-    tensors: input_ids, attention_mask, labels, teacher_top_k_v,
-    teacher_top_k_i and optionally speech_token_mask; they are moved to
-    ``device`` (CUDA by default; raises without it). ``fused_loss`` takes
-    the loss from row statistics (``fused_sparse_kd_loss`` with
-    ``fused_backend`` "xla", chunks of ``loss_chunk_size``, or "pallas",
-    the K2 op) and never materialises the logits; otherwise ``head_loss``:
-    'fused' (``head_sparse_kd_loss``, the analytic one-pass backward) or
-    'unfused' (autograd through ``unembed_train`` and
-    ``sparse_distill_loss``). ``merge_weights`` folds the adapters into
-    the weights inside the forward and lets autograd differentiate the
-    merged product. Metrics (0-dim tensors on the device): loss,
-    student_loss, distill_loss, teacher_loss and grad_norm (global norm of
-    the grads before clipping).
+    ``mode``: "precomputed" (the batch carries teacher_top_k_v / _i),
+    "online_sparse" (the teacher runs in the step; its top-K is extracted
+    on the device, ``distill_cfg.top_k`` wide) or "online_dense" (its full
+    softmax; the quantized-teacher mode). ``base`` is the student
+    :class:`~speech_distill_tpu_torch.models.qwen3.Qwen3` (frozen after
+    ``init_lora``; with ``use_lora=False`` the model whose weights
+    ``state.trainable = full_trainable(base)`` holds). ``teacher`` is the
+    teacher model (unused when precomputed), run through
+    ``teacher_forward(teacher, ids, mask) -> logits`` (default: the port's
+    ``qwen3.forward``; the model carries its config, so the JAX
+    ``teacher_cfg`` has no counterpart) or, for online_sparse,
+    ``teacher_extract(teacher, ids, mask) -> (v, i)``.
+    ``batch`` maps names to [A, B, T(, K)] arrays or tensors: input_ids,
+    attention_mask, labels, optionally speech_token_mask,
+    teacher_input_ids and teacher_attention_mask, and teacher_top_k_v /
+    _i when precomputed; they are moved to ``device`` (CUDA by default;
+    raises without it).
+
+    ``fused_loss`` (precomputed only, as in JAX) takes the loss from row
+    statistics (``fused_sparse_kd_loss`` with ``fused_backend`` "xla",
+    chunks of ``loss_chunk_size``, or "pallas", the K2 op) and never
+    materialises the logits; otherwise ``head_loss``: 'fused' (the
+    analytic one-pass backward of ``head_sparse_kd_loss`` /
+    ``head_dense_kd_loss``) or 'unfused' (autograd through
+    ``unembed_train`` and ``sparse_distill_loss`` / ``dense_distill_loss``).
+    ``merge_weights`` folds the adapters into the weights inside the
+    forward and lets autograd differentiate the merged product. Metrics
+    (0-dim tensors on the device): loss, student_loss, distill_loss,
+    teacher_loss and grad_norm (global norm of the grads before clipping).
     """
     dev = resolve_device(device)
-    if mode != "precomputed":
-        raise NotImplementedError(f"mode={mode!r}: only 'precomputed' is "
-                                  "ported")
-    if not use_lora:
-        raise NotImplementedError("full finetuning is not ported")
+    _check_mode(mode)
     if fused_backend not in BACKENDS:
         raise ValueError(f"unknown fused_backend {fused_backend!r}")
     if split_apply:
@@ -225,28 +375,44 @@ def make_kd_step(student_cfg: Qwen3Config, distill_cfg: DistillConfig,
         raise ValueError(f"unknown head_loss {head_loss!r}")
     lcfg = distill_cfg.lora
     T, alpha = distill_cfg.temperature, distill_cfg.alpha
+    fused_loss = fused_loss and mode == "precomputed"
     fused_head = fused_loss or head_loss == "fused"
+    teacher_forward, teacher_extract = _teacher_routes(
+        student_cfg, distill_cfg, mode, teacher_forward, teacher_extract)
 
-    def loss_and_grad(trainable: Params, mb: dict, base: qwen3.Qwen3):
-        st = _effective_student(trainable, lcfg)
-        acts = qwen3.forward_train(
-            base, mb["input_ids"], attention_mask=mb["attention_mask"],
-            embed=st.embed, lm_head=st.lm_head, adapters=st.adapters,
-            adapter_scale=st.adapter_scale, merge_adapters=merge_weights,
-            return_hidden=fused_head, device=dev)
-        args = (mb["labels"], mb["teacher_top_k_v"], mb["teacher_top_k_i"],
-                mb.get("speech_token_mask"), T, alpha)
+    def loss_and_grad(trainable: Params, mb: dict, base: qwen3.Qwen3,
+                      teacher):
+        # the teacher first: its logits are freed (sparse) before the
+        # student's are made
+        if mode != "precomputed":
+            t_out = _online_teacher(mode, student_cfg, distill_cfg,
+                                    teacher_forward, teacher_extract,
+                                    teacher, mb)
+        st = _effective_student(trainable, lcfg, use_lora)
+        acts = _student_forward(base, st, mb, merge_weights, fused_head, dev)
         head = qwen3.lm_head_weight(base, st.embed, st.lm_head)
-        if fused_loss:
-            out = fused_sparse_kd_loss(acts, head, *args,
-                                       chunk_size=loss_chunk_size,
-                                       backend=fused_backend)
-        elif fused_head:
-            out = head_sparse_kd_loss(acts, head, *args)
+        labels, smask = mb["labels"], mb.get("speech_token_mask")
+        if mode == "online_dense":
+            if fused_head:
+                out = head_dense_kd_loss(acts, head, t_out, labels, smask,
+                                         T, alpha)
+            else:
+                out = losses.dense_distill_loss(acts, t_out, labels, smask,
+                                                T, alpha)
+            del t_out
         else:
-            labels, v, i, smask = args[:4]
-            out = losses.sparse_distill_loss(acts, v, i, labels, smask,
-                                             T, alpha)
+            v, i = (t_out if mode == "online_sparse" else
+                    (mb["teacher_top_k_v"], mb["teacher_top_k_i"]))
+            args = (labels, v, i, smask, T, alpha)
+            if fused_loss:
+                out = fused_sparse_kd_loss(acts, head, *args,
+                                           chunk_size=loss_chunk_size,
+                                           backend=fused_backend)
+            elif fused_head:
+                out = head_sparse_kd_loss(acts, head, *args)
+            else:
+                out = losses.sparse_distill_loss(acts, v, i, labels, smask,
+                                                 T, alpha)
         leaves = tree_leaves(trainable)
         grads = torch.autograd.grad(out.total, leaves)
         metrics = {"loss": out.total, "student_loss": out.task,
@@ -254,13 +420,11 @@ def make_kd_step(student_cfg: Qwen3Config, distill_cfg: DistillConfig,
         return (tree_unflatten(trainable, list(grads)),
                 {k: m.detach() for k, m in metrics.items()})
 
-    def step(state: TrainState, base: qwen3.Qwen3, teacher_params,
-             batch: dict):
-        del teacher_params          # precomputed: top-K rides the batch
+    def step(state: TrainState, base: qwen3.Qwen3, teacher, batch: dict):
         batch = _batch_to(batch, dev)
         grads, metrics = _accumulate(
-            lambda tr, mb: loss_and_grad(tr, mb, base), state.trainable,
-            batch)
+            lambda tr, mb: loss_and_grad(tr, mb, base, teacher),
+            state.trainable, batch)
         metrics["grad_norm"] = global_norm(grads)
         updates, opt_state = optimizer.update(grads, state.opt_state,
                                               state.trainable)
@@ -268,6 +432,53 @@ def make_kd_step(student_cfg: Qwen3Config, distill_cfg: DistillConfig,
         return TrainState(trainable, opt_state, state.step + 1), metrics
 
     return step
+
+
+def make_kd_eval_step(student_cfg: Qwen3Config, distill_cfg: DistillConfig,
+                      *, mode: str,
+                      teacher_forward: Optional[Callable] = None,
+                      use_lora: bool = True, merge_weights: bool = False,
+                      device="cuda"):
+    """Loss-only evaluation ``eval_step(trainable, base, teacher, batch) ->
+    metrics``: the train step's losses through the plain head (the fp32
+    [B, T, V] student logits, then ``sparse_distill_loss`` or
+    ``dense_distill_loss``) under ``torch.no_grad``, each metric averaged
+    over the batch's microbatch axis A. Online modes extract with
+    ``losses.extract_top_k`` from the teacher's logits, as in JAX."""
+    dev = resolve_device(device)
+    _check_mode(mode)
+    lcfg = distill_cfg.lora
+    T, alpha = distill_cfg.temperature, distill_cfg.alpha
+    teacher_forward, _ = _teacher_routes(student_cfg, distill_cfg, mode,
+                                         teacher_forward, None)
+
+    def one(trainable, mb, base, teacher):
+        if mode != "precomputed":
+            t_out = _online_teacher(mode, student_cfg, distill_cfg,
+                                    teacher_forward, None, teacher, mb)
+        st = _effective_student(trainable, lcfg, use_lora)
+        logits = _student_forward(base, st, mb, merge_weights, False, dev)
+        labels, smask = mb["labels"], mb.get("speech_token_mask")
+        if mode == "online_dense":
+            out = losses.dense_distill_loss(logits, t_out, labels, smask, T,
+                                            alpha)
+        else:
+            v, i = (t_out if mode == "online_sparse" else
+                    (mb["teacher_top_k_v"], mb["teacher_top_k_i"]))
+            out = losses.sparse_distill_loss(logits, v, i, labels, smask, T,
+                                             alpha)
+        return {"loss": out.total, "student_loss": out.task,
+                "distill_loss": out.distill, "teacher_loss": out.teacher}
+
+    @torch.no_grad()
+    def eval_step(trainable: Params, base: qwen3.Qwen3, teacher,
+                  batch: dict):
+        batch = _batch_to(batch, dev)
+        ms = [one(trainable, {k: v[a] for k, v in batch.items()}, base,
+                  teacher) for a in range(batch["input_ids"].shape[0])]
+        return {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
+
+    return eval_step
 
 
 # ---------------------------------------------------------------------------

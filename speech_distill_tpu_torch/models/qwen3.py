@@ -167,6 +167,24 @@ def init_params(cfg: Qwen3Config, seed: int = 0, device="cuda") -> Qwen3:
     return params_from_jax(_numpy_init_tree(cfg, seed), cfg, device)
 
 
+@torch.no_grad()
+def init_params_on_device(seed: int, cfg: Qwen3Config, device="cuda"
+                          ) -> Qwen3:
+    """Random init drawn on ``device`` (CUDA by default; raises without it)
+    from a seeded ``torch.Generator`` there: normal(0, 0.02) matrices and
+    ones for the norm scales, in the model's dtype. A full-size teacher's
+    weights never cross the host. The stream is torch's, so the weights
+    differ from the JAX ``init_params_on_device``'s for the same seed."""
+    model = Qwen3(cfg, device)
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    for p in model.parameters():
+        if p.dim() == 1:
+            p.fill_(1.0)
+        else:
+            p.normal_(0.0, 0.02, generator=gen)
+    return model
+
+
 # ---------------------------------------------------------------------------
 # Building blocks
 # ---------------------------------------------------------------------------
@@ -445,12 +463,38 @@ def _layer_adapters(adapters: Optional[dict], L: int
     return out
 
 
+class _LayerView:
+    """One layer's weights read from stacked [L, ...] leaves, with the
+    attribute names of :class:`DecoderLayer` (what :func:`layer_forward`
+    reads)."""
+
+    def __init__(self, **kw):
+        self.__dict__.update(kw)
+
+
+def _layer_views(layers: dict, L: int) -> List[_LayerView]:
+    """Per-layer views of a JAX-layout stacked layer tree ({"attn": {q, k,
+    v, o, q_norm, k_norm}, "mlp": {gate, up, down}, "input_ln": {"scale"},
+    "post_ln": {"scale"}}). One ``unbind`` per leaf, so the backward
+    stacks each leaf's gradient once."""
+    def split(group):
+        return {k: t.unbind(0) for k, t in group.items()}
+    attn, mlp = split(layers["attn"]), split(layers["mlp"])
+    ln_in = layers["input_ln"]["scale"].unbind(0)
+    ln_post = layers["post_ln"]["scale"].unbind(0)
+    return [_LayerView(input_ln=ln_in[i], post_ln=ln_post[i],
+                       attn=_LayerView(**{k: v[i] for k, v in attn.items()}),
+                       mlp=_LayerView(**{k: v[i] for k, v in mlp.items()}))
+            for i in range(L)]
+
+
 def forward_train(model: Qwen3, input_ids, *, attention_mask=None,
                   embed: Optional[torch.Tensor] = None,
                   lm_head: Optional[torch.Tensor] = None,
                   adapters: Optional[dict] = None,
                   adapter_scale: float = 1.0,
                   merge_adapters: bool = False,
+                  weights: Optional[dict] = None,
                   return_hidden: bool = True, device="cuda"):
     """Grad-enabled forward of the training step (the JAX ``forward`` with
     ``cache=None``).
@@ -459,7 +503,10 @@ def forward_train(model: Qwen3, input_ids, *, attention_mask=None,
     copies; a tied head reads ``embed``). ``adapters`` are stacked LoRA
     factors shaped like the JAX ``lora_params["layers"]``, applied with
     ``adapter_scale`` through :func:`lora_linear`, or merged into the
-    weights with ``merge_adapters``. With ``cfg.remat`` each layer is
+    weights with ``merge_adapters``. ``weights`` (full finetuning) is a
+    JAX-layout tree of every weight ({"embed", "final_ln", "layers"
+    stacked [L, ...], ["lm_head"]}) read in place of the model's own; the
+    model then gives only its config. With ``cfg.remat`` each layer is
     checkpointed (``torch.utils.checkpoint``, non-reentrant): its forward
     runs again in the backward. Returns the final-normed hidden states
     [B, T, D], or fp32 logits through :func:`unembed_train`.
@@ -478,18 +525,26 @@ def forward_train(model: Qwen3, input_ids, *, attention_mask=None,
     if attention_mask is not None:
         attention_mask = torch.as_tensor(attention_mask, device=dev)
     B, T = input_ids.shape
+    layers, final_ln = model.layers, model.final_ln
+    if weights is not None:
+        if adapters is not None:
+            raise ValueError("weights (full finetuning) and adapters")
+        embed = weights["embed"]["weight"]
+        lm_head = weights.get("lm_head", {}).get("weight")
+        layers = _layer_views(weights["layers"], cfg.num_hidden_layers)
+        final_ln = weights["final_ln"]["scale"]
     table = model.embed if embed is None else embed
     x = F.embedding(input_ids, table)
     positions = torch.arange(T, device=dev)[None].expand(B, T)
     cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     mask_bias = causal_bias(attention_mask, B, T, dev)
     per_layer = _layer_adapters(adapters, cfg.num_hidden_layers)
-    for layer, la in zip(model.layers, per_layer):
+    for layer, la in zip(layers, per_layer):
         args = (layer, x, cos, sin, mask_bias, cfg, la, adapter_scale,
                 merge_adapters)
         x = (checkpoint(layer_forward, *args, use_reentrant=False)
              if cfg.remat else layer_forward(*args))
-    x = rms_norm(x, model.final_ln, cfg.rms_norm_eps)
+    x = rms_norm(x, final_ln, cfg.rms_norm_eps)
     if return_hidden:
         return x
     return unembed_train(x, lm_head_weight(model, embed, lm_head), cfg)

@@ -14,6 +14,17 @@
   top-K indices and then -c_task onto the label, followed by the two head
   products with fp32 accumulation (``torch.matmul``, cuBLAS on the card;
   not a TPU kernel).
+* :func:`head_dense_kd_loss`: the same for the dense (full-vocab) KD loss
+  against the teacher's logits, the backward's d_logits
+
+    d distill/ds_j = inv_n * valid * T * (softmax(s/T)_j - softmax(t/T)_j)
+
+  built in bf16 from bf16 student and teacher logits residuals, one batch
+  row at a time, so no fp32 [N, V] temporary outlives its row.
+* :func:`fused_topk_lse` and :func:`fused_extract_top_k`: the teacher's
+  exact top-K and logsumexp over vocab chunks of the head product, never
+  holding [N, V] (the chunk products are ``torch.matmul``, as JAX leaves
+  them to XLA).
 * :func:`fused_sparse_kd_loss` and :func:`fused_cross_entropy`: the same
   losses from row statistics, never materialising the [N, V] logits.
   ``backend="xla"`` (the JAX name) is the chunked plain route: an online
@@ -34,7 +45,8 @@ import torch
 from speech_distill_tpu_torch.distill.losses import (DistillLossOutput,
                                                      IGNORE_INDEX,
                                                      _masked_mean,
-                                                     _shift_and_mask)
+                                                     _shift_and_mask,
+                                                     segmented_top_k)
 from speech_distill_tpu_torch.ops.matmul import matmul_f32
 from speech_distill_tpu_torch.ops.pallas_lm_loss import (chunked_stats,
                                                          gathered_logits,
@@ -215,3 +227,141 @@ def head_sparse_kd_loss(hidden: torch.Tensor, lm_w: torch.Tensor,
     out = _HeadKD.apply(h, lm_w, v, idx, shift_labels.reshape(-1).long(),
                         valid.reshape(-1), float(temperature), float(alpha))
     return DistillLossOutput(*out)
+
+
+class _HeadDenseKD(torch.autograd.Function):
+    """(total, task, distill, teacher) of h [B, T-1, D] @ w [V, D]^T
+    against the teacher logits t [B, T, V] (row b's first T-1 positions);
+    labels and valid [B, T-1]. Each batch row's [T-1, V] fp32 logits live
+    only while that row is computed."""
+
+    @staticmethod
+    def forward(ctx, h, w, t, shift_labels, valid, T, alpha):
+        B, Tm1, _ = h.shape
+        V = w.shape[0]
+        sb = torch.empty(B, Tm1, V, dtype=torch.bfloat16, device=h.device)
+        tb = torch.empty_like(sb)
+        rows = {k: torch.empty(B, Tm1, device=h.device)
+                for k in ("lse1_s", "lse_t_s", "lse1_t", "lse_t_t", "kl",
+                          "gold_s", "gold_t")}
+        safe = shift_labels.clamp_min(0)
+        for b in range(B):
+            s = matmul_f32(h[b], w.t())                         # [T-1, V]
+            tt = t[b, :-1].float()
+            lse_t_s = torch.logsumexp(s / T, dim=-1)
+            lse_t_t = torch.logsumexp(tt / T, dim=-1)
+            log_p = tt / T - lse_t_t[:, None]
+            log_q = s / T - lse_t_s[:, None]
+            rows["kl"][b] = (log_p.exp() * (log_p - log_q)).sum(-1)
+            del log_p, log_q
+            rows["lse1_s"][b] = torch.logsumexp(s, dim=-1)
+            rows["lse1_t"][b] = torch.logsumexp(tt, dim=-1)
+            rows["lse_t_s"][b], rows["lse_t_t"][b] = lse_t_s, lse_t_t
+            rows["gold_s"][b] = s.gather(1, safe[b][:, None])[:, 0]
+            rows["gold_t"][b] = tt.gather(1, safe[b][:, None])[:, 0]
+            sb[b], tb[b] = s, tt
+            del s, tt
+        n = valid.sum()
+        inv_n = torch.where(n > 0, 1.0 / n.clamp_min(1.0),
+                            torch.zeros_like(n))
+        task = ((rows["lse1_s"] - rows["gold_s"]) * valid).sum() * inv_n
+        distill = (rows["kl"] * valid).sum() * inv_n * (T * T)
+        teacher = ((rows["lse1_t"] - rows["gold_t"]) * valid).sum() * inv_n
+        total = alpha * task + (1.0 - alpha) * distill
+        ctx.save_for_backward(h, w, sb, tb, rows["lse1_s"], rows["lse_t_s"],
+                              rows["lse_t_t"], safe, valid, inv_n)
+        ctx.T, ctx.alpha = T, alpha
+        return total, task, distill, teacher
+
+    @staticmethod
+    def backward(ctx, g_total, g_task, g_distill, g_teacher):
+        (h, w, sb, tb, lse1_s, lse_t_s, lse_t_t, safe, valid,
+         inv_n) = ctx.saved_tensors
+        T, alpha = ctx.T, ctx.alpha
+        a_task = (g_total * alpha + g_task) * inv_n
+        a_dist = (g_total * (1.0 - alpha) + g_distill) * inv_n * T
+        c_task = (a_task * valid)[..., None]                # [B, T-1, 1]
+        c_dist = (a_dist * valid)[..., None]
+        d = torch.empty_like(sb)
+        for b in range(d.shape[0]):
+            s32, t32 = sb[b].float(), tb[b].float()
+            d[b] = (c_task[b] * torch.exp(s32 - lse1_s[b][:, None])
+                    + c_dist[b] * (torch.exp(s32 / T - lse_t_s[b][:, None])
+                                   - torch.exp(t32 / T
+                                               - lse_t_t[b][:, None])))
+            del s32, t32
+        d.scatter_add_(2, safe[..., None], (-c_task).to(torch.bfloat16))
+        bf = torch.bfloat16
+        D, V = h.shape[-1], w.shape[0]
+        dh = matmul_f32(d, w.to(bf)).to(h.dtype)
+        dw = matmul_f32(d.reshape(-1, V).t(),
+                        h.reshape(-1, D).to(bf)).to(w.dtype)
+        return dh, dw, None, None, None, None, None
+
+
+def head_dense_kd_loss(hidden: torch.Tensor, lm_w: torch.Tensor,
+                       teacher_logits: torch.Tensor, labels: torch.Tensor,
+                       speech_token_mask: Optional[torch.Tensor] = None,
+                       temperature: float = 2.0,
+                       alpha: float = 0.5) -> DistillLossOutput:
+    """The dense KD head loss as one op (the quantized-teacher or
+    top_k <= 0 mode): hidden [B, T, D] (before the shift), lm_w [V, D],
+    teacher_logits [B, T, V] already truncated to the student vocab (no
+    gradient). Forward values equal ``dense_distill_loss(unembed(hidden),
+    teacher_logits, ...)``; the backward is the analytic one-pass form with
+    bf16 d_logits, student and teacher logits kept in bf16."""
+    shift_labels, valid = _shift_and_mask(labels, speech_token_mask)
+    out = _HeadDenseKD.apply(hidden[:, :-1, :], lm_w, teacher_logits.detach(),
+                             shift_labels.long(), valid, float(temperature),
+                             float(alpha))
+    return DistillLossOutput(*out)
+
+
+def fused_topk_lse(h: torch.Tensor, lm_w: torch.Tensor, k: int,
+                   vocab_limit: Optional[int] = None,
+                   chunk_size: int = 16384,
+                   bias: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The raw top-k logits and the logsumexp of ``h @ lm_w.T (+ bias)``
+    over vocab chunks of ``chunk_size`` (the JAX ``fused_topk_lse``): one
+    fp32 [N, chunk] product at a time, merged into a running top-k and an
+    online logsumexp. h [N, D], lm_w [V, D], bias [V]. Returns (values
+    fp32 [N, k], indices int32 [N, k], lse fp32 [N]); the set is exact.
+    The last chunk is short where JAX pads it with masked columns."""
+    N = h.shape[0]
+    w = lm_w[:vocab_limit] if vocab_limit is not None else lm_w
+    V = w.shape[0]
+    kw = dict(dtype=torch.float32, device=h.device)
+    m = torch.full((N,), -1e30, **kw)
+    s = torch.zeros(N, **kw)
+    tv = torch.full((N, k), -1e30, **kw)
+    ti = torch.zeros(N, k, dtype=torch.int64, device=h.device)
+    for off in range(0, V, chunk_size):
+        logits = matmul_f32(h, w[off:off + chunk_size].t())
+        if bias is not None:
+            logits = logits + bias[off:off + logits.shape[1]].float()
+        new_m = torch.maximum(m, logits.amax(dim=1))
+        s = s * torch.exp(m - new_m) + torch.exp(
+            logits - new_m[:, None]).sum(1)
+        m = new_m
+        cv, ci = segmented_top_k(logits, min(k, logits.shape[1]))
+        tv, sel = torch.topk(torch.cat([tv, cv], 1), k, dim=1)
+        ti = torch.cat([ti, ci + off], 1).gather(1, sel)
+    return tv, ti.to(torch.int32), m + torch.log(s.clamp_min(1e-30))
+
+
+def fused_extract_top_k(hidden: torch.Tensor, lm_w: torch.Tensor, k: int,
+                        vocab_limit: Optional[int] = None,
+                        chunk_size: int = 16384
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Teacher top-k logprob extraction fused with the head product, never
+    holding the [B, T, V] fp32 teacher logits: hidden [B, T, D] (the
+    teacher's final hidden states), lm_w [V, D]. Returns (fp16 logprobs,
+    int32 indices) [B, T, k], the set of ``extract_top_k(unembed(hidden),
+    k, method="exact")``. No gradient flows (the teacher is frozen)."""
+    B, S, D = hidden.shape
+    with torch.no_grad():
+        tv, ti, lse = fused_topk_lse(hidden.reshape(-1, D), lm_w, k,
+                                     vocab_limit, chunk_size)
+    v = (tv - lse[:, None]).to(torch.float16).reshape(B, S, k)
+    return v, ti.reshape(B, S, k)

@@ -1,0 +1,99 @@
+"""Teacher top-K logprob extraction, a batched inference pass (port of the
+library parts of ``speech_distill_tpu/pipelines/extract_logits.py``).
+
+Order-preserving, no-grad teacher forward, top-K of the log-softmax,
+each example truncated to its true length, fp16 values and int32
+indices: the on-disk format the precomputed KD mode reads. Sequences are
+right-padded to ``pad_to_multiple_of``, so every batch of a bucket has
+one shape. The CLI ``main`` reads ``datasets`` and ``transformers`` and is
+not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from speech_distill_tpu_torch.core.device import resolve_device
+from speech_distill_tpu_torch.data.collator import pad_sequences
+from speech_distill_tpu_torch.distill.losses import extract_top_k
+from speech_distill_tpu_torch.ops.fused_lm_loss import fused_extract_top_k
+
+
+def make_extract_fn(teacher_forward: Callable, top_k: int,
+                    vocab_limit: Optional[int] = None,
+                    method: str = "exact",
+                    hidden_forward: Optional[Callable] = None,
+                    head_weight_fn: Optional[Callable] = None):
+    """``fn(teacher, ids, mask) -> (fp16 values, int32 indices)`` [B, T, K],
+    without gradients: ``extract_top_k`` of ``teacher_forward``'s logits,
+    or, given ``hidden_forward(teacher, ids, mask)`` and
+    ``head_weight_fn(teacher)``, ``fused_extract_top_k`` of the hidden
+    states (the [B, T, V] fp32 logits never held; the same set as
+    method "exact")."""
+    if hidden_forward is not None and head_weight_fn is not None:
+        @torch.no_grad()
+        def fused_fn(teacher, ids, mask):
+            return fused_extract_top_k(hidden_forward(teacher, ids, mask),
+                                       head_weight_fn(teacher), top_k,
+                                       vocab_limit)
+        return fused_fn
+
+    @torch.no_grad()
+    def fn(teacher, ids, mask):
+        return extract_top_k(teacher_forward(teacher, ids, mask), top_k,
+                             vocab_limit, method=method)
+    return fn
+
+
+def extract_teacher_logprobs(
+        teacher, teacher_forward: Callable, sequences: Sequence[Dict],
+        top_k: int = 100, batch_size: int = 4, pad_token_id: int = 0,
+        pad_to_multiple_of: int = 128, vocab_limit: Optional[int] = None,
+        progress: bool = True, mesh=None, method: str = "exact",
+        hidden_forward: Optional[Callable] = None,
+        head_weight_fn: Optional[Callable] = None, device="cuda",
+) -> Tuple[List[np.ndarray], List[np.ndarray]]:
+    """Order-preserving extraction over feature dicts, each with
+    ``teacher_input_ids`` (or ``input_ids``) and optionally a matching
+    attention mask, on ``device`` (CUDA by default; raises without it).
+    A final short batch is repeat-padded with its last row to
+    ``batch_size``. Returns per-example (fp16 values [t, K], int32 indices
+    [t, K]) truncated to the true length t. ``mesh`` (data-parallel
+    extraction) is not ported and raises."""
+    if mesh is not None:
+        raise NotImplementedError("mesh= (parallel extraction) is not "
+                                  "ported")
+    dev = resolve_device(device)
+    fn = make_extract_fn(teacher_forward, top_k, vocab_limit, method,
+                         hidden_forward, head_weight_fn)
+    starts = range(0, len(sequences), batch_size)
+    if progress:
+        try:
+            from tqdm import tqdm
+            starts = tqdm(list(starts), desc=f"extract top-{top_k}")
+        except ImportError:
+            pass
+    all_v: List[np.ndarray] = []
+    all_i: List[np.ndarray] = []
+    for start in starts:
+        feats = sequences[start:start + batch_size]
+        ids_l = [f.get("teacher_input_ids", f.get("input_ids"))
+                 for f in feats]
+        mask_l = [f.get("teacher_attention_mask",
+                        f.get("attention_mask", [1] * len(i)))
+                  for f, i in zip(feats, ids_l)]
+        ids, mask = pad_sequences(ids_l, mask_l, pad_token_id,
+                                  pad_to_multiple_of)
+        if len(feats) < batch_size:      # the last short batch: repeat-pad
+            reps = batch_size - len(feats)
+            ids = np.concatenate([ids, np.repeat(ids[-1:], reps, 0)])
+            mask = np.concatenate([mask, np.repeat(mask[-1:], reps, 0)])
+        v, i = fn(teacher, torch.from_numpy(ids).to(dev),
+                  torch.from_numpy(mask).to(dev))
+        v, i = v.cpu().numpy(), i.cpu().numpy()
+        for b, n in enumerate(mask.sum(axis=1)[:len(feats)]):
+            all_v.append(v[b, :int(n)].astype(np.float16))
+            all_i.append(i[b, :int(n)].astype(np.int32))
+    return all_v, all_i

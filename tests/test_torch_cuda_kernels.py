@@ -234,6 +234,97 @@ def test_continuous_admission_prefills_through_flash(dev):
     assert torch.equal(got.valid, ref.valid) and int(got.length[1]) == 700
 
 
+# an online KD step through the flash kernels against the plain route,
+# both in bf16, held to the plain route in fp32: the kernel route's grads
+# (the first Adam moments of the adapters and the embed) no further from
+# fp32 than ONLINE_ERR_RATIO x the plain route's (bf16 attention outputs
+# rounded at other points; the kernel's bf16 P), and its metrics within
+# bf16 rounding of a mean over ~800 positions
+ONLINE_ERR_RATIO, ONLINE_LOSS_RTOL = 2.0, 1e-2
+ROUTES = {"kernel": ("bfloat16", "auto"), "plain": ("bfloat16", "xla"),
+          "fp32": ("float32", "xla")}
+
+
+def online_step_routes(dev, mode, routes=ROUTES):
+    """One ``make_kd_step`` of ``mode`` at reduced depth (student 2 layers,
+    teacher 3, Dh 128, B 2, T 512; the second row right-padded after 300
+    tokens) through each (dtype, attention route) of ``routes`` from the
+    same weights and LoRA (gaussian A, B drawn nonzero), at a rate of 0.
+    Returns {route: (metrics, first Adam moments, flash launches)}."""
+    import dataclasses
+    from speech_distill_tpu_torch.core.config import (DistillConfig,
+                                                      LoraConfig, qwen3_tiny)
+    from speech_distill_tpu_torch.core.tree import tree_leaves
+    from speech_distill_tpu_torch.distill import train_step
+    from speech_distill_tpu_torch.distill.lora import init_lora
+    from speech_distill_tpu_torch.models import qwen3
+    V = 1024
+    heads = dict(head_dim=128, num_attention_heads=4, num_key_value_heads=2)
+    cfg = qwen3_tiny(V, hidden_size=256, **heads)
+    tcfg = qwen3_tiny(V + 128, hidden_size=384, intermediate_size=768,
+                      num_hidden_layers=3, **heads)
+    rng = np.random.default_rng(0)
+    B, T = 2, 512
+    ids = rng.integers(0, V, (1, B, T)).astype(np.int32)
+    mask = np.ones((1, B, T), np.int32)
+    mask[0, 1, 300:] = 0
+    labels = ids.astype(np.int64)
+    labels[mask == 0] = -100
+    batch = {"input_ids": ids, "attention_mask": mask, "labels": labels}
+    dcfg = DistillConfig(top_k=16, lora=LoraConfig(
+        r=8, alpha=16, init_weights="gaussian"))
+    out = {}
+    for name, (dtype, impl) in routes.items():
+        c = dataclasses.replace(cfg, attn_impl=impl, dtype=dtype)
+        student = qwen3.init_params(c, seed=0, device=dev)
+        teacher = qwen3.init_params(
+            dataclasses.replace(tcfg, attn_impl=impl, dtype=dtype), seed=1,
+            device=dev)
+        lora, student = init_lora(student, c, dcfg.lora,
+                                  generator=torch.Generator().manual_seed(2),
+                                  device=dev)
+        gen = torch.Generator().manual_seed(3)
+        with torch.no_grad():
+            for mods in lora["layers"].values():
+                for ab in mods.values():
+                    ab["b"].copy_(torch.randn(ab["b"].shape,
+                                              generator=gen) * 0.05)
+        opt = train_step.make_optimizer(0.0, 1, 10)
+        step = train_step.make_kd_step(c, dcfg, opt, mode=mode, device=dev)
+        before = dict(_cuda.launches)
+        state, m = step(train_step.init_state(lora, opt), student, teacher,
+                        batch)
+        torch.cuda.synchronize()
+        out[name] = ({k: float(v) for k, v in m.items()},
+                     [x.float() for x in tree_leaves(state.opt_state["mu"])],
+                     {n: _cuda.launches[n] - before[n]
+                      for n in ("flash_fwd", "flash_dq", "flash_dkv")})
+    return out
+
+
+@pytest.mark.parametrize("mode", ["online_sparse", "online_dense"])
+def test_online_kd_step_kernel_route_matches_plain(dev, mode):
+    """The teacher's forward and the student's forward, recompute and
+    backward take the flash kernels (7 forwards, 2 of each backward); the
+    kernels ignore the mask, which is exact for right padding: a padded
+    row's queries carry no loss. Against the fp32 plain route, which
+    applies the mask, the kernel route is as accurate as the bf16 plain
+    route."""
+    out = online_step_routes(dev, mode)
+    assert out["kernel"][2] == {"flash_fwd": 3 + 2 * 2, "flash_dq": 2,
+                                "flash_dkv": 2}
+    assert out["plain"][2] == {"flash_fwd": 0, "flash_dq": 0,
+                               "flash_dkv": 0}
+    ref_m, ref_mu, _ = out["fp32"]
+    for k in ("loss", "student_loss", "distill_loss", "grad_norm"):
+        assert abs(out["kernel"][0][k] - ref_m[k]) \
+            <= ONLINE_LOSS_RTOL * abs(ref_m[k]), k
+    for i, (a, b, r) in enumerate(zip(out["kernel"][1], out["plain"][1],
+                                      ref_mu)):
+        assert bool(torch.isfinite(a).all())
+        assert _rel_err(a, r) <= ONLINE_ERR_RATIO * _rel_err(b, r), i
+
+
 def _flash_bwd_inputs(dev, B, T, H, KV, Dh, seed):
     """q, k, v, dO in bf16 and the forward kernel's o and lse."""
     rng = np.random.default_rng(seed)
