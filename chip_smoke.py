@@ -100,7 +100,25 @@
 13. K1 (fwd, dq, dkv) at the stage-1 microbatch's shape: against the plain
    versions at B 1, T 4096, timed at B 4 beside SDPA.
 14. Prints the kernels JSON line (K1-fwd once for each of the serve, KD
-   and stage-1 shapes), then the result line.
+   and stage-1 shapes; each entry with its launches in every CLI of
+   phase 15, ``cli_launches``), then the result line, after phase 15.
+15. The distillation CLIs end to end, each through its ``main`` in this
+   process at the full width (random weights): a student HF directory at
+   Qwen3-0.6B's vocab of 151,936 and a teacher tokenizer of 159,488 ids
+   (the speech tokens at the config's offset), a raw dataset of 100 rows
+   with codes; prepare-student (matched rows equal, vocab 159,488),
+   stage1 (B 4, T 4096, A 1, 2 steps and an eval; exact K2 and K1 counts,
+   only the embedding changed, new rows moved), prepare-dataset,
+   extract-logits with the stage-1 model as teacher (K 128, B 8, padded
+   to 512; K1-fwd 28 a batch, every row's length, values finite and
+   <= 0), train precomputed with PiSSA (4 steps; exact K1 counts, finite
+   losses, final_model == merge_and_export of the trained state in bf16),
+   evaluate with the full-size audio smoke (exact K1 count, finite
+   metrics, the wav's exact sample count), train online sparse (2 steps;
+   K1 in teacher and student), and ``python -m speech_distill_tpu_torch``
+   (help lists seven commands, an unknown one exits 1). Logs each CLI's
+   seconds, the HF export and load GB/s and the CLI rates beside phases
+   6, 9b and 10's.
 
 Exits non-zero, printing no result, when CUDA is missing or any phase
 fails. Only one card is needed. Imports nothing of JAX.
@@ -165,7 +183,16 @@ from speech_distill_tpu_torch.ops.quant import (dequantize_array,
 from speech_distill_tpu_torch.ops.quant_matmul import (int4_matmul,
                                                        int4_matmul_plain,
                                                        int4_route)
+from speech_distill_tpu_torch.core import trainer as trainer_lib
+from speech_distill_tpu_torch.core.checkpoint import export_hf
+from speech_distill_tpu_torch.distill.lora import merge_and_export
+from speech_distill_tpu_torch.models.hf_loader import load_pretrained
+from speech_distill_tpu_torch.pipelines import evaluate as evaluate_cli
+from speech_distill_tpu_torch.pipelines import extract_logits as extract_cli
+from speech_distill_tpu_torch.pipelines import prepare_dataset as prepare_cli
+from speech_distill_tpu_torch.pipelines import prepare_student as student_cli
 from speech_distill_tpu_torch.pipelines import stage1 as stage1_data
+from speech_distill_tpu_torch.pipelines import train as train_cli
 from speech_distill_tpu_torch.pipelines.extract_logits import (
     extract_teacher_logprobs)
 
@@ -225,6 +252,8 @@ LSE_REL_TOL, HEAD_GRAD_REL_TOL = 1e-3, 2e-2
 INT4_REL_TOL, INT4_BF16_REL_TOL = 1e-3, 2.0 ** -7
 # the seven projections of a layer, each one K3 launch a model forward
 QUANT_PROJ = 7
+# earlier phases' library rates, printed beside phase 15's CLI rates
+RATES: dict = {}
 
 
 def log(msg: str) -> None:
@@ -1852,6 +1881,7 @@ def train(cfg, model, dev):
     step_s = float(np.median(times[2:]))
     tok_s = tokens / step_s
     mfu = tok_s * 3 * qwen3.flops_per_token(cfg, TRAIN_T) / BF16_FLOP_PER_S
+    RATES["train_tokens_per_s"] = tok_s
     real = sum(len(f["input_ids"]) for f in feats[:n * TRAIN_B])
     log("train " + json.dumps({
         "steps": n, "batch_shape": shapes[0], "tokens_per_step": tokens,
@@ -2463,6 +2493,7 @@ def check_extraction(cfg, tcfg, teacher, batch, dev) -> dict:
         out[name].update(compare_topk(f"extraction {name}", res[name], ref,
                                       gap_ok, tol))
     out["excluded_share"] = 1.0 - float(gap_ok.float().mean())
+    RATES["extract_tokens_per_s"] = out["materialized"]["tokens_per_s"]
     out["alone"] = check_extraction_alone(cfg, teacher, dev)
     log("extraction " + json.dumps(out) + f" (B {TRAIN_B} T {TRAIN_T} K "
         f"{K}; sets held where the K-th and (K+1)-th logits differ by > "
@@ -2802,6 +2833,7 @@ def stage1(cfg, dev):
     step_s = float(np.median(times[1:]))
     tok_s = tokens / step_s
     mfu = tok_s * 3 * qwen3.flops_per_token(cfg, S1_T) / BF16_FLOP_PER_S
+    RATES["stage1_step_ms"], RATES["stage1_tokens_per_s"] = step_s * 1e3, tok_s
     log("stage1 " + json.dumps({
         "steps": n, "B": S1_B, "T": S1_T, "A": S1_A,
         "tokens_per_step": tokens, "step_ms": [t * 1e3 for t in times],
@@ -3046,6 +3078,420 @@ def check_stage1_grad_path(cfg, model, rows, dev) -> None:
              f"accurate: {err}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the distillation CLIs end to end
+# ---------------------------------------------------------------------------
+
+CLI_STUDENT_VOCAB = 151_936      # Qwen3-0.6B's own vocabulary
+CLI_SPECIALS = ("<|text_start|>", "<|text_end|>", "<|semantic_token_start|>",
+                "<|semantic_token_end|>", "<|task_podcast|>", "<|SPEAKER_0|>",
+                "<|Yue|>")
+CLI_SPEECH = 6561                # speech tokens <|0|> .. <|6560|>
+# raw examples (text of 20-60 characters, 300-440 codes: <= 512 tokens
+# each), stage 1's eval examples, the train CLI's and evaluate's held-out
+# rows
+CLI_ROWS, CLI_S1_EVAL, CLI_TRAIN_TEST, CLI_EVAL_TEST = 100, 12, 8, 10
+CLI_B, CLI_T, CLI_K = 8, 512, 128          # train / extract batch, pad, K
+CLI_TEXT_PREFIX = '{"en": "", "zh": "", "yue": "<|Yue|>"}'   # the default
+
+
+def cli_tokenizer(out_dir: str, n_base: int, speech: bool):
+    """A fast WordLevel tokenizer over characters (a-z, space, "?") padded
+    with filler words to ``n_base`` ids, as tests/test_pipelines.py builds
+    the tiny one; with ``speech``, then the template's special tokens and
+    <|0|> .. <|6560|>, so the speech tokens start at the config's
+    ``speech_token_offset``. Saved under ``out_dir``."""
+    from tokenizers import Tokenizer, models, pre_tokenizers
+    from transformers import PreTrainedTokenizerFast
+    vocab = {chr(c): i for i, c in enumerate(range(ord("a"), ord("z") + 1))}
+    vocab.update({" ": 26, "?": 27})
+    vocab.update({f"<f{i}>": i for i in range(28, n_base)})
+    tok = Tokenizer(models.WordLevel(vocab=vocab, unk_token="?"))
+    tok.pre_tokenizer = pre_tokenizers.Split("", "isolated")
+    fast = PreTrainedTokenizerFast(tokenizer_object=tok, unk_token="?")
+    if speech:
+        fast.add_tokens(list(CLI_SPECIALS))
+        fast.add_tokens([f"<|{i}|>" for i in range(CLI_SPEECH)])
+        fast.pad_token = fast.eos_token = "<|semantic_token_end|>"
+    fast.save_pretrained(out_dir)
+    return fast
+
+
+def cli_rows(rng) -> dict:
+    """The raw dataset: seeded text, language and a ``codes`` column (the
+    S3 tokenizer is not ported, so no audio)."""
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz "))
+    return {
+        "text": ["".join(rng.choice(letters, int(rng.integers(20, 61))))
+                 for _ in range(CLI_ROWS)],
+        "codes": [rng.integers(0, CLI_SPEECH,
+                               int(rng.integers(300, 441))).tolist()
+                  for _ in range(CLI_ROWS)],
+        "lang": ["en", "zh", "yue", "en"] * (CLI_ROWS // 4)}
+
+
+class LoopSpy:
+    """While a CLI runs, ``core.trainer.train_loop`` records each step's
+    seconds, metrics and launches, and the loop's frozen arguments and
+    final state (the CLIs import it when called)."""
+
+    def __enter__(self):
+        self.real = trainer_lib.train_loop
+        self.steps, self.frozen, self.state = [], None, None
+
+        def loop(step_fn, state, frozen, *args, **kw):
+            def step(st, *a):
+                before = dict(_cuda.launches)
+                t = time.perf_counter()
+                st, m = step_fn(st, *a)
+                torch.cuda.synchronize()
+                rec = {k: float(v) for k, v in m.items()}
+                rec["s"] = time.perf_counter() - t
+                rec["launches"] = {k: _cuda.launches[k] - before[k]
+                                   for k in before}
+                self.steps.append(rec)
+                return st, m
+            self.frozen = frozen
+            self.state = self.real(step, state, frozen, *args, **kw)
+            return self.state
+        trainer_lib.train_loop = loop
+        return self
+
+    def __exit__(self, *exc):
+        trainer_lib.train_loop = self.real
+
+
+def run_cli(name: str, fn, argv: list, record: dict):
+    """One CLI ``main(argv)`` in this process, launches counted from 0."""
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t = time.perf_counter()
+    out = fn(argv)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t
+    counts = {k: v for k, v in _cuda.launches.items() if v}
+    record[name] = {"s": s, "launches": counts}
+    log(f"cli {name}: s={s:.2f} launches={counts}")
+    return out
+
+
+def check_cli_launches(name: str, record: dict, want: dict) -> None:
+    got = record[name]["launches"]
+    want = {k: v for k, v in want.items() if v}
+    if got != want:
+        fail(f"cli {name} launches {got} != {want}")
+
+
+def check_cli_steps(name: str, spy: LoopSpy, n: int, per_step: dict) -> None:
+    if len(spy.steps) != n:
+        fail(f"cli {name} ran {len(spy.steps)} steps, not {n}")
+    for i, st in enumerate(spy.steps):
+        if not np.isfinite([v for k, v in st.items()
+                            if k not in ("s", "launches")]).all():
+            fail(f"cli {name} step {i + 1}: a metric is not finite {st}")
+        got = {k: v for k, v in st["launches"].items() if v}
+        if got != per_step:
+            fail(f"cli {name} step {i + 1} launches {got} != {per_step}")
+
+
+def stage1_rows_expected(tok, rows: dict, seq: int) -> tuple:
+    """(train rows, eval rows) the stage-1 CLI packs from ``rows``: its
+    processor (the CLI's template defaults), eval split and packing."""
+    from speech_distill_tpu_torch.core.config import parse_prefix
+    from speech_distill_tpu_torch.data.processor import (
+        SpeechDistillProcessor)
+    proc = SpeechDistillProcessor(tok,
+                                  text_prefix=parse_prefix(CLI_TEXT_PREFIX))
+    ids = [proc.process_example({k: v[i] for k, v in rows.items()})
+           ["input_ids"] for i in range(CLI_ROWS)]
+    train_ids, eval_ids = stage1_data._eval_split(ids, CLI_S1_EVAL)
+    return (len(stage1_data.pack_sequences(train_ids, seq, tok.eos_token_id)),
+            len(stage1_data.pack_sequences(eval_ids, seq, tok.eos_token_id)))
+
+
+def tensor_file(path: str):
+    from safetensors import safe_open
+    return safe_open(os.path.join(path, "model.safetensors"), framework="pt")
+
+
+def cli(dev) -> dict:
+    """Phase 15: the distillation chain of README's "Pipelines" through
+    each CLI's ``main`` at the 0.6B's full width (random weights):
+    prepare-student, stage1, prepare-dataset, extract-logits, train
+    (precomputed, PiSSA), evaluate with the full-size audio smoke, train
+    (online sparse), and ``python -m speech_distill_tpu_torch``. Returns
+    each CLI's launch counts."""
+    import shutil
+
+    import datasets
+    from scipy.io.wavfile import read as wav_read
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    record: dict = {}
+    big = qwen3_student_0p6b()
+    V, L = big.vocab_size, big.num_hidden_layers
+    old_vocab = V - S1_NEW_TOKENS
+    with tempfile.TemporaryDirectory() as root:
+        def d(*names):
+            return os.path.join(root, *names)
+
+        # 1. the inputs: the student at Qwen3-0.6B's vocab, the teacher's
+        # tokenizer at 159,488 ids, the raw dataset
+        t0 = time.perf_counter()
+        cli_tokenizer(d("student"), CLI_STUDENT_VOCAB, False)
+        tok = cli_tokenizer(d("teacher"), big.speech_token_offset
+                            - len(CLI_SPECIALS), True)
+        if len(tok) != V or tok.convert_tokens_to_ids("<|0|>") != \
+                big.speech_token_offset:
+            fail(f"teacher tokenizer: {len(tok)} ids, <|0|> at "
+                 f"{tok.convert_tokens_to_ids('<|0|>')}")
+        rows = cli_rows(np.random.default_rng(SEED + 15))
+        datasets.Dataset.from_dict(rows).save_to_disk(d("raw"))
+        tok_s = time.perf_counter() - t0
+        scfg = qwen3_student_0p6b(CLI_STUDENT_VOCAB)
+        model = qwen3.init_params_on_device(SEED, scfg, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        export_hf(model_to_tree(model), scfg, d("student"))
+        export_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(d("student", "model.safetensors"))
+        t0 = time.perf_counter()
+        _, back = load_pretrained(d("student"), device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if not all(torch.equal(a, b) for a, b in zip(model.parameters(),
+                                                     back.parameters())):
+            fail("the HF export of the student does not load back exactly")
+        del model, back
+        hf_io = {"bytes": nbytes, "export_s": export_s,
+                 "export_GB_per_s": nbytes / export_s / 1e9,
+                 "load_s": load_s, "load_GB_per_s": nbytes / load_s / 1e9}
+        log(f"cli inputs: tokenizers and dataset s={tok_s:.2f}; student "
+            f"HF dir (vocab {CLI_STUDENT_VOCAB}, fp32 safetensors) "
+            + json.dumps(hf_io))
+
+        # 2. prepare-student: expand to the teacher's 159,488 ids
+        run_cli("prepare-student", student_cli.main,
+                ["--teacher-model", d("teacher"), "--student-model",
+                 d("student"), "--output-dir", d("expanded")], record)
+        with tensor_file(d("expanded")) as f, tensor_file(d("student")) as g:
+            new = f.get_tensor("model.embed_tokens.weight")
+            old = g.get_tensor("model.embed_tokens.weight")
+        with open(d("expanded", "config.json")) as f:
+            vocab = json.load(f)["vocab_size"]
+        if vocab != V or tuple(new.shape) != (V, big.hidden_size):
+            fail(f"prepare-student: vocab {vocab}, embed {tuple(new.shape)}")
+        # every student token is a teacher token at the same id
+        if not torch.equal(new[:CLI_STUDENT_VOCAB], old):
+            fail("prepare-student: matched rows differ from the student's")
+        if not torch.equal(new[CLI_STUDENT_VOCAB:].to(torch.bfloat16)
+                           .float(), new[CLI_STUDENT_VOCAB:]):
+            fail("prepare-student: new rows are not bf16 values")
+        del new, old
+        shutil.rmtree(d("student"))
+        check_cli_launches("prepare-student", record, {})
+
+        # 3. stage1 on the expanded student: K2 and K1 at T 4096
+        n_train, n_eval = stage1_rows_expected(tok, rows, S1_T)
+        steps = n_train // S1_B
+        if steps != 2 or n_eval < 1:
+            fail(f"stage-1 data packs {n_train} + {n_eval} rows, not 2 "
+                 f"steps and an eval")
+        with LoopSpy() as spy:
+            run_cli("stage1", stage1_data.main,
+                    ["--model_path", d("expanded"), "--dataset_path",
+                     d("raw"), "--output_dir", d("s1"), "--num_epochs", "1",
+                     "--batch_size", str(S1_B),
+                     "--gradient_accumulation_steps", "1",
+                     "--max_seq_length", str(S1_T), "--num_new_tokens",
+                     str(S1_NEW_TOKENS), "--eval_size", str(CLI_S1_EVAL),
+                     "--eval_steps", "2", "--eval_batch_size", "1",
+                     "--warmup_steps", "1", "--logging_steps", "1",
+                     "--num_workers", "1"], record)
+        per_step = {"lm_head_stats": 1, "lm_head_dh": 1, "lm_head_dw": 1,
+                    "flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L}
+        check_cli_steps("stage1", spy, steps, per_step)
+        want = {k: v * steps for k, v in per_step.items()}
+        want["flash_fwd"] += L * n_eval           # eval rows one at a time
+        check_cli_launches("stage1", record, want)
+        s1_ms = [st["s"] * 1e3 for st in spy.steps]
+        moved = 0
+        with tensor_file(d("s1", "final_model")) as f, \
+                tensor_file(d("expanded")) as g:
+            for k in g.keys():
+                a, b = f.get_tensor(k), g.get_tensor(k)
+                if k == "model.embed_tokens.weight":
+                    moved = int((a[old_vocab:] != b[old_vocab:]).any(1)
+                                .sum())
+                elif not torch.equal(a, b):
+                    fail(f"stage1 changed {k}")
+        if not moved:
+            fail("stage1: no new embedding row moved")
+        shutil.rmtree(d("expanded"))
+        shutil.rmtree(d("s1", "ckpt"))
+        log(f"cli stage1 checks: {steps} steps of B {S1_B} T {S1_T} "
+            f"({n_train} packed rows), {n_eval} eval rows; step_ms "
+            f"{s1_ms}; every non-embedding tensor bit-equal to the input, "
+            f"{moved} of {S1_NEW_TOKENS} new rows moved")
+
+        # 4. prepare-dataset, then extract-logits with the stage-1 model as
+        # the teacher (it stands in for the 1.7B)
+        run_cli("prepare-dataset", prepare_cli.main,
+                ["--dataset_path", d("raw"), "--output_path", d("proc"),
+                 "--student_model", d("s1", "final_model")], record)
+        check_cli_launches("prepare-dataset", record, {})
+        real_extract = extract_cli.extract_teacher_logprobs
+        timed = {}
+
+        def extract_timed(*a, **kw):
+            t = time.perf_counter()
+            out = real_extract(*a, **kw)
+            torch.cuda.synchronize()
+            timed["s"] = time.perf_counter() - t
+            return out
+        extract_cli.extract_teacher_logprobs = extract_timed
+        try:
+            run_cli("extract-logits", extract_cli.main,
+                    ["--teacher_model_path", d("s1", "final_model"),
+                     "--dataset_path", d("proc"), "--output_path", d("enr"),
+                     "--top_k", str(CLI_K), "--batch_size", str(CLI_B),
+                     "--pad_to_multiple_of", str(CLI_T)], record)
+        finally:
+            extract_cli.extract_teacher_logprobs = real_extract
+        batches = -(-CLI_ROWS // CLI_B)
+        check_cli_launches("extract-logits", record,
+                           {"flash_fwd": L * batches})
+        ds = datasets.load_from_disk(d("enr"))
+        real_tokens = 0
+        for row in ds:
+            v = np.asarray(row["teacher_top_k_v"], np.float32)
+            i = np.asarray(row["teacher_top_k_i"])
+            n = len(row["teacher_input_ids"])
+            real_tokens += n
+            if v.shape != (n, CLI_K) or i.shape != (n, CLI_K) or n > CLI_T:
+                fail(f"extract-logits: a row of {n} tokens has columns "
+                     f"{v.shape} / {i.shape}")
+            if not (np.isfinite(v).all() and (v <= 0).all()
+                    and ((i >= 0) & (i < V)).all()):
+                fail("extract-logits: values not finite and <= 0, or "
+                     "indices out of the vocabulary")
+        extract = {"rows": len(ds), "batches": batches,
+                   "real_tokens": real_tokens,
+                   "extract_s": timed["s"],
+                   "padded_tokens_per_s": batches * CLI_B * CLI_T
+                   / timed["s"],
+                   "real_tokens_per_s": real_tokens / timed["s"]}
+        log("cli extract-logits checks: " + json.dumps(extract))
+
+        # 5. train, precomputed, PiSSA LoRA, student = the stage-1 model
+        with LoopSpy() as spy:
+            run_cli("train", train_cli.main,
+                    ["--dataset_path", d("enr"), "--student_model",
+                     d("s1", "final_model"), "--output_dir", d("kd"),
+                     "--use_lora", "--per_device_train_batch_size",
+                     str(CLI_B), "--gradient_accumulation_steps", "1",
+                     "--pad_to_multiple_of", str(CLI_T), "--max_steps", "4",
+                     "--test_size", str(CLI_TRAIN_TEST)], record)
+        per_step = {"flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L}
+        check_cli_steps("train", spy, 4, per_step)
+        want = {k: 4 * v for k, v in per_step.items()}
+        want["flash_fwd"] += L                    # the held-out batch
+        check_cli_launches("train", record, want)
+        kd_ms = [st["s"] * 1e3 for st in spy.steps]
+        merged = merge_and_export(spy.frozen[0], spy.state.trainable,
+                                  LoraConfig())
+        _, back = load_pretrained(d("kd", "final_model"), device=dev)
+        pairs = zip(tree_leaves(model_to_tree(back)), tree_leaves(merged))
+        if not all(torch.equal(a, b.to(torch.bfloat16)) for a, b in pairs):
+            fail("train: final_model != merge_and_export of the trained "
+                 "state in bf16")
+        del merged, back, spy
+        shutil.rmtree(d("kd", "ckpt"))
+        log(f"cli train checks: 4 steps of B {CLI_B} T {CLI_T}, step_ms "
+            f"{kd_ms}, final_model == merge_and_export(trained state) in "
+            f"bf16")
+
+        # 6. evaluate the distilled student on the extracted dataset, with
+        # the full-size audio smoke (random flow and HiFT)
+        rep = run_cli("evaluate", evaluate_cli.main,
+                      ["--student_model", d("kd", "final_model"),
+                       "--dataset_path", d("enr"), "--pad_to_multiple_of",
+                       str(CLI_T), "--smoke", "--smoke_max_tokens", "60",
+                       "--smoke_wav", d("smoke.wav"), "--output",
+                       d("quality.json")], record)
+        n_batches = CLI_EVAL_TEST // 4
+        check_cli_launches("evaluate", record, {"flash_fwd": L * n_batches})
+        values = [v for sl in ("all", "speech")
+                  for k, v in rep["metrics"][sl].items() if v is not None]
+        if rep["rows"] != 4 * n_batches or not np.isfinite(values).all():
+            fail(f"evaluate: rows {rep['rows']}, metrics {rep['metrics']}")
+        sm = rep["smoke"]
+        if sm["status"] == "ok":
+            rate, wav = wav_read(d("smoke.wav"))
+            if len(wav) != sm["expected_samples"] or \
+                    sm["wav_samples"] != sm["expected_samples"]:
+                fail(f"evaluate smoke: {len(wav)} samples, expected "
+                     f"{sm['expected_samples']}")
+        elif sm["status"] != "no_speech_tokens":
+            fail(f"evaluate smoke: {sm}")
+        log("cli evaluate checks: " + json.dumps(
+            {"metrics": rep["metrics"], "smoke": sm}))
+        shutil.rmtree(d("kd"))
+
+        # 7. train, online sparse: the stage-1 model teaches itself
+        with LoopSpy() as spy:
+            run_cli("train-online", train_cli.main,
+                    ["--dataset_path", d("proc"), "--student_model",
+                     d("s1", "final_model"), "--teacher_model",
+                     d("s1", "final_model"), "--output_dir", d("online"),
+                     "--use_lora", "--init_lora_weights", "gaussian",
+                     "--per_device_train_batch_size", str(CLI_B),
+                     "--gradient_accumulation_steps", "1",
+                     "--pad_to_multiple_of", str(CLI_T), "--max_steps", "2",
+                     "--test_size", str(CLI_TRAIN_TEST)], record)
+        per_step = {"flash_fwd": 3 * L, "flash_dq": L, "flash_dkv": L}
+        check_cli_steps("train-online", spy, 2, per_step)
+        want = {k: 2 * v for k, v in per_step.items()}
+        want["flash_fwd"] += 2 * L                # eval: teacher, student
+        check_cli_launches("train-online", record, want)
+        del spy
+        shutil.rmtree(d("online"))
+
+    # 8. the entry point
+    def entry(*args):
+        return subprocess.run([sys.executable, "-m",
+                               "speech_distill_tpu_torch", *args],
+                              capture_output=True, text=True, timeout=120,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+    res = entry("--help")
+    listed = [c for c in ("prepare-student", "stage1", "prepare-dataset",
+                          "extract-logits", "train", "synthesize", "evaluate")
+              if f"  {c} " in res.stdout]
+    if res.returncode != 0 or len(listed) != 7:
+        fail(f"python -m speech_distill_tpu_torch --help: rc "
+             f"{res.returncode}, commands {listed}")
+    if entry("no-such-command").returncode != 1:
+        fail("an unknown command does not exit 1")
+    rates = {
+        "hf_io": hf_io,
+        "stage1_cli_step_ms": s1_ms,
+        "stage1_cli_tokens_per_s": S1_B * S1_T / float(np.median(s1_ms))
+        * 1e3,
+        "phase10_stage1_step_ms": RATES.get("stage1_step_ms"),
+        "phase10_stage1_tokens_per_s": RATES.get("stage1_tokens_per_s"),
+        "train_cli_tokens_per_s": CLI_B * CLI_T
+        / float(np.median(kd_ms[1:])) * 1e3,
+        "phase6_train_tokens_per_s": RATES.get("train_tokens_per_s"),
+        "extract_cli_padded_tokens_per_s": extract["padded_tokens_per_s"],
+        "phase9b_extract_tokens_per_s": RATES.get("extract_tokens_per_s"),
+        "seconds": {k: v["s"] for k, v in record.items()}}
+    log("cli " + json.dumps(rates) + " (stage-1 CLI: A 1, 16,384 tokens a "
+        "step; phase 10: A 4; phase 9b extracts with the 1.7B teacher)")
+    log(f"cli phase s={time.perf_counter() - t_phase:.2f}")
+    return {k: v["launches"] for k, v in record.items()}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available: this smoke runs on the GPU only")
@@ -3111,6 +3557,10 @@ def main() -> None:
     del model
     kernels += check_flash_stage1(dev, s1_counts, side)
     log(f"stage1 phases s={time.perf_counter() - t0:.2f}")
+    cli_counts = cli(dev)
+    for entry in kernels:   # each CLI's launches of the kernel in phase 15
+        entry["cli_launches"] = {name: c.get(entry["name"], 0)
+                                 for name, c in cli_counts.items()}
     log(f"total s={time.perf_counter() - t_all:.2f}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Checkpoints of the training state (port of the ``CheckpointManager`` of
+"""Checkpoints of the training state and the HF export (port of
 ``speech_distill_tpu/core/checkpoint.py``).
 
 Orbax becomes ``torch.save``/``torch.load``: one file ``<step>.pt`` per
@@ -6,13 +6,15 @@ saved step under the directory, holding the state's tensors, optimizer
 moments and counters as plain containers (so ``torch.load`` runs with
 ``weights_only=True``), and the newest ``max_to_keep`` files kept. Saves
 are synchronous, so :meth:`CheckpointManager.wait` has nothing to wait
-for. The HF export waits for the CLI slice.
+for. :func:`export_hf` writes an HF model directory from a plain (merged)
+weight tree, the file the JAX package writes.
 """
 from __future__ import annotations
 
+import json
 import os
 import re
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -85,3 +87,38 @@ class CheckpointManager:
 
     def close(self):
         """Nothing is held open."""
+
+
+def export_hf(params: Dict[str, Any], cfg, out_dir: str,
+              extra_config: Optional[Dict[str, Any]] = None) -> None:
+    """Write ``config.json`` and ``model.safetensors`` under ``out_dir``
+    from a JAX-shaped weight tree (tensors or arrays). The tensors are
+    fp32 while the config names ``torch_dtype`` bfloat16: the JAX
+    package's artifact, byte for byte."""
+    from safetensors.numpy import save_file
+    from speech_distill_tpu_torch.models.hf_loader import to_state_dict
+
+    os.makedirs(out_dir, exist_ok=True)
+    save_file(to_state_dict(params, cfg),
+              os.path.join(out_dir, "model.safetensors"))
+    hf_cfg = {
+        "architectures": ["Qwen3ForCausalLM"],
+        "model_type": "qwen3",
+        "vocab_size": cfg.vocab_size,
+        "hidden_size": cfg.hidden_size,
+        "intermediate_size": cfg.intermediate_size,
+        "num_hidden_layers": cfg.num_hidden_layers,
+        "num_attention_heads": cfg.num_attention_heads,
+        "num_key_value_heads": cfg.num_key_value_heads,
+        "head_dim": cfg.head_dim,
+        "rms_norm_eps": cfg.rms_norm_eps,
+        "rope_theta": cfg.rope_theta,
+        "max_position_embeddings": cfg.max_position_embeddings,
+        "tie_word_embeddings": cfg.tie_word_embeddings,
+        "torch_dtype": "bfloat16",
+        "bos_token_id": cfg.bos_token_id,
+        "eos_token_id": cfg.eos_token_id,
+    }
+    hf_cfg.update(extra_config or {})
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(hf_cfg, f, indent=2)

@@ -8,11 +8,24 @@ describes the same model on the other.
 """
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
+from typing import Dict, Optional, Union
 
 import torch
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def parse_prefix(prefix_str: Optional[str]) -> Union[str, Dict[str, str]]:
+    """A CLI prefix flag: a JSON dict string becomes the dict, anything
+    else stays the literal string ("" for an empty flag)."""
+    if not prefix_str:
+        return ""
+    try:
+        return json.loads(prefix_str)
+    except json.JSONDecodeError:
+        return prefix_str
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -37,7 +50,9 @@ class Qwen3Config:
     head_dim: int = 128
     rms_norm_eps: float = 1e-6
     rope_theta: float = 1_000_000.0
+    max_position_embeddings: int = 40_960
     tie_word_embeddings: bool = True
+    bos_token_id: int = 151643
     eos_token_id: int = 151675         # speech eos
     speech_token_offset: int = 152927  # first semantic speech token id
     dtype: str = "bfloat16"
@@ -100,6 +115,7 @@ def qwen3_tiny(vocab_size: int = 512, **kw) -> Qwen3Config:
         num_attention_heads=4,
         num_key_value_heads=2,
         head_dim=16,
+        max_position_embeddings=512,
         speech_token_offset=vocab_size // 2,
         eos_token_id=vocab_size - 1,
     )
@@ -110,8 +126,10 @@ def qwen3_tiny(vocab_size: int = 512, **kw) -> Qwen3Config:
 @dataclass
 class LoraConfig:
     """LoRA knobs (defaults: r 32, alpha 64, rsLoRA, PiSSA init, all seven
-    projections, embed and lm-head copies trained)."""
+    projections, embed and lm-head copies trained). ``use_lora`` False is
+    full finetuning."""
 
+    use_lora: bool = True
     r: int = 32
     alpha: int = 64
     use_rslora: bool = True
@@ -128,8 +146,8 @@ TEACHER_QUANTS = ("none", "int8", "int4", "nf4")
 
 @dataclass
 class DistillConfig:
-    """Stage-2 KD knobs the training step reads (the reference's
-    defaults); the CLI's other knobs come with the CLI.
+    """Stage-2 KD knobs of the training step and the train CLI (the
+    reference's defaults).
 
     ``online_topk_method``: "exact" or "approx". JAX's "approx" is the
     TPU's ``lax.approx_max_k`` (``online_topk_recall`` its recall target),
@@ -147,6 +165,17 @@ class DistillConfig:
     online_extract: str = "materialized"  # materialized | fused
     teacher_quant: str = "none"        # none | int8 | int4 == nf4
     learning_rate: float = 5e-5
+    num_train_epochs: int = 3
+    warmup_steps: int = 1000
+    per_device_batch_size: int = 4
+    gradient_accumulation_steps: int = 4
+    logging_steps: int = 10
+    save_total_limit: int = 3
+    seed: int = 42
+    pad_to_multiple_of: int = 128
+    # 0: a whole-epoch shuffle (an exact permutation); > 0: a windowed
+    # shuffle buffer of that many rows
+    shuffle_buffer_size: int = 0
     lora: LoraConfig = field(default_factory=LoraConfig)
 
     @property

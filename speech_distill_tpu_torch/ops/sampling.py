@@ -64,14 +64,16 @@ def suppress_eos_before_min(logits: torch.Tensor, eos_ids: Sequence[int],
                             num_generated: torch.Tensor, min_tokens
                             ) -> torch.Tensor:
     """MinNewTokensLengthLogitsProcessor: EOS gets -1e30 until min_tokens
-    (int, or per-row [B] integers)."""
+    (int, or per-row [B] integers). An EOS id past the vocabulary is
+    skipped, as JAX drops an out-of-range update."""
     if _is_scalar(min_tokens) and min_tokens <= 0:
         return logits
     active = num_generated.reshape(-1) < torch.as_tensor(
         min_tokens, device=logits.device).reshape(-1)           # [B]
     out = logits.clone()
     for eos in eos_ids:
-        out[:, eos] = torch.where(active, NEG_INF, out[:, eos])
+        if eos < out.shape[-1]:
+            out[:, eos] = torch.where(active, NEG_INF, out[:, eos])
     return out
 
 

@@ -97,3 +97,71 @@ def extract_teacher_logprobs(
             all_v.append(v[b, :int(n)].astype(np.float16))
             all_i.append(i[b, :int(n)].astype(np.int32))
     return all_v, all_i
+
+
+def main(argv=None):
+    import argparse
+    from speech_distill_tpu_torch.core.config import parse_prefix
+    from speech_distill_tpu_torch.data.processor import (
+        SpeechDistillProcessor)
+    from speech_distill_tpu_torch.models import qwen3
+    from speech_distill_tpu_torch.models.hf_loader import load_pretrained
+    from speech_distill_tpu_torch.pipelines.common import (
+        add_device_arg, add_template_args, load_hf_dataset, load_tokenizer)
+    from speech_distill_tpu_torch.tokenizer.s3 import (
+        default_speech_tokens_fn)
+
+    p = argparse.ArgumentParser(
+        description="Extract teacher logprobs for distillation")
+    p.add_argument("--teacher_model_path", type=str, required=True)
+    p.add_argument("--dataset_path", type=str, required=True)
+    p.add_argument("--dataset_split", type=str, default="train")
+    p.add_argument("--output_path", type=str, required=True)
+    p.add_argument("--batch_size", type=int, default=4)
+    p.add_argument("--top_k", type=int, default=100)
+    p.add_argument("--max_length", type=int, default=None)
+    p.add_argument("--pad_to_multiple_of", type=int, default=128)
+    add_template_args(p, student_prefix=False)
+    add_device_arg(p)
+    args = p.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    _, model = load_pretrained(args.teacher_model_path, device=dev)
+    tokenizer = load_tokenizer(args.teacher_model_path, args.pad_token)
+    dataset = load_hf_dataset(args.dataset_path, args.dataset_split)
+
+    if "input_ids" not in dataset.column_names and \
+            "teacher_input_ids" not in dataset.column_names:
+        processor = SpeechDistillProcessor(
+            tokenizer, speech_tokens_fn=default_speech_tokens_fn(),
+            prefix=parse_prefix(args.teacher_prefix),
+            text_bos=args.text_bos, text_eos=args.text_eos,
+            text_prefix=parse_prefix(args.text_prefix),
+            speech_bos=args.speech_bos, speech_eos=args.speech_eos,
+            max_length=args.max_length)
+        dataset = dataset.map(lambda ex: processor.process_example(ex),
+                              desc="tokenize")
+
+    def fwd(teacher, ids, mask):
+        return qwen3.forward(teacher, ids, attention_mask=mask)
+
+    feats = [dataset[i] for i in range(len(dataset))]
+    all_v, all_i = extract_teacher_logprobs(
+        model, fwd, feats, top_k=args.top_k, batch_size=args.batch_size,
+        pad_token_id=tokenizer.pad_token_id,
+        pad_to_multiple_of=args.pad_to_multiple_of, device=dev)
+
+    if len(all_v) != len(dataset):
+        raise RuntimeError(
+            f"Alignment mismatch! Extracted {len(all_v)} but dataset has "
+            f"{len(dataset)}")
+    dataset = dataset.add_column("teacher_top_k_v",
+                                 [v.tolist() for v in all_v])
+    dataset = dataset.add_column("teacher_top_k_i",
+                                 [i.tolist() for i in all_i])
+    dataset.save_to_disk(args.output_path)
+    print(f"Saved enriched dataset to {args.output_path}")
+
+
+if __name__ == "__main__":
+    main()

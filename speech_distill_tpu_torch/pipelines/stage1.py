@@ -1,22 +1,23 @@
-"""Stage-1 warm-up: align text with the new speech tokens (port of the
-library parts of ``speech_distill_tpu/pipelines/stage1.py``).
+"""Stage-1 warm-up CLI: align text with the new speech tokens (port of
+``speech_distill_tpu/pipelines/stage1.py``; reference stage1.py:96-531).
 
 Only the new speech-token rows of the embedding train
-(``distill/train_step.make_stage1_step``); examples are packed into
-fixed-length rows (TRL ``packing=True``) for static shapes. The CLI
-``train_stage1`` needs a tokenizer, a pretrained checkpoint and an HF
-dataset on disk, and is not ported yet; the pieces it runs are plain
-functions here, with the CLI's semantics:
+(``distill/train_step.make_stage1_step``); examples are formatted by the
+template processor and packed into fixed-length rows (TRL
+``packing=True``) for static shapes. :func:`train_stage1` is the CLI; the
+pieces it runs are plain functions here:
 
 * :func:`pack_sequences`, the packing;
-* :func:`stage1_batches`, the CLI's batch iterator ([A, B, T] batches of
+* :func:`stage1_batches`, the batch iterator ([A, B, T] batches of
   packed rows in a seeded order per epoch, labels equal to the ids);
-* :func:`make_eval_fn`, the CLI's eval aggregator (exact per-token mean
-  over every eval row, scored once);
-* :func:`fused_route`, the CLI's choice of the fused CE.
+* :func:`make_eval_fn`, the eval aggregator (exact per-token mean over
+  every eval row, scored once);
+* :func:`fused_route`, the choice of the fused CE.
 """
 from __future__ import annotations
 
+import argparse
+import os
 from typing import Callable, Dict, Iterator, List, Tuple
 
 import numpy as np
@@ -100,3 +101,181 @@ def fused_route(max_seq_length: int, device, dtype: torch.dtype,
     takes = dtype == torch.bfloat16 and hidden_size in KERNEL_DIMS
     return (max_seq_length >= FUSED_MIN_SEQ,
             "pallas" if on_card and takes else "xla")
+
+
+def _process_one(processor, tokenizer, example):
+    """One example's ids: the template processor's, or, when it fails,
+    the tokenized text (the JAX CLI's fallback). A missing port
+    (``NotImplementedError``: an audio row without the S3 tokenizer) is
+    raised, not turned into a text-only example."""
+    try:
+        return processor.process_example(example)["input_ids"]
+    except NotImplementedError:
+        raise
+    except Exception:
+        text = example.get("text", "").strip()
+        return tokenizer.encode(text) if text else None
+
+
+def _eval_split(id_lists: List[List[int]], eval_size: float):
+    """(train, eval) id lists: a ``default_rng(42)`` permutation split
+    before packing; ``eval_size`` below 1 is a fraction (at least one
+    example), else a count."""
+    if eval_size <= 0:
+        return id_lists, []
+    order = np.random.default_rng(42).permutation(len(id_lists))
+    n_eval = max(1, int(round(len(id_lists) * eval_size))) \
+        if eval_size < 1 else int(eval_size)
+    return ([id_lists[j] for j in order[n_eval:]],
+            [id_lists[j] for j in order[:n_eval]])
+
+
+def train_stage1(config):
+    from speech_distill_tpu_torch.core.checkpoint import export_hf
+    from speech_distill_tpu_torch.core.config import parse_prefix
+    from speech_distill_tpu_torch.core.device import resolve_device
+    from speech_distill_tpu_torch.core.trainer import LoopConfig, train_loop
+    from speech_distill_tpu_torch.data.processor import (
+        SpeechDistillProcessor)
+    from speech_distill_tpu_torch.distill import train_step
+    from speech_distill_tpu_torch.models.convert import model_to_tree
+    from speech_distill_tpu_torch.models.hf_loader import load_pretrained
+    from speech_distill_tpu_torch.pipelines.common import (
+        load_hf_dataset, load_tokenizer)
+    from speech_distill_tpu_torch.tokenizer.s3 import (
+        default_speech_tokens_fn)
+
+    if getattr(config, "sp", 1) > 1:
+        raise NotImplementedError("--sp (ring attention) is not ported: "
+                                  "ROADMAP §1 item 11")
+    if config.use_8bit_optimizer:
+        raise NotImplementedError("--use_8bit_optimizer is not ported: "
+                                  "ROADMAP §1 item 8")
+    dev = resolve_device(config.device)
+    tokenizer = load_tokenizer(config.model_path)
+    cfg, model = load_pretrained(config.model_path, device=dev)
+    old_vocab_size = cfg.vocab_size - config.num_new_tokens
+
+    dataset = load_hf_dataset(config.dataset_path)
+    processor = SpeechDistillProcessor(
+        tokenizer, speech_tokens_fn=default_speech_tokens_fn(),
+        prefix=parse_prefix(config.prefix),
+        text_bos=config.text_bos, text_eos=config.text_eos,
+        text_prefix=parse_prefix(config.text_prefix),
+        speech_bos=config.speech_bos, speech_eos=config.speech_eos)
+
+    def process_one(example):
+        return _process_one(processor, tokenizer, example)
+
+    if config.num_workers > 1:
+        # host-side example processing in threads (reference
+        # dataloader_num_workers, stage1.py:320)
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(config.num_workers) as pool:
+            processed = list(pool.map(
+                process_one, (dataset[i] for i in range(len(dataset)))))
+    else:
+        processed = [process_one(dataset[i]) for i in range(len(dataset))]
+    id_lists, eval_id_lists = _eval_split(
+        [ids for ids in processed if ids], config.eval_size)
+    if eval_id_lists:
+        print(f"Splitting dataset: {len(id_lists)} train, "
+              f"{len(eval_id_lists)} eval")
+
+    eos_id = tokenizer.eos_token_id or 0
+    packed = pack_sequences(id_lists, config.max_seq_length, eos_id)
+    if len(packed) == 0:
+        raise ValueError("Train dataset is empty after processing!")
+    print(f"Packed {len(id_lists)} examples into {len(packed)} sequences of "
+          f"{config.max_seq_length}")
+    eval_packed = pack_sequences(eval_id_lists, config.max_seq_length,
+                                 eos_id)
+
+    trainable = {"embed": {"weight": model.embed.detach().clone()
+                           .requires_grad_(True)}}
+    if model.lm_head is not None:
+        trainable["lm_head"] = {"weight": model.lm_head.detach().clone()
+                                .requires_grad_(True)}
+    B, A = config.batch_size, config.gradient_accumulation_steps
+    steps = max(1, len(packed) // (B * A)) * config.num_epochs
+    opt = train_step.make_optimizer(config.learning_rate,
+                                    config.warmup_steps, steps,
+                                    weight_decay=config.weight_decay)
+    state = train_step.init_state(trainable, opt)
+    fused, backend = fused_route(config.max_seq_length, dev,
+                                 cfg.torch_dtype, cfg.hidden_size)
+    step_fn = train_step.make_stage1_step(cfg, opt, old_vocab_size,
+                                          fused_loss=fused,
+                                          fused_backend=backend, device=dev)
+    eval_fn = None
+    if len(eval_packed) > 0:
+        eval_fn = make_eval_fn(
+            train_step.make_stage1_eval_step(cfg, device=dev), eval_packed,
+            config.eval_batch_size, model)
+
+    loop_cfg = LoopConfig(
+        num_epochs=config.num_epochs, logging_steps=config.logging_steps,
+        save_steps=config.save_steps, output_dir=config.output_dir,
+        eval_steps=config.eval_steps if eval_fn else None,
+        load_best_at_end=eval_fn is not None,  # stage1.py:311
+        report_to="wandb" if config.use_wandb else "none")
+    state = train_loop(
+        step_fn, state, (model,),
+        lambda epoch: stage1_batches(packed, B, A, config.seed, epoch),
+        loop_cfg, eval_fn=eval_fn,
+        tokens_per_batch=B * A * config.max_seq_length, device=dev)
+
+    # the final model: the base with the trained tables
+    final = model_to_tree(model)
+    for name in trainable:
+        final[name] = {"weight": state.trainable[name]["weight"].detach()}
+    out = os.path.join(config.output_dir, "final_model")
+    export_hf(final, cfg, out)
+    tokenizer.save_pretrained(out)
+    print("Stage-1 training completed!")
+
+
+def build_parser():
+    from speech_distill_tpu_torch.pipelines.common import (add_device_arg,
+                                                           add_template_args)
+    p = argparse.ArgumentParser(
+        description="Stage 1: Text-to-Speech Token Alignment Training")
+    p.add_argument("--model_path", type=str, required=True)
+    p.add_argument("--dataset_path", type=str, required=True)
+    p.add_argument("--output_dir", type=str, required=True)
+    p.add_argument("--num_epochs", type=int, default=3)
+    p.add_argument("--batch_size", type=int, default=4)
+    p.add_argument("--eval_batch_size", type=int, default=8)
+    p.add_argument("--learning_rate", type=float, default=1e-4)
+    p.add_argument("--warmup_steps", type=int, default=1000)
+    p.add_argument("--weight_decay", type=float, default=0.01)
+    p.add_argument("--gradient_accumulation_steps", type=int, default=4)
+    p.add_argument("--logging_steps", type=int, default=50)
+    p.add_argument("--save_steps", type=int, default=500)
+    p.add_argument("--eval_steps", type=int, default=500)
+    p.add_argument("--eval_size", type=float, default=0)
+    p.add_argument("--max_seq_length", type=int, default=4096)
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel size (not ported: ROADMAP §1 "
+                        "item 11)")
+    p.add_argument("--num_workers", type=int, default=4)
+    p.add_argument("--num_new_tokens", type=int, default=8220)
+    p.add_argument("--prefix", type=str, default="")
+    add_template_args(p, teacher_prefix=False, student_prefix=False)
+    p.add_argument("--gradient_checkpointing", action="store_true")
+    p.set_defaults(gradient_checkpointing=True)
+    p.add_argument("--use_8bit_optimizer", action="store_true")
+    p.add_argument("--use_wandb", action="store_true")
+    p.add_argument("--seed", type=int, default=42)
+    add_device_arg(p)
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    os.makedirs(args.output_dir, exist_ok=True)
+    train_stage1(args)
+
+
+if __name__ == "__main__":
+    main()

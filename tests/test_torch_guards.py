@@ -86,12 +86,40 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         train_loop(lambda *a: None, None, (), lambda epoch: iter(()),
                    LoopConfig(output_dir=str(tmp_path)))
     _tts_entry_points_raise()
+    _cli_mains_raise(tmp_path)
     # the explicit CPU request runs
     eng = PagedEngine(model, cfg, SamplingParams(top_k=4,
                                                  stop_token_ids=(31,)),
                       slots=2, max_len=32, page_size=8, device="cpu")
     out = eng.serve([np.arange(1, 6).tolist()], max_new=3)
     assert len(out[0]) == 3
+
+
+def _cli_mains_raise(tmp_path):
+    """Every CLI ``main`` with CUDA reported missing and no ``--device
+    cpu`` (it raises before it reads its paths)."""
+    from speech_distill_tpu_torch.pipelines import (evaluate,
+                                                    extract_logits,
+                                                    prepare_dataset,
+                                                    prepare_student, stage1,
+                                                    train)
+    d = str(tmp_path / "missing")
+    calls = [
+        lambda: prepare_student.main(["--teacher-model", d,
+                                      "--student-model", d,
+                                      "--output-dir", d]),
+        lambda: prepare_dataset.main(["--dataset_path", d,
+                                      "--output_path", d]),
+        lambda: extract_logits.main(["--teacher_model_path", d,
+                                     "--dataset_path", d,
+                                     "--output_path", d]),
+        lambda: stage1.main(["--model_path", d, "--dataset_path", d,
+                             "--output_dir", str(tmp_path / "s1")]),
+        lambda: train.main(["--dataset_path", d]),
+        lambda: evaluate.main(["--student_model", d, "--dataset_path", d])]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
 
 
 def _tts_entry_points_raise():

@@ -37,6 +37,18 @@ def test_repetition_penalty_and_eos_suppression_match_jax():
     assert (got[2, [V - 1, 3]] > -1e29).all()
 
 
+def test_eos_past_the_vocabulary_is_skipped_as_in_jax():
+    """A stop id past a small vocabulary (the configs' default EOS on a
+    test model): JAX drops the out-of-range update; the port skips it."""
+    raw = _logits()
+    ngen = np.asarray([0, 5, 9])
+    got = ts.suppress_eos_before_min(torch.from_numpy(raw), (151675, 3),
+                                     torch.from_numpy(ngen), 8)
+    ref = js.suppress_eos_before_min(jnp.asarray(raw), (151675, 3),
+                                     jnp.asarray(ngen), 8)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
 @pytest.mark.parametrize("top_k,temperature,top_p",
                          [(10, 0.6, 0.9), (25, 1.0, 0.5), (5, 1.3, 1.0)])
 def test_topk_topp_kept_set_matches_jax(top_k, temperature, top_p):
