@@ -101,7 +101,8 @@
    versions at B 1, T 4096, timed at B 4 beside SDPA.
 14. Prints the kernels JSON line (K1-fwd once for each of the serve, KD
    and stage-1 shapes; each entry with its launches in every CLI of
-   phase 15, ``cli_launches``), then the result line, after phase 15.
+   phase 15, ``cli_launches``, and in each run of phase 16,
+   ``synthesize_launches``), then the result line, after phase 16.
 15. The distillation CLIs end to end, each through its ``main`` in this
    process at the full width (random weights): a student HF directory at
    Qwen3-0.6B's vocab of 151,936 and a teacher tokenizer of 159,488 ids
@@ -119,6 +120,25 @@
    (help lists seven commands, an unknown one exits 1). Logs each CLI's
    seconds, the HF export and load GB/s and the CLI rates beside phases
    6, 9b and 10's.
+16. Synthesis: ``synthesize.main`` three times in this process at full width
+   (random weights from SEED): a model directory with the 1.7B as bf16
+   safetensors, phase 15's 159,488-id tokenizer, the full-size flow and
+   HiFT, the reference v2 S3 tokenizer (~0.5 GB fp32) and the published
+   CAM++; two seeded int16 prompt wavs (8 s at 44.1 kHz, 9 s at 24 kHz:
+   200 and 225 codes, so the first turn's prefill is a 512-token flash
+   width) and a four-turn two-speaker script, each turn capped at
+   SYN_TURN_TOKENS through the run's EngineConfig. The CLI's default
+   (the contiguous engine, offline), the same engine with
+   ``--streaming``, then ``--llm_engine paged`` offline, with the
+   process's default TF32 flags (cuDNN on). Fails unless each wav is
+   finite, 24 kHz and of the length the turns' tokens imply, K1-fwd ran
+   28 x the fresh flash-width prefills and K4 28 a decode step (paged),
+   nothing else launched, the prompt codes equal the CPU's on the same
+   mels (a flip only within 1e-4 of a rounding edge, logged) and the
+   x-vectors are within 1e-4 relative of the CPU's. Logs the S3 and
+   CAM++ ms, each turn's decode ms a step and tokens/s, flow + HiFT ms a
+   turn (offline), first audio a turn (streaming), x-realtime and peak
+   memory beside the card. The kernels line gets ``synthesize_launches``.
 
 Exits non-zero, printing no result, when CUDA is missing or any phase
 fails. Only one card is needed. Imports nothing of JAX.
@@ -126,6 +146,7 @@ fails. Only one card is needed. Imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -184,9 +205,10 @@ from speech_distill_tpu_torch.ops.quant_matmul import (int4_matmul,
                                                        int4_matmul_plain,
                                                        int4_route)
 from speech_distill_tpu_torch.core import trainer as trainer_lib
-from speech_distill_tpu_torch.core.checkpoint import export_hf
+from speech_distill_tpu_torch.core.checkpoint import export_hf, hf_config
 from speech_distill_tpu_torch.distill.lora import merge_and_export
-from speech_distill_tpu_torch.models.hf_loader import load_pretrained
+from speech_distill_tpu_torch.models.hf_loader import (load_pretrained,
+                                                       to_state_dict)
 from speech_distill_tpu_torch.pipelines import evaluate as evaluate_cli
 from speech_distill_tpu_torch.pipelines import extract_logits as extract_cli
 from speech_distill_tpu_torch.pipelines import prepare_dataset as prepare_cli
@@ -3492,6 +3514,411 @@ def cli(dev) -> dict:
     return {k: v["launches"] for k, v in record.items()}
 
 
+# Phase 16: synthesis. Two prompt wavs whose 16 kHz lengths give 200 and
+# 225 S3 codes (8 s at 44.1 kHz, 9 s at 24 kHz): with the prompt texts
+# and the first turn's text the first prefill holds <= 512 tokens, a
+# flash width; four turns of two speakers, each capped at SYN_TURN_TOKENS
+# tokens (the random 1.7B almost never samples its stop id, and the CLI
+# has no cap flag: the smoke sets the run's EngineConfig sampling)
+SYN_WAVS = (("S1", 44100, 8.0, "hello there"), ("S2", 24000, 9.0, "hi there"))
+SYN_TURNS = (("S1", "welcome to the show"), ("S2", "glad to be here"),
+             ("S1", "tell us about speech"), ("S2", "it is fun"))
+SYN_TURN_TOKENS = 100
+# an S3 code may differ between the card and the CPU only where the fp32
+# FSQ value of the differing digit lies this close to a +-0.5 edge
+SYN_FSQ_EDGE = 1e-4
+SYN_XVEC_REL = 1e-4      # max |card - CPU| / max |CPU| of an x-vector
+
+
+def synth_model_dir(d: str, dev) -> dict:
+    """The synthesis model directory at full width, random weights from
+    SEED: the 1.7B (bf16 safetensors, config.json and
+    soulxpodcast_config.json), phase 15's 159,488-id tokenizer, flow.pt
+    and hift.pt at full size, speech_tokenizer_v2.pt at the reference v2
+    size and campplus.pt. Returns each file's bytes and the seconds."""
+    from speech_distill_tpu_torch.models import campplus
+    from speech_distill_tpu_torch.tokenizer import s3
+    t0 = time.perf_counter()
+    cfg = qwen3_teacher_1p7b()
+    tok = cli_tokenizer(d, cfg.speech_token_offset - len(CLI_SPECIALS), True)
+    if len(tok) != cfg.vocab_size:
+        fail(f"synthesis tokenizer: {len(tok)} ids")
+    llm = qwen3.init_params_on_device(SEED, cfg, dev)
+    # a released checkpoint's bf16 tensors (export_hf writes fp32)
+    from safetensors.torch import save_file
+    save_file({k: torch.from_numpy(v).bfloat16() for k, v in
+               to_state_dict(model_to_tree(llm), cfg).items()},
+              os.path.join(d, "model.safetensors"))
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(hf_config(cfg), f, indent=2)
+    del llm
+    with open(os.path.join(d, "soulxpodcast_config.json"), "w") as f:
+        json.dump(cfg.to_dict(), f)
+    torch.save(flow_lib.init_params(flow_lib.FlowConfig(), SEED, dev)
+               .state_dict(), os.path.join(d, "flow.pt"))
+    torch.save(hift_lib.init_params(hift_lib.HiFTConfig(), SEED, dev)
+               .state_dict(), os.path.join(d, "hift.pt"))
+    torch.save(s3.init_params_on_device(SEED, s3.S3Config(), dev)
+               .state_dict(), os.path.join(d, "speech_tokenizer_v2.pt"))
+    torch.manual_seed(SEED)                 # CAM++'s default init draws
+    torch.save(campplus.CAMPPlus(device=dev).state_dict(),
+               os.path.join(d, "campplus.pt"))
+    torch.cuda.synchronize()
+    sizes = {f: os.path.getsize(os.path.join(d, f)) for f in (
+        "model.safetensors", "flow.pt", "hift.pt", "speech_tokenizer_v2.pt",
+        "campplus.pt")}
+    return {"bytes": sizes, "s": time.perf_counter() - t0}
+
+
+def synth_script(d: str) -> str:
+    """Two seeded int16 prompt wavs and the four-turn script."""
+    from scipy.io.wavfile import write as wav_write
+    rng = np.random.default_rng(SEED + 16)
+    speakers = {}
+    for name, sr, secs, text in SYN_WAVS:
+        t = np.arange(int(sr * secs)) / sr
+        f0 = rng.uniform(90, 220) * (1 + 0.1 * np.sin(2 * np.pi * 3 * t))
+        phase = 2 * np.pi * np.cumsum(f0) / sr
+        voiced = sum(np.sin(k * phase) / k for k in range(1, 30))
+        env = 0.5 + 0.5 * np.sin(2 * np.pi * rng.uniform(2, 5) * t) ** 2
+        a = 0.2 * voiced * env / np.abs(voiced).max() \
+            + 0.003 * rng.normal(size=t.shape)
+        path = os.path.join(d, f"{name}.wav")
+        wav_write(path, sr, (a * 32767).astype(np.int16))
+        speakers[name] = {"prompt_text": text, "prompt_audio": path}
+    path = os.path.join(d, "script.json")
+    with open(path, "w") as f:
+        json.dump({"speakers": speakers,
+                   "text": [list(t) for t in SYN_TURNS]}, f)
+    return path
+
+
+class SynthSpy:
+    """While ``synthesize.main`` runs: wraps ``initiate_model`` to time
+    and record the S3 quantize and CAM++ calls (inputs, outputs, ms) and
+    the engine's turns (tokens, seconds, fresh prefill widths, decode
+    steps), the orchestrator's flow + HiFT ms a turn (offline) or its
+    first audio a turn (streaming), and the returned wavs. The run's
+    EngineConfig gets the turn cap."""
+
+    def __init__(self, sp: SamplingParams):
+        from speech_distill_tpu_torch.infer import infer_utils
+        self.mod, self.sp = infer_utils, sp
+        self.quant, self.xvec, self.turns, self.synth = [], [], [], []
+        self.wavs, self.first_audio, self.fresh = [], [], []
+
+    def __enter__(self):
+        mod, spy = self.mod, self
+        self.real_init, self.real_ec = mod.initiate_model, mod.EngineConfig
+        mod.EngineConfig = lambda **kw: self.real_ec(sampling=self.sp, **kw)
+
+        def init(*a, **kw):
+            model, dataset = spy.real_init(*a, **kw)
+            spy.wrap(model, dataset)
+            return model, dataset
+        mod.initiate_model = init
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.initiate_model = self.real_init
+        self.mod.EngineConfig = self.real_ec
+
+    @staticmethod
+    def timed(fn, *a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    def wrap(self, model, dataset):
+        spy, eng = self, model.llm
+        self.model = model
+        quant, emb = model.s3_quantize, dataset.spk_emb_fn
+
+        def s3_quantize(mels, lens):
+            (codes, clens), ms = spy.timed(quant, mels, lens)
+            spy.quant.append({"mels": np.asarray(mels), "lens": np.asarray(
+                lens), "codes": codes.cpu().numpy(), "code_lens":
+                clens.cpu().numpy(), "ms": ms})
+            return codes, clens
+
+        def spk_emb_fn(feat):
+            out, ms = spy.timed(emb, feat)
+            spy.xvec.append({"feat": feat, "emb": out, "ms": ms})
+            return out
+        model.s3_quantize, dataset.spk_emb_fn = s3_quantize, spk_emb_fn
+
+        def record(prefill_len, tokens, s, steps):
+            spy.turns.append({"prefill_tokens": prefill_len,
+                              "tokens": len(tokens), "s": s,
+                              "decode_steps": steps})
+
+        if eng.stateful:
+            real_prefill, real_stream = eng.prefill, eng.generate_stream
+            real_gen = eng.generate
+
+            def prefill(state, new_ids):
+                if int(state.length[0]) == 0:
+                    spy.fresh.append(eng._bucketed(len(new_ids)))
+                return real_prefill(state, new_ids)
+            eng.prefill = prefill
+
+            def generate(ids, state=None):
+                out, ms = spy.timed(real_gen, ids, state=state)
+                record(len(ids), out["token_ids"], ms / 1e3,
+                       len(out["token_ids"]))
+                return out
+            eng.generate = generate
+
+            def generate_stream(ids, **kw):
+                # decode seconds only: the synthesis the consumer runs
+                # between chunks is left out
+                it, toks, busy = real_stream(ids, **kw), [], 0.0
+                while True:
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    new = next(it, None)
+                    torch.cuda.synchronize()
+                    busy += time.perf_counter() - t
+                    if new is None:
+                        break
+                    toks.extend(new)
+                    yield new
+                record(len(ids), toks, busy, len(toks))
+            eng.generate_stream = generate_stream
+        else:
+            real_gen = eng.generate
+
+            def generate(ids, max_new=None):
+                out, ms = spy.timed(real_gen, ids, max_new)
+                record(len(ids), out["token_ids"], ms / 1e3,
+                       eng.n_decode_steps)
+                if not eng.prefix_hits:
+                    spy.fresh.append(-(-len(ids) // eng.ps) * eng.ps)
+                return out
+            eng.generate = generate
+
+        real_t2w = model._token_to_wav
+
+        def token_to_wav(*a, **kw):
+            wav, ms = spy.timed(real_t2w, *a, **kw)
+            spy.synth.append(ms)
+            spy.wavs.append(wav)
+            return wav
+        model._token_to_wav = token_to_wav
+
+        real_stream_lf = model.forward_longform_streaming
+
+        def forward_longform_streaming(**kw):
+            t, cur = time.perf_counter(), -1
+            for turn, chunk in real_stream_lf(**kw):
+                if turn != cur:
+                    spy.first_audio.append(
+                        (time.perf_counter() - t) * 1e3)
+                    spy.wavs.append([])
+                    cur = turn
+                spy.wavs[-1].append(chunk)
+                yield turn, chunk
+                t = time.perf_counter()
+        model.forward_longform_streaming = forward_longform_streaming
+
+
+def fsq_values(model, mels, lens) -> np.ndarray:
+    """The fp32 FSQ values tanh(project_down(h)) * 0.999 before rounding
+    [B, T', fsq_dim] on the model's device."""
+    from speech_distill_tpu_torch.core.device import full_fp32
+    from speech_distill_tpu_torch.tokenizer import s3
+    mels = torch.as_tensor(mels).to(model.device)
+    lens = torch.as_tensor(lens).to(model.device).long()
+    T_out = s3.conv_out_len(s3.conv_out_len(mels.shape[-1]))
+    mask = torch.arange(T_out, device=model.device)[None] < \
+        s3.conv_out_len(s3.conv_out_len(lens))[:, None]
+    with full_fp32(), torch.no_grad():
+        h = model.quantizer.project_down(s3.encode(model, mels, mask))
+    return (torch.tanh(h) * np.float32(0.999)).cpu().numpy()
+
+
+class CpuReference:
+    """The port's S3 codes, fp32 FSQ values and CAM++ x-vectors on the
+    CPU from the model directory's checkpoints, each computed once for
+    a given input: the runs of phase 16 quantize the same prompts."""
+
+    def __init__(self, d: str):
+        from speech_distill_tpu_torch.models import campplus
+        from speech_distill_tpu_torch.tokenizer import s3
+        self.s3 = s3.load_s3_tokenizer(
+            os.path.join(d, "speech_tokenizer_v2.pt"), device="cpu").model
+        self.camp = campplus.from_state_dict(
+            torch.load(os.path.join(d, "campplus.pt"), map_location="cpu",
+                       weights_only=True), device="cpu")
+        self.memo = {}
+
+    def _once(self, key, fn):
+        if key not in self.memo:
+            self.memo[key] = fn()
+        return self.memo[key]
+
+    def codes(self, mels, lens):
+        """(codes, code lengths, FSQ values) as numpy."""
+        from speech_distill_tpu_torch.tokenizer import s3
+
+        def run():
+            ref, ref_lens = s3.quantize(self.s3, mels, lens)
+            return (ref.numpy(), ref_lens.numpy(),
+                    fsq_values(self.s3, mels, lens))
+        return self._once(("s3", mels.tobytes(), lens.tobytes()), run)
+
+    def xvector(self, feat):
+        from speech_distill_tpu_torch.models import campplus
+        feat = np.asarray(feat, np.float32)
+        return self._once(("campplus", feat.shape, feat.tobytes()),
+                          lambda: campplus.embed_one(
+                              self.camp, torch.from_numpy(feat)).numpy())
+
+
+def check_prompt_codes(spy: SynthSpy, cpu: CpuReference) -> dict:
+    """The card's prompt codes against the port's on the CPU for the same
+    log-mels: a code may differ only where each differing digit's fp32
+    FSQ value lies within SYN_FSQ_EDGE of +-0.5 (each flip logged with
+    its distance); the card's x-vectors within SYN_XVEC_REL of the CPU's
+    on the same fbank."""
+    flips, n_codes = [], 0
+    for q in spy.quant:
+        ref, ref_lens, vals = cpu.codes(q["mels"], q["lens"])
+        if not np.array_equal(ref_lens, q["code_lens"]):
+            fail(f"synthesis: code lengths {q['code_lens']} on the card, "
+                 f"{ref_lens.tolist()} on the CPU")
+        n_codes += int(q["code_lens"].sum())
+        for b, t in zip(*np.nonzero(ref != q["codes"])):
+            dc = np.base_repr(int(ref[b, t]), 3).zfill(8)[::-1]
+            dg = np.base_repr(int(q["codes"][b, t]), 3).zfill(8)[::-1]
+            for i in (i for i in range(8) if dc[i] != dg[i]):
+                dist = abs(abs(float(vals[b, t, i])) - 0.5)
+                flips.append({"row": int(b), "frame": int(t), "digit": i,
+                              "fsq_value": float(vals[b, t, i]),
+                              "edge_distance": dist})
+                if dist > SYN_FSQ_EDGE:
+                    fail(f"synthesis: S3 code flip at row {b} frame {t} "
+                         f"digit {i}, {dist:.2e} from the rounding edge")
+    xerr = 0.0
+    for x in spy.xvec:
+        ref = cpu.xvector(x["feat"])
+        xerr = max(xerr, float(np.abs(x["emb"] - ref).max()
+                               / np.abs(ref).max()))
+    if not spy.xvec or xerr > SYN_XVEC_REL:
+        fail(f"synthesis: x-vector card vs CPU {xerr:.2e} relative")
+    return {"codes": n_codes, "flips": flips, "xvector_max_rel_err": xerr}
+
+
+def synthesis(dev) -> dict:
+    """Phase 16: ``synthesize.main`` three times at full width (the 1.7B,
+    the v2 S3 tokenizer, CAM++, the full-size flow and HiFT; random
+    weights) on a four-turn two-speaker script, each run through its main
+    in this process with the launch counts set to 0 just before it and
+    read just after: the CLI's default (the contiguous engine, offline),
+    the same engine with ``--streaming``, then ``--llm_engine paged``
+    offline (the long-form streaming path needs the stateful engine, as
+    in JAX). Returns each run's launch counts."""
+    from scipy.io.wavfile import read as wav_read
+    from speech_distill_tpu_torch.pipelines import synthesize
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = qwen3_teacher_1p7b()
+    L = cfg.num_hidden_layers
+    sp = SamplingParams(max_tokens=SYN_TURN_TOKENS,
+                        stop_token_ids=(cfg.eos_token_id,))
+    # the CLI's process defaults: TF32 off for matmuls, on for cuDNN; the
+    # S3 tokenizer and CAM++ must hold fp32 themselves
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    record, out = {}, {}
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            made = synth_model_dir(d, dev)
+            script = synth_script(d)
+            log("synthesis model dir " + json.dumps(made))
+            cpu = None          # the CPU references, loaded after a run
+            for run, extra in (("offline", []),
+                               ("streaming", ["--streaming"]),
+                               ("paged", ["--llm_engine", "paged"])):
+                gc.collect()    # the last run's models, so each peak is its own
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                with SynthSpy(sp) as spy:
+                    torch.cuda.synchronize()
+                    _cuda.reset_launches()
+                    t = time.perf_counter()
+                    path = synthesize.main(
+                        ["--model_path", d, "--script", script,
+                         "--output_dir", os.path.join(d, run),
+                         "--seed", str(SEED)] + extra)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t
+                    counts = {k: v for k, v in _cuda.launches.items() if v}
+                record[run] = counts
+                cpu = cpu or CpuReference(d)
+                out[run] = check_synthesis_run(run, path, spy, counts, wall,
+                                               L, cpu)
+                del spy     # its wrappers hold the run's model in a cycle
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    log(f"synthesis phase s={time.perf_counter() - t_phase:.2f}")
+    return record
+
+
+def check_synthesis_run(run: str, path: str, spy: SynthSpy, counts: dict,
+                        wall: float, L: int, cpu: CpuReference) -> dict:
+    """Phase 16's checks and numbers for one run (see ``synthesis``)."""
+    from scipy.io.wavfile import read as wav_read
+    rate, wav = wav_read(path)
+    turns = spy.turns
+    want = sum(2 * (t["tokens"] - 1) * 480 for t in turns)
+    wavs = [w if isinstance(w, np.ndarray) else np.concatenate(w)
+            for w in spy.wavs]
+    if len(turns) != len(SYN_TURNS) or len(wavs) != len(SYN_TURNS):
+        fail(f"synthesis {run}: {len(turns)} turns, {len(wavs)} wavs")
+    for i, (t, w) in enumerate(zip(turns, wavs)):
+        if not np.isfinite(w).all() or w.shape != (2 * (t["tokens"] - 1)
+                                                   * 480,):
+            fail(f"synthesis {run} turn {i}: wav {w.shape} for "
+                 f"{t['tokens']} tokens (finite {bool(np.isfinite(w).all())})")
+    if rate != 24000 or wav.dtype != np.int16 or len(wav) != want:
+        fail(f"synthesis {run}: {path} is {rate} Hz {wav.dtype} "
+             f"{len(wav)} samples, want 24000 int16 {want}")
+    if not spy.fresh or not is_flash_width(spy.fresh[0]):
+        fail(f"synthesis {run}: the first prefill's width {spy.fresh} is "
+             f"not a flash width")
+    want_k = {"flash_fwd": L * sum(is_flash_width(w) for w in spy.fresh)}
+    if run == "paged":
+        want_k["paged_decode"] = L * sum(t["decode_steps"] for t in turns)
+    got_k = {k: counts.get(k, 0) for k in ("flash_fwd", "paged_decode")}
+    if got_k != {k: want_k.get(k, 0) for k in got_k} or set(counts) - set(
+            got_k):
+        fail(f"synthesis {run} launches {counts} != {want_k}")
+    codes = check_prompt_codes(spy, cpu)
+    audio_s = len(wav) / 24000
+    rep = {
+        "run": run, "card": record_card(), "wall_s": wall, "audio_s": audio_s,
+        "x_realtime": audio_s / wall,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "s3_quantize_ms": [q["ms"] for q in spy.quant],
+        "campplus_ms": [x["ms"] for x in spy.xvec],
+        "turns": [{"prefill_tokens": t["prefill_tokens"],
+                   "tokens": t["tokens"], "s": t["s"],
+                   "decode_ms_per_step": t["s"] * 1e3 / max(t["tokens"], 1),
+                   "tokens_per_s": t["tokens"] / t["s"]} for t in turns],
+        "fresh_prefill_widths": spy.fresh,
+        "flow_hift_ms": spy.synth, "first_audio_ms": spy.first_audio,
+        "prompt_codes": codes, "launches": counts,
+        "turn_cap": SYN_TURN_TOKENS}
+    log(f"synthesis {run} " + json.dumps(rep))
+    return rep
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available: this smoke runs on the GPU only")
@@ -3561,6 +3988,10 @@ def main() -> None:
     for entry in kernels:   # each CLI's launches of the kernel in phase 15
         entry["cli_launches"] = {name: c.get(entry["name"], 0)
                                  for name, c in cli_counts.items()}
+    synth_counts = synthesis(dev)
+    for entry in kernels:   # each synthesize run's launches in phase 16
+        entry["synthesize_launches"] = {run: c.get(entry["name"], 0)
+                                        for run, c in synth_counts.items()}
     log(f"total s={time.perf_counter() - t_all:.2f}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

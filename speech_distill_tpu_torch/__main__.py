@@ -3,8 +3,7 @@
 
 Commands map 1:1 to the reference's top-level scripts. ``SDT_FORCE_CPU=1``
 adds ``--device cpu`` (the CLIs run on the GPU otherwise, and raise
-without one). ``synthesize`` is listed and exits 1: it waits for the port
-of ``infer/soulxpodcast``.
+without one).
 """
 import importlib
 import os
@@ -21,7 +20,8 @@ COMMANDS = {
                        "teacher top-K logprob extraction"),
     "train": ("speech_distill_tpu_torch.pipelines.train",
               "stage-2 knowledge distillation"),
-    "synthesize": (None, "TTS synthesis from a podcast script"),
+    "synthesize": ("speech_distill_tpu_torch.pipelines.synthesize",
+                   "TTS synthesis from a podcast script"),
     "evaluate": ("speech_distill_tpu_torch.pipelines.evaluate",
                  "distilled-model quality eval (agreement/KL + audio smoke)"),
 }
@@ -38,10 +38,6 @@ def main():
         print(f"unknown command: {cmd}; one of {', '.join(COMMANDS)}")
         sys.exit(1)
     module, _ = COMMANDS[cmd]
-    if module is None:
-        print(f"{cmd} is not ported yet: it needs infer/soulxpodcast "
-              f"(ROADMAP §1 item 10)")
-        sys.exit(1)
     argv = sys.argv[2:]
     if os.environ.get("SDT_FORCE_CPU") and not any(
             a == "--device" or a.startswith("--device=") for a in argv):

@@ -89,18 +89,9 @@ class CheckpointManager:
         """Nothing is held open."""
 
 
-def export_hf(params: Dict[str, Any], cfg, out_dir: str,
-              extra_config: Optional[Dict[str, Any]] = None) -> None:
-    """Write ``config.json`` and ``model.safetensors`` under ``out_dir``
-    from a JAX-shaped weight tree (tensors or arrays). The tensors are
-    fp32 while the config names ``torch_dtype`` bfloat16: the JAX
-    package's artifact, byte for byte."""
-    from safetensors.numpy import save_file
-    from speech_distill_tpu_torch.models.hf_loader import to_state_dict
-
-    os.makedirs(out_dir, exist_ok=True)
-    save_file(to_state_dict(params, cfg),
-              os.path.join(out_dir, "model.safetensors"))
+def hf_config(cfg, extra_config: Optional[Dict[str, Any]] = None
+              ) -> Dict[str, Any]:
+    """The ``config.json`` of :func:`export_hf` for a Qwen3 config."""
     hf_cfg = {
         "architectures": ["Qwen3ForCausalLM"],
         "model_type": "qwen3",
@@ -120,5 +111,20 @@ def export_hf(params: Dict[str, Any], cfg, out_dir: str,
         "eos_token_id": cfg.eos_token_id,
     }
     hf_cfg.update(extra_config or {})
+    return hf_cfg
+
+
+def export_hf(params: Dict[str, Any], cfg, out_dir: str,
+              extra_config: Optional[Dict[str, Any]] = None) -> None:
+    """Write ``config.json`` and ``model.safetensors`` under ``out_dir``
+    from a JAX-shaped weight tree (tensors or arrays). The tensors are
+    fp32 while the config names ``torch_dtype`` bfloat16: the JAX
+    package's artifact, byte for byte."""
+    from safetensors.numpy import save_file
+    from speech_distill_tpu_torch.models.hf_loader import to_state_dict
+
+    os.makedirs(out_dir, exist_ok=True)
+    save_file(to_state_dict(params, cfg),
+              os.path.join(out_dir, "model.safetensors"))
     with open(os.path.join(out_dir, "config.json"), "w") as f:
-        json.dump(hf_cfg, f, indent=2)
+        json.dump(hf_config(cfg, extra_config), f, indent=2)

@@ -1,5 +1,5 @@
-"""Configuration for the PyTorch port: the Qwen3 decoder, the sampler, and
-the LoRA and distillation knobs of the KD training step.
+"""Configuration for the PyTorch port: the Qwen3 decoder, the sampler, the
+TTS engine, and the LoRA and distillation knobs of the KD training step.
 
 Own copy of the fields the port reads from
 ``speech_distill_tpu/core/config.py`` (the port imports nothing of the JAX
@@ -8,9 +8,11 @@ describes the same model on the other.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
-from dataclasses import dataclass, field
-from typing import Dict, Optional, Union
+import os
+from dataclasses import dataclass, field, fields
+from typing import Any, Dict, Optional, Union
 
 import torch
 
@@ -36,8 +38,34 @@ def torch_dtype(name: str) -> torch.dtype:
         raise ValueError(f"unsupported dtype {name!r}") from None
 
 
+def _overlay(cls, *sources: Dict[str, Any]):
+    """A dataclass from dicts: later sources win, unknown keys dropped."""
+    merged: Dict[str, Any] = {}
+    for src in sources:
+        if src:
+            merged.update(src)
+    valid = {f.name for f in fields(cls)}
+    return cls(**{k: v for k, v in merged.items() if k in valid})
+
+
+class _JsonOverlayMixin:
+    @classmethod
+    def from_initial_and_json(cls, initial_values: Optional[Dict[str, Any]]
+                              = None, json_file: Optional[str] = None):
+        """The JSON file's values (when the file exists), overlaid by
+        ``initial_values``; keys the dataclass lacks are dropped."""
+        file_data: Dict[str, Any] = {}
+        if json_file and os.path.exists(json_file):
+            with open(json_file, "r", encoding="utf-8") as f:
+                file_data = json.load(f)
+        return _overlay(cls, file_data, initial_values or {})
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+
 @dataclass
-class Qwen3Config:
+class Qwen3Config(_JsonOverlayMixin):
     """Qwen3 decoder (GQA, per-head q/k RMSNorm, NeoX RoPE, SwiGLU).
     Defaults = the SoulX-Podcast-1.7B-dialect teacher."""
 
@@ -185,7 +213,7 @@ class DistillConfig:
 
 
 @dataclass
-class SamplingParams:
+class SamplingParams(_JsonOverlayMixin):
     """Decode sampling params (HF generate processors + VALL-E 2 RAS).
 
     ``topk_method``: "exact" or "approx". JAX's "approx" is the TPU's
@@ -203,3 +231,25 @@ class SamplingParams:
     win_size: int = 25
     tau_r: float = 0.2
     topk_method: str = "exact"         # exact | approx (both exact here)
+
+
+@dataclass
+class EngineConfig(_JsonOverlayMixin):
+    """The TTS engine (reference soulxpodcast/config.py:121-142): the
+    context bound and the long-form eviction policy's sizes.
+    ``max_model_len`` is clipped to the model's
+    ``max_position_embeddings``."""
+
+    model: str = ""
+    max_model_len: int = 8192
+    max_turn_size: int = 10
+    turn_tokens_threshold: int = 6192
+    prompt_context: int = 2
+    history_context: int = 2
+    history_text_context: int = 2
+    llm: Qwen3Config = field(default_factory=Qwen3Config)
+    sampling: SamplingParams = field(default_factory=SamplingParams)
+
+    def __post_init__(self):
+        self.max_model_len = min(self.max_model_len,
+                                 self.llm.max_position_embeddings)

@@ -4,7 +4,7 @@
 Equivalent of reference ``SpeechDistillDatasetProcessor`` (data.py:63-198) and
 ``DistillationDataProcessor`` (data.py:390-462). The audio->codes function is
 injected (``speech_tokens_fn``) so the same processor drives an S3
-tokenizer (``tokenizer/s3.default_speech_tokens_fn``, not ported yet), a
+tokenizer (``tokenizer/s3.default_speech_tokens_fn``), a
 recorded-codes lookup in tests, or datasets that already carry a ``codes``
 column.
 """

@@ -340,6 +340,11 @@ class DecodeEngine:
         The chunk is padded to a bucket; the padded columns are written to
         the cache but never read: the cache length is rewound to the real
         end, and every later step writes its own column before attending.
+        A fresh turn (cache empty) attends over its own bucket, a view of
+        the cache's first ``width`` columns, instead of all ``max_len``
+        (the other keys are masked either way): T == S there, so a
+        flash-width prefill takes K1-fwd on the card, as
+        :meth:`_prefill_prefix` does.
         """
         n = len(new_ids)
         start = state.cache.length
@@ -350,12 +355,15 @@ class DecodeEngine:
         ids = np.zeros((1, width), np.int64)
         ids[0, :n] = new_ids
         ids = self._ids(ids)
-        mask = (torch.arange(self.max_len, device=self.device)
-                < start + n)[None]
-        hidden, cache = qwen3.forward(self.model, ids, attention_mask=mask,
-                                      cache=state.cache, return_hidden=True)
+        c = state.cache
+        cache = (qwen3.KVCache(c.k[:, :, :width], c.v[:, :, :width], 0)
+                 if start == 0 else c)
+        S = cache.k.shape[2]
+        mask = (torch.arange(S, device=self.device) < start + n)[None]
+        hidden, _ = qwen3.forward(self.model, ids, attention_mask=mask,
+                                  cache=cache, return_hidden=True)
         st = state.fork()
-        st.cache = qwen3.KVCache(cache.k, cache.v, start + n)
+        st.cache = qwen3.KVCache(c.k, c.v, start + n)
         st.tokens[0, start:start + n] = ids[0, :n]
         st.length.fill_(start + n)
         st.valid[0, start:start + n] = True

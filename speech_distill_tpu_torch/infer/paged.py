@@ -427,6 +427,8 @@ class PagedEngine:
     the C++ runtime if it builds (``SDT_NATIVE=0`` turns it off), True:
     the C++ runtime or raise, False: the Python twins."""
 
+    stateful = False   # generate() takes the full context; no caller state
+
     def __init__(self, model: qwen3.Qwen3, cfg: Qwen3Config,
                  sp: SamplingParams, slots: int = 8, max_len: int = 4096,
                  num_pages: Optional[int] = None, page_size: int = 128,

@@ -312,3 +312,115 @@ def hift_params_from_jax(tree: dict, cfg, device="cuda"):
     model = HiFTGenerator(cfg, device)
     _load(model, hift_state_from_jax(tree, cfg))
     return model
+
+
+# ---------------------------------------------------------------------------
+# the S3 tokenizer and CAM++ (the JAX pytrees as numpy -> torch names)
+# ---------------------------------------------------------------------------
+
+
+def s3_state_from_jax(tree: dict, cfg) -> dict:
+    """A JAX S3 ``init_params``-shaped tree -> the s3tokenizer checkpoint's
+    state dict (fp32 numpy)."""
+    s = {}
+    for i in (1, 2):
+        c = tree[f"conv{i}"]
+        s[f"encoder.conv{i}.weight"] = _np(c["w"]).transpose(2, 1, 0)
+        s[f"encoder.conv{i}.bias"] = _np(c["b"])
+    b = tree["blocks"]
+    lin = {"q": "attn.query", "k": "attn.key", "v": "attn.value",
+           "out": "attn.out", "mlp1": "mlp.0", "mlp2": "mlp.2"}
+    for i in range(cfg.n_layer):
+        p = f"encoder.blocks.{i}"
+        for jname, tname in lin.items():
+            s[f"{p}.{tname}.weight"] = _np(b[jname]["w"])[i].T
+            if "b" in b[jname]:
+                s[f"{p}.{tname}.bias"] = _np(b[jname]["b"])[i]
+        for jname, tname in (("ln1", "attn_ln"), ("ln2", "mlp_ln")):
+            s[f"{p}.{tname}.weight"] = _np(b[jname]["scale"])[i]
+            s[f"{p}.{tname}.bias"] = _np(b[jname]["bias"])[i]
+    s["encoder.ln_post.weight"] = _np(tree["ln_post"]["scale"])
+    s["encoder.ln_post.bias"] = _np(tree["ln_post"]["bias"])
+    s["quantizer.project_down.weight"] = _np(tree["fsq"]["w"]).T
+    s["quantizer.project_down.bias"] = _np(tree["fsq"]["b"])
+    return {k: np.ascontiguousarray(v) for k, v in s.items()}
+
+
+def s3_params_from_jax(tree: dict, cfg, device="cuda"):
+    """An :class:`~speech_distill_tpu_torch.tokenizer.s3.S3Encoder`
+    holding the weights of a JAX S3 tree."""
+    from speech_distill_tpu_torch.tokenizer.s3 import from_state_dict
+    state = {k: torch.from_numpy(v)
+             for k, v in s3_state_from_jax(tree, cfg).items()}
+    return from_state_dict(state, cfg, device)
+
+
+def campplus_state_from_jax(tree: dict, cfg) -> dict:
+    """A JAX CAM++ tree (``campplus.convert_torch_state``'s) -> the torch
+    ``CAMPPlus`` state dict (fp32 numpy; BatchNorm counters 0)."""
+    s = {}
+
+    def bn(name, p):
+        s[f"{name}.running_mean"] = _np(p["mean"])
+        s[f"{name}.running_var"] = _np(p["var"])
+        s[f"{name}.num_batches_tracked"] = np.zeros((), np.int64)
+        if "weight" in p:
+            s[f"{name}.weight"] = _np(p["weight"])
+            s[f"{name}.bias"] = _np(p["bias"])
+
+    head = tree["head"]
+    s["head.conv1.weight"] = _np(head["conv1"])
+    bn("head.bn1", head["bn1"])
+    for layer in ("layer1", "layer2"):
+        for i, r in enumerate(head[layer]):
+            p = f"head.{layer}.{i}"
+            s[f"{p}.conv1.weight"] = _np(r["conv1"])
+            bn(f"{p}.bn1", r["bn1"])
+            s[f"{p}.conv2.weight"] = _np(r["conv2"])
+            bn(f"{p}.bn2", r["bn2"])
+            if "shortcut_conv" in r:
+                s[f"{p}.shortcut.0.weight"] = _np(r["shortcut_conv"])
+                bn(f"{p}.shortcut.1", r["shortcut_bn"])
+    s["head.conv2.weight"] = _np(head["conv2"])
+    bn("head.bn2", head["bn2"])
+    s["xvector.tdnn.linear.weight"] = _np(tree["tdnn"]["linear"])
+    bn("xvector.tdnn.nonlinear.batchnorm", tree["tdnn"]["bn"])
+    for bi, block in enumerate(tree["blocks"]):
+        for li, lp in enumerate(block):
+            p = f"xvector.block{bi + 1}.tdnnd{li + 1}"
+            bn(f"{p}.nonlinear1.batchnorm", lp["bn1"])
+            s[f"{p}.linear1.weight"] = _np(lp["linear1"])
+            bn(f"{p}.nonlinear2.batchnorm", lp["bn2"])
+            cam = lp["cam"]
+            s[f"{p}.cam_layer.linear_local.weight"] = _np(cam["local"])
+            for j in (1, 2):
+                s[f"{p}.cam_layer.linear{j}.weight"] = _np(cam[f"lin{j}_w"])
+                s[f"{p}.cam_layer.linear{j}.bias"] = _np(cam[f"lin{j}_b"])
+        tr = tree["transits"][bi]
+        bn(f"xvector.transit{bi + 1}.nonlinear.batchnorm", tr["bn"])
+        s[f"xvector.transit{bi + 1}.linear.weight"] = _np(tr["linear"])
+    bn("xvector.out_nonlinear.batchnorm", tree["out_bn"])
+    s["xvector.dense.linear.weight"] = _np(tree["dense"]["linear"])[..., None]
+    bn("xvector.dense.nonlinear.batchnorm", tree["dense"]["bn"])
+    return {k: np.ascontiguousarray(v) for k, v in s.items()}
+
+
+def campplus_params_from_jax(tree: dict, cfg, device="cuda"):
+    """A :class:`~speech_distill_tpu_torch.models.campplus.CAMPPlus`
+    holding the weights of a JAX CAM++ tree."""
+    from speech_distill_tpu_torch.models.campplus import from_state_dict
+    state = {k: torch.from_numpy(v)
+             for k, v in campplus_state_from_jax(tree, cfg).items()}
+    return from_state_dict(state, cfg, device)
+
+
+def load_reference_state(module: torch.nn.Module, state: dict):
+    """Load a reference-format state dict (``flow.pt``, or ``hift.pt``
+    with weight norm folded) into a port module whose names are the
+    reference's: every module tensor must be present; the checkpoint's
+    other entries are ignored, as the JAX converters ignore them."""
+    missing, _ = module.load_state_dict(state, strict=False)
+    if missing:
+        raise KeyError(f"checkpoint lacks {len(missing)} tensors, e.g. "
+                       f"{missing[:3]}")
+    return module

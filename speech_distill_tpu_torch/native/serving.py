@@ -3,27 +3,22 @@
 C++ twins of the Python ``PagePool`` / ``PrefixRegistry`` in
 ``infer/paged.py`` (the vLLM block-manager role). ``g++`` builds the
 source at first use into ``speech_distill_tpu_torch/build/`` as
-``libsdt_serving-<hash>.so`` (named by the source and the flags, so an
-edit builds anew). Each process compiles to a file of its own and
-renames it into place, so processes that build at once never read a
-half-written library. ``SDT_NATIVE=0`` turns the native runtime off.
-Nothing builds at import time.
+``libsdt_serving-<hash>.so`` (``native/_build.py``). ``SDT_NATIVE=0``
+turns the native runtime off. Nothing builds at import time.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
-import threading
 from pathlib import Path
 from typing import List, Optional, Sequence
 
 import numpy as np
 
+from speech_distill_tpu_torch.native import _build
+from speech_distill_tpu_torch.native._build import BUILD
+
 SRC = Path(__file__).resolve().with_name("serving_runtime.cc")
-BUILD = Path(__file__).resolve().parents[1] / "build"
-CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 _lib: Optional[ctypes.CDLL] = None
 _error: Optional[str] = None          # why the library is unavailable
@@ -32,29 +27,13 @@ _i32p = ctypes.POINTER(ctypes.c_int32)
 
 
 def lib_path(build_dir=BUILD) -> Path:
-    digest = hashlib.sha1(SRC.read_bytes()
-                          + " ".join(CXX_FLAGS).encode()).hexdigest()
-    return Path(build_dir) / f"libsdt_serving-{digest[:12]}.so"
+    return _build.lib_path(SRC, "libsdt_serving", build_dir)
 
 
 def build(build_dir=BUILD) -> Path:
     """Compile the runtime into ``build_dir`` unless it is there; returns
     its path. Raises with the compiler's output when the build fails."""
-    out = lib_path(build_dir)
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}."
-                        f"{threading.get_ident()}.tmp")
-    try:
-        res = subprocess.run(["g++", *CXX_FLAGS, str(SRC), "-o", str(tmp)],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"g++ failed for {SRC.name}:\n{res.stderr}")
-        os.replace(tmp, out)
-    finally:
-        tmp.unlink(missing_ok=True)
-    return out
+    return _build.build(SRC, "libsdt_serving", build_dir)
 
 
 def load(build_dir=BUILD) -> ctypes.CDLL:

@@ -78,18 +78,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def load_reference_state(module, state: dict):
-    """Load a reference-format state dict (``flow.pt``, or ``hift.pt``
-    with weight norm folded) into a port module whose names are the
-    reference's: every module tensor must be present; the checkpoint's
-    other entries are ignored, as the JAX converters ignore them."""
-    missing, _ = module.load_state_dict(state, strict=False)
-    if missing:
-        raise KeyError(f"checkpoint lacks {len(missing)} tensors, e.g. "
-                       f"{missing[:3]}")
-    return module
-
-
 def smoke_flow_hift(config, flow_vocab: int, dev):
     """(flow_cfg, flow, hift_cfg, hift, flow_src, hift_src): the full-size
     (or ``--smoke_tiny``) flow and HiFT, from reference checkpoints when
@@ -98,6 +86,7 @@ def smoke_flow_hift(config, flow_vocab: int, dev):
     from speech_distill_tpu_torch.models import flow as flow_lib
     from speech_distill_tpu_torch.models import flow_encoder
     from speech_distill_tpu_torch.models import hift as hift_lib
+    from speech_distill_tpu_torch.models.convert import load_reference_state
 
     if config.smoke_tiny:
         enc = flow_encoder.FlowEncoderConfig(
@@ -243,7 +232,7 @@ def evaluate(config) -> dict:
             parse_prefix(config.teacher_prefix),
             parse_prefix(config.student_prefix), tokenizer)
         dual = make_dual_processor(tokenizer, teacher_prefix,
-                                   student_prefix, config)
+                                   student_prefix, config, device=dev)
         dataset = dataset.map(dual, batched=True, desc="process")
 
     s_cfg, student = load_pretrained(config.student_model, device=dev)

@@ -133,7 +133,7 @@ def main(argv=None):
     if "input_ids" not in dataset.column_names and \
             "teacher_input_ids" not in dataset.column_names:
         processor = SpeechDistillProcessor(
-            tokenizer, speech_tokens_fn=default_speech_tokens_fn(),
+            tokenizer, speech_tokens_fn=default_speech_tokens_fn(dev),
             prefix=parse_prefix(args.teacher_prefix),
             text_bos=args.text_bos, text_eos=args.text_eos,
             text_prefix=parse_prefix(args.text_prefix),

@@ -3,9 +3,9 @@
 prepare_dataset.py:19-216).
 
 Runs the dual student/teacher processor over a raw dataset and saves the
-four id columns the train CLI detects. Host work only; ``--device`` is
-checked like every CLI's (the S3 tokenizer that would use it is not
-ported, so rows need a ``codes`` column).
+four id columns the train CLI detects. Rows with audio and no ``codes``
+column go through the S3 tokenizer of ``$S3_TOKENIZER_CKPT`` on
+``--device``.
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ import argparse
 
 
 def make_dual_processor(tokenizer, teacher_prefix, student_prefix, config,
-                        speech_tokens_fn=None):
+                        speech_tokens_fn=None, device="cuda"):
     from speech_distill_tpu_torch.core.config import parse_prefix
     from speech_distill_tpu_torch.data.processor import (
         DualProcessor, SpeechDistillProcessor)
@@ -21,7 +21,7 @@ def make_dual_processor(tokenizer, teacher_prefix, student_prefix, config,
     if speech_tokens_fn is None:
         from speech_distill_tpu_torch.tokenizer.s3 import (
             default_speech_tokens_fn)
-        speech_tokens_fn = default_speech_tokens_fn()
+        speech_tokens_fn = default_speech_tokens_fn(device)
     text_prefix = parse_prefix(config.text_prefix)
     common = dict(
         speech_tokens_fn=speech_tokens_fn,
@@ -41,7 +41,7 @@ def prepare_dataset(config):
     from speech_distill_tpu_torch.pipelines.common import (
         load_hf_dataset, load_tokenizer)
 
-    resolve_device(config.device)
+    dev = resolve_device(config.device)
     tokenizer = load_tokenizer(config.student_model, config.pad_token)
     teacher_prefix = parse_prefix(config.teacher_prefix)
     student_prefix = parse_prefix(config.student_prefix)
@@ -50,7 +50,7 @@ def prepare_dataset(config):
 
     dataset = load_hf_dataset(config.dataset_path)
     dual = make_dual_processor(tokenizer, teacher_prefix, student_prefix,
-                               config)
+                               config, device=dev)
     processed = dataset.map(
         dual, batched=config.batch_size > 1, batch_size=config.batch_size,
         num_proc=config.num_proc if config.num_proc > 1 else None,

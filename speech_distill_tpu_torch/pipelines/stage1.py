@@ -104,14 +104,11 @@ def fused_route(max_seq_length: int, device, dtype: torch.dtype,
 
 
 def _process_one(processor, tokenizer, example):
-    """One example's ids: the template processor's, or, when it fails,
-    the tokenized text (the JAX CLI's fallback). A missing port
-    (``NotImplementedError``: an audio row without the S3 tokenizer) is
-    raised, not turned into a text-only example."""
+    """One example's ids: the template processor's, or, when it fails
+    (an audio row without an S3 checkpoint among them), the tokenized
+    text (the JAX CLI's fallback)."""
     try:
         return processor.process_example(example)["input_ids"]
-    except NotImplementedError:
-        raise
     except Exception:
         text = example.get("text", "").strip()
         return tokenizer.encode(text) if text else None
@@ -158,7 +155,7 @@ def train_stage1(config):
 
     dataset = load_hf_dataset(config.dataset_path)
     processor = SpeechDistillProcessor(
-        tokenizer, speech_tokens_fn=default_speech_tokens_fn(),
+        tokenizer, speech_tokens_fn=default_speech_tokens_fn(dev),
         prefix=parse_prefix(config.prefix),
         text_bos=config.text_bos, text_eos=config.text_eos,
         text_prefix=parse_prefix(config.text_prefix),

@@ -174,7 +174,7 @@ def train(config) -> None:
 
     if not is_preprocessed:
         dual = make_dual_processor(
-            tokenizer, teacher_prefix, student_prefix, config)
+            tokenizer, teacher_prefix, student_prefix, config, device=dev)
         dataset = dataset.map(dual, batched=True, desc="process")
     preview(tokenizer, dataset[0])
 

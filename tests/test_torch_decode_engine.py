@@ -295,3 +295,27 @@ def test_prefill_near_max_len_is_narrowed():
                   - ref.last_logits.numpy()).max() > 1e-2
     with pytest.raises(ValueError, match="overflow"):
         teng.prefill(got, list(range(1, 10)))
+
+
+def test_fresh_prefill_attends_over_its_bucket(monkeypatch):
+    """A fresh turn's prefill runs over its own bucket (T == S: the shape
+    K1-fwd takes on the card), a later turn's over the whole cache; the
+    tokens stay JAX's on both turns."""
+    s = setup(vocab=48, seed=5)
+    seen = []
+    real = tq.use_flash
+
+    def spy(q, k, impl="auto"):
+        seen.append((q.shape[1], k.shape[1]))
+        return real(q, k, impl)
+    monkeypatch.setattr(tq, "use_flash", spy)
+    jeng, teng = engines(s, max_len=64, prefill_bucket=16)
+    p1, p2 = list(range(1, 21)), [3, 4, 5]
+    j1, t1 = jeng.generate(p1), teng.generate(p1)
+    assert t1["token_ids"] == j1["token_ids"]
+    assert seen[0] == (32, 32)
+    seen.clear()
+    j2 = jeng.generate(p2, state=j1["state"])
+    t2 = teng.generate(p2, state=t1["state"])
+    assert t2["token_ids"] == j2["token_ids"]
+    assert seen[0] == (16, 64)

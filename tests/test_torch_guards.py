@@ -86,6 +86,7 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         train_loop(lambda *a: None, None, (), lambda epoch: iter(()),
                    LoopConfig(output_dir=str(tmp_path)))
     _tts_entry_points_raise()
+    _audio_entry_points_raise(tmp_path)
     _cli_mains_raise(tmp_path)
     # the explicit CPU request runs
     eng = PagedEngine(model, cfg, SamplingParams(top_k=4,
@@ -102,7 +103,7 @@ def _cli_mains_raise(tmp_path):
                                                     extract_logits,
                                                     prepare_dataset,
                                                     prepare_student, stage1,
-                                                    train)
+                                                    synthesize, train)
     d = str(tmp_path / "missing")
     calls = [
         lambda: prepare_student.main(["--teacher-model", d,
@@ -116,10 +117,46 @@ def _cli_mains_raise(tmp_path):
         lambda: stage1.main(["--model_path", d, "--dataset_path", d,
                              "--output_dir", str(tmp_path / "s1")]),
         lambda: train.main(["--dataset_path", d]),
-        lambda: evaluate.main(["--student_model", d, "--dataset_path", d])]
+        lambda: evaluate.main(["--student_model", d, "--dataset_path", d]),
+        lambda: synthesize.main(["--model_path", d, "--script", d])]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+def _audio_entry_points_raise(tmp_path):
+    """The audio prompt path's entry points (the S3 tokenizer, CAM++, the
+    inference dataset, the orchestrator and ``initiate_model``) with
+    CUDA reported missing; CAM++'s spk_emb_fn runs on the CPU when
+    asked."""
+    from speech_distill_tpu_torch.core.config import EngineConfig
+    from speech_distill_tpu_torch.infer.dataloader import PodcastDataset
+    from speech_distill_tpu_torch.infer.infer_utils import initiate_model
+    from speech_distill_tpu_torch.infer.soulxpodcast import SoulXPodcast
+    from speech_distill_tpu_torch.models import campplus
+    from speech_distill_tpu_torch.tokenizer import s3
+
+    tiny = campplus.CampPlusConfig(block_layers=(1, 1, 1))
+    cpu_model = campplus.CAMPPlus(tiny, "cpu")
+    ckpt = tmp_path / "s3.pt"
+    torch.save(s3.S3Encoder(s3.s3_tiny(), "cpu").state_dict(), ckpt)
+    raising = [
+        lambda: s3.load_s3_tokenizer(str(ckpt)),
+        lambda: s3.S3Encoder(s3.s3_tiny()),
+        lambda: s3.init_params_on_device(0, s3.s3_tiny()),
+        lambda: s3.default_speech_tokens_fn()(np.zeros(1600, np.float32)),
+        lambda: campplus.CAMPPlus(tiny),
+        lambda: campplus.make_spk_emb_fn(cpu_model),
+        lambda: PodcastDataset(None, None),
+        lambda: SoulXPodcast(EngineConfig(), None, None, None, None, None,
+                             None),
+        lambda: initiate_model(0, str(tmp_path / "missing"))]
+    for make in raising:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    emb = campplus.make_spk_emb_fn(cpu_model, "cpu")(
+        np.zeros((40, 80), np.float32))
+    assert emb.shape == (192,)
 
 
 def _tts_entry_points_raise():

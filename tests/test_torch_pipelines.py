@@ -5,8 +5,10 @@ template and processors id for id, ``prepare_dataset`` columns equal,
 equal but at near-ties, values within one fp16 ulp), ``stage1``
 (metrics.jsonl losses at rtol 1e-5, final_model at rtol 1e-4 / atol 1e-6)
 and ``evaluate`` (metrics at rtol 1e-5) in fp32, both packages'
-``load_pretrained`` patched to fp32; the stage-1 audio-row guard and the
-``python -m speech_distill_tpu_torch`` entry point. CPU.
+``load_pretrained`` patched to fp32; audio rows through a tiny S3
+checkpoint (prepare-dataset and stage 1 id for id with JAX) and stage 1's
+text fallback without one; the ``python -m speech_distill_tpu_torch``
+entry point. CPU.
 
 The JAX training CLIs run data-parallel over the 8 virtual CPU devices of
 ``tests/conftest.py``, so their global batch is 8 x the per-device flag;
@@ -284,18 +286,103 @@ def test_stage1_cli_matches_jax(ws, tmp_path, monkeypatch):
                               .numpy())
 
 
-def test_stage1_audio_row_raises(ws, tmp_path):
-    """An audio row without codes needs the unported S3 tokenizer: the
-    port raises instead of training on the text alone (the JAX CLI's
-    fallback for other failures)."""
+def _s3_checkpoint(tmp_path, monkeypatch):
+    """A tiny-width S3 checkpoint with the whisper front end's 128 mels,
+    written to ``tmp_path`` and named by ``$S3_TOKENIZER_CKPT``."""
+    import dataclasses
+    import jax
+    from speech_distill_tpu.tokenizer import s3 as js3
+    from speech_distill_tpu_torch.models.convert import s3_params_from_jax
+    from speech_distill_tpu_torch.tokenizer import s3 as ts3
+    jcfg = dataclasses.replace(js3.s3_tiny(), n_mels=128)
+    params = js3.init_params(jax.random.PRNGKey(0), jcfg)
+    model = s3_params_from_jax(jax.tree.map(np.asarray, params),
+                               ts3.S3Config(**dataclasses.asdict(jcfg)),
+                               "cpu")
+    path = tmp_path / "speech_tokenizer_v2.pt"
+    torch.save(model.state_dict(), path)
+    monkeypatch.setenv("S3_TOKENIZER_CKPT", str(path))
+
+
+def _audio_rows(n=4, seed=0):
+    """Rows with audio (24 kHz arrays) and text, no codes column."""
+    rng = np.random.default_rng(seed)
+    return {"audio": [{"array": (0.3 * rng.normal(size=int(
+                           rng.integers(6000, 12000)))).astype(np.float32),
+                       "sampling_rate": 24000} for _ in range(n)],
+            "text": ["hello", "abc", "good day", "xyz"][:n],
+            "lang": ["en", "zh", "yue", "en"][:n]}
+
+
+def test_audio_rows_tokenized_as_jax(ws, tmp_path, monkeypatch):
+    """Audio rows without codes go through the S3 tokenizer of
+    ``$S3_TOKENIZER_CKPT``: prepare-dataset's columns and stage 1's
+    example ids equal the JAX CLIs', and the stage-1 CLI trains on
+    them."""
+    from speech_distill_tpu.pipelines.prepare_dataset import main as jprep
+    from speech_distill_tpu.tokenizer.s3 import (
+        default_speech_tokens_fn as jfn)
     from speech_distill_tpu_torch.pipelines import stage1
+    from speech_distill_tpu_torch.pipelines.prepare_dataset import main
+    from speech_distill_tpu_torch.tokenizer.s3 import (
+        default_speech_tokens_fn)
+    _s3_checkpoint(tmp_path, monkeypatch)
+    rows = _audio_rows()
+    raw = str(tmp_path / "audio")
+    datasets.Dataset.from_dict(rows).save_to_disk(raw)
+    args = ["--dataset_path", raw, "--student_model", ws["student"],
+            "--max_length", "512"]
+    jprep(args + ["--output_path", str(tmp_path / "jax")])
+    main(args + ["--output_path", str(tmp_path / "port")] + CPU)
+    got = datasets.load_from_disk(str(tmp_path / "port")).to_dict()
+    ref = datasets.load_from_disk(str(tmp_path / "jax")).to_dict()
+    assert got["teacher_input_ids"] == ref["teacher_input_ids"]
+    assert got == ref
+
+    tok = load_tok(ws)
+    port = tproc.SpeechDistillProcessor(
+        tok, speech_tokens_fn=default_speech_tokens_fn("cpu"))
+    jax_p = jproc.SpeechDistillProcessor(tok, speech_tokens_fn=jfn())
+    for i in range(len(rows["text"])):
+        ex = {k: v[i] for k, v in rows.items()}
+        ids = stage1._process_one(port, tok, ex)
+        assert ids == jax_p.process_example(ex)["input_ids"]
+        assert len(ids) > len(tok.encode(ex["text"])) + 4
+    stage1.main(["--model_path", ws["student"], "--dataset_path", raw,
+                 "--output_dir", str(tmp_path / "s1"), "--num_epochs", "1",
+                 "--batch_size", "1", "--max_seq_length", "16",
+                 "--num_new_tokens", "50", "--warmup_steps", "1",
+                 "--eval_size", "0", "--num_workers", "2"] + CPU)
+    assert (tmp_path / "s1" / "final_model" / "config.json").exists()
+
+
+def load_tok(ws):
+    from transformers import AutoTokenizer
+    return AutoTokenizer.from_pretrained(ws["student"])
+
+
+def test_stage1_audio_row_text_fallback(ws, tmp_path, monkeypatch):
+    """Without an S3 checkpoint an audio row's processing fails, and stage
+    1 falls back to the tokenized text as the JAX CLI does (as for any
+    other failing row); the CLI then trains on the text."""
+    from speech_distill_tpu_torch.pipelines import stage1
+    from speech_distill_tpu_torch.tokenizer.s3 import (
+        default_speech_tokens_fn)
+    monkeypatch.delenv("S3_TOKENIZER_CKPT", raising=False)
+    tok = load_tok(ws)
+    port = tproc.SpeechDistillProcessor(
+        tok, speech_tokens_fn=default_speech_tokens_fn("cpu"))
+    ex = {"audio": "a.wav", "text": " hello "}
+    assert stage1._process_one(port, tok, ex) == tok.encode("hello")
     raw = str(tmp_path / "audio")
     datasets.Dataset.from_dict({"audio": ["a.wav", "b.wav"],
                                 "text": ["hello", "abc"]}).save_to_disk(raw)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        stage1.main(["--model_path", ws["student"], "--dataset_path", raw,
-                     "--output_dir", str(tmp_path / "out"),
-                     "--max_seq_length", "8", "--num_workers", "1"] + CPU)
+    stage1.main(["--model_path", ws["student"], "--dataset_path", raw,
+                 "--output_dir", str(tmp_path / "out"), "--num_epochs", "1",
+                 "--batch_size", "1", "--max_seq_length", "8",
+                 "--num_new_tokens", "50", "--eval_size", "0",
+                 "--num_workers", "1"] + CPU)
+    assert (tmp_path / "out" / "final_model" / "config.json").exists()
 
     class Failing:
         def process_example(self, example):
@@ -375,8 +462,11 @@ def test_main_usage_and_exit_codes():
     assert _run_main().returncode == 1
     res = _run_main("nope")
     assert res.returncode == 1 and "unknown command: nope" in res.stdout
-    res = _run_main("synthesize")
-    assert res.returncode == 1 and "item 10" in res.stdout
+    res = _run_main("synthesize", "--help")
+    assert res.returncode == 0
+    for flag in ("--model_path", "--script", "--output_dir", "--seed",
+                 "--llm_engine", "--fp16_flow", "--streaming", "--device"):
+        assert flag in res.stdout, flag
 
 
 def test_main_force_cpu(ws, tmp_path, monkeypatch):
@@ -395,3 +485,112 @@ def test_main_force_cpu(ws, tmp_path, monkeypatch):
     monkeypatch.setattr(sys, "argv", list(argv))
     entry.main()
     assert datasets.load_from_disk(out).num_rows == 12
+
+
+SYN_OFFSET, SYN_CODES = 100, 6561      # speech ids at 100 .. 6660, eos 6661
+
+
+def _tiny_synth_dir(root, monkeypatch):
+    """A tiny model directory for ``synthesize``: a vocab-6,662 LLM (the
+    full speech range: any generated id maps into the flow vocabulary)
+    with the test tokenizer, its ``soulxpodcast_config.json``, a tiny
+    flow (6,561 tokens, 80 mels, 192-d speaker) and HiFT, a 128-mel
+    tiny S3 checkpoint, the published CAM++; the port's flow and HiFT
+    configs patched to the tiny ones, and each turn capped at 12 tokens
+    through the run's EngineConfig (the CLI has no flag for it)."""
+    from speech_distill_tpu_torch.core.checkpoint import export_hf
+    from speech_distill_tpu_torch.core.config import (EngineConfig,
+                                                      SamplingParams,
+                                                      qwen3_tiny)
+    from speech_distill_tpu_torch.infer import infer_utils
+    from speech_distill_tpu_torch.models import campplus, flow, hift, qwen3
+    from speech_distill_tpu_torch.models.convert import model_to_tree
+    from speech_distill_tpu_torch.models.flow_encoder import (
+        FlowEncoderConfig)
+    from tests.test_pipelines import make_tiny_tokenizer
+
+    d = root / "model"
+    make_tiny_tokenizer(str(d))
+    eos = SYN_OFFSET + SYN_CODES
+    cfg = qwen3_tiny(eos + 1, dtype="float32", speech_token_offset=SYN_OFFSET,
+                     eos_token_id=eos)
+    export_hf(model_to_tree(qwen3.init_params(cfg, 0, "cpu")), cfg, str(d))
+    (d / "soulxpodcast_config.json").write_text(json.dumps(cfg.to_dict()))
+    fc = flow.FlowConfig(
+        input_size=16, n_timesteps=2, est_channels=16, est_n_blocks=1,
+        est_num_mid_blocks=1, est_num_heads=2, est_head_dim=8,
+        encoder=FlowEncoderConfig(input_size=16, output_size=16,
+                                  attention_heads=2, linear_units=32,
+                                  num_blocks=1, num_up_blocks=1))
+    hc = hift.HiFTConfig(base_channels=16, nb_harmonics=2,
+                         resblock_kernel_sizes=(3,),
+                         resblock_dilations=((1,),),
+                         source_resblock_kernel_sizes=(3, 3, 3),
+                         source_resblock_dilations=((1,), (1,), (1,)),
+                         f0_cond_channels=8)
+    torch.save(flow.init_params(fc, 0, "cpu").state_dict(), d / "flow.pt")
+    torch.save(hift.init_params(hc, 0, "cpu").state_dict(), d / "hift.pt")
+    torch.save(campplus.CAMPPlus(device="cpu").state_dict(),
+               d / "campplus.pt")
+    _s3_checkpoint(d, monkeypatch)
+    monkeypatch.delenv("S3_TOKENIZER_CKPT")     # the directory's own file
+    monkeypatch.setattr(flow, "FlowConfig", lambda: fc)
+    monkeypatch.setattr(hift, "HiFTConfig", lambda: hc)
+    sp = SamplingParams(max_tokens=12, stop_token_ids=(eos,))
+    monkeypatch.setattr(infer_utils, "EngineConfig",
+                        lambda **kw: EngineConfig(sampling=sp, **kw))
+    return d
+
+
+def _synth_script(root) -> str:
+    from scipy.io.wavfile import write as wav_write
+    rng = np.random.default_rng(0)
+    speakers = {}
+    for name, sr, secs in (("S1", 44100, 1.1), ("S2", 24000, 0.9)):
+        path = root / f"{name}.wav"
+        wav_write(str(path), sr, (0.2 * rng.normal(size=int(sr * secs))
+                                  * 32767).astype(np.int16))
+        speakers[name] = {"prompt_text": f"prompt of {name.lower()}",
+                          "prompt_audio": str(path)}
+    script = root / "script.json"
+    script.write_text(json.dumps({
+        "speakers": speakers,
+        "text": [["S1", "hello there"], ["S2", "hi"], ["S1", "good day"]]}))
+    return str(script)
+
+
+@pytest.mark.parametrize("engine", ["jax", "paged"])
+def test_synthesize_cli_tiny(tmp_path, monkeypatch, engine):
+    """``synthesize.main --device cpu`` over a three-turn two-speaker
+    script: a 24 kHz int16 wav of (2 x the tokens each turn hands the
+    flow) x 480 samples, the same bytes on a second run with the seed
+    (the streaming run gives the same tokens and length)."""
+    from scipy.io.wavfile import read as wav_read
+    from speech_distill_tpu_torch.infer.soulxpodcast import SoulXPodcast
+    from speech_distill_tpu_torch.pipelines import synthesize
+    d = _tiny_synth_dir(tmp_path, monkeypatch)
+    script = _synth_script(tmp_path)
+    flow_tokens = []
+    real = SoulXPodcast._token_to_wav
+
+    def spy(self, speech_tokens, *a, **kw):
+        flow_tokens.append(list(speech_tokens))
+        return real(self, speech_tokens, *a, **kw)
+    monkeypatch.setattr(SoulXPodcast, "_token_to_wav", spy)
+    wavs = []
+    for run in range(2):
+        path = synthesize.main(["--model_path", str(d), "--script", script,
+                                "--output_dir", str(tmp_path / f"o{run}"),
+                                "--llm_engine", engine, "--seed", "3"]
+                               + CPU)
+        rate, wav = wav_read(path)
+        assert rate == 24000 and wav.dtype == np.int16
+        wavs.append(wav)
+    assert len(flow_tokens) == 6 and flow_tokens[:3] == flow_tokens[3:]
+    n = sum(2 * len(t) * 480 for t in flow_tokens[:3])
+    assert len(wavs[0]) == n and wavs[0].tobytes() == wavs[1].tobytes()
+    if engine == "jax":
+        path = synthesize.main(["--model_path", str(d), "--script", script,
+                                "--output_dir", str(tmp_path / "s"),
+                                "--streaming", "--seed", "3"] + CPU)
+        assert len(wav_read(path)[1]) == n
