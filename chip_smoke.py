@@ -39,14 +39,17 @@
    incremental flow (fp32 caches) against the recompute (mel error and
    each chunk's ms), and a profile of an 8-row flow and HiFT tick.
 3d. The contiguous-cache engines on the JAX benchmark's decode modes,
-   bf16 caches: ``DecodeEngine`` B 1 (128-token prompt, 256 tokens, the
+   bf16 caches: ``DecodeEngine`` B 1 (128-token prompt, 128 tokens, the
    default sampler) with a profile of its step; greedy speculative
    decoding (gamma 7, a repetitive motif prompt: the plain decode and
-   the ngram draft over 256 tokens, layer_skip over 7 layers for 64);
-   ``generate_batch`` of 16 prompts with a 700-token shared prefix (128
+   the ngram draft over 128 tokens, layer_skip over 7 layers for 32);
+   ``generate_batch`` of 16 prompts with a 700-token shared prefix (64
    tokens; with the prefix cache and without); ``ContinuousEngine`` (16
-   slots, 32 + 2 long requests); ``stream_tts`` over ``DecodeEngine``
-   with the full-size flow and HiFT, recompute and incremental. Fails
+   slots, 16 + 2 long requests); ``stream_tts`` over ``DecodeEngine``
+   (76 tokens) with the full-size flow and HiFT, recompute and
+   incremental. (Cut in depth from 256 / 256 / 64 / 128 / 32 + 2 / 151
+   to keep the smoke inside its limit; the fp32 greedy gates run 64
+   tokens, from 128.) Fails
    unless K1-fwd ran 28 times a flash-width prefill (the prefix, the
    two long admissions) and K3 and K4 never, the wavs are finite and
    of the expected length and the streamed tokens equal ``generate``;
@@ -99,9 +102,10 @@
    the kernel route and the plain route in bf16, against fp32.
 13. K1 (fwd, dq, dkv) at the stage-1 microbatch's shape: against the plain
    versions at B 1, T 4096, timed at B 4 beside SDPA.
-14. Prints the kernels JSON line (K1-fwd once for each of the serve, KD
-   and stage-1 shapes; each entry with its launches in every CLI of
-   phase 15, ``cli_launches``, and in each run of phase 16,
+14. Prints the kernels JSON line (K1-fwd once for each of the serve, KD,
+   stage-1 and CosyVoice2 teacher shapes; each entry with its launches
+   in every CLI of phase 15, ``cli_launches``, in phase 17's runs,
+   ``cosyvoice2_launches``, and in each run of phase 16,
    ``synthesize_launches``), then the result line, after phase 16.
 15. The distillation CLIs end to end, each through its ``main`` in this
    process at the full width (random weights): a student HF directory at
@@ -139,6 +143,23 @@
    CAM++ ms, each turn's decode ms a step and tokens/s, flow + HiFT ms a
    turn (offline), first audio a turn (streaming), x-realtime and peak
    memory beside the card. The kernels line gets ``synthesize_launches``.
+
+17. CosyVoice2 and the 8-bit optimizer, after phase 15 in its working
+   directory and before phase 16: the full-width CosyVoice2 teacher
+   (Qwen2-0.5B backbone, unified vocab 159,271; random from a seed, bf16)
+   written as a reference-named torch checkpoint; ``train.main
+   --teacher_family cosyvoice2`` on phase 15's stage-1 student and rows
+   (teacher ids folded below 159,271), online sparse, K 128, B 8, T 512,
+   2 steps (exact K1 counts: 24 K1-fwd a teacher forward); the two
+   extract routes against each other; the teacher at 2 layers through
+   K1-fwd (Dh 64, G 7) and the plain route against fp32; K1-fwd alone at
+   (8, 512, 14, 2, 64) beside SDPA; stage 1 with
+   ``make_optimizer(eight_bit=True)`` (B 4, T 4096, A 1, 2 steps; exact
+   K2 and K1 counts, the base bit-equal, the old rows their start less
+   the decay, int8 / uint8 moments) beside one standard step (state
+   bytes, peak memory, step and update ms); one KD step with the fused
+   and with the default optimizer, their updates on the same gradients
+   compared.
 
 Exits non-zero, printing no result, when CUDA is missing or any phase
 fails. Only one card is needed. Imports nothing of JAX.
@@ -178,6 +199,8 @@ from speech_distill_tpu_torch.infer.streaming_tts import (StreamingTokenToWav,
                                                           stream_tts)
 from speech_distill_tpu_torch.infer.tts_serve import (MultiSessionTTS,
                                                       TTSSession)
+from speech_distill_tpu_torch.distill import optim8bit
+from speech_distill_tpu_torch.models import cosyvoice2 as cv2
 from speech_distill_tpu_torch.models import flow as flow_lib
 from speech_distill_tpu_torch.models import hift as hift_lib
 from speech_distill_tpu_torch.models import qwen3
@@ -1005,15 +1028,17 @@ def tts_serve(cfg, model, dev, fcfg=None, hcfg=None) -> dict:
 # modes (bench.py: decode, decode_spec_greedy, decode_serving16, serve
 # --serve_phase continuous, tts_streaming)
 # Cut to keep the phase near its budget (a B = 1 step is host-bound at
-# ~32 ms): layer_skip decodes 64 of the 256 tokens, decode_serving16 128,
-# the continuous workload has factor 2 (32 requests + the 2 long ones)
-DEC_PROMPT, DEC_TOKENS, DEC_MAX_LEN = 128, 256, 4096
+# ~37-55 ms): decode and the plain and ngram spec streams run 128 tokens
+# (bench: 256), layer_skip 32, decode_serving16 64, the continuous
+# workload has factor 1 (16 requests + the 2 long ones), tts_streaming
+# 76 tokens (bench: 151)
+DEC_PROMPT, DEC_TOKENS, DEC_MAX_LEN = 128, 128, 4096
 SPEC_GAMMA, SPEC_LAYERS, SPEC_MOTIF, SPEC_MAX_LEN = 7, 7, 8, 1024
-SPEC_SKIP_TOKENS = 64
-B16_STREAMS, B16_PREFIX, B16_MAX_LEN, B16_TOKENS = 16, 700, 2048, 128
-CONT_SLOTS, CONT_FACTOR, CONT_CHUNK, CONT_MAX_LEN = 16, 2, 32, 2048
+SPEC_SKIP_TOKENS = 32
+B16_STREAMS, B16_PREFIX, B16_MAX_LEN, B16_TOKENS = 16, 700, 2048, 64
+CONT_SLOTS, CONT_FACTOR, CONT_CHUNK, CONT_MAX_LEN = 16, 1, 32, 2048
 CONT_LONG = (700, 1000)
-TTS_STREAM_PROMPT, TTS_STREAM_GEN, TTS_STREAM_MAX_LEN = 128, 151, 1024
+TTS_STREAM_PROMPT, TTS_STREAM_GEN, TTS_STREAM_MAX_LEN = 128, 76, 1024
 # The greedy gates (speculative and continuous against the plain
 # single-stream decode) run on the model upcast to fp32 with TF32 off: a
 # greedy argmax over 159,488 random-weight logits flips on bf16 rounding
@@ -1021,9 +1046,9 @@ TTS_STREAM_PROMPT, TTS_STREAM_GEN, TTS_STREAM_MAX_LEN = 128, 151, 1024
 # against a 1-token step; on the H100 the bf16 drafts left the plain
 # stream at token 231 of 256, a continuous request at token 2), which is
 # no fault of either engine. The bf16 drafts' agreement is logged. The
-# gates' depths: 128 tokens for the plain and ngram streams, 32 for
+# gates' depths: 64 tokens for the plain and ngram streams, 32 for
 # layer_skip, 32 for the first 3 continuous requests.
-GATE_TOKENS, GATE_SKIP_TOKENS, CONT_CHECK_N, CONT_CHECK_NEW = 128, 32, 3, 32
+GATE_TOKENS, GATE_SKIP_TOKENS, CONT_CHECK_N, CONT_CHECK_NEW = 64, 32, 3, 32
 
 
 def greedy_sp(cfg, n: int) -> SamplingParams:
@@ -1044,7 +1069,7 @@ def common_prefix(a, b) -> int:
 
 
 def decode_single(cfg, model, dev) -> dict:
-    """bench.py ``decode``: B 1, a 128-token random prompt, 256 tokens
+    """bench.py ``decode``: B 1, a 128-token random prompt, 128 tokens
     (min = max), the default sampler with topk_method "approx"; a
     warm-up, then one timed generate."""
     sp = SamplingParams(max_tokens=DEC_TOKENS, min_tokens=DEC_TOKENS,
@@ -1094,7 +1119,7 @@ def spec_engines(cfg, model, dev, n: int, skip_n: int, **kw):
 def decode_spec(cfg, model, dev) -> dict:
     """bench.py ``decode_spec_greedy``: gamma 7, greedy, a repetitive
     8-token speech motif prompt, max_len 1024; the plain decode and the
-    ngram draft over 256 tokens, the layer_skip draft (7 layers) over 64,
+    ngram draft over 128 tokens, the layer_skip draft (7 layers) over 32,
     timed, with the drafts' verify iterations."""
     rng = np.random.default_rng(SEED + 41)
     motif = rng.integers(cfg.speech_token_offset, cfg.vocab_size,
@@ -1124,7 +1149,7 @@ def decode_spec(cfg, model, dev) -> dict:
 def decode_serving16(cfg, model, dev) -> tuple:
     """bench.py ``decode_serving16`` in bf16: generate_batch of 16 prompts,
     a 700-token shared prefix + 64-128 distinct tokens each, max_len
-    2048, 128 tokens (bench: 256). The first call (8 tokens) prefills the
+    2048, 64 tokens (bench: 256). The first call (8 tokens) prefills the
     prefix alone (width 768: K1-fwd) into the prefix cache; then one
     timed call without the prefix cache (``cold_seconds``) and one with
     it. Returns (flash-width prefills, the line's fields)."""
@@ -1161,8 +1186,8 @@ def decode_serving16(cfg, model, dev) -> tuple:
 
 
 def continuous_workload(cfg):
-    """bench.py's ``_serve_workload`` at 16 slots (factor 2, bench's 3:
-    32 requests of 64-128 tokens, caps clip(exp(160), 32, 448)), then two
+    """bench.py's ``_serve_workload`` at 16 slots (factor 1, bench's 3:
+    16 requests of 64-128 tokens, caps clip(exp(160), 32, 448)), then two
     long prompts of 700 and 1,000 tokens (flash widths 768 and
     1,024)."""
     rng = np.random.default_rng(SEED + 43)
@@ -1214,13 +1239,13 @@ def serve_continuous(cfg, model, dev) -> tuple:
 
 def tts_streaming(cfg, model, dev, fcfg=None, hcfg=None) -> dict:
     """bench.py ``tts_streaming``: stream_tts over DecodeEngine(max_len
-    1024), a 128-token LLM prompt, 151 tokens (min = max, the default
-    sampler), a 75-token flow prompt, 150 prompt mel frames, a 192-dim
-    speaker vector; the full-size flow and HiFT in fp32 (TF32 off), in
-    the recompute and the incremental form (fp32 caches). The random
-    student's ids are folded into the speech range. Fails unless each
-    wav is finite and (2 (75 + 150) - 150) x 480 samples long and the
-    streamed tokens equal generate() under the same seed."""
+    1024), a 128-token LLM prompt, 76 tokens (bench: 151; min = max, the
+    default sampler), a 75-token flow prompt, 150 prompt mel frames, a
+    192-dim speaker vector; the full-size flow and HiFT in fp32 (TF32
+    off), in the recompute and the incremental form (fp32 caches). The
+    random student's ids are folded into the speech range. Fails unless
+    each wav is finite and (2 (75 + 75) - 150) x 480 samples long and
+    the streamed tokens equal generate() under the same seed."""
     fcfg = fcfg or flow_lib.FlowConfig()
     hcfg = hcfg or hift_lib.HiFTConfig()
     flow = flow_lib.init_params(fcfg, seed=SEED, device=dev)
@@ -2850,6 +2875,7 @@ def stage1(cfg, dev):
         counts = dict(_cuda.launches)
         kept = sorted(os.listdir(os.path.join(out, "ckpt")))
     peak = torch.cuda.max_memory_allocated() / 2**30
+    RATES["stage1_peak_gib"] = peak
     n = len(times)
     tokens = S1_B * S1_A * S1_T
     step_s = float(np.median(times[1:]))
@@ -3236,13 +3262,14 @@ def tensor_file(path: str):
     return safe_open(os.path.join(path, "model.safetensors"), framework="pt")
 
 
-def cli(dev) -> dict:
+def cli(dev) -> tuple:
     """Phase 15: the distillation chain of README's "Pipelines" through
     each CLI's ``main`` at the 0.6B's full width (random weights):
     prepare-student, stage1, prepare-dataset, extract-logits, train
     (precomputed, PiSSA), evaluate with the full-size audio smoke, train
     (online sparse), and ``python -m speech_distill_tpu_torch``. Returns
-    each CLI's launch counts."""
+    each CLI's launch counts and the working directory (a
+    ``TemporaryDirectory`` holding ``s1/final_model`` and ``proc``)."""
     import shutil
 
     import datasets
@@ -3254,231 +3281,234 @@ def cli(dev) -> dict:
     big = qwen3_student_0p6b()
     V, L = big.vocab_size, big.num_hidden_layers
     old_vocab = V - S1_NEW_TOKENS
-    with tempfile.TemporaryDirectory() as root:
-        def d(*names):
-            return os.path.join(root, *names)
+    # the working directory outlives the phase: phase 17 reads its
+    # stage-1 student and processed rows, then main() removes it
+    work = tempfile.TemporaryDirectory()
+    root = work.name
+    def d(*names):
+        return os.path.join(root, *names)
 
-        # 1. the inputs: the student at Qwen3-0.6B's vocab, the teacher's
-        # tokenizer at 159,488 ids, the raw dataset
-        t0 = time.perf_counter()
-        cli_tokenizer(d("student"), CLI_STUDENT_VOCAB, False)
-        tok = cli_tokenizer(d("teacher"), big.speech_token_offset
-                            - len(CLI_SPECIALS), True)
-        if len(tok) != V or tok.convert_tokens_to_ids("<|0|>") != \
-                big.speech_token_offset:
-            fail(f"teacher tokenizer: {len(tok)} ids, <|0|> at "
-                 f"{tok.convert_tokens_to_ids('<|0|>')}")
-        rows = cli_rows(np.random.default_rng(SEED + 15))
-        datasets.Dataset.from_dict(rows).save_to_disk(d("raw"))
-        tok_s = time.perf_counter() - t0
-        scfg = qwen3_student_0p6b(CLI_STUDENT_VOCAB)
-        model = qwen3.init_params_on_device(SEED, scfg, dev)
+    # 1. the inputs: the student at Qwen3-0.6B's vocab, the teacher's
+    # tokenizer at 159,488 ids, the raw dataset
+    t0 = time.perf_counter()
+    cli_tokenizer(d("student"), CLI_STUDENT_VOCAB, False)
+    tok = cli_tokenizer(d("teacher"), big.speech_token_offset
+                        - len(CLI_SPECIALS), True)
+    if len(tok) != V or tok.convert_tokens_to_ids("<|0|>") != \
+            big.speech_token_offset:
+        fail(f"teacher tokenizer: {len(tok)} ids, <|0|> at "
+             f"{tok.convert_tokens_to_ids('<|0|>')}")
+    rows = cli_rows(np.random.default_rng(SEED + 15))
+    datasets.Dataset.from_dict(rows).save_to_disk(d("raw"))
+    tok_s = time.perf_counter() - t0
+    scfg = qwen3_student_0p6b(CLI_STUDENT_VOCAB)
+    model = qwen3.init_params_on_device(SEED, scfg, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    export_hf(model_to_tree(model), scfg, d("student"))
+    export_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(d("student", "model.safetensors"))
+    t0 = time.perf_counter()
+    _, back = load_pretrained(d("student"), device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if not all(torch.equal(a, b) for a, b in zip(model.parameters(),
+                                                 back.parameters())):
+        fail("the HF export of the student does not load back exactly")
+    del model, back
+    hf_io = {"bytes": nbytes, "export_s": export_s,
+             "export_GB_per_s": nbytes / export_s / 1e9,
+             "load_s": load_s, "load_GB_per_s": nbytes / load_s / 1e9}
+    log(f"cli inputs: tokenizers and dataset s={tok_s:.2f}; student "
+        f"HF dir (vocab {CLI_STUDENT_VOCAB}, fp32 safetensors) "
+        + json.dumps(hf_io))
+
+    # 2. prepare-student: expand to the teacher's 159,488 ids
+    run_cli("prepare-student", student_cli.main,
+            ["--teacher-model", d("teacher"), "--student-model",
+             d("student"), "--output-dir", d("expanded")], record)
+    with tensor_file(d("expanded")) as f, tensor_file(d("student")) as g:
+        new = f.get_tensor("model.embed_tokens.weight")
+        old = g.get_tensor("model.embed_tokens.weight")
+    with open(d("expanded", "config.json")) as f:
+        vocab = json.load(f)["vocab_size"]
+    if vocab != V or tuple(new.shape) != (V, big.hidden_size):
+        fail(f"prepare-student: vocab {vocab}, embed {tuple(new.shape)}")
+    # every student token is a teacher token at the same id
+    if not torch.equal(new[:CLI_STUDENT_VOCAB], old):
+        fail("prepare-student: matched rows differ from the student's")
+    if not torch.equal(new[CLI_STUDENT_VOCAB:].to(torch.bfloat16)
+                       .float(), new[CLI_STUDENT_VOCAB:]):
+        fail("prepare-student: new rows are not bf16 values")
+    del new, old
+    shutil.rmtree(d("student"))
+    check_cli_launches("prepare-student", record, {})
+
+    # 3. stage1 on the expanded student: K2 and K1 at T 4096
+    n_train, n_eval = stage1_rows_expected(tok, rows, S1_T)
+    steps = n_train // S1_B
+    if steps != 2 or n_eval < 1:
+        fail(f"stage-1 data packs {n_train} + {n_eval} rows, not 2 "
+             f"steps and an eval")
+    with LoopSpy() as spy:
+        run_cli("stage1", stage1_data.main,
+                ["--model_path", d("expanded"), "--dataset_path",
+                 d("raw"), "--output_dir", d("s1"), "--num_epochs", "1",
+                 "--batch_size", str(S1_B),
+                 "--gradient_accumulation_steps", "1",
+                 "--max_seq_length", str(S1_T), "--num_new_tokens",
+                 str(S1_NEW_TOKENS), "--eval_size", str(CLI_S1_EVAL),
+                 "--eval_steps", "2", "--eval_batch_size", "1",
+                 "--warmup_steps", "1", "--logging_steps", "1",
+                 "--num_workers", "1"], record)
+    per_step = {"lm_head_stats": 1, "lm_head_dh": 1, "lm_head_dw": 1,
+                "flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L}
+    check_cli_steps("stage1", spy, steps, per_step)
+    want = {k: v * steps for k, v in per_step.items()}
+    want["flash_fwd"] += L * n_eval           # eval rows one at a time
+    check_cli_launches("stage1", record, want)
+    s1_ms = [st["s"] * 1e3 for st in spy.steps]
+    moved = 0
+    with tensor_file(d("s1", "final_model")) as f, \
+            tensor_file(d("expanded")) as g:
+        for k in g.keys():
+            a, b = f.get_tensor(k), g.get_tensor(k)
+            if k == "model.embed_tokens.weight":
+                moved = int((a[old_vocab:] != b[old_vocab:]).any(1)
+                            .sum())
+            elif not torch.equal(a, b):
+                fail(f"stage1 changed {k}")
+    if not moved:
+        fail("stage1: no new embedding row moved")
+    shutil.rmtree(d("expanded"))
+    shutil.rmtree(d("s1", "ckpt"))
+    log(f"cli stage1 checks: {steps} steps of B {S1_B} T {S1_T} "
+        f"({n_train} packed rows), {n_eval} eval rows; step_ms "
+        f"{s1_ms}; every non-embedding tensor bit-equal to the input, "
+        f"{moved} of {S1_NEW_TOKENS} new rows moved")
+
+    # 4. prepare-dataset, then extract-logits with the stage-1 model as
+    # the teacher (it stands in for the 1.7B)
+    run_cli("prepare-dataset", prepare_cli.main,
+            ["--dataset_path", d("raw"), "--output_path", d("proc"),
+             "--student_model", d("s1", "final_model")], record)
+    check_cli_launches("prepare-dataset", record, {})
+    real_extract = extract_cli.extract_teacher_logprobs
+    timed = {}
+
+    def extract_timed(*a, **kw):
+        t = time.perf_counter()
+        out = real_extract(*a, **kw)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        export_hf(model_to_tree(model), scfg, d("student"))
-        export_s = time.perf_counter() - t0
-        nbytes = os.path.getsize(d("student", "model.safetensors"))
-        t0 = time.perf_counter()
-        _, back = load_pretrained(d("student"), device=dev)
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
-        if not all(torch.equal(a, b) for a, b in zip(model.parameters(),
-                                                     back.parameters())):
-            fail("the HF export of the student does not load back exactly")
-        del model, back
-        hf_io = {"bytes": nbytes, "export_s": export_s,
-                 "export_GB_per_s": nbytes / export_s / 1e9,
-                 "load_s": load_s, "load_GB_per_s": nbytes / load_s / 1e9}
-        log(f"cli inputs: tokenizers and dataset s={tok_s:.2f}; student "
-            f"HF dir (vocab {CLI_STUDENT_VOCAB}, fp32 safetensors) "
-            + json.dumps(hf_io))
+        timed["s"] = time.perf_counter() - t
+        return out
+    extract_cli.extract_teacher_logprobs = extract_timed
+    try:
+        run_cli("extract-logits", extract_cli.main,
+                ["--teacher_model_path", d("s1", "final_model"),
+                 "--dataset_path", d("proc"), "--output_path", d("enr"),
+                 "--top_k", str(CLI_K), "--batch_size", str(CLI_B),
+                 "--pad_to_multiple_of", str(CLI_T)], record)
+    finally:
+        extract_cli.extract_teacher_logprobs = real_extract
+    batches = -(-CLI_ROWS // CLI_B)
+    check_cli_launches("extract-logits", record,
+                       {"flash_fwd": L * batches})
+    ds = datasets.load_from_disk(d("enr"))
+    real_tokens = 0
+    for row in ds:
+        v = np.asarray(row["teacher_top_k_v"], np.float32)
+        i = np.asarray(row["teacher_top_k_i"])
+        n = len(row["teacher_input_ids"])
+        real_tokens += n
+        if v.shape != (n, CLI_K) or i.shape != (n, CLI_K) or n > CLI_T:
+            fail(f"extract-logits: a row of {n} tokens has columns "
+                 f"{v.shape} / {i.shape}")
+        if not (np.isfinite(v).all() and (v <= 0).all()
+                and ((i >= 0) & (i < V)).all()):
+            fail("extract-logits: values not finite and <= 0, or "
+                 "indices out of the vocabulary")
+    extract = {"rows": len(ds), "batches": batches,
+               "real_tokens": real_tokens,
+               "extract_s": timed["s"],
+               "padded_tokens_per_s": batches * CLI_B * CLI_T
+               / timed["s"],
+               "real_tokens_per_s": real_tokens / timed["s"]}
+    log("cli extract-logits checks: " + json.dumps(extract))
 
-        # 2. prepare-student: expand to the teacher's 159,488 ids
-        run_cli("prepare-student", student_cli.main,
-                ["--teacher-model", d("teacher"), "--student-model",
-                 d("student"), "--output-dir", d("expanded")], record)
-        with tensor_file(d("expanded")) as f, tensor_file(d("student")) as g:
-            new = f.get_tensor("model.embed_tokens.weight")
-            old = g.get_tensor("model.embed_tokens.weight")
-        with open(d("expanded", "config.json")) as f:
-            vocab = json.load(f)["vocab_size"]
-        if vocab != V or tuple(new.shape) != (V, big.hidden_size):
-            fail(f"prepare-student: vocab {vocab}, embed {tuple(new.shape)}")
-        # every student token is a teacher token at the same id
-        if not torch.equal(new[:CLI_STUDENT_VOCAB], old):
-            fail("prepare-student: matched rows differ from the student's")
-        if not torch.equal(new[CLI_STUDENT_VOCAB:].to(torch.bfloat16)
-                           .float(), new[CLI_STUDENT_VOCAB:]):
-            fail("prepare-student: new rows are not bf16 values")
-        del new, old
-        shutil.rmtree(d("student"))
-        check_cli_launches("prepare-student", record, {})
+    # 5. train, precomputed, PiSSA LoRA, student = the stage-1 model
+    with LoopSpy() as spy:
+        run_cli("train", train_cli.main,
+                ["--dataset_path", d("enr"), "--student_model",
+                 d("s1", "final_model"), "--output_dir", d("kd"),
+                 "--use_lora", "--per_device_train_batch_size",
+                 str(CLI_B), "--gradient_accumulation_steps", "1",
+                 "--pad_to_multiple_of", str(CLI_T), "--max_steps", "4",
+                 "--test_size", str(CLI_TRAIN_TEST)], record)
+    per_step = {"flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L}
+    check_cli_steps("train", spy, 4, per_step)
+    want = {k: 4 * v for k, v in per_step.items()}
+    want["flash_fwd"] += L                    # the held-out batch
+    check_cli_launches("train", record, want)
+    kd_ms = [st["s"] * 1e3 for st in spy.steps]
+    merged = merge_and_export(spy.frozen[0], spy.state.trainable,
+                              LoraConfig())
+    _, back = load_pretrained(d("kd", "final_model"), device=dev)
+    pairs = zip(tree_leaves(model_to_tree(back)), tree_leaves(merged))
+    if not all(torch.equal(a, b.to(torch.bfloat16)) for a, b in pairs):
+        fail("train: final_model != merge_and_export of the trained "
+             "state in bf16")
+    del merged, back, spy
+    shutil.rmtree(d("kd", "ckpt"))
+    log(f"cli train checks: 4 steps of B {CLI_B} T {CLI_T}, step_ms "
+        f"{kd_ms}, final_model == merge_and_export(trained state) in "
+        f"bf16")
 
-        # 3. stage1 on the expanded student: K2 and K1 at T 4096
-        n_train, n_eval = stage1_rows_expected(tok, rows, S1_T)
-        steps = n_train // S1_B
-        if steps != 2 or n_eval < 1:
-            fail(f"stage-1 data packs {n_train} + {n_eval} rows, not 2 "
-                 f"steps and an eval")
-        with LoopSpy() as spy:
-            run_cli("stage1", stage1_data.main,
-                    ["--model_path", d("expanded"), "--dataset_path",
-                     d("raw"), "--output_dir", d("s1"), "--num_epochs", "1",
-                     "--batch_size", str(S1_B),
-                     "--gradient_accumulation_steps", "1",
-                     "--max_seq_length", str(S1_T), "--num_new_tokens",
-                     str(S1_NEW_TOKENS), "--eval_size", str(CLI_S1_EVAL),
-                     "--eval_steps", "2", "--eval_batch_size", "1",
-                     "--warmup_steps", "1", "--logging_steps", "1",
-                     "--num_workers", "1"], record)
-        per_step = {"lm_head_stats": 1, "lm_head_dh": 1, "lm_head_dw": 1,
-                    "flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L}
-        check_cli_steps("stage1", spy, steps, per_step)
-        want = {k: v * steps for k, v in per_step.items()}
-        want["flash_fwd"] += L * n_eval           # eval rows one at a time
-        check_cli_launches("stage1", record, want)
-        s1_ms = [st["s"] * 1e3 for st in spy.steps]
-        moved = 0
-        with tensor_file(d("s1", "final_model")) as f, \
-                tensor_file(d("expanded")) as g:
-            for k in g.keys():
-                a, b = f.get_tensor(k), g.get_tensor(k)
-                if k == "model.embed_tokens.weight":
-                    moved = int((a[old_vocab:] != b[old_vocab:]).any(1)
-                                .sum())
-                elif not torch.equal(a, b):
-                    fail(f"stage1 changed {k}")
-        if not moved:
-            fail("stage1: no new embedding row moved")
-        shutil.rmtree(d("expanded"))
-        shutil.rmtree(d("s1", "ckpt"))
-        log(f"cli stage1 checks: {steps} steps of B {S1_B} T {S1_T} "
-            f"({n_train} packed rows), {n_eval} eval rows; step_ms "
-            f"{s1_ms}; every non-embedding tensor bit-equal to the input, "
-            f"{moved} of {S1_NEW_TOKENS} new rows moved")
+    # 6. evaluate the distilled student on the extracted dataset, with
+    # the full-size audio smoke (random flow and HiFT)
+    rep = run_cli("evaluate", evaluate_cli.main,
+                  ["--student_model", d("kd", "final_model"),
+                   "--dataset_path", d("enr"), "--pad_to_multiple_of",
+                   str(CLI_T), "--smoke", "--smoke_max_tokens", "60",
+                   "--smoke_wav", d("smoke.wav"), "--output",
+                   d("quality.json")], record)
+    n_batches = CLI_EVAL_TEST // 4
+    check_cli_launches("evaluate", record, {"flash_fwd": L * n_batches})
+    values = [v for sl in ("all", "speech")
+              for k, v in rep["metrics"][sl].items() if v is not None]
+    if rep["rows"] != 4 * n_batches or not np.isfinite(values).all():
+        fail(f"evaluate: rows {rep['rows']}, metrics {rep['metrics']}")
+    sm = rep["smoke"]
+    if sm["status"] == "ok":
+        rate, wav = wav_read(d("smoke.wav"))
+        if len(wav) != sm["expected_samples"] or \
+                sm["wav_samples"] != sm["expected_samples"]:
+            fail(f"evaluate smoke: {len(wav)} samples, expected "
+                 f"{sm['expected_samples']}")
+    elif sm["status"] != "no_speech_tokens":
+        fail(f"evaluate smoke: {sm}")
+    log("cli evaluate checks: " + json.dumps(
+        {"metrics": rep["metrics"], "smoke": sm}))
+    shutil.rmtree(d("kd"))
 
-        # 4. prepare-dataset, then extract-logits with the stage-1 model as
-        # the teacher (it stands in for the 1.7B)
-        run_cli("prepare-dataset", prepare_cli.main,
-                ["--dataset_path", d("raw"), "--output_path", d("proc"),
-                 "--student_model", d("s1", "final_model")], record)
-        check_cli_launches("prepare-dataset", record, {})
-        real_extract = extract_cli.extract_teacher_logprobs
-        timed = {}
-
-        def extract_timed(*a, **kw):
-            t = time.perf_counter()
-            out = real_extract(*a, **kw)
-            torch.cuda.synchronize()
-            timed["s"] = time.perf_counter() - t
-            return out
-        extract_cli.extract_teacher_logprobs = extract_timed
-        try:
-            run_cli("extract-logits", extract_cli.main,
-                    ["--teacher_model_path", d("s1", "final_model"),
-                     "--dataset_path", d("proc"), "--output_path", d("enr"),
-                     "--top_k", str(CLI_K), "--batch_size", str(CLI_B),
-                     "--pad_to_multiple_of", str(CLI_T)], record)
-        finally:
-            extract_cli.extract_teacher_logprobs = real_extract
-        batches = -(-CLI_ROWS // CLI_B)
-        check_cli_launches("extract-logits", record,
-                           {"flash_fwd": L * batches})
-        ds = datasets.load_from_disk(d("enr"))
-        real_tokens = 0
-        for row in ds:
-            v = np.asarray(row["teacher_top_k_v"], np.float32)
-            i = np.asarray(row["teacher_top_k_i"])
-            n = len(row["teacher_input_ids"])
-            real_tokens += n
-            if v.shape != (n, CLI_K) or i.shape != (n, CLI_K) or n > CLI_T:
-                fail(f"extract-logits: a row of {n} tokens has columns "
-                     f"{v.shape} / {i.shape}")
-            if not (np.isfinite(v).all() and (v <= 0).all()
-                    and ((i >= 0) & (i < V)).all()):
-                fail("extract-logits: values not finite and <= 0, or "
-                     "indices out of the vocabulary")
-        extract = {"rows": len(ds), "batches": batches,
-                   "real_tokens": real_tokens,
-                   "extract_s": timed["s"],
-                   "padded_tokens_per_s": batches * CLI_B * CLI_T
-                   / timed["s"],
-                   "real_tokens_per_s": real_tokens / timed["s"]}
-        log("cli extract-logits checks: " + json.dumps(extract))
-
-        # 5. train, precomputed, PiSSA LoRA, student = the stage-1 model
-        with LoopSpy() as spy:
-            run_cli("train", train_cli.main,
-                    ["--dataset_path", d("enr"), "--student_model",
-                     d("s1", "final_model"), "--output_dir", d("kd"),
-                     "--use_lora", "--per_device_train_batch_size",
-                     str(CLI_B), "--gradient_accumulation_steps", "1",
-                     "--pad_to_multiple_of", str(CLI_T), "--max_steps", "4",
-                     "--test_size", str(CLI_TRAIN_TEST)], record)
-        per_step = {"flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L}
-        check_cli_steps("train", spy, 4, per_step)
-        want = {k: 4 * v for k, v in per_step.items()}
-        want["flash_fwd"] += L                    # the held-out batch
-        check_cli_launches("train", record, want)
-        kd_ms = [st["s"] * 1e3 for st in spy.steps]
-        merged = merge_and_export(spy.frozen[0], spy.state.trainable,
-                                  LoraConfig())
-        _, back = load_pretrained(d("kd", "final_model"), device=dev)
-        pairs = zip(tree_leaves(model_to_tree(back)), tree_leaves(merged))
-        if not all(torch.equal(a, b.to(torch.bfloat16)) for a, b in pairs):
-            fail("train: final_model != merge_and_export of the trained "
-                 "state in bf16")
-        del merged, back, spy
-        shutil.rmtree(d("kd", "ckpt"))
-        log(f"cli train checks: 4 steps of B {CLI_B} T {CLI_T}, step_ms "
-            f"{kd_ms}, final_model == merge_and_export(trained state) in "
-            f"bf16")
-
-        # 6. evaluate the distilled student on the extracted dataset, with
-        # the full-size audio smoke (random flow and HiFT)
-        rep = run_cli("evaluate", evaluate_cli.main,
-                      ["--student_model", d("kd", "final_model"),
-                       "--dataset_path", d("enr"), "--pad_to_multiple_of",
-                       str(CLI_T), "--smoke", "--smoke_max_tokens", "60",
-                       "--smoke_wav", d("smoke.wav"), "--output",
-                       d("quality.json")], record)
-        n_batches = CLI_EVAL_TEST // 4
-        check_cli_launches("evaluate", record, {"flash_fwd": L * n_batches})
-        values = [v for sl in ("all", "speech")
-                  for k, v in rep["metrics"][sl].items() if v is not None]
-        if rep["rows"] != 4 * n_batches or not np.isfinite(values).all():
-            fail(f"evaluate: rows {rep['rows']}, metrics {rep['metrics']}")
-        sm = rep["smoke"]
-        if sm["status"] == "ok":
-            rate, wav = wav_read(d("smoke.wav"))
-            if len(wav) != sm["expected_samples"] or \
-                    sm["wav_samples"] != sm["expected_samples"]:
-                fail(f"evaluate smoke: {len(wav)} samples, expected "
-                     f"{sm['expected_samples']}")
-        elif sm["status"] != "no_speech_tokens":
-            fail(f"evaluate smoke: {sm}")
-        log("cli evaluate checks: " + json.dumps(
-            {"metrics": rep["metrics"], "smoke": sm}))
-        shutil.rmtree(d("kd"))
-
-        # 7. train, online sparse: the stage-1 model teaches itself
-        with LoopSpy() as spy:
-            run_cli("train-online", train_cli.main,
-                    ["--dataset_path", d("proc"), "--student_model",
-                     d("s1", "final_model"), "--teacher_model",
-                     d("s1", "final_model"), "--output_dir", d("online"),
-                     "--use_lora", "--init_lora_weights", "gaussian",
-                     "--per_device_train_batch_size", str(CLI_B),
-                     "--gradient_accumulation_steps", "1",
-                     "--pad_to_multiple_of", str(CLI_T), "--max_steps", "2",
-                     "--test_size", str(CLI_TRAIN_TEST)], record)
-        per_step = {"flash_fwd": 3 * L, "flash_dq": L, "flash_dkv": L}
-        check_cli_steps("train-online", spy, 2, per_step)
-        want = {k: 2 * v for k, v in per_step.items()}
-        want["flash_fwd"] += 2 * L                # eval: teacher, student
-        check_cli_launches("train-online", record, want)
-        del spy
-        shutil.rmtree(d("online"))
+    # 7. train, online sparse: the stage-1 model teaches itself
+    with LoopSpy() as spy:
+        run_cli("train-online", train_cli.main,
+                ["--dataset_path", d("proc"), "--student_model",
+                 d("s1", "final_model"), "--teacher_model",
+                 d("s1", "final_model"), "--output_dir", d("online"),
+                 "--use_lora", "--init_lora_weights", "gaussian",
+                 "--per_device_train_batch_size", str(CLI_B),
+                 "--gradient_accumulation_steps", "1",
+                 "--pad_to_multiple_of", str(CLI_T), "--max_steps", "2",
+                 "--test_size", str(CLI_TRAIN_TEST)], record)
+    per_step = {"flash_fwd": 3 * L, "flash_dq": L, "flash_dkv": L}
+    check_cli_steps("train-online", spy, 2, per_step)
+    want = {k: 2 * v for k, v in per_step.items()}
+    want["flash_fwd"] += 2 * L                # eval: teacher, student
+    check_cli_launches("train-online", record, want)
+    del spy
+    shutil.rmtree(d("online"))
 
     # 8. the entry point
     def entry(*args):
@@ -3511,7 +3541,7 @@ def cli(dev) -> dict:
     log("cli " + json.dumps(rates) + " (stage-1 CLI: A 1, 16,384 tokens a "
         "step; phase 10: A 4; phase 9b extracts with the 1.7B teacher)")
     log(f"cli phase s={time.perf_counter() - t_phase:.2f}")
-    return {k: v["launches"] for k, v in record.items()}
+    return {k: v["launches"] for k, v in record.items()}, work
 
 
 # Phase 16: synthesis. Two prompt wavs whose 16 kHz lengths give 200 and
@@ -3919,6 +3949,453 @@ def check_synthesis_run(run: str, path: str, spy: SynthSpy, counts: dict,
     return rep
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the CosyVoice2 teacher and the 8-bit optimizer
+# ---------------------------------------------------------------------------
+
+CV_SEED = SEED + 17
+CV_STEPS = 2                    # the train CLI's steps (B 8, T 512, K 128)
+CV_DEPTH, CV_CHECK_B = 2, 2     # 17c: the teacher at reduced depth
+# the phase-15 rows' teacher ids: speech tokens at the Qwen3 configs'
+# offset (152,927 + code) fold onto CosyVoice2's speech range (152,706 +
+# code); every other id lies below 152,927 already
+CV_FOLD = (qwen3_student_0p6b().speech_token_offset
+           - cv2.CosyVoice2Config().speech_offset)
+CV_S1_STEPS = 2                 # 17e: stage 1, B 4, T 4096, A 1
+OPT_ITERS = 5                   # timed optimizer updates on the tree
+# 17f: the fused clip + AdamW against the default on the same gradients:
+# fp32 leaves within FUSED_REL of the largest update; a bf16 leaf's
+# fused update is cast to bf16 (JAX's contract), so it may sit one bf16
+# ulp from the default's rounded fp32 update on at most FUSED_FLIPS of
+# its elements
+FUSED_REL, FUSED_FLIPS = 1e-6, 1e-3
+
+
+def cv_unified_ids(cfg, rng, B: int, T: int) -> np.ndarray:
+    """[B, T] unified ids: text below the backbone's vocab, sos, speech
+    codes at the speech offset, eos."""
+    n_text = T // 4
+    return np.concatenate([
+        rng.integers(0, cfg.backbone.vocab_size, (B, n_text)),
+        np.full((B, 1), cfg.sos_id),
+        rng.integers(cfg.speech_offset, cfg.speech_offset
+                     + cfg.speech_token_size, (B, T - n_text - 2)),
+        np.full((B, 1), cfg.eos_unified)], axis=1).astype(np.int64)
+
+
+class TeacherSpy:
+    """While a CLI runs, the teacher routes that ``cosyvoice2.
+    make_teacher_forward`` and ``make_teacher_extract`` return count the
+    K1-fwd launches made inside each of their calls, and the calls."""
+
+    def __enter__(self):
+        self.real = (cv2.make_teacher_forward, cv2.make_teacher_extract)
+        self.calls, self.flash_fwd = 0, 0
+
+        def counted(make):
+            def factory(*a, **kw):
+                fn = make(*a, **kw)
+
+                def route(*args):
+                    before = _cuda.launches["flash_fwd"]
+                    out = fn(*args)
+                    self.calls += 1
+                    self.flash_fwd += _cuda.launches["flash_fwd"] - before
+                    return out
+                return route
+            return factory
+        cv2.make_teacher_forward, cv2.make_teacher_extract = map(counted,
+                                                                 self.real)
+        return self
+
+    def __exit__(self, *exc):
+        cv2.make_teacher_forward, cv2.make_teacher_extract = self.real
+
+
+def cv_train_cli(root: str, teacher, record: dict) -> dict:
+    """17a: ``train.main --teacher_family cosyvoice2`` on phase 15's
+    stage-1 student and processed rows (teacher ids folded below
+    159,271), the teacher a reference-named torch checkpoint of
+    ``teacher``; online sparse, K 128, B 8, T 512, gaussian LoRA, 2 steps
+    and the held-out batch. Exact K1 counts: 24 K1-fwd a teacher forward,
+    the student's 2 x 28 K1-fwd (remat) and 28 K1-dq / K1-dkv a step; the
+    teacher's share counted inside its own calls (``TeacherSpy``)."""
+    import datasets
+    import shutil
+
+    def d(*names):
+        return os.path.join(root, *names)
+    cfg = teacher.cfg
+    t0 = time.perf_counter()
+    torch.save(cv2.torch_state(teacher), d("cosyvoice2.pt"))
+    save_s = time.perf_counter() - t0
+    off = qwen3_student_0p6b().speech_token_offset
+    rows = datasets.load_from_disk(d("proc")).map(
+        lambda r: {"teacher_input_ids": [t - CV_FOLD if t >= off else t
+                                         for t in r["teacher_input_ids"]]})
+    rows.save_to_disk(d("proc_cv"))
+    top = max(max(r) for r in rows["teacher_input_ids"])
+    if top >= cfg.unified_vocab_size:
+        fail(f"cosyvoice2 rows: teacher id {top} past the unified table")
+    with LoopSpy() as spy, TeacherSpy() as tspy:
+        run_cli("train-cosyvoice2", train_cli.main,
+                ["--dataset_path", d("proc_cv"), "--student_model",
+                 d("s1", "final_model"), "--teacher_model",
+                 d("cosyvoice2.pt"), "--teacher_family", "cosyvoice2",
+                 "--output_dir", d("cv"), "--use_lora",
+                 "--init_lora_weights", "gaussian",
+                 "--per_device_train_batch_size", str(CLI_B),
+                 "--gradient_accumulation_steps", "1",
+                 "--pad_to_multiple_of", str(CLI_T), "--top_k", str(CLI_K),
+                 "--max_steps", str(CV_STEPS), "--test_size",
+                 str(CLI_TRAIN_TEST)], record)
+    L = qwen3_student_0p6b().num_hidden_layers
+    Lt = cfg.backbone.num_hidden_layers
+    per_step = {"flash_fwd": Lt + 2 * L, "flash_dq": L, "flash_dkv": L}
+    check_cli_steps("train-cosyvoice2", spy, CV_STEPS, per_step)
+    want = {k: CV_STEPS * v for k, v in per_step.items()}
+    want["flash_fwd"] += Lt + L               # eval: teacher, student
+    check_cli_launches("train-cosyvoice2", record, want)
+    # the teacher's share, counted inside its calls: 24 a forward, one
+    # forward a step and one for the held-out batch
+    teacher_fwd = {"calls": tspy.calls, "flash_fwd": tspy.flash_fwd}
+    if teacher_fwd != {"calls": CV_STEPS + 1,
+                       "flash_fwd": Lt * (CV_STEPS + 1)}:
+        fail(f"cosyvoice2 train cli: teacher calls and K1-fwd launches "
+             f"{teacher_fwd}, not {CV_STEPS + 1} calls of {Lt}")
+    student_fwd = record["train-cosyvoice2"]["launches"]["flash_fwd"] \
+        - tspy.flash_fwd
+    out = {"checkpoint_s": save_s, "top_teacher_id": top,
+           "teacher_calls": tspy.calls,
+           "teacher_flash_fwd": tspy.flash_fwd,
+           "student_flash_fwd": student_fwd,
+           "step_ms": [st["s"] * 1e3 for st in spy.steps],
+           "loss": [st["loss"] for st in spy.steps],
+           "s": record["train-cosyvoice2"]["s"]}
+    del spy
+    shutil.rmtree(d("cv"))
+    log("cosyvoice2 train cli " + json.dumps(out))
+    return out
+
+
+def cv_extract_routes(teacher, dev) -> dict:
+    """17b: ``make_teacher_extract`` "materialized" against "fused" at
+    B 8, T 512, K 128 for the full student vocabulary: the same set where
+    the unified logits' K-th and (K+1)-th differ by > EXTRACT_GAP, sorted
+    values within EXTRACT_ULPS fp16 ulps; each route timed once."""
+    cfg, V, K = teacher.cfg, qwen3_student_0p6b().vocab_size, CLI_K
+    ids = torch.as_tensor(cv_unified_ids(cfg, np.random.default_rng(
+        CV_SEED), CLI_B, CLI_T), device=dev)
+    mask = torch.ones_like(ids)
+    res, out = {}, {}
+    for route in cv2.EXTRACTS:
+        fn = cv2.make_teacher_extract(cfg, K, V, extract=route)
+        fn(teacher, ids, mask)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[route] = fn(teacher, ids, mask)
+        torch.cuda.synchronize()
+        out[f"{route}_ms"] = (time.perf_counter() - t0) * 1e3
+    top = torch.topk(cv2.forward(teacher, ids, mask)[..., :V], K + 1,
+                     dim=-1).values
+    gap_ok = (top[..., K - 1] - top[..., K]) > EXTRACT_GAP
+    del top
+    ref = res["materialized"]
+    tol = EXTRACT_ULPS * fp16_ulp(sorted_sets(*ref)[0])
+    out.update(compare_topk("cosyvoice2 extraction fused", res["fused"],
+                            ref, gap_ok, tol))
+    out["excluded_share"] = 1.0 - float(gap_ok.float().mean())
+    out["speech_share"] = float((ref[1] >= cfg.speech_offset).float().mean())
+    log("cosyvoice2 extraction " + json.dumps(out) + f" (B {CLI_B} T "
+        f"{CLI_T} K {K}; sets held where the K-th and (K+1)-th logits "
+        f"differ by > {EXTRACT_GAP}, values within {EXTRACT_ULPS} fp16 "
+        f"ulps)")
+    return out
+
+
+def cv_model_path(teacher, dev) -> dict:
+    """17c: the teacher cut to CV_DEPTH layers, its unified logits at
+    B 2, T 512 through the kernel route (K1-fwd at Dh 64, G 7) and the
+    plain route in bf16, both against the plain route in fp32; the
+    kernel route's error within BF16_ERR_RATIO x the plain route's, over
+    the head columns (the -10000 filler is exact everywhere)."""
+    cfg = teacher.cfg
+    bb = dataclasses.replace(cfg.backbone, num_hidden_layers=CV_DEPTH)
+    state = {k: v for k, v in teacher.state_dict().items()
+             if not k.startswith("backbone.layers.")
+             or int(k.split(".")[2]) < CV_DEPTH}
+    models = {}
+    for name, dtype, impl in (("kernel", "bfloat16", "auto"),
+                              ("plain", "bfloat16", "xla"),
+                              ("fp32", "float32", "xla")):
+        c = dataclasses.replace(cfg, backbone=dataclasses.replace(
+            bb, dtype=dtype, attn_impl=impl))
+        m = cv2.CosyVoice2(c, dev, head_dtype=teacher.llm_embedding.dtype
+                           if dtype == "bfloat16" else torch.float32)
+        m.load_state_dict(state)
+        models[name] = m
+    ids = torch.as_tensor(cv_unified_ids(cfg, np.random.default_rng(
+        CV_SEED + 1), CV_CHECK_B, CLI_T), device=dev)
+    torch.cuda.synchronize()
+    before = _cuda.launches["flash_fwd"]
+    logits = {name: cv2.forward(m, ids) for name, m in models.items()}
+    torch.cuda.synchronize()
+    ran = _cuda.launches["flash_fwd"] - before
+    ref = logits["fp32"]
+    cols = ref[0, 0] != cv2.NEG_FILL
+    scale = ref[..., cols].abs().max()
+    err = {name: float((logits[name][..., cols] - ref[..., cols]).abs().max()
+                       / scale) for name in ("kernel", "plain")}
+    finite = all(bool(torch.isfinite(t).all()) for t in logits.values())
+    filler = all(torch.equal(t[..., ~cols], ref[..., ~cols])
+                 for t in logits.values())
+    out = {"depth": CV_DEPTH, "B": CV_CHECK_B, "T": CLI_T,
+           "kernel_rel_err": err["kernel"], "plain_rel_err": err["plain"],
+           "flash_fwd_launches": ran, "finite": finite,
+           "filler_exact": filler}
+    log("cosyvoice2 model path " + json.dumps(out) + f" (max |bf16 - fp32|"
+        f" / max |fp32| over the head columns; kernel within "
+        f"{BF16_ERR_RATIO}x plain)")
+    if ran != CV_DEPTH or not finite or not filler or not \
+            err["kernel"] <= BF16_ERR_RATIO * err["plain"]:
+        fail(f"cosyvoice2 model path: {out}")
+    del models, logits
+    return out
+
+
+def cv_flash(dev, launches: int, side) -> dict:
+    """17d: K1-fwd at the teacher's shape, B 8, T 512, H 14, KV 2, Dh 64
+    (G 7, the unpaired one-head path), against its plain version and
+    timed beside SDPA by graph replays."""
+    rng = np.random.default_rng(CV_SEED + 2)
+    q, k, v = flash_inputs(rng, dev, CLI_B, CLI_T, H=14, KV=2, Dh=64)
+    err = check_flash_fwd(q, k, v, "CosyVoice2 teacher")
+    return flash_fwd_entry("CosyVoice2 teacher", q, k, v, launches, err,
+                           side)
+
+
+def cv_stage1_8bit(cfg, dev, record: dict) -> tuple:
+    """17e: ``make_stage1_step`` with ``make_optimizer(eight_bit=True)``
+    on a fresh full-width model, CV_S1_STEPS steps of B 4, T 4096, A 1
+    (K2 and K1 counts exact); the base bit-equal, the old rows their start
+    less the 8-bit AdamW's decay, a new row moved, int8 / uint8 moments.
+    Then one step of phase 10's standard AdamW from the same start, the
+    two optimizer states' bytes and each update's ms on the embedding
+    tree [159,488, 1,024]. Returns the model (for 17f)."""
+    L = cfg.num_hidden_layers
+    model = qwen3.init_params_on_device(SEED, cfg, dev)
+    old_vocab = cfg.vocab_size - S1_NEW_TOKENS
+    rows = stage1_rows(cfg, old_vocab, CV_S1_STEPS * S1_B,
+                       np.random.default_rng(CV_SEED + 3))
+    batches = list(stage1_data.stage1_batches(rows, S1_B, 1, SEED, 0))
+    fused, backend = stage1_data.fused_route(S1_T, dev, cfg.torch_dtype,
+                                             cfg.hidden_size)
+    start = model.embed.detach().clone()
+    frozen = [p.detach().clone() for p in model.parameters()]
+    out = {}
+    for name, eight_bit in (("8bit", True), ("standard", False)):
+        opt = train_step.make_optimizer(S1_LR, S1_WARMUP, CV_S1_STEPS,
+                                        weight_decay=S1_WD,
+                                        eight_bit=eight_bit)
+        step = train_step.make_stage1_step(cfg, opt, old_vocab,
+                                           fused_loss=fused,
+                                           fused_backend=backend,
+                                           device=dev)
+        state = train_step.init_state(
+            {"embed": {"weight": start.clone().requires_grad_()}}, opt)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launches()
+        times, losses, per_step = [], [], []
+        for batch in batches[:CV_S1_STEPS if eight_bit else 1]:
+            before = dict(_cuda.launches)
+            t0 = time.perf_counter()
+            state, m = step(state, model, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+            per_step.append({k: _cuda.launches[k] - before[k]
+                             for k in before if _cuda.launches[k] - before[k]})
+        out[name] = {"step_ms": times, "loss": losses,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "state_bytes": optim8bit.state_bytes(state.opt_state)}
+        if eight_bit:
+            record["stage1-8bit"] = {"launches": {
+                k: v for k, v in _cuda.launches.items() if v}}
+            st8, final = state.opt_state, state.trainable["embed"]["weight"]
+            want = {"lm_head_stats": 1, "lm_head_dh": 1, "lm_head_dw": 1,
+                    "flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L}
+            if any(p != want for p in per_step):
+                fail(f"stage-1 8-bit launches a step {per_step} != {want}")
+            if not np.isfinite(losses).all():
+                fail(f"stage-1 8-bit losses {losses}")
+        # each optimizer's update alone on the embedding tree
+        params = {"embed": {"weight": start}}
+        g = {"embed": {"weight": torch.randn_like(start) * 1e-3}}
+        ost = opt.init(params)
+        out[name]["update_ms"] = time_ms(lambda: opt.update(g, ost, params),
+                                         iters=OPT_ITERS, warmup=1)
+        del state, step, g, ost
+    if not all(torch.equal(a, b) for a, b in zip(frozen,
+                                                 model.parameters())):
+        fail("stage-1 8-bit: the frozen base weights changed")
+    moved = int((final[old_vocab:] != start[old_vocab:]).any(1).sum())
+    if not moved:
+        fail("stage-1 8-bit: no new embedding row moved")
+    opt = train_step.make_optimizer(S1_LR, S1_WARMUP, CV_S1_STEPS,
+                                    weight_decay=S1_WD, eight_bit=True)
+    old = {"w": start[:old_vocab].clone()}
+    ost = opt.init(old)
+    for _ in range(CV_S1_STEPS):
+        ups, ost = opt.update({"w": torch.zeros_like(old["w"])}, ost, old)
+        old = train_step.apply_updates(old, ups)
+    if not torch.equal(final[:old_vocab], old["w"]):
+        fail("stage-1 8-bit: the old rows are not their start less the "
+             "8-bit AdamW's decay")
+    codes = [t.dtype for t in (st8.mu_q["embed"]["weight"],
+                               st8.nu_q["embed"]["weight"])]
+    if codes != [torch.int8, torch.uint8]:
+        fail(f"stage-1 8-bit moments are {codes}")
+    out.update({"moved_new_rows": moved, "moment_dtypes": [str(c) for c in
+                                                          codes],
+                "phase10_step_ms": RATES.get("stage1_step_ms"),
+                "phase10_peak_gib": RATES.get("stage1_peak_gib"),
+                "card": record_card()})
+    log("cosyvoice2 stage1 8bit " + json.dumps(out) + f" (B {S1_B} T "
+        f"{S1_T} A 1; phase 10: A {S1_A}, the standard AdamW; update_ms: "
+        f"one optimizer update on the embedding tree "
+        f"[{cfg.vocab_size}, {cfg.hidden_size}], events)")
+    del frozen, start, final, st8, old, ost
+    return model, out
+
+
+class OptSpy:
+    """An optimizer that records the gradients and updates it sees."""
+
+    def __init__(self, opt):
+        self.opt, self.calls = opt, []
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, grads, state, params=None):
+        ups, state = self.opt.update(grads, state, params)
+        self.calls.append((grads, ups))
+        return ups, state
+
+
+def update_gap(u_ref: torch.Tensor, u: torch.Tensor) -> dict:
+    """How far an update ``u`` lies from ``u_ref`` (fp32): for an fp32
+    leaf the largest difference over the largest update; for a bf16 leaf
+    the share of elements off the reference rounded to bf16, and whether
+    each lies within one bf16 ulp of it."""
+    if u.dtype == torch.float32:
+        return {"rel": float((u - u_ref).abs().max()
+                             / u_ref.abs().max().clamp_min(1e-30))}
+    r = u_ref.to(u.dtype)
+    off = r != u
+    ulp = (r.float().abs().clamp_min(2.0 ** -126)
+           * 2.0 ** -7)                          # bf16 spacing, upper bound
+    within = bool(((u.float() - r.float()).abs() <= ulp)[off].all()) \
+        if bool(off.any()) else True
+    return {"flipped_share": float(off.float().mean()),
+            "within_one_ulp": within}
+
+
+def cv_fused_optimizer(cfg, model, teacher, dev) -> dict:
+    """17f: one KD step (online sparse against the CosyVoice2 teacher,
+    gaussian LoRA, B 8, T 512) with ``make_optimizer(fused=True)`` and
+    one with the default optimizer, from the same state (moments zero,
+    count 1, so the learning rate is 1e-3) and batch; the updates of
+    both optimizers on the default step's gradients compared."""
+    lcfg = LoraConfig(init_weights="gaussian")
+    lora0, base = init_lora(model, cfg, lcfg,
+                            generator=torch.Generator().manual_seed(1),
+                            device=dev)
+    rng = np.random.default_rng(CV_SEED + 4)
+    batch = bench_kd_batch(cfg, rng)
+    batch["teacher_input_ids"] = cv_unified_ids(teacher.cfg, rng, TRAIN_B,
+                                                TRAIN_T)[None]
+    batch["teacher_attention_mask"] = batch["attention_mask"]
+    dcfg = DistillConfig(top_k=TRAIN_K, lora=lcfg)
+    route = dict(teacher_forward=cv2.make_teacher_forward(teacher.cfg),
+                 teacher_extract=cv2.make_teacher_extract(
+                     teacher.cfg, TRAIN_K, cfg.vocab_size))
+    spies, metrics = {}, {}
+    for name, kw in (("default", {}), ("fused", {"fused": True})):
+        spy = OptSpy(train_step.make_optimizer(1e-3, 1, 10, **kw))
+        step = train_step.make_kd_step(cfg, dcfg, spy, mode="online_sparse",
+                                       donate=False, device=dev, **route)
+        state = train_step.init_state(lora0, spy)
+        state = state._replace(opt_state=dict(state.opt_state, count=1))
+        _, m = step(state, base, teacher, batch)
+        metrics[name] = {k: float(v) for k, v in m.items()}
+        spies[name] = spy
+    (g_d, u_d), (g_f, _) = spies["default"].calls[0], \
+        spies["fused"].calls[0]
+    same_grads = all(torch.equal(a, b) for a, b in zip(tree_leaves(g_d),
+                                                        tree_leaves(g_f)))
+    fused = train_step.make_optimizer(1e-3, 1, 10, fused=True)
+    st = dict(fused.init(lora0), count=1)
+    u_same, _ = fused.update(g_d, st, lora0)
+    gaps = [update_gap(a, b) for a, b in zip(tree_leaves(u_d),
+                                              tree_leaves(u_same))]
+    out = {"grads_bit_equal": same_grads, "metrics": metrics,
+           "max_rel_fp32": max(g["rel"] for g in gaps if "rel" in g),
+           "bf16_flipped_share": max([g["flipped_share"] for g in gaps
+                                      if "flipped_share" in g] or [0.0]),
+           "bf16_within_one_ulp": all(g.get("within_one_ulp", True)
+                                      for g in gaps),
+           "update_dtypes": sorted({str(u.dtype) for u in
+                                    tree_leaves(u_same)})}
+    log("cosyvoice2 fused optimizer " + json.dumps(out) + f" (fp32 leaves "
+        f"within {FUSED_REL} of the largest update; bf16 leaves: at most "
+        f"{FUSED_FLIPS} of the elements one ulp off)")
+    if not (out["max_rel_fp32"] <= FUSED_REL
+            and out["bf16_flipped_share"] <= FUSED_FLIPS
+            and out["bf16_within_one_ulp"]):
+        fail(f"the fused optimizer's update is not the default's: {out}")
+    del spies, lora0, base
+    return out
+
+
+def cosyvoice2(dev, root: str, side) -> tuple:
+    """Phase 17: the CosyVoice2 teacher drawn at full width on the card
+    (bf16, from CV_SEED), then 17a-17f. Returns each run's launch counts
+    (the train CLI, stage 1 with the 8-bit AdamW) and the K1-fwd entry at
+    the teacher's shape."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = qwen3_student_0p6b()
+    tcfg = cv2.CosyVoice2Config()
+    t0 = time.perf_counter()
+    teacher = cv2.init_params_on_device(CV_SEED, tcfg, dev)
+    torch.cuda.synchronize()
+    log(f"cosyvoice2 teacher: Qwen2 backbone hidden "
+        f"{tcfg.backbone.hidden_size} layers {tcfg.backbone.num_hidden_layers}"
+        f" heads {tcfg.backbone.num_attention_heads}/"
+        f"{tcfg.backbone.num_key_value_heads} Dh {tcfg.backbone.head_dim}, "
+        f"unified vocab {tcfg.unified_vocab_size}, "
+        f"{sum(p.numel() for p in teacher.parameters()) / 1e6:.1f} M "
+        f"parameters, {module_bytes(teacher) / 1e9:.3f} GB bf16, drawn on "
+        f"the card (seed {CV_SEED}) s={time.perf_counter() - t0:.2f}")
+    record: dict = {}
+    res = {"train_cli": cv_train_cli(root, teacher, record)}
+    res["extract"] = cv_extract_routes(teacher, dev)
+    res["model_path"] = cv_model_path(teacher, dev)
+    entry = cv_flash(dev, res["train_cli"]["teacher_flash_fwd"], side)
+    model, res["stage1_8bit"] = cv_stage1_8bit(cfg, dev, record)
+    res["fused_optimizer"] = cv_fused_optimizer(cfg, model, teacher, dev)
+    del model, teacher
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"cosyvoice2 phase s={time.perf_counter() - t_phase:.2f}")
+    return {k: v["launches"] for k, v in record.items()}, entry
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available: this smoke runs on the GPU only")
@@ -3984,10 +4461,16 @@ def main() -> None:
     del model
     kernels += check_flash_stage1(dev, s1_counts, side)
     log(f"stage1 phases s={time.perf_counter() - t0:.2f}")
-    cli_counts = cli(dev)
+    cli_counts, cli_dir = cli(dev)
+    cv_counts, cv_entry = cosyvoice2(dev, cli_dir.name, side)
+    cli_dir.cleanup()
+    kernels.append(cv_entry)
     for entry in kernels:   # each CLI's launches of the kernel in phase 15
         entry["cli_launches"] = {name: c.get(entry["name"], 0)
                                  for name, c in cli_counts.items()}
+        # and in phase 17's runs
+        entry["cosyvoice2_launches"] = {name: c.get(entry["name"], 0)
+                                        for name, c in cv_counts.items()}
     synth_counts = synthesis(dev)
     for entry in kernels:   # each synthesize run's launches in phase 16
         entry["synthesize_launches"] = {run: c.get(entry["name"], 0)

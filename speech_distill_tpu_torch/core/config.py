@@ -67,7 +67,8 @@ class _JsonOverlayMixin:
 @dataclass
 class Qwen3Config(_JsonOverlayMixin):
     """Qwen3 decoder (GQA, per-head q/k RMSNorm, NeoX RoPE, SwiGLU).
-    Defaults = the SoulX-Podcast-1.7B-dialect teacher."""
+    Defaults = the SoulX-Podcast-1.7B-dialect teacher. A Qwen2-family
+    backbone sets ``attention_bias`` and clears ``qk_norm``."""
 
     vocab_size: int = 159488
     hidden_size: int = 2048
@@ -80,6 +81,8 @@ class Qwen3Config(_JsonOverlayMixin):
     rope_theta: float = 1_000_000.0
     max_position_embeddings: int = 40_960
     tie_word_embeddings: bool = True
+    attention_bias: bool = False       # True for Qwen2-family backbones
+    qk_norm: bool = True               # False for Qwen2-family backbones
     bos_token_id: int = 151643
     eos_token_id: int = 151675         # speech eos
     speech_token_offset: int = 152927  # first semantic speech token id
@@ -111,6 +114,25 @@ class Qwen3Config(_JsonOverlayMixin):
     @property
     def torch_logits_dtype(self) -> torch.dtype:
         return torch_dtype(self.logits_dtype)
+
+
+def qwen2_cosyvoice_backbone(vocab_size: int = 151936) -> Qwen3Config:
+    """CosyVoice2's Qwen2-0.5B backbone: hidden 896, FFN 4864, 24 layers,
+    14 / 2 heads of 64, tied, q/k/v bias, no q/k norm."""
+    return Qwen3Config(
+        vocab_size=vocab_size,
+        hidden_size=896,
+        intermediate_size=4864,
+        num_hidden_layers=24,
+        num_attention_heads=14,
+        num_key_value_heads=2,
+        head_dim=64,
+        rope_theta=1_000_000.0,
+        attention_bias=True,
+        qk_norm=False,
+        tie_word_embeddings=True,
+        max_position_embeddings=32768,
+    )
 
 
 def qwen3_teacher_1p7b() -> Qwen3Config:

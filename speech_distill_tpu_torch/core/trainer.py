@@ -6,17 +6,22 @@ retention, evaluation, load-best and resume.
 Resume skips the batches the checkpointed steps already consumed (as HF
 Trainer does), so a resumed run takes the same batches as an
 uninterrupted one; the JAX loop starts the stream over instead.
+
+``SDT_PROFILE=<dir>`` traces steps 11-13 with ``torch.profiler`` into
+``<dir>`` (``core/metrics.ProfilerWindow``).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
 
 from speech_distill_tpu_torch.core.checkpoint import CheckpointManager
 from speech_distill_tpu_torch.core.device import resolve_device
-from speech_distill_tpu_torch.core.metrics import MetricsLogger
+from speech_distill_tpu_torch.core.metrics import (MetricsLogger,
+                                                   ProfilerWindow)
 from speech_distill_tpu_torch.core.prefetch import prefetch, put
 
 
@@ -126,6 +131,9 @@ def train_loop(step_fn: Callable, state, frozen_args: tuple,
         def put_batch(batch):
             return put(batch, dev)
     logger = MetricsLogger(cfg.output_dir, cfg.report_to)
+    profiler = ProfilerWindow(
+        os.environ.get("SDT_PROFILE", f"{cfg.output_dir}/trace"),
+        enabled=bool(os.environ.get("SDT_PROFILE")))
     if ckpt is None:
         ckpt = CheckpointManager(f"{cfg.output_dir}/ckpt",
                                  cfg.save_total_limit)
@@ -164,6 +172,7 @@ def train_loop(step_fn: Callable, state, frozen_args: tuple,
                 continue
             state, metrics = step_fn(state, *frozen_args, batch)
             global_step += 1
+            profiler.on_step(global_step)
             if global_step % cfg.logging_steps == 0:
                 logger.log(global_step, metrics, tokens_per_batch)
             if cfg.save_steps and global_step % cfg.save_steps == 0:
@@ -188,4 +197,6 @@ def train_loop(step_fn: Callable, state, frozen_args: tuple,
             state = restored
             print(f"loaded best model from step {best['step']} "
                   f"(eval loss {best['loss']:.4f})")
+    profiler.close()
+    logger.close()
     return state

@@ -27,6 +27,7 @@ import torch
 
 from speech_distill_tpu_torch.core.config import Qwen3Config
 from speech_distill_tpu_torch.core.device import resolve_device
+from speech_distill_tpu_torch.distill.train_step import check_width
 from speech_distill_tpu_torch.models import qwen3
 
 IGNORE_INDEX = -100
@@ -120,6 +121,7 @@ def make_agreement_step(student_cfg: Qwen3Config,
         t_logits = teacher_forward(
             teacher, batch.get("teacher_input_ids", batch["input_ids"]),
             batch.get("teacher_attention_mask", batch["attention_mask"]))
+        check_width(t_logits.shape[-1], student_cfg.vocab_size)
         s_logits = s_logits[:, :-1]
         t_logits = t_logits[:, :-1, :student_cfg.vocab_size]
         target = batch["input_ids"][:, 1:].long()

@@ -117,6 +117,28 @@ def sparse_distill_loss(student_logits: torch.Tensor,
     return DistillLossOutput(total, task, distill, teacher)
 
 
+def distillation_loss(student_logits: torch.Tensor,
+                      labels: torch.Tensor,
+                      teacher_logits: Optional[torch.Tensor] = None,
+                      teacher_top_k_v: Optional[torch.Tensor] = None,
+                      teacher_top_k_i: Optional[torch.Tensor] = None,
+                      speech_token_mask: Optional[torch.Tensor] = None,
+                      temperature: float = 2.0,
+                      alpha: float = 0.5) -> DistillLossOutput:
+    """The dispatching facade (the reference's ``DistillationLoss.
+    forward``): :func:`dense_distill_loss` when the teacher's logits are
+    given, else :func:`sparse_distill_loss` on its top-K values and
+    indices; ``ValueError`` with neither."""
+    if teacher_logits is not None:
+        return dense_distill_loss(student_logits, teacher_logits, labels,
+                                  speech_token_mask, temperature, alpha)
+    if teacher_top_k_v is not None and teacher_top_k_i is not None:
+        return sparse_distill_loss(student_logits, teacher_top_k_v,
+                                   teacher_top_k_i, labels,
+                                   speech_token_mask, temperature, alpha)
+    raise ValueError("Either teacher_logits or top_k values must be provided")
+
+
 def segmented_top_k(x: torch.Tensor, k: int, group: int = 64):
     """Exact top-k over a large last dim by two-level segmented selection
     (the JAX ``segmented_top_k``): the maxima of ``group``-wide segments,

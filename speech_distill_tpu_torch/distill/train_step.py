@@ -22,13 +22,16 @@ plain route, or the K2 kernels of ``ops/pallas_lm_loss``).
 
 The JAX step donates its state; the port updates the trainable tensors of
 the state in place the same way (``donate=True``), or leaves them as they
-were and returns new ones (``donate=False``). The split apply, the 1F1B
-pipeline and the 8-bit and fused optimizers are not ported yet and raise.
+were and returns new ones (``donate=False``). ``make_optimizer`` also
+builds the 8-bit AdamW (``distill/optim8bit``) and the one-traversal
+clip + AdamW (:func:`adamw` with ``fused=True``). The split apply and the 1F1B
+pipeline are not ported yet and raise.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from speech_distill_tpu_torch.core.config import (TEACHER_QUANTS,
@@ -86,10 +89,6 @@ def _student_forward(base: qwen3.Qwen3, st: Student, mb: dict, merge: bool,
         weights=st.weights, return_hidden=return_hidden, device=dev)
 
 
-_LAYER_GROUPS = {"attn": ("q", "k", "v", "o", "q_norm", "k_norm"),
-                 "mlp": ("gate", "up", "down")}
-
-
 @torch.no_grad()
 def full_trainable(model: qwen3.Qwen3) -> Params:
     """The trainable tree of full finetuning (``use_lora=False``): every
@@ -109,7 +108,9 @@ def full_trainable(model: qwen3.Qwen3) -> Params:
         return leaf.requires_grad_(True)
 
     tree_layers = {}
-    for group, names in _LAYER_GROUPS.items():
+    groups = {"attn": qwen3.attn_names(model.cfg),
+              "mlp": ("gate", "up", "down")}
+    for group, names in groups.items():
         tree_layers[group] = {
             n: stack(lambda l, g=group, n=n: getattr(getattr(l, g), n),
                      lambda l, p, g=group, n=n: setattr(getattr(l, g), n, p))
@@ -159,10 +160,108 @@ class Optimizer(NamedTuple):
     update: Callable
 
 
+def bias_corrections(b1: float, b2: float, count: int):
+    """(1 - b1 ** count, 1 - b2 ** count) in fp32 arithmetic, as optax
+    computes them from an int32 count."""
+    one, t = np.float32(1.0), np.float32(count)
+    return (float(one - np.float32(b1) ** t),
+            float(one - np.float32(b2) ** t))
+
+
+def weak(x: float, t: torch.Tensor) -> torch.Tensor:
+    """The Python scalar ``x`` as it meets ``t`` in JAX (a weakly typed
+    scalar takes the array's dtype: 0.01 * a bf16 leaf is bf16(0.01) times
+    it); torch would keep it in fp32."""
+    return torch.tensor(x, dtype=t.dtype, device=t.device)
+
+
 def global_norm(tree: Params) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in fp32."""
     return torch.sqrt(sum(t.float().square().sum()
                           for t in tree_leaves(tree)))
+
+
+def warmup_linear_schedule(learning_rate: float, warmup_steps: int,
+                           total_steps: int) -> Callable[[int], float]:
+    """``join_schedules([linear(0 -> lr, warmup), linear(lr -> 0, total -
+    warmup)], [warmup])`` as optax evaluates it, in fp32 arithmetic:
+    ``count`` -> the learning rate (a Python float holding the fp32
+    value)."""
+    warmup = max(1, warmup_steps)
+    total = max(total_steps, warmup + 1)
+    f32 = np.float32
+
+    def linear(init: float, end: float, steps: int, count: int):
+        frac = f32(1) - f32(min(max(count, 0), steps)) / f32(steps)
+        return f32(init - end) * frac + f32(end)
+
+    def schedule(count: int) -> float:
+        if count < warmup:
+            return float(linear(0.0, learning_rate, warmup, count))
+        return float(linear(learning_rate, 0.0, total - warmup,
+                            count - warmup))
+    return schedule
+
+
+def clip_scale(grads: Params, max_grad_norm: float) -> torch.Tensor:
+    """The fp32 factor of clip by global norm: 1 under ``max_grad_norm``,
+    max / |g| at or over it (no epsilon, unlike ``torch.nn.utils.
+    clip_grad_norm_``), selected on the device."""
+    g_norm = global_norm(grads)
+    return torch.where(g_norm < max_grad_norm, 1.0,
+                       max_grad_norm / g_norm.clamp_min(1e-30))
+
+
+def adamw(schedule: Callable[[int], float], b1: float = 0.9,
+          b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.0,
+          max_grad_norm: float = 1.0, fused: bool = False) -> Optimizer:
+    """Clip by global norm, then AdamW at ``schedule(count of earlier
+    updates)``, one pass over the leaves; each leaf's arithmetic in fp32
+    on the gradient times the fp32 clip factor.
+
+    Default (optax's ``chain(clip_by_global_norm, adamw)``): the moments
+    are kept in each parameter's dtype, as optax keeps them (bf16 for a
+    bf16 embed copy); the decay is ``wd * p`` in fp32 and the updates are
+    fp32. ``fused`` (the JAX ``fused_clip_adamw``, held there leaf-exact
+    against the optax chain): the moments are fp32, as JAX's become after
+    its first update (a bf16 gradient times the fp32 factor promotes), so
+    a checkpoint restores them as they are; the decay is ``wd * p`` in
+    p's dtype and each update is cast to its gradient's dtype."""
+    moment_dtype = {"dtype": torch.float32} if fused else {}
+
+    def init(params: Params) -> dict:
+        def zeros():
+            return tree_map(lambda p: torch.zeros_like(
+                p, requires_grad=False, **moment_dtype), params)
+        return {"count": 0, "mu": zeros(), "nu": zeros()}
+
+    @torch.no_grad()
+    def update(grads: Params, state: dict, params: Optional[Params] = None):
+        clip = clip_scale(grads, max_grad_norm)
+        count = state["count"] + 1
+        bc1, bc2 = bias_corrections(b1, b2, count)
+        neg_lr = -schedule(state["count"])
+        flat_p = (tree_leaves(params) if params is not None
+                  else [None] * len(tree_leaves(grads)))
+        ups, mus, nus = [], [], []
+        for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state["mu"]),
+                              tree_leaves(state["nu"]), flat_p):
+            gc = g.float() * clip
+            m2 = b1 * m.float() + (1.0 - b1) * gc
+            v2 = b2 * v.float() + (1.0 - b2) * gc.square()
+            upd = (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps)
+            if weight_decay and p is not None:
+                upd = upd + (weak(weight_decay, p) * p if fused
+                             else weight_decay * p.float())
+            upd = neg_lr * upd
+            ups.append(upd.to(g.dtype) if fused else upd)
+            mus.append(m2.to(m.dtype))
+            nus.append(v2.to(v.dtype))
+        return (tree_unflatten(grads, ups),
+                {"count": count, "mu": tree_unflatten(state["mu"], mus),
+                 "nu": tree_unflatten(state["nu"], nus)})
+
+    return Optimizer(init, update)
 
 
 def make_optimizer(learning_rate: float, warmup_steps: int,
@@ -170,64 +269,21 @@ def make_optimizer(learning_rate: float, warmup_steps: int,
                    max_grad_norm: float = 1.0, eight_bit: bool = False,
                    fused: bool = False) -> Optimizer:
     """``optax.chain(clip_by_global_norm(max_grad_norm), adamw(schedule,
-    b1=0.9, b2=0.999, eps=1e-8, weight_decay))`` with the schedule
-    ``join_schedules([linear(0 -> lr, warmup), linear(lr -> 0, total -
-    warmup)])`` evaluated at the count of earlier updates, so the first
-    step's learning rate is 0.
-
-    Clipping scales by max / |g| only when |g| >= max (no epsilon, unlike
-    ``torch.nn.utils.clip_grad_norm_``). The moments are kept in each
-    parameter's dtype, as optax keeps them (bf16 for a bf16 embed copy);
-    each update's arithmetic runs in fp32.
-    """
-    if eight_bit or fused:
-        raise NotImplementedError("the 8-bit and fused optimizers are not "
-                                  "ported yet")
-    warmup = max(1, warmup_steps)
-    total = max(total_steps, warmup + 1)
-    b1, b2, eps = 0.9, 0.999, 1e-8
-
-    def schedule(count: int) -> float:
-        if count < warmup:
-            return learning_rate * count / warmup
-        frac = min(count - warmup, total - warmup) / (total - warmup)
-        return learning_rate * (1.0 - frac)
-
-    def init(params: Params) -> dict:
-        return {"count": 0,
-                "mu": tree_map(lambda p: torch.zeros_like(
-                    p, requires_grad=False), params),
-                "nu": tree_map(lambda p: torch.zeros_like(
-                    p, requires_grad=False), params)}
-
-    @torch.no_grad()
-    def update(grads: Params, state: dict, params: Params):
-        g_norm = global_norm(grads)
-        clip = torch.where(g_norm < max_grad_norm, 1.0,
-                           max_grad_norm / g_norm)
-        count = state["count"] + 1
-        bc1 = 1.0 - b1 ** count
-        bc2 = 1.0 - b2 ** count
-        lr = schedule(state["count"])
-        ups, mus, nus = [], [], []
-        for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state["mu"]),
-                              tree_leaves(state["nu"]),
-                              tree_leaves(params)):
-            gc = g.float() * clip
-            m2 = (1.0 - b1) * gc + b1 * m.float()
-            v2 = (1.0 - b2) * gc.square() + b2 * v.float()
-            upd = (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps)
-            if weight_decay:
-                upd = upd + weight_decay * p.float()
-            ups.append(-lr * upd)
-            mus.append(m2.to(m.dtype))
-            nus.append(v2.to(v.dtype))
-        new_state = {"count": count,
-                     "mu": tree_unflatten(state["mu"], mus),
-                     "nu": tree_unflatten(state["nu"], nus)}
-        return tree_unflatten(grads, ups), new_state
-
-    return Optimizer(init, update)
+    b1=0.9, b2=0.999, eps=1e-8, weight_decay))`` (:func:`adamw`) with the
+    schedule of :func:`warmup_linear_schedule` evaluated at the count of
+    earlier updates, so the first step's learning rate is 0.
+    ``eight_bit``: the same chain with int8 / uint8 moments
+    (``optim8bit.adamw_8bit``, the reference's bitsandbytes
+    ``adamw_8bit``); ``fused``: ``adamw(fused=True)``, JAX's
+    ``fused_clip_adamw``."""
+    schedule = warmup_linear_schedule(learning_rate, warmup_steps,
+                                      total_steps)
+    if eight_bit:
+        from speech_distill_tpu_torch.distill.optim8bit import adamw_8bit
+        return adamw_8bit(schedule, weight_decay=weight_decay,
+                          max_grad_norm=max_grad_norm)
+    return adamw(schedule, weight_decay=weight_decay,
+                 max_grad_norm=max_grad_norm, fused=fused)
 
 
 @torch.no_grad()
@@ -311,7 +367,19 @@ def _online_teacher(mode: str, student_cfg: Qwen3Config,
                 method=distill_cfg.online_topk_method,
                 recall=distill_cfg.online_topk_recall)
         logits = teacher_forward(teacher, ids, mask)
+        check_width(logits.shape[-1], student_cfg.vocab_size)
         return logits[..., :student_cfg.vocab_size]
+
+
+def check_width(teacher_width: int, student_vocab: int) -> None:
+    """Dense KD and agreement compare the teacher's logits with the
+    student's over the student vocabulary: a narrower teacher raises
+    ``ValueError`` (the JAX steps fail on the shapes). The steps check
+    their logits' width, the CLIs the teacher's before it loads."""
+    if teacher_width < student_vocab:
+        raise ValueError(f"the teacher's logits are {teacher_width} wide, "
+                         f"narrower than the student's vocabulary of "
+                         f"{student_vocab}")
 
 
 def _check_mode(mode: str) -> None:

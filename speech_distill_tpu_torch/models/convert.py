@@ -17,10 +17,10 @@ import torch
 from speech_distill_tpu_torch.core.config import Qwen3Config
 from speech_distill_tpu_torch.core.device import resolve_device
 from speech_distill_tpu_torch.core.tree import tree_map
-from speech_distill_tpu_torch.models.qwen3 import QuantWeight, Qwen3
+from speech_distill_tpu_torch.models.qwen3 import (QuantWeight, Qwen3,
+                                                   attn_names)
 from speech_distill_tpu_torch.ops.quant import is_quantized_leaf
 
-_ATTN = ("q", "k", "v", "o", "q_norm", "k_norm")
 _MLP = ("gate", "up", "down")
 
 
@@ -60,7 +60,8 @@ def _set(module: torch.nn.Module, name: str, src, i=None) -> None:
 def params_from_jax(tree: dict, cfg: Qwen3Config, device="cuda") -> Qwen3:
     """A :class:`Qwen3` holding the weights of a JAX ``init_params``-shaped
     tree of numpy arrays or tensors: dense leaves cast to ``cfg.dtype``,
-    quantized leaves kept exactly."""
+    quantized leaves kept exactly. The attention leaves follow the config
+    (``qwen3.attn_names``: q/k norms, Qwen2's q/k/v biases)."""
     model = Qwen3(cfg, device)
     _set(model, "embed", tree["embed"]["weight"])
     _copy(model.final_ln, tree["final_ln"]["scale"])
@@ -70,10 +71,28 @@ def params_from_jax(tree: dict, cfg: Qwen3Config, device="cuda") -> Qwen3:
     for i, layer in enumerate(model.layers):
         _copy(layer.input_ln, lt["input_ln"]["scale"][i])
         _copy(layer.post_ln, lt["post_ln"]["scale"][i])
-        for name in _ATTN:
+        for name in attn_names(cfg):
             _set(layer.attn, name, lt["attn"][name], i)
         for name in _MLP:
             _set(layer.mlp, name, lt["mlp"][name], i)
+    return model
+
+
+def cosyvoice2_params_from_jax(tree: dict, cfg, device="cuda",
+                               head_dtype=None):
+    """A :class:`~speech_distill_tpu_torch.models.cosyvoice2.CosyVoice2`
+    holding a JAX ``cosyvoice2`` pytree ({"backbone": a Qwen2 tree,
+    "llm_embedding", "speech_embedding", "llm_decoder": {"w", "b"}}) of
+    numpy arrays or tensors: the backbone by :func:`params_from_jax`, the
+    small leaves in ``head_dtype`` (default the backbone's)."""
+    from speech_distill_tpu_torch.models.cosyvoice2 import CosyVoice2
+    backbone = params_from_jax(tree["backbone"], cfg.backbone, device)
+    model = CosyVoice2(cfg, backbone.device, head_dtype=head_dtype,
+                       backbone=backbone)
+    _copy(model.llm_embedding, tree["llm_embedding"])
+    _copy(model.speech_embedding, tree["speech_embedding"])
+    _copy(model.llm_decoder.w, tree["llm_decoder"]["w"])
+    _copy(model.llm_decoder.b, tree["llm_decoder"]["b"])
     return model
 
 
@@ -100,7 +119,7 @@ def model_to_tree(model: Qwen3) -> dict:
             "final_ln": {"scale": model.final_ln.detach().clone()},
             "layers": {
                 "attn": {n: stack(lambda l, n=n: getattr(l.attn, n))
-                         for n in _ATTN},
+                         for n in attn_names(model.cfg)},
                 "input_ln": {"scale": stack(lambda l: l.input_ln)},
                 "mlp": {n: stack(lambda l, n=n: getattr(l.mlp, n))
                         for n in _MLP},

@@ -1,16 +1,14 @@
 """HF checkpoint import and export for the Qwen3 port (port of
 ``speech_distill_tpu/models/hf_loader.py``).
 
-HF ``Qwen3ForCausalLM`` checkpoints (safetensors, or torch ``.bin`` state
-dicts) load into a :class:`~speech_distill_tpu_torch.models.qwen3.Qwen3`
-on a device, and a JAX-shaped tree (``convert.model_to_tree``,
-``lora.merge_and_export``, ``train_step.full_trainable``) goes back out
-under HF names for ``core/checkpoint.export_hf``. HF Linear weights are
-[dout, din]; the port's are [din, dout], so matrices are transposed on
-the way in and out.
-
-The port's config has no ``attention_bias`` or ``qk_norm`` field: Qwen2
-backbones (CosyVoice2's) wait for their own slice and raise.
+HF ``Qwen3ForCausalLM`` and ``Qwen2ForCausalLM`` checkpoints
+(safetensors, or torch ``.bin`` state dicts) load into a
+:class:`~speech_distill_tpu_torch.models.qwen3.Qwen3` on a device, and a
+JAX-shaped tree (``convert.model_to_tree``, ``lora.merge_and_export``,
+``train_step.full_trainable``) goes back out under HF names for
+``core/checkpoint.export_hf``. HF Linear weights are [dout, din]; the
+port's are [din, dout], so matrices are transposed on the way in and out.
+A Qwen2 backbone (CosyVoice2's) has q/k/v biases and no q/k norms.
 """
 from __future__ import annotations
 
@@ -23,10 +21,7 @@ import numpy as np
 import torch
 
 from speech_distill_tpu_torch.core.config import Qwen3Config
-from speech_distill_tpu_torch.models.qwen3 import Qwen3
-
-_QWEN2 = ("Qwen2-family backbones (attention bias, no q/k norm) are not "
-          "ported: ROADMAP §1 item 8 (CosyVoice2)")
+from speech_distill_tpu_torch.models.qwen3 import Qwen3, attn_names
 
 # port layer tree (group, key) -> HF name inside a layer; matrices
 # transpose, the rest copy as they are
@@ -40,21 +35,30 @@ _MATRICES = {("attn", "q"): "self_attn.q_proj.weight",
 _VECTORS = {("input_ln", "scale"): "input_layernorm.weight",
             ("attn", "q_norm"): "self_attn.q_norm.weight",
             ("attn", "k_norm"): "self_attn.k_norm.weight",
+            ("attn", "q_bias"): "self_attn.q_proj.bias",
+            ("attn", "k_bias"): "self_attn.k_proj.bias",
+            ("attn", "v_bias"): "self_attn.v_proj.bias",
             ("post_ln", "scale"): "post_attention_layernorm.weight"}
+
+
+def _vectors(cfg: Qwen3Config):
+    """The vector leaves the config has, with their HF names."""
+    names = attn_names(cfg)
+    return {gk: n for gk, n in _VECTORS.items()
+            if gk[0] != "attn" or gk[1] in names}
 
 
 def config_from_hf(hf_cfg) -> Qwen3Config:
     """A :class:`Qwen3Config` from a transformers config object or dict.
     Never reads a dtype: the model runs in the config's default (bf16).
-    Raises ``NotImplementedError`` for a Qwen2 backbone (a ``qwen2``
-    ``model_type``, ``attention_bias`` set or no q/k norm)."""
+    A ``qwen2`` ``model_type`` has no q/k norm and, unless the config says
+    otherwise, q/k/v biases."""
     get = (hf_cfg.get if isinstance(hf_cfg, dict)
            else lambda k, d=None: getattr(hf_cfg, k, d))
     is_qwen2 = get("model_type", "qwen3") == "qwen2"
-    if (is_qwen2 or get("attention_bias", False)
-            or not get("qk_norm", True)):
-        raise NotImplementedError(_QWEN2)
     return Qwen3Config(
+        attention_bias=get("attention_bias", is_qwen2),
+        qk_norm=not is_qwen2,
         vocab_size=get("vocab_size"),
         hidden_size=get("hidden_size"),
         intermediate_size=get("intermediate_size"),
@@ -81,7 +85,8 @@ def _tensor(a) -> torch.Tensor:
 def from_state_dict(state: Dict[str, Any], cfg: Qwen3Config,
                     dtype: Optional[str] = None, device="cuda") -> Qwen3:
     """A :class:`Qwen3` on ``device`` (CUDA by default; raises without it)
-    holding an HF Qwen3ForCausalLM state dict (tensors or arrays, names
+    holding an HF Qwen3ForCausalLM (or, for a Qwen2 config,
+    Qwen2ForCausalLM) state dict (tensors or arrays, names
     with or without the ``model.`` prefix), cast to ``dtype`` (default
     ``cfg.dtype``; the model's config carries it)."""
     if dtype is not None:
@@ -102,7 +107,7 @@ def from_state_dict(state: Dict[str, Any], cfg: Qwen3Config,
         for (group, key), name in _MATRICES.items():
             getattr(getattr(layer, group), key).copy_(
                 get(f"layers.{i}.{name}").T)
-        for (group, key), name in _VECTORS.items():
+        for (group, key), name in _vectors(cfg).items():
             dst = getattr(layer, group)
             dst = getattr(dst, key) if key != "scale" else dst
             dst.copy_(get(f"layers.{i}.{name}"))
@@ -124,7 +129,8 @@ def _np32(a, transpose: bool = False) -> np.ndarray:
 def to_state_dict(params: Dict[str, Any], cfg: Qwen3Config
                   ) -> Dict[str, np.ndarray]:
     """A JAX-shaped tree of stacked [L, ...] leaves (tensors or arrays) as
-    an HF Qwen3 state dict of C-contiguous fp32 numpy arrays."""
+    an HF Qwen3 (Qwen2) state dict of C-contiguous fp32 numpy arrays: the
+    q/k norms and the q/k/v biases go out where the tree has them."""
     out: Dict[str, np.ndarray] = {
         "model.embed_tokens.weight": _np32(params["embed"]["weight"])}
     lyr = params["layers"]

@@ -73,6 +73,18 @@ def deq(w, dtype=torch.bfloat16) -> torch.Tensor:
     return w
 
 
+def attn_names(cfg: Qwen3Config) -> Tuple[str, ...]:
+    """The attention leaves of a layer, as the JAX ``param_shapes`` names
+    them: the projections, the q/k norms (``qk_norm``) and the q/k/v
+    biases (``attention_bias``, the Qwen2 backbones)."""
+    names = ("q", "k", "v", "o")
+    if cfg.qk_norm:
+        names += ("q_norm", "k_norm")
+    if cfg.attention_bias:
+        names += ("q_bias", "k_bias", "v_bias")
+    return names
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: Qwen3Config, device, dtype):
         super().__init__()
@@ -82,8 +94,13 @@ class Attention(nn.Module):
         self.k = _weight((D, KVD), device, dtype)
         self.v = _weight((D, KVD), device, dtype)
         self.o = _weight((QD, D), device, dtype)
-        self.q_norm = _weight((Dh,), device, dtype)
-        self.k_norm = _weight((Dh,), device, dtype)
+        if cfg.qk_norm:
+            self.q_norm = _weight((Dh,), device, dtype)
+            self.k_norm = _weight((Dh,), device, dtype)
+        if cfg.attention_bias:
+            self.q_bias = _weight((QD,), device, dtype)
+            self.k_bias = _weight((KVD,), device, dtype)
+            self.v_bias = _weight((KVD,), device, dtype)
 
 
 class MLP(nn.Module):
@@ -135,7 +152,8 @@ class Qwen3(nn.Module):
 def _numpy_init_tree(cfg: Qwen3Config, seed: int) -> dict:
     """The JAX ``init_params`` pytree as float32 numpy, drawn from the same
     numpy generator in the same (sorted-key) leaf order: normal(0, 0.02)
-    matrices, ones for norm scales, stacked [L, ...] per layer leaf."""
+    matrices, ones for norm scales, zeros for the q/k/v biases (drawn from
+    nothing), stacked [L, ...] per layer leaf."""
     rng = np.random.default_rng(seed)
     L, D, F = cfg.num_hidden_layers, cfg.hidden_size, cfg.intermediate_size
     QD, KVD, Dh, V = cfg.q_dim, cfg.kv_dim, cfg.head_dim, cfg.vocab_size
@@ -147,8 +165,14 @@ def _numpy_init_tree(cfg: Qwen3Config, seed: int) -> dict:
         return np.ones(shape, np.float32)
 
     tree = {"embed": {"weight": w(V, D)}, "final_ln": {"scale": one(D)}}
-    attn = {"k": w(L, D, KVD), "k_norm": one(L, Dh), "o": w(L, QD, D),
-            "q": w(L, D, QD), "q_norm": one(L, Dh), "v": w(L, D, KVD)}
+    attn = {"k": w(L, D, KVD), "o": w(L, QD, D), "q": w(L, D, QD),
+            "v": w(L, D, KVD)}
+    if cfg.qk_norm:
+        attn.update(q_norm=one(L, Dh), k_norm=one(L, Dh))
+    if cfg.attention_bias:
+        attn.update(q_bias=np.zeros((L, QD), np.float32),
+                    k_bias=np.zeros((L, KVD), np.float32),
+                    v_bias=np.zeros((L, KVD), np.float32))
     tree["layers"] = {
         "attn": attn,
         "input_ln": {"scale": one(L, D)},
@@ -171,14 +195,17 @@ def init_params(cfg: Qwen3Config, seed: int = 0, device="cuda") -> Qwen3:
 def init_params_on_device(seed: int, cfg: Qwen3Config, device="cuda"
                           ) -> Qwen3:
     """Random init drawn on ``device`` (CUDA by default; raises without it)
-    from a seeded ``torch.Generator`` there: normal(0, 0.02) matrices and
-    ones for the norm scales, in the model's dtype. A full-size teacher's
-    weights never cross the host. The stream is torch's, so the weights
-    differ from the JAX ``init_params_on_device``'s for the same seed."""
+    from a seeded ``torch.Generator`` there: normal(0, 0.02) matrices,
+    ones for the norm scales and zeros for the q/k/v biases, in the
+    model's dtype. A full-size teacher's weights never cross the host. The
+    stream is torch's, so the weights differ from the JAX
+    ``init_params_on_device``'s for the same seed."""
     model = Qwen3(cfg, device)
     gen = torch.Generator(device=model.device).manual_seed(seed)
-    for p in model.parameters():
-        if p.dim() == 1:
+    for name, p in model.named_parameters():
+        if name.endswith("_bias"):
+            p.zero_()
+        elif p.dim() == 1:
             p.fill_(1.0)
         else:
             p.normal_(0.0, 0.02, generator=gen)
@@ -254,15 +281,23 @@ def _proj(x: torch.Tensor, w, la: Optional[dict], key: str,
 def qkv_proj(attn: Attention, x: torch.Tensor, cos, sin, cfg: Qwen3Config,
              la: Optional[dict] = None, scale: float = 1.0,
              merge: bool = False):
-    """Project + qk-norm + rope: x [B, T, D] -> q [B, T, H, Dh],
-    k/v [B, T, KV, Dh]. Shared with the paged decode step."""
+    """Project (+ bias) + qk-norm + rope: x [B, T, D] -> q [B, T, H, Dh],
+    k/v [B, T, KV, Dh]. The Qwen2 biases add after the projection, LoRA's
+    delta included; a Qwen2 backbone has no q/k norm. Shared with the
+    paged decode step."""
     B, T, _ = x.shape
     H, KV, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    q = _proj(x, attn.q, la, "q", scale, merge).reshape(B, T, H, Dh)
-    k = _proj(x, attn.k, la, "k", scale, merge).reshape(B, T, KV, Dh)
-    v = _proj(x, attn.v, la, "v", scale, merge).reshape(B, T, KV, Dh)
-    q = rms_norm(q, attn.q_norm, cfg.rms_norm_eps)
-    k = rms_norm(k, attn.k_norm, cfg.rms_norm_eps)
+    q = _proj(x, attn.q, la, "q", scale, merge)
+    k = _proj(x, attn.k, la, "k", scale, merge)
+    v = _proj(x, attn.v, la, "v", scale, merge)
+    if cfg.attention_bias:
+        q, k, v = q + attn.q_bias, k + attn.k_bias, v + attn.v_bias
+    q = q.reshape(B, T, H, Dh)
+    k = k.reshape(B, T, KV, Dh)
+    v = v.reshape(B, T, KV, Dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, attn.q_norm, cfg.rms_norm_eps)
+        k = rms_norm(k, attn.k_norm, cfg.rms_norm_eps)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
@@ -360,6 +395,7 @@ def forward(model: Qwen3, input_ids: torch.Tensor, *,
             cache: Optional[KVCache] = None,
             cache_positions: Optional[torch.Tensor] = None,
             num_layers: Optional[int] = None,
+            inputs_embeds: Optional[torch.Tensor] = None,
             return_hidden: bool = False):
     """Run the decoder.
 
@@ -376,6 +412,9 @@ def forward(model: Qwen3, input_ids: torch.Tensor, *,
     ``num_layers`` (cache path only): run the first K layers, then the
     final norm and head (the layer-skip draft); layers < K write exactly
     what a full forward writes, layers >= K keep their cache contents.
+    ``inputs_embeds`` [B, T, D] replaces the embedding lookup
+    (``input_ids`` is then unused and may be None), as the CosyVoice2
+    teacher's unified table needs.
 
     The cache is updated in place; the returned :class:`KVCache` shares
     its tensors with length ``cache.length + T`` (callers may rewind it
@@ -387,9 +426,10 @@ def forward(model: Qwen3, input_ids: torch.Tensor, *,
     ``return_hidden``, plus the updated cache when one was given.
     """
     cfg = model.cfg
-    B, T = input_ids.shape
-    dev = input_ids.device
-    x = embed_tokens(model, input_ids)
+    x = (embed_tokens(model, input_ids) if inputs_embeds is None
+         else inputs_embeds)
+    B, T = x.shape[:2]
+    dev = x.device
     if cache is None:
         if num_layers is not None or cache_positions is not None:
             raise NotImplementedError(
@@ -474,7 +514,8 @@ class _LayerView:
 
 def _layer_views(layers: dict, L: int) -> List[_LayerView]:
     """Per-layer views of a JAX-layout stacked layer tree ({"attn": {q, k,
-    v, o, q_norm, k_norm}, "mlp": {gate, up, down}, "input_ln": {"scale"},
+    v, o, [q_norm, k_norm], [q_bias, k_bias, v_bias]}, "mlp": {gate, up,
+    down}, "input_ln": {"scale"},
     "post_ln": {"scale"}}). One ``unbind`` per leaf, so the backward
     stacks each leaf's gradient once."""
     def split(group):

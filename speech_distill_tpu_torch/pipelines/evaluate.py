@@ -17,7 +17,10 @@ JSON report per checkpoint.
 A dataset with ``teacher_top_k_v/i`` columns (the extract-logits output)
 needs no teacher: the metrics run against the stored top-K. ``--test_size``
 replays the train CLI's held-out split (same seed). One device: ``--dp``
-and ``--tp`` above 1 and the CosyVoice2 teacher raise.
+and ``--tp`` above 1 raise. A CosyVoice2 teacher (``--teacher_family
+cosyvoice2``, a reference torch checkpoint) runs where its unified
+vocabulary is at least as wide as the student's, as in JAX; a narrower
+one raises ``ValueError`` before it loads.
 """
 from __future__ import annotations
 
@@ -39,7 +42,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "stored teacher_top_k_v/i artifacts")
     p.add_argument("--teacher_family", type=str, default="qwen3",
                    choices=["qwen3", "cosyvoice2"],
-                   help="cosyvoice2 is not ported (ROADMAP §1 item 8)")
+                   help="cosyvoice2: a reference CosyVoice2 torch "
+                        "checkpoint over the unified vocab")
     p.add_argument("--dataset_path", type=str, required=True)
     p.add_argument("--max_length", type=int, default=512)
     add_template_args(p)
@@ -209,10 +213,6 @@ def evaluate(config) -> dict:
     if config.dp > 1 or config.tp > 1:
         raise NotImplementedError("--dp / --tp above 1 are not ported "
                                   "(ROADMAP §1 item 11)")
-    if config.teacher_family != "qwen3":
-        raise NotImplementedError(
-            f"--teacher_family {config.teacher_family} is not ported "
-            f"(ROADMAP §1 item 8)")
     dev = resolve_device(config.device)
     tokenizer = load_tokenizer(config.student_model, config.pad_token)
     dataset = load_hf_dataset(config.dataset_path)
@@ -242,8 +242,21 @@ def evaluate(config) -> dict:
         if not config.teacher_model:
             raise ValueError("--teacher_model required (dataset has no "
                              "stored teacher_top_k_v/i artifacts)")
-        t_cfg, teacher = load_pretrained(config.teacher_model, device=dev)
+        teacher_forward = None
+        if config.teacher_family == "cosyvoice2":
+            from speech_distill_tpu_torch.models import cosyvoice2 as cv2
+            from speech_distill_tpu_torch.distill.train_step import (
+                check_width)
+            check_width(cv2.CosyVoice2Config().unified_vocab_size,
+                        s_cfg.vocab_size)
+            teacher = cv2.load(config.teacher_model, dev)
+            t_cfg = teacher.cfg.backbone
+            teacher_forward = cv2.make_teacher_forward(teacher.cfg)
+        else:
+            t_cfg, teacher = load_pretrained(config.teacher_model,
+                                             device=dev)
         step = ev.make_agreement_step(s_cfg, t_cfg, k=config.agree_k,
+                                      teacher_forward=teacher_forward,
                                       device=dev)
     else:
         step = ev.make_sparse_agreement_step(s_cfg, k=config.agree_k,

@@ -4,8 +4,10 @@
 Only the new speech-token rows of the embedding train
 (``distill/train_step.make_stage1_step``); examples are formatted by the
 template processor and packed into fixed-length rows (TRL
-``packing=True``) for static shapes. :func:`train_stage1` is the CLI; the
-pieces it runs are plain functions here:
+``packing=True``) for static shapes; ``--use_8bit_optimizer`` keeps
+AdamW's moments as int8 / uint8 codes (``distill/optim8bit``).
+:func:`train_stage1` is the CLI; the pieces it runs are plain functions
+here:
 
 * :func:`pack_sequences`, the packing;
 * :func:`stage1_batches`, the batch iterator ([A, B, T] batches of
@@ -145,9 +147,6 @@ def train_stage1(config):
     if getattr(config, "sp", 1) > 1:
         raise NotImplementedError("--sp (ring attention) is not ported: "
                                   "ROADMAP §1 item 11")
-    if config.use_8bit_optimizer:
-        raise NotImplementedError("--use_8bit_optimizer is not ported: "
-                                  "ROADMAP §1 item 8")
     dev = resolve_device(config.device)
     tokenizer = load_tokenizer(config.model_path)
     cfg, model = load_pretrained(config.model_path, device=dev)
@@ -197,7 +196,8 @@ def train_stage1(config):
     steps = max(1, len(packed) // (B * A)) * config.num_epochs
     opt = train_step.make_optimizer(config.learning_rate,
                                     config.warmup_steps, steps,
-                                    weight_decay=config.weight_decay)
+                                    weight_decay=config.weight_decay,
+                                    eight_bit=config.use_8bit_optimizer)
     state = train_step.init_state(trainable, opt)
     fused, backend = fused_route(config.max_seq_length, dev,
                                  cfg.torch_dtype, cfg.hidden_size)

@@ -5,10 +5,16 @@ Flags match the JAX CLI 1:1, plus ``--device``; the engine underneath is
 the port's KD step (``distill/train_step.make_kd_step``) in ``train_loop``
 on one device. The mode follows the dataset's columns: stored top-K
 ("precomputed"), else the teacher runs in the step ("online_sparse", or
-"online_dense" for ``--top_k`` <= 0 or a quantized teacher). The
-parallel flags (tensor, sequence and pipeline parallelism, ZeRO-1, the
-disaggregated teacher, multi-host) and the CosyVoice2 teacher are not
-ported and raise when set.
+"online_dense" for ``--top_k`` <= 0 or a quantized teacher). The teacher
+is a Qwen3 HF directory, or with ``--teacher_family cosyvoice2`` a
+reference CosyVoice2 torch checkpoint (``models/cosyvoice2``: a Qwen2
+backbone over the unified vocabulary). The parallel flags (tensor,
+sequence and pipeline parallelism, ZeRO-1, the disaggregated teacher,
+multi-host) are not ported and raise when set.
+
+Where the JAX CLI fails, this one raises ``ValueError`` before the teacher
+loads: a quantized CosyVoice2 teacher, and dense KD against a CosyVoice2
+teacher whose unified vocabulary is narrower than the student's.
 """
 from __future__ import annotations
 
@@ -57,7 +63,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--top_k", type=int, default=128)
     p.add_argument("--teacher_family", type=str, default="qwen3",
                    choices=["qwen3", "cosyvoice2"],
-                   help="cosyvoice2 is not ported (ROADMAP §1 item 8)")
+                   help="cosyvoice2: split-embedding Qwen2 teacher over the "
+                        "unified vocab (a reference torch checkpoint)")
     p.add_argument("--load_teacher_in_4bit", action="store_true")
     p.add_argument("--load_teacher_in_8bit", action="store_true")
     p.add_argument("--per_device_train_batch_size", type=int, default=4)
@@ -89,16 +96,19 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def check_ported(config) -> None:
-    """Raise ``NotImplementedError`` for a flag the port does not have."""
+    """Raise ``NotImplementedError`` for a flag the port does not have,
+    and ``ValueError`` for a quantized CosyVoice2 teacher (the JAX CLI
+    fails on its int8 embedding)."""
     for flag, default in _UNPORTED.items():
         if getattr(config, flag, default) != default:
             raise NotImplementedError(
                 f"--{flag} is not ported (parallelism and multi-host: "
                 f"ROADMAP §1 item 11)")
-    if config.teacher_family != "qwen3":
-        raise NotImplementedError(
-            f"--teacher_family {config.teacher_family} is not ported "
-            f"(ROADMAP §1 item 8)")
+    if config.teacher_family == "cosyvoice2" and (
+            config.load_teacher_in_4bit or config.load_teacher_in_8bit):
+        raise ValueError("--load_teacher_in_4bit / _8bit with "
+                         "--teacher_family cosyvoice2: a quantized "
+                         "CosyVoice2 teacher is not supported")
 
 
 def preview(tokenizer, sample) -> None:
@@ -198,8 +208,21 @@ def train(config) -> None:
     s_cfg, student = load_pretrained(config.student_model, device=dev)
     mode = "precomputed" if has_topk else (
         "online_dense" if dcfg.use_dense else "online_sparse")
-    teacher = (None if mode == "precomputed"
-               else load_teacher(config.teacher_model, quant, dev))
+    teacher = teacher_forward = teacher_extract = None
+    if mode != "precomputed" and config.teacher_family == "cosyvoice2":
+        from speech_distill_tpu_torch.models import cosyvoice2 as cv2
+        if mode == "online_dense":
+            train_step.check_width(cv2.CosyVoice2Config().unified_vocab_size,
+                                   s_cfg.vocab_size)
+        teacher = cv2.load(config.teacher_model, dev)
+        teacher_forward = cv2.make_teacher_forward(teacher.cfg)
+        if mode == "online_sparse":
+            teacher_extract = cv2.make_teacher_extract(
+                teacher.cfg, dcfg.top_k, s_cfg.vocab_size,
+                extract=dcfg.online_extract,
+                recall=dcfg.online_topk_recall)
+    elif mode != "precomputed":
+        teacher = load_teacher(config.teacher_model, quant, dev)
 
     if config.use_lora:
         gen = torch.Generator().manual_seed(dcfg.seed)
@@ -217,8 +240,10 @@ def train(config) -> None:
     opt = train_step.make_optimizer(dcfg.learning_rate, dcfg.warmup_steps,
                                     total_steps)
     state = train_step.init_state(trainable, opt)
-    step_fn = train_step.make_kd_step(s_cfg, dcfg, opt, mode=mode,
-                                      use_lora=config.use_lora, device=dev)
+    step_fn = train_step.make_kd_step(
+        s_cfg, dcfg, opt, mode=mode, teacher_forward=teacher_forward,
+        teacher_extract=teacher_extract, use_lora=config.use_lora,
+        device=dev)
 
     collator = DistillCollator(
         pad_token_id=tokenizer.pad_token_id,
@@ -242,7 +267,8 @@ def train(config) -> None:
         if not is_preprocessed:
             eval_dataset = eval_dataset.map(dual, batched=True, desc="eval")
         eval_step = train_step.make_kd_eval_step(
-            s_cfg, dcfg, mode=mode, use_lora=config.use_lora, device=dev)
+            s_cfg, dcfg, mode=mode, teacher_forward=teacher_forward,
+            use_lora=config.use_lora, device=dev)
 
         def eval_fn(state):
             totals, n = None, 0

@@ -40,6 +40,10 @@ BWD_REL_TOL = 2e-2
 # fp32 output; for a bf16 output one rounding of each element (at most
 # 2^-8 of it) of sums that may differ in their last fp32 bits
 INT4_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+# the 8-bit AdamW's block scales on the card against the CPU's after a
+# step over the clip norm, each device clipping its own gradients (see
+# the test); fed the CPU's clipped gradients, the card's are equal
+SCALE_MAX_ULP = 4
 # a model prefill through K1-fwd against the plain route, max |diff| /
 # max |plain|: bf16 attention outputs rounded at different points (the
 # kernel's bf16 P, the plain route's fp32 softmax), through 2 layers
@@ -168,8 +172,9 @@ def _flash_qkv(dev, B, T, H, KV, Dh, seed):
 
 # T 64: one key tile, half of it past T; T 320: a half last 128-row query
 # tile; (16, 8) and (16, 4): two query heads of a KV group a block; (4, 4):
-# 128 rows of one head a block
-@pytest.mark.parametrize("H,KV", [(16, 8), (4, 4), (16, 4)])
+# 128 rows of one head a block; (14, 2): CosyVoice2's Qwen2 backbone, an
+# odd group of 7 (the unpaired one-head path)
+@pytest.mark.parametrize("H,KV", [(16, 8), (4, 4), (16, 4), (14, 2)])
 @pytest.mark.parametrize("T", [64, 320, 1024])
 @pytest.mark.parametrize("Dh", [64, 128])
 def test_flash_fwd_kernel_matches_plain(dev, H, KV, T, Dh):
@@ -560,3 +565,68 @@ def test_paged_decode_int8_kernel_matches_plain(dev, dtype, atol, ps, mp, G,
     assert got.dtype == dtype and bool(torch.isfinite(got).all())
     assert torch.all(got[0] == 0)
     torch.testing.assert_close(got.float(), ref, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("clip", ["each device", "the CPU's"])
+def test_adamw_8bit_on_the_card_gives_the_cpu_codes(dev, clip,
+                                                    monkeypatch):
+    """Three steps of ``make_optimizer(eight_bit=True)`` on the same bf16
+    and fp32 leaves and gradients (under, over and under the clip norm)
+    on the card and on the CPU: the int8 / uint8 codes are equal at every
+    step; the updates within rtol 1e-6. Each device clipping its own
+    gradients, the block scales are equal after the first step and
+    within SCALE_MAX_ULP after the step over the clip norm (the clip's
+    global norm sums in another order on each device, so the fp32 leaf's
+    clipped gradient may sit an ulp apart: two in the second moment's
+    g^2, plus the roundings of the moments it carries on). Fed the CPU's
+    clipped gradients, the card's block scales are equal at every step:
+    the norm is where the ulps arise."""
+    from speech_distill_tpu_torch.core.tree import tree_leaves, tree_map
+    from speech_distill_tpu_torch.distill import optim8bit, train_step
+    rng = np.random.default_rng(0)
+    real_clip, cpu_clipped = optim8bit.clip_by_global_norm, []
+
+    def clip_fn(grads, max_norm):    # the CPU's run comes first
+        on_cpu = tree_leaves(grads)[0].device.type == "cpu"
+        if on_cpu or clip == "each device":
+            out = real_clip(grads, max_norm)
+            if on_cpu:
+                cpu_clipped.append(out)
+            return out
+        return tree_map(lambda t: t.to(dev), cpu_clipped.pop(0))
+    monkeypatch.setattr(optim8bit, "clip_by_global_norm", clip_fn)
+
+    def draw(scale):
+        return {"a": torch.from_numpy((rng.normal(size=(37, 19)) * scale)
+                                      .astype(np.float32)),
+                "b": torch.from_numpy((rng.normal(size=(300,)) * scale)
+                                      .astype(np.float32)).bfloat16()}
+    params = draw(1.0)
+    grads = [draw(scale) for scale in (0.01, 10.0, 0.01)]
+    runs = {}
+    for where in ("cpu", dev):
+        opt = train_step.make_optimizer(1e-2, 1, 6, weight_decay=0.01,
+                                        eight_bit=True)
+        p = tree_map(lambda t: t.to(where), params)
+        st = opt.init(p)
+        runs[str(where)] = []
+        for g in grads:
+            ups, st = opt.update(tree_map(lambda t: t.to(where), g), st, p)
+            p = train_step.apply_updates(p, ups, in_place=False)
+            runs[str(where)].append((ups, st))
+    for step, ((u1, s1), (u2, s2)) in enumerate(zip(runs["cpu"],
+                                                    runs[str(dev)])):
+        for a, b in zip(tree_leaves(u1), tree_leaves(u2)):
+            torch.testing.assert_close(b.cpu().float(), a.float(),
+                                       rtol=1e-6, atol=1e-9)
+        for name in ("mu_q", "nu_q"):
+            for a, b in zip(tree_leaves(getattr(s1, name)),
+                            tree_leaves(getattr(s2, name))):
+                assert torch.equal(b.cpu(), a), (step, name)
+        for name in ("mu_scale", "nu_scale"):
+            for a, b in zip(tree_leaves(getattr(s1, name)),
+                            tree_leaves(getattr(s2, name))):
+                np.testing.assert_array_max_ulp(
+                    b.cpu().numpy(), a.numpy(),
+                    maxulp=0 if step == 0 or clip == "the CPU's"
+                    else SCALE_MAX_ULP)

@@ -269,3 +269,41 @@ def test_quantized_serving_raises_without_cuda(monkeypatch):
         params_from_jax(tree, cfg)
     model = params_from_jax(tree, cfg, "cpu")
     assert isinstance(model.layers[0].attn.q, qwen3.QuantWeight)
+
+
+def test_cosyvoice2_entry_points_raise_without_cuda(monkeypatch):
+    """The CosyVoice2 teacher's entry points (the model, both inits, the
+    torch-checkpoint and JAX-tree conversions) with CUDA reported
+    missing; the 8-bit and fused optimizers, device-agnostic like the
+    default one, run on the CPU tensors they are given."""
+    from speech_distill_tpu_torch.core.config import qwen3_tiny
+    from speech_distill_tpu_torch.distill import train_step
+    from speech_distill_tpu_torch.models import cosyvoice2 as cv2
+    from speech_distill_tpu_torch.models.convert import (
+        cosyvoice2_params_from_jax, model_to_tree)
+
+    cfg = cv2.CosyVoice2Config(
+        backbone=qwen3_tiny(40, dtype="float32", attention_bias=True,
+                            qk_norm=False),
+        text_vocab_size=40, speech_token_size=4, unified_vocab_size=50)
+    cpu = cv2.init_params(cfg, 0, "cpu")
+    state = cv2.torch_state(cpu)
+    tree = {"backbone": model_to_tree(cpu.backbone),
+            "llm_embedding": cpu.llm_embedding,
+            "speech_embedding": cpu.speech_embedding,
+            "llm_decoder": {"w": cpu.llm_decoder.w, "b": cpu.llm_decoder.b}}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    raising = [lambda: cv2.CosyVoice2(cfg),
+               lambda: cv2.init_params(cfg, 0),
+               lambda: cv2.init_params_on_device(0, cfg),
+               lambda: cv2.convert_torch_state(state, cfg),
+               lambda: cosyvoice2_params_from_jax(tree, cfg)]
+    for make in raising:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    params = {"w": torch.ones(3, 300)}
+    for kw in ({"eight_bit": True}, {"fused": True}):
+        opt = train_step.make_optimizer(1e-3, 1, 4, **kw)
+        ups, _ = opt.update({"w": torch.ones(3, 300)}, opt.init(params),
+                            params)
+        assert ups["w"].device.type == "cpu"

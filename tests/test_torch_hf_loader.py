@@ -96,10 +96,59 @@ def test_config_from_hf_matches_jax(form):
                                   {"attention_bias": True},
                                   {"qk_norm": False}],
                          ids=["qwen2", "attention_bias", "no_qk_norm"])
-def test_config_from_hf_qwen2_raises(over):
+def test_config_from_hf_reads_qwen2(over):
+    """Qwen2 configs are read now (they raised before the CosyVoice2
+    backbone was ported): the port's attention_bias and qk_norm equal the
+    JAX ``config_from_hf``'s (a qwen2 model_type: bias unless the config
+    says otherwise, no q/k norm; a qwen3 one keeps its q/k norm)."""
     jcfg, _, _ = _pair()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        thf.config_from_hf(_hf_dict(jcfg, **over))
+    src = _hf_dict(jcfg, **over)
+    got, ref = thf.config_from_hf(src), jhf.config_from_hf(src)
+    fields = FIELDS[:-1] + ("attention_bias", "qk_norm")
+    assert {f: getattr(got, f) for f in fields} == \
+        {f: getattr(ref, f) for f in fields}
+    want = {"model_type": (True, False), "attention_bias": (True, True),
+            "qk_norm": (False, True)}[next(iter(over))]
+    assert (got.attention_bias, got.qk_norm) == want
+
+
+def _qwen2_pair(seed=0):
+    """(JAX cfg, JAX fp32 numpy tree with random q/k/v biases, port cfg)
+    of a tiny Qwen2 backbone (bias, no q/k norm)."""
+    kw = dict(attention_bias=True, qk_norm=False, dtype="float32")
+    jcfg = dataclasses.replace(jax_tiny(VOCAB), **kw)
+    tree = jax.tree.map(np.asarray,
+                        jq.init_params(jax.random.PRNGKey(seed), jcfg))
+    rng = np.random.default_rng(seed + 1)
+    for name in ("q_bias", "k_bias", "v_bias"):
+        a = tree["layers"]["attn"][name]
+        tree["layers"]["attn"][name] = rng.normal(size=a.shape).astype(
+            np.float32)
+    return jcfg, tree, qwen3_tiny(VOCAB, **kw)
+
+
+def test_qwen2_state_dict_and_export_match_jax(tmp_path):
+    """A Qwen2 tree through the HF names both ways equals JAX's exactly
+    (the biases under self_attn.{q,k,v}_proj.bias, no q/k norms), the
+    exported files are byte-equal, and load_pretrained reads the
+    directory back to JAX's tree."""
+    jcfg, tree, tcfg = _qwen2_pair()
+    state = jhf.to_state_dict(tree, jcfg)
+    assert "model.layers.0.self_attn.q_proj.bias" in state
+    assert not any("q_norm" in k for k in state)
+    model = thf.from_state_dict(state, tcfg, device="cpu")
+    _assert_trees_equal(model_to_tree(model),
+                        jax.tree.map(np.asarray,
+                                     jhf.from_state_dict(state, jcfg)))
+    out = thf.to_state_dict(model_to_tree(model), tcfg)
+    assert sorted(out) == sorted(state)
+    for k, v in out.items():
+        np.testing.assert_array_equal(v, np.asarray(state[k]), err_msg=k)
+    jckpt.export_hf(tree, jcfg, str(tmp_path / "jax"))
+    tckpt.export_hf(model_to_tree(params_from_jax(tree, tcfg, "cpu")), tcfg,
+                    str(tmp_path / "port"))
+    assert (tmp_path / "port" / "model.safetensors").read_bytes() == \
+        (tmp_path / "jax" / "model.safetensors").read_bytes()
 
 
 @pytest.mark.parametrize("tie", [True, False], ids=["tied", "untied"])

@@ -108,3 +108,38 @@ def test_unembed_train_matches_jax(bwd):
     for got, r in zip((h.grad, wt.grad), ref_grads):
         np.testing.assert_allclose(got.numpy(), np.asarray(r), rtol=1e-5,
                                    atol=1e-4)
+
+
+@pytest.mark.parametrize("teacher", ["dense", "sparse", "none"])
+def test_distillation_loss_dispatches_as_jax(teacher):
+    """The facade: the dense loss when the teacher's logits are given, the
+    sparse one on top-K values and indices (1e-5), and the same
+    ValueError as JAX with neither."""
+    hidden, lm_w, labels, tv, ti, smask = _setup(3)
+    logits = hidden @ lm_w.T
+    t_logits = (np.random.default_rng(4).normal(size=logits.shape)
+                * 3).astype(np.float32)
+    kw = {"dense": {"teacher_logits": t_logits},
+          "sparse": {"teacher_top_k_v": tv, "teacher_top_k_i": ti},
+          "none": {"teacher_top_k_v": tv}}[teacher]
+    args = dict(speech_token_mask=smask, temperature=2.0, alpha=0.3)
+    if teacher == "none":
+        for fn, conv in ((jlosses.distillation_loss, jnp.asarray),
+                         (losses.distillation_loss, torch.from_numpy)):
+            with pytest.raises(ValueError, match="Either teacher_logits"):
+                fn(conv(logits), conv(labels),
+                   **{k: conv(v) for k, v in kw.items()},
+                   speech_token_mask=conv(smask))
+        return
+    ref = jlosses.distillation_loss(
+        jnp.asarray(logits), jnp.asarray(labels),
+        **{k: jnp.asarray(v) for k, v in kw.items()},
+        **{k: jnp.asarray(v) if isinstance(v, np.ndarray) else v
+           for k, v in args.items()})
+    got = losses.distillation_loss(
+        torch.from_numpy(logits), torch.from_numpy(labels),
+        **{k: torch.from_numpy(v) for k, v in kw.items()},
+        **{k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+           for k, v in args.items()})
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(float(g), float(r), rtol=1e-5)

@@ -286,6 +286,88 @@ def test_stage1_cli_matches_jax(ws, tmp_path, monkeypatch):
                               .numpy())
 
 
+def test_stage1_cli_8bit_matches_jax(ws, tmp_path, monkeypatch):
+    """--use_8bit_optimizer on both CLIs in fp32 (int8 / uint8 moments,
+    ``make_optimizer(eight_bit=True)``): the losses (rtol 1e-5) and the
+    final embedding (rtol 1e-4, atol 1e-6); every other tensor stays
+    bit-equal to the input. The JAX CLI sums its gradients over 8
+    devices, so a moment whose scaled value lands on a rounding edge can
+    take the neighbouring code there (tests/test_torch_optim8bit.py holds
+    the codes equal on equal gradients): at most 0.1% of the elements
+    may then differ, each by less than Adam's largest step (lr / sqrt(1 -
+    b2) ~ 32 lr) a step."""
+    from speech_distill_tpu.pipelines.stage1 import main as jmain
+    from speech_distill_tpu_torch.pipelines.stage1 import main
+    _fp32(monkeypatch)
+    raw = str(tmp_path / "raw")
+    datasets.Dataset.from_dict(_rows(24, seed=2)).save_to_disk(raw)
+    args = ["--model_path", ws["student"], "--dataset_path", raw,
+            "--num_epochs", "1", "--gradient_accumulation_steps", "1",
+            "--max_seq_length", "16", "--num_new_tokens", "50",
+            "--warmup_steps", "1", "--learning_rate", "1e-2",
+            "--weight_decay", "0.01", "--logging_steps", "1",
+            "--save_steps", "100", "--eval_size", "0",
+            "--num_workers", "2", "--use_8bit_optimizer"]
+    jmain(args + ["--batch_size", "1", "--output_dir",
+                  str(tmp_path / "jax")])
+    main(args + ["--batch_size", str(DP), "--output_dir",
+                 str(tmp_path / "port")] + CPU)
+    got, ref = _metrics(tmp_path / "port"), _metrics(tmp_path / "jax")
+    assert len(ref) >= 2
+    _assert_metrics_close(got, ref, ("loss",), 1e-5)
+    start = thf.read_state_dict(ws["student"])
+    g, r = _final(tmp_path / "port"), _final(tmp_path / "jax")
+    for k in r:
+        if k != "model.embed_tokens.weight":
+            np.testing.assert_array_equal(g[k], start[k].numpy(), err_msg=k)
+            np.testing.assert_array_equal(g[k], r[k], err_msg=k)
+    ge, re_ = g["model.embed_tokens.weight"], r["model.embed_tokens.weight"]
+    close = np.isclose(ge, re_, rtol=1e-4, atol=1e-6)
+    assert (~close).mean() <= 1e-3
+    assert np.abs(ge - re_).max() < len(ref) * 32 * 1e-2
+    assert not np.array_equal(ge[96 - 50:],
+                              start["model.embed_tokens.weight"][96 - 50:]
+                              .numpy())
+
+
+@pytest.mark.parametrize("width", ["wide", "narrow"])
+def test_evaluate_cli_cosyvoice2_matches_jax(ws, tmp_path, monkeypatch,
+                                            width):
+    """--teacher_family cosyvoice2: with the unified vocabulary (130)
+    wider than the student's (96) the agreement report equals the JAX
+    CLI's (rtol 1e-5); narrower (90), the port raises ValueError before
+    the teacher loads (JAX fails on the shapes in the step)."""
+    from speech_distill_tpu.pipelines.evaluate import main as jmain
+    from speech_distill_tpu_torch.models import cosyvoice2 as cv2
+    from speech_distill_tpu_torch.pipelines.evaluate import main
+    from tests.test_torch_train_cli import tiny_cosyvoice2
+    _fp32(monkeypatch)
+    ckpt = tiny_cosyvoice2(monkeypatch, tmp_path)
+    args = ["--student_model", ws["student"], "--dataset_path", ws["raw"],
+            "--teacher_model", ckpt, "--teacher_family", "cosyvoice2",
+            "--batch_size", "2", "--test_size", "6", "--agree_k", "3",
+            "--pad_to_multiple_of", "16", "--max_length", "64"]
+    if width == "narrow":
+        import dataclasses
+        narrow = dataclasses.replace(cv2.CosyVoice2Config(),
+                                     unified_vocab_size=90)
+        monkeypatch.setattr(cv2, "CosyVoice2Config", lambda: narrow)
+        with pytest.raises(ValueError, match="90 wide.*96"):
+            main(args + ["--output", str(tmp_path / "port.json")] + CPU)
+        return
+    jmain(args + ["--dp", "1", "--output", str(tmp_path / "jax.json")])
+    main(args + ["--output", str(tmp_path / "port.json")] + CPU)
+    got = json.loads((tmp_path / "port.json").read_text())
+    ref = json.loads((tmp_path / "jax.json").read_text())
+    assert got["mode"] == ref["mode"] == "online"
+    for sl in ("all", "speech"):
+        g, r = got["metrics"][sl], ref["metrics"][sl]
+        assert g["positions"] == r["positions"] > 0
+        for k, v in r.items():
+            if v is not None and k != "positions":
+                np.testing.assert_allclose(g[k], v, rtol=1e-5, err_msg=k)
+
+
 def _s3_checkpoint(tmp_path, monkeypatch):
     """A tiny-width S3 checkpoint with the whisper front end's 128 mels,
     written to ``tmp_path`` and named by ``$S3_TOKENIZER_CKPT``."""

@@ -229,13 +229,88 @@ def test_unported_train_flags_raise(ws, flag):
 
 
 def test_unported_family_and_stage1_flags_raise(ws, tmp_path):
+    """The CosyVoice2 teacher and the 8-bit optimizer are ported (item 8):
+    what still raises is stage 1's --sp (item 11) and a quantized
+    CosyVoice2 teacher (ValueError: the JAX CLI fails on it), both before
+    any weight loads."""
     from speech_distill_tpu_torch.pipelines import stage1
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ttrain.main(["--dataset_path", ws["enriched"], "--teacher_family",
-                     "cosyvoice2"] + CPU)
+    for flag in ("--load_teacher_in_8bit", "--load_teacher_in_4bit"):
+        with pytest.raises(ValueError, match="quantized CosyVoice2"):
+            ttrain.main(["--dataset_path", ws["enriched"],
+                         "--teacher_family", "cosyvoice2", flag] + CPU)
     base = ["--model_path", ws["student"], "--dataset_path", ws["raw"],
             "--output_dir", str(tmp_path)] + CPU
     with pytest.raises(NotImplementedError, match="item 11"):
         stage1.main(base + ["--sp", "2"])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        stage1.main(base + ["--use_8bit_optimizer"])
+
+
+def tiny_cosyvoice2(monkeypatch, tmp_path):
+    """Both CLIs build ``CosyVoice2Config()``: point both packages at the
+    tiny config of tests/test_torch_cosyvoice2.py (unified vocab 130) and
+    write a reference-named fp32 checkpoint of random weights."""
+    from speech_distill_tpu.models import cosyvoice2 as jcv2
+    from speech_distill_tpu_torch.models import cosyvoice2 as cv2
+    from tests.test_torch_cosyvoice2 import _cfgs
+    jcfg, cfg = _cfgs()
+    monkeypatch.setattr(jcv2, "CosyVoice2Config", lambda: jcfg)
+    monkeypatch.setattr(cv2, "CosyVoice2Config", lambda: cfg)
+    path = str(tmp_path / "cosyvoice2.pt")
+    torch.save(cv2.torch_state(cv2.init_params(cfg, seed=3, device="cpu")),
+               path)
+    return path
+
+
+@pytest.mark.parametrize("top_k", [8, 0], ids=["sparse", "dense"])
+def test_train_cli_cosyvoice2_matches_jax(ws, tmp_path, monkeypatch, top_k):
+    """--teacher_family cosyvoice2, online KD for 2 steps (PiSSA LoRA) on
+    the processed rows, whose teacher ids lie in the unified text range:
+    the eval losses (rtol 1e-5) and the exported final_model (rtol 1e-4,
+    atol 1e-6) equal the JAX CLI's. Dense KD runs because the unified
+    vocabulary (130) is wider than the student's (96); its fused head
+    rounds d_logits to bf16 on both sides, and the eval KL of these
+    near-uniform random models is ~0.02, so the losses there also take
+    atol 1e-6."""
+    from speech_distill_tpu.pipelines.train import main as jmain
+    _fp32(monkeypatch)
+    ckpt = tiny_cosyvoice2(monkeypatch, tmp_path)
+    args = ["--dataset_path", ws["proc"], "--student_model", ws["student"],
+            "--teacher_model", ckpt, "--teacher_family", "cosyvoice2",
+            "--top_k", str(top_k), "--gradient_accumulation_steps", "1",
+            "--pad_to_multiple_of", "16", "--test_size", "8",
+            "--max_steps", "2", "--warmup_steps", "1",
+            "--learning_rate", "2e-4", "--use_lora", "--lora_r", "4",
+            "--lora_alpha", "8"]
+    jmain(args + ["--per_device_train_batch_size", "1", "--output_dir",
+                  str(tmp_path / "jax")])
+    ttrain.main(args + ["--per_device_train_batch_size", str(DP),
+                        "--output_dir", str(tmp_path / "port")] + CPU)
+    got, ref = _metrics(tmp_path / "port"), _metrics(tmp_path / "jax")
+    assert [m["step"] for m in got] == [m["step"] for m in ref] == [2]
+    for k in LOSSES[4:]:
+        np.testing.assert_allclose(got[0][k], ref[0][k], rtol=1e-5,
+                                   atol=1e-6 if top_k <= 0 else 0,
+                                   err_msg=k)
+    g, r = _final(tmp_path / "port"), _final(tmp_path / "jax")
+    assert sorted(g) == sorted(r)
+    for k in r:
+        np.testing.assert_allclose(g[k], r[k], rtol=1e-4, atol=1e-6,
+                                   err_msg=k)
+
+
+def test_train_cli_cosyvoice2_narrow_teacher_raises(ws, tmp_path,
+                                                    monkeypatch):
+    """Dense KD against a unified vocabulary narrower than the student's
+    raises ValueError with both widths before the teacher loads (the
+    JAX step fails on the shapes: tests/test_torch_cosyvoice2.py)."""
+    from speech_distill_tpu_torch.models import cosyvoice2 as cv2
+    from tests.test_torch_cosyvoice2 import _cfgs
+    _fp32(monkeypatch)
+    import dataclasses
+    narrow = dataclasses.replace(_cfgs()[1], unified_vocab_size=90)
+    monkeypatch.setattr(cv2, "CosyVoice2Config", lambda: narrow)
+    with pytest.raises(ValueError, match="90 wide.*96"):
+        ttrain.main(["--dataset_path", ws["proc"], "--student_model",
+                     ws["student"], "--teacher_model",
+                     str(tmp_path / "not-there.pt"), "--teacher_family",
+                     "cosyvoice2", "--top_k", "0",
+                     "--output_dir", str(tmp_path / "out")] + CPU)
