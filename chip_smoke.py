@@ -27,7 +27,8 @@
    chunk_steps 16, logprobs) on the same student with the full-size flow
    and HiFT (random weights, fp32, TF32 off): 8 sessions (six 128-token
    LLM prompts, two of 700 and 1,000 tokens; 75-token flow prompts, 150
-   prompt mel frames padded to 160), 150 tokens each, the confidence gate
+   prompt mel frames padded to 160), 100 tokens each (bench: 150), the
+   confidence gate
    at -3.0; generated ids are folded into the flow's speech range by a
    thin adapter. Fails unless every wav is finite and (2 n_tok - 150) x
    480 samples long, the streamed chunks make the wav, every session gave
@@ -35,18 +36,18 @@
    a decode step and K1-fwd 28 a fresh long admission, and the gate
    deferred. Logs x-realtime, TTFA, LLM tokens/s, tick ms by row count,
    the decode stall a tick and device memory. Then session 0 replayed
-   alone against its batched row, and a 400-token stream through the
+   alone against its batched row, and a 150-token stream through the
    incremental flow (fp32 caches) against the recompute (mel error and
    each chunk's ms), and a profile of an 8-row flow and HiFT tick.
 3d. The contiguous-cache engines on the JAX benchmark's decode modes,
-   bf16 caches: ``DecodeEngine`` B 1 (128-token prompt, 128 tokens, the
+   bf16 caches: ``DecodeEngine`` B 1 (128-token prompt, 64 tokens, the
    default sampler) with a profile of its step; greedy speculative
    decoding (gamma 7, a repetitive motif prompt: the plain decode and
-   the ngram draft over 128 tokens, layer_skip over 7 layers for 32);
+   the ngram draft over 64 tokens, layer_skip over 7 layers for 32);
    ``generate_batch`` of 16 prompts with a 700-token shared prefix (64
    tokens; with the prefix cache and without); ``ContinuousEngine`` (16
    slots, 16 + 2 long requests); ``stream_tts`` over ``DecodeEngine``
-   (76 tokens) with the full-size flow and HiFT, recompute and
+   (51 tokens) with the full-size flow and HiFT, recompute and
    incremental. (Cut in depth from 256 / 256 / 64 / 128 / 32 + 2 / 151
    to keep the smoke inside its limit; the fp32 greedy gates run 64
    tokens, from 128.) Fails
@@ -105,8 +106,9 @@
 14. Prints the kernels JSON line (K1-fwd once for each of the serve, KD,
    stage-1 and CosyVoice2 teacher shapes; each entry with its launches
    in every CLI of phase 15, ``cli_launches``, in phase 17's runs,
-   ``cosyvoice2_launches``, and in each run of phase 16,
-   ``synthesize_launches``), then the result line, after phase 16.
+   ``cosyvoice2_launches``, in each run of phase 16,
+   ``synthesize_launches``, and in each rank's runs of phase 18,
+   ``parallel_launches``), then the result line, after phase 18.
 15. The distillation CLIs end to end, each through its ``main`` in this
    process at the full width (random weights): a student HF directory at
    Qwen3-0.6B's vocab of 151,936 and a teacher tokenizer of 159,488 ids
@@ -160,6 +162,23 @@
    bytes, peak memory, step and update ms); one KD step with the fused
    and with the default optimizer, their updates on the same gradients
    compared.
+18. dp x tp over ``torch.distributed``, after phase 16: two ranks spawned
+   on the one card (``parallel/multihost.launch``, gloo: NCCL refuses a
+   device twice, so a one-rank NCCL group's all_reduce shows its start).
+   Each rank draws the full-width student on the card from the seed
+   (``init_params_on_device``, as the one-process reference does) and
+   keeps its slices (``sharding.shard_params``): a tp-2 ``PagedEngine``
+   serve of
+   4 greedy requests (two fresh 512- and 768-wide prefills), in bf16 and
+   in fp32, a bf16 512-token prefill, then 2 LoRA KD steps (precomputed,
+   B 8, T 512, K 128) at dp 1 x tp 2 and at dp 2 x tp 1 with ZeRO-1.
+   Fails unless each rank's K4 ran 28 a decode step and K1-fwd 28 a
+   fresh flash-width prefill, K1-fwd 2 x 28 and K1-dq / K1-dkv 28 a KD
+   step (nothing else), the fp32 greedy tokens equal the one-process
+   run's (the bf16 common prefixes are logged), the bf16 prefill logits
+   and the step losses and grad norms agree with it, and a rank's
+   failure or hang (a timeout) fails the launch. Then K4 at KV 4 and
+   K1-fwd / dq / dkv at H 8, KV 4 against their plain versions, timed.
 
 Exits non-zero, printing no result, when CUDA is missing or any phase
 fails. Only one card is needed. Imports nothing of JAX.
@@ -720,9 +739,10 @@ def serve_features(cfg, model, dev) -> dict:
 # weights from the smoke's seed, fp32, TF32 off)
 TTS_SESSIONS, TTS_PROMPT, TTS_LONG = 8, 128, (700, 1000)
 TTS_FLOW_PROMPT, TTS_PROMPT_MEL, TTS_MEL_PAD = 75, 150, 160
-TTS_GEN, TTS_CHUNK_STEPS, TTS_GATE = 150, 16, -3.0
-# one 400-token stream in 16 chunks of 25, incremental against recompute
-TTS_INC_TOKENS, TTS_INC_CHUNK, TTS_INC_FRAMES = 400, 25, 1024
+TTS_GEN, TTS_CHUNK_STEPS, TTS_GATE = 100, 16, -3.0   # bench: 150
+# one 150-token stream in 6 chunks of 25, incremental against recompute
+# (cut from 400 in 16 chunks to keep the smoke inside its limit)
+TTS_INC_TOKENS, TTS_INC_CHUNK, TTS_INC_FRAMES = 150, 25, 1024
 # a session replayed alone against its batched row, max |wav difference|:
 # the two differ only in how cuBLAS and cuDNN block the fp32 products of
 # an 8-row and a 1-row call (~1e-6 relative each), carried through 15
@@ -841,7 +861,7 @@ def check_tts_replay(coord, sessions, res, flow, fcfg, hift, hcfg, offset,
 
 
 def check_tts_incremental(s, flow, fcfg, hift, hcfg, dev) -> dict:
-    """One 400-token stream (16 chunks of 25 tokens, then the flush)
+    """One 150-token stream (6 chunks of 25 tokens, then the flush)
     through the recompute and the incremental flow with fp32 K/V caches:
     the mel and wav of the two, and each chunk's ms."""
     gen = np.random.default_rng(SEED + 32).integers(
@@ -1028,17 +1048,17 @@ def tts_serve(cfg, model, dev, fcfg=None, hcfg=None) -> dict:
 # modes (bench.py: decode, decode_spec_greedy, decode_serving16, serve
 # --serve_phase continuous, tts_streaming)
 # Cut to keep the phase near its budget (a B = 1 step is host-bound at
-# ~37-55 ms): decode and the plain and ngram spec streams run 128 tokens
+# ~37-55 ms): decode and the plain and ngram spec streams run 64 tokens
 # (bench: 256), layer_skip 32, decode_serving16 64, the continuous
 # workload has factor 1 (16 requests + the 2 long ones), tts_streaming
-# 76 tokens (bench: 151)
-DEC_PROMPT, DEC_TOKENS, DEC_MAX_LEN = 128, 128, 4096
+# 51 tokens (bench: 151)
+DEC_PROMPT, DEC_TOKENS, DEC_MAX_LEN = 128, 64, 4096
 SPEC_GAMMA, SPEC_LAYERS, SPEC_MOTIF, SPEC_MAX_LEN = 7, 7, 8, 1024
 SPEC_SKIP_TOKENS = 32
 B16_STREAMS, B16_PREFIX, B16_MAX_LEN, B16_TOKENS = 16, 700, 2048, 64
 CONT_SLOTS, CONT_FACTOR, CONT_CHUNK, CONT_MAX_LEN = 16, 1, 32, 2048
 CONT_LONG = (700, 1000)
-TTS_STREAM_PROMPT, TTS_STREAM_GEN, TTS_STREAM_MAX_LEN = 128, 76, 1024
+TTS_STREAM_PROMPT, TTS_STREAM_GEN, TTS_STREAM_MAX_LEN = 128, 51, 1024
 # The greedy gates (speculative and continuous against the plain
 # single-stream decode) run on the model upcast to fp32 with TF32 off: a
 # greedy argmax over 159,488 random-weight logits flips on bf16 rounding
@@ -1069,7 +1089,7 @@ def common_prefix(a, b) -> int:
 
 
 def decode_single(cfg, model, dev) -> dict:
-    """bench.py ``decode``: B 1, a 128-token random prompt, 128 tokens
+    """bench.py ``decode``: B 1, a 128-token random prompt, 64 tokens
     (min = max), the default sampler with topk_method "approx"; a
     warm-up, then one timed generate."""
     sp = SamplingParams(max_tokens=DEC_TOKENS, min_tokens=DEC_TOKENS,
@@ -1119,7 +1139,7 @@ def spec_engines(cfg, model, dev, n: int, skip_n: int, **kw):
 def decode_spec(cfg, model, dev) -> dict:
     """bench.py ``decode_spec_greedy``: gamma 7, greedy, a repetitive
     8-token speech motif prompt, max_len 1024; the plain decode and the
-    ngram draft over 128 tokens, the layer_skip draft (7 layers) over 32,
+    ngram draft over 64 tokens, the layer_skip draft (7 layers) over 32,
     timed, with the drafts' verify iterations."""
     rng = np.random.default_rng(SEED + 41)
     motif = rng.integers(cfg.speech_token_offset, cfg.vocab_size,
@@ -1239,7 +1259,7 @@ def serve_continuous(cfg, model, dev) -> tuple:
 
 def tts_streaming(cfg, model, dev, fcfg=None, hcfg=None) -> dict:
     """bench.py ``tts_streaming``: stream_tts over DecodeEngine(max_len
-    1024), a 128-token LLM prompt, 76 tokens (bench: 151; min = max, the
+    1024), a 128-token LLM prompt, 51 tokens (bench: 151; min = max, the
     default sampler), a 75-token flow prompt, 150 prompt mel frames, a
     192-dim speaker vector; the full-size flow and HiFT in fp32 (TF32
     off), in the recompute and the incremental form (fp32 caches). The
@@ -1465,17 +1485,18 @@ K4_CHECK_LENS = [0, 1, 127, 128, 129, 255, 256, 511, 640, 1000, 1023, 1024,
                  1500, 1920, 2047, 2048]
 
 
-def k4_check(dev, side, launches: int, quantized: bool) -> dict:
+def k4_check(dev, side, launches: int, quantized: bool, KV: int = 8
+             ) -> dict:
     """K4 (bf16 pool) or K4-int8 (int8 pool and scales from
     ``quantize_kv`` of seeded bf16 K/V) at the serve's shapes: 16 rows,
-    KV 8, G 2, Dh 128, page 128, lengths 0..2048 (idle row, page
-    boundaries), layer 1 of 2, against the plain version in fp32 on the
-    same bf16 inputs or int8 codes. Timed by CUDA-graph replays on
-    ``side`` (``ms``) beside eager calls between CUDA events
-    (``host_ms``, what a call costs with its host work)."""
+    KV 8 (a tp-2 rank's 4 with ``KV``), G 2, Dh 128, page 128, lengths
+    0..2048 (idle row, page boundaries), layer 1 of 2, against the plain
+    version in fp32 on the same bf16 inputs or int8 codes. Timed by
+    CUDA-graph replays on ``side`` (``ms``) beside eager calls between
+    CUDA events (``host_ms``, what a call costs with its host work)."""
     name = "paged_decode_int8" if quantized else "paged_decode"
     rng = np.random.default_rng(SEED + (12 if quantized else 1))
-    B, KV, G, Dh, ps, mp, L = 16, 8, 2, 128, 128, 16, 2
+    B, G, Dh, ps, mp, L = 16, 2, 128, 128, 16, 2
     P = B * mp
 
     def rnd(*shape):
@@ -1519,7 +1540,7 @@ def k4_check(dev, side, launches: int, quantized: bool) -> dict:
     flops = 4 * G * Dh * KV * resident
     bound_ms, bound_by = bound(nbytes, flops)
     plan = k4_plan(B, KV, mp, ps, Dh, kp.dtype, _sm_count(dev))
-    log(f"{name} plan: splits={plan.splits} pages_per_split="
+    log(f"{name} at KV {KV} plan: splits={plan.splits} pages_per_split="
         f"{plan.pages_per_split} stage_tokens={plan.stage_tokens} "
         f"stages={plan.stages}; ms={ms:.5f} (graph) host_ms={host_ms:.4f} "
         f"(events, eager calls) plain_ms={plain_ms:.4f} bound_ms="
@@ -1531,7 +1552,9 @@ def k4_check(dev, side, launches: int, quantized: bool) -> dict:
             "launches": launches, "max_abs_err": err, "ms": ms,
             "kernel_ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "plan": plan._asdict(), "gb_per_s": nbytes / ms / 1e6}
+            "plan": plan._asdict(), "gb_per_s": nbytes / ms / 1e6,
+            "shape": {"B": B, "KV": KV, "G": G, "Dh": Dh, "page": ps},
+            **({"path": "tp2 serve"} if KV != 8 else {})}
 
 
 def flash_inputs(rng, dev, B: int, T: int, n: int = 3, H: int = 16,
@@ -2026,16 +2049,18 @@ def check_loss_falls(cfg, dcfg, base, trainable, batch, dev):
         fail(f"the loss on one repeated batch did not fall: {losses}")
 
 
-def check_flash_bwd(dev, counts: dict, side) -> list:
+def check_flash_bwd(dev, counts: dict, side, H: int = 16, KV: int = 8,
+                    what: str = "KD") -> list:
     """K1-dq and K1-dkv at the training step's shape (B 8, T 512, H 16,
-    KV 8, Dh 128) against the plain backward in fp32 on the same bf16
-    inputs, K1-fwd against its plain version; K1-fwd graph-timed at the
-    same shape. Returns the kernels-line entries."""
+    KV 8, Dh 128; a tp-2 rank's H 8, KV 4 with ``H`` / ``KV``) against
+    the plain backward in fp32 on the same bf16 inputs, K1-fwd against
+    its plain version; K1-fwd graph-timed at the same shape. Returns the
+    kernels-line entries."""
     rng = np.random.default_rng(SEED + 5)
-    B, T, H, KV, Dh = TRAIN_B, TRAIN_T, 16, 8, 128
-    q, k, v, do = flash_inputs(rng, dev, B, T, n=4)
-    fwd_err = check_flash_fwd(q, k, v, "KD")
-    abs_err, err = flash_bwd_errors(q, k, v, do, "KD")
+    B, T = TRAIN_B, TRAIN_T
+    q, k, v, do = flash_inputs(rng, dev, B, T, n=4, H=H, KV=KV)
+    fwd_err = check_flash_fwd(q, k, v, what)
+    abs_err, err = flash_bwd_errors(q, k, v, do, what)
     o, lse = flash_attention_fwd(q, k, v)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     dq_ms = graph_ms(lambda: flash_dq(q, k, v, do, lse, delta), side)
@@ -2043,9 +2068,9 @@ def check_flash_bwd(dev, counts: dict, side) -> list:
     plain_ms = time_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse,
                                                          do), iters=5)
     library_ms = sdpa_bwd_ms(q, k, v, do, side)
-    rows = flash_bwd_entries("KD", q, k, counts, abs_err, err,
+    rows = flash_bwd_entries(what, q, k, counts, abs_err, err,
                              (dq_ms, dkv_ms, plain_ms, library_ms))
-    return rows + [flash_fwd_entry("KD", q, k, v, counts["flash_fwd"],
+    return rows + [flash_fwd_entry(what, q, k, v, counts["flash_fwd"],
                                    fwd_err, side, plain_iters=5)]
 
 
@@ -2309,9 +2334,10 @@ def check_fused_kd(cfg, base, lora, dev) -> dict:
 # (bench.py --mode online_sparse / online_dense, --teacher_quant, eval,
 # extract: B 8, T 512, top-K 128, gaussian LoRA r 32, make_optimizer(5e-5,
 # 10, 1000), 2 warm-up steps) on a fresh full-width student and the
-# full-width 1.7B teacher, both drawn on the card
+# full-width 1.7B teacher, both drawn on the card; timed steps cut (from
+# 8, 4 and 4) to keep the smoke inside its limit
 TEACHER_SEED = 2
-ONLINE_WARMUP, ONLINE_STEPS, QUANT_STEPS, FULL_FT_STEPS = 2, 8, 4, 4
+ONLINE_WARMUP, ONLINE_STEPS, QUANT_STEPS, FULL_FT_STEPS = 2, 4, 2, 2
 # full finetuning at the bench's 5e-5 (10 warm-up steps) moves a bf16
 # weight of size 0.02 by less than half its ulp (~1.2e-4): nothing would
 # visibly change, so the phase trains at 1e-3 from the second step
@@ -3553,7 +3579,7 @@ def cli(dev) -> tuple:
 SYN_WAVS = (("S1", 44100, 8.0, "hello there"), ("S2", 24000, 9.0, "hi there"))
 SYN_TURNS = (("S1", "welcome to the show"), ("S2", "glad to be here"),
              ("S1", "tell us about speech"), ("S2", "it is fun"))
-SYN_TURN_TOKENS = 100
+SYN_TURN_TOKENS = 30
 # an S3 code may differ between the card and the CPU only where the fp32
 # FSQ value of the differing digit lies this close to a +-0.5 edge
 SYN_FSQ_EDGE = 1e-4
@@ -4396,6 +4422,291 @@ def cosyvoice2(dev, root: str, side) -> tuple:
     return {k: v["launches"] for k, v in record.items()}, entry
 
 
+# phase 18, dp x tp over torch.distributed: two ranks on the one card
+PAR_WORLD = 2
+# the serve: two short prompts (one batched 128-wide prefill) and two
+# fresh long ones (512 and 768 wide: K1-fwd at the ranks' heads)
+PAR_LENS, PAR_NEW, PAR_SLOTS = (96, 120, 500, 700), 32, 4
+PAR_FLASH_PREFILLS = 2
+PAR_STEPS = 2                   # KD steps a layout (B 8, T 512, K 128)
+PAR_LORA_SEED = 7               # gaussian LoRA, drawn on the host
+# the bf16 tp-2 prefill logits against the fp32 one-process run's: the
+# partial sums of the row-parallel products round to bf16 before the
+# all-reduce, where one process rounds the whole sum once (2^-9 relative
+# a layer), so the tp-2 error may be larger than the one-process bf16
+# error, within BF16_ERR_RATIO of it. The step losses and grad norms:
+# means over 4,088 positions, against the one-process bf16 step
+PAR_LOSS_RTOL, PAR_GRAD_NORM_RTOL = 1e-2, 5e-2
+PAR_TIMEOUT_S = 600
+
+
+def par_prompts(cfg) -> list:
+    rng = np.random.default_rng(SEED + 18)
+    return [rng.integers(1, cfg.vocab_size - 2, n).tolist()
+            for n in PAR_LENS]
+
+
+def par_sampler(cfg) -> SamplingParams:
+    """Greedy to a fixed length: the streams are comparable."""
+    return SamplingParams(stop_token_ids=(cfg.eos_token_id,),
+                          max_tokens=PAR_NEW, min_tokens=PAR_NEW, top_k=1,
+                          temperature=1.0, use_ras=False,
+                          repetition_penalty=1.0)
+
+
+def par_serve(cfg, model, dev, mesh=None) -> dict:
+    """The phase's serve on ``model`` (one process, or this rank's tp
+    slices): a warm-up, then the prompts with the launch counts set to 0
+    just before and read just after."""
+    eng = PagedEngine(model, cfg, par_sampler(cfg), slots=PAR_SLOTS,
+                      max_len=1024, page_size=128, seed=SEED, device=dev,
+                      mesh=mesh)
+    prompts = par_prompts(cfg)
+    eng.serve([prompts[0][:64]], max_new=4)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    out = eng.serve(prompts, max_new=PAR_NEW)
+    torch.cuda.synchronize()
+    return {"tokens": out, "seconds": time.perf_counter() - t0,
+            "decode_steps": eng.n_decode_steps,
+            "launches": dict(_cuda.launches)}
+
+
+def par_prefill_logits(model, cfg, dev) -> np.ndarray:
+    """The last position's logits of the longest prompt's first 512 tokens
+    (K1-fwd: a cache-less flash-width forward), fp32."""
+    ids = torch.tensor([par_prompts(cfg)[-1][:512]], device=dev)
+    return qwen3.forward(model, ids)[0, -1].float().cpu().numpy()
+
+
+def par_kd_batch(cfg) -> dict:
+    feats = kd_features(cfg, TRAIN_B, np.random.default_rng(SEED + 19))
+    collate = DistillCollator(pad_token_id=cfg.eos_token_id,
+                              speech_bos_id=SPEECH_BOS,
+                              pad_to_multiple_of=128)
+    return {k: v[None] for k, v in collate(feats).items()}
+
+
+def par_lora(model, cfg, dev):
+    return init_lora(model, cfg, LoraConfig(init_weights="gaussian"),
+                     torch.Generator().manual_seed(PAR_LORA_SEED),
+                     device=dev)
+
+
+def par_kd(cfg, base, lora, batch, dev, mesh=None, zero1=False) -> dict:
+    """PAR_STEPS precomputed LoRA KD steps on one batch (the trainable
+    tree this rank's slices, the batch its dp rows under ``mesh``), the
+    launch counts set to 0 just before and read just after."""
+    from speech_distill_tpu_torch.parallel import sharding
+    opt = train_step.make_optimizer(2e-4, 1, 10)
+    state = train_step.init_state(lora, opt)
+    if mesh is not None:
+        state = state._replace(opt_state=sharding.shard_opt_state(
+            mesh, state.opt_state, sharding.lora_pspecs(lora), zero1=zero1))
+        batch = sharding.shard_batch(mesh, batch)
+    step = train_step.make_kd_step(cfg, DistillConfig(), opt,
+                                   mode="precomputed", device=dev,
+                                   mesh=mesh, zero1=zero1)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    times, losses_, norms = [], [], []
+    for _ in range(PAR_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, base, None, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses_.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return {"loss": losses_, "grad_norm": norms, "step_ms":
+            [t * 1e3 for t in times], "launches": dict(_cuda.launches)}
+
+
+def par_rank(rank: int, world: int, device: str) -> dict:
+    """One rank of phase 18 (a spawned process on the one card, gloo):
+    (a) the tp-2 serve in bf16 and in fp32 and the bf16 prefill logits,
+    (b) the LoRA KD steps at dp 1 x tp 2 and at dp 2 x tp 1 with ZeRO-1.
+    Every rank draws the full-width model on the card from the seed
+    (``init_params_on_device``: the same weights in every process) and
+    takes its slices (``sharding.shard_params``); the fp32 model is the
+    bf16 one upcast."""
+    from speech_distill_tpu_torch.core.config import MeshConfig
+    from speech_distill_tpu_torch.parallel import mesh as meshlib
+    from speech_distill_tpu_torch.parallel import sharding
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    cfg = qwen3_student_0p6b()
+    tp2 = meshlib.make_mesh(MeshConfig(dp=1, tp=world), device=dev)
+    full = qwen3.init_params_on_device(SEED, cfg, dev)
+    out = {"coords": tp2.coords, "backend":
+           torch.distributed.get_backend()}
+    model = sharding.shard_params(tp2, full, cfg)
+    out["serve"] = par_serve(cfg, model, dev, tp2)
+    out["prefill_logits"] = par_prefill_logits(model, cfg, dev)
+    del model
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    model = sharding.shard_params(tp2, model_to_tree(full), f32)
+    out["serve_fp32"] = par_serve(f32, model, dev, tp2)
+    del model
+    lora, _ = par_lora(full, cfg, dev)
+    batch = par_kd_batch(cfg)
+    base = sharding.shard_params(tp2, full, cfg)
+    out["kd_tp2"] = par_kd(cfg, base, sharding.shard_lora(tp2, lora), batch,
+                           dev, tp2)
+    del base
+    dp2 = meshlib.make_mesh(MeshConfig(dp=world, tp=1), device=dev)
+    out["kd_dp2_zero1"] = par_kd(cfg, sharding.shard_params(dp2, full, cfg),
+                                 sharding.shard_lora(dp2, lora), batch, dev,
+                                 dp2, zero1=True)
+    return out
+
+
+def parallel(dev, side) -> tuple:
+    """Phase 18: the one-process references on the card, then the two
+    ranks (``multihost.launch``: spawned, joined through a file store,
+    gloo with CUDA tensors staged through the host, NCCL refusing a second
+    rank of one device), their results held to the references and the
+    kernels at the ranks' shapes to their plain versions. Returns
+    (per-rank launch counts by run, the kernels-line entries)."""
+    from speech_distill_tpu_torch.parallel import multihost
+    t_phase = time.perf_counter()
+    cfg = qwen3_student_0p6b()
+    L = cfg.num_hidden_layers
+    model = qwen3.init_params_on_device(SEED, cfg, dev)
+    ref = {"serve": par_serve(cfg, model, dev),
+           "prefill_logits": par_prefill_logits(model, cfg, dev)}
+    lora, _ = par_lora(model, cfg, dev)
+    batch = par_kd_batch(cfg)
+    ref["kd"] = par_kd(cfg, model, lora, batch, dev)
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    tree = model_to_tree(model)
+    del model, lora
+    model = params_from_jax(tree, f32, dev)
+    del tree
+    ref["serve_fp32"] = par_serve(f32, model, dev)
+    ref["prefill_logits_fp32"] = par_prefill_logits(model, f32, dev)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t_phase
+
+    # NCCL starts on one rank (a group of one): the card's backend
+    import torch.distributed as dist
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", init_method=f"file://{d}/nccl",
+                                world_size=1, rank=0)
+        one = torch.ones(4, device=dev)
+        dist.all_reduce(one)
+        torch.cuda.synchronize()
+        nccl_ok = bool(torch.all(one == 1))
+        dist.destroy_process_group()
+    log(f"parallel: NCCL one-rank group all_reduce ok={nccl_ok}; the two "
+        f"ranks on one card use gloo (NCCL refuses a device twice), CUDA "
+        f"tensors staged through the host")
+    if not nccl_ok:
+        fail("NCCL one-rank all_reduce")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        try:
+            ranks = multihost.launch(par_rank, PAR_WORLD, "cuda:0",
+                                     store_dir=d, device="cuda:0",
+                                     backend="gloo",
+                                     timeout_s=PAR_TIMEOUT_S)
+        except RuntimeError as e:
+            fail(f"parallel ranks: {e}")
+    t_ranks = time.perf_counter() - t0
+
+    counts = {}
+    for r, res in enumerate(ranks):
+        c = {run: res[run]["launches"] for run in
+             ("serve", "serve_fp32", "kd_tp2", "kd_dp2_zero1")}
+        counts[f"rank{r}"] = c
+        steps = res["serve"]["decode_steps"]
+        want = {"serve": {"paged_decode": L * steps,
+                          "flash_fwd": L * PAR_FLASH_PREFILLS},
+                "kd_tp2": {"flash_fwd": 2 * L * PAR_STEPS,
+                           "flash_dq": L * PAR_STEPS,
+                           "flash_dkv": L * PAR_STEPS},
+                "kd_dp2_zero1": {"flash_fwd": 2 * L * PAR_STEPS,
+                                 "flash_dq": L * PAR_STEPS,
+                                 "flash_dkv": L * PAR_STEPS}}
+        for run, w in want.items():
+            got = {k: c[run][k] for k in w}
+            if got != w:
+                fail(f"parallel rank {r} {run}: launches {got} != {w}")
+        for run in ("kd_tp2", "kd_dp2_zero1"):
+            other = {k: v for k, v in c[run].items()
+                     if v and k not in want[run]}
+            if other:
+                fail(f"parallel rank {r} {run}: other kernels {other}")
+        if res["serve_fp32"]["launches"]["paged_decode"] != \
+                L * res["serve_fp32"]["decode_steps"]:
+            fail(f"parallel rank {r}: fp32 serve K4 count")
+        # the greedy streams: fp32 equal to the one-process run's; bf16
+        # logged (random weights leave near-ties that bf16 rounding flips)
+        pre32, pre16 = ([common_prefix(a, b) for a, b in
+                         zip(res[run]["tokens"], ref[run]["tokens"])]
+                        for run in ("serve_fp32", "serve"))
+        log(f"parallel rank {r} coords={res['coords']} backend="
+            f"{res['backend']}: greedy common prefix with one process, "
+            f"fp32 {pre32} bf16 {pre16} of {PAR_NEW}")
+        if res["serve_fp32"]["tokens"] != ref["serve_fp32"]["tokens"]:
+            fail(f"parallel rank {r}: fp32 greedy tokens part from the "
+                 f"one-process run at {pre32}")
+        f32_ = ref["prefill_logits_fp32"]
+        e_tp = float(np.abs(res["prefill_logits"] - f32_).max())
+        e_one = float(np.abs(ref["prefill_logits"] - f32_).max())
+        log(f"parallel rank {r}: bf16 prefill logits max |x - fp32 one "
+            f"process|: tp2 {e_tp:.3e}, one process {e_one:.3e} (tp2 within "
+            f"{BF16_ERR_RATIO}x; max |fp32| {np.abs(f32_).max():.3e})")
+        if not e_tp <= BF16_ERR_RATIO * e_one:
+            fail(f"parallel rank {r}: bf16 tp-2 prefill logits {e_tp} "
+                 f"against the one-process bf16 {e_one}")
+        for run in ("kd_tp2", "kd_dp2_zero1"):
+            got, want_ = res[run], ref["kd"]
+            lerr = max(abs(x - y) / abs(y) for x, y in
+                       zip(got["loss"], want_["loss"]))
+            gerr = max(abs(x - y) / abs(y) for x, y in
+                       zip(got["grad_norm"], want_["grad_norm"]))
+            log(f"parallel rank {r} {run}: loss {got['loss']} (one process "
+                f"{want_['loss']}, rel {lerr:.3e} tol {PAR_LOSS_RTOL}) "
+                f"grad_norm rel {gerr:.3e} tol {PAR_GRAD_NORM_RTOL} "
+                f"step_ms {got['step_ms']} (one process "
+                f"{want_['step_ms']})")
+            if not (lerr <= PAR_LOSS_RTOL and gerr <= PAR_GRAD_NORM_RTOL):
+                fail(f"parallel rank {r} {run}: loss / grad_norm apart "
+                     f"from the one-process run")
+    r0 = ranks[0]
+    log("parallel " + json.dumps({
+        "world": PAR_WORLD, "device": torch.cuda.get_device_name(0),
+        "two_ranks_share_one_card": True,
+        "serve_s": {"tp2": [r["serve"]["seconds"] for r in ranks],
+                    "one": ref["serve"]["seconds"]},
+        "serve_fp32_s": {"tp2": [r["serve_fp32"]["seconds"]
+                                 for r in ranks],
+                         "one": ref["serve_fp32"]["seconds"]},
+        "kd_step_ms": {"tp2": r0["kd_tp2"]["step_ms"],
+                       "dp2_zero1": r0["kd_dp2_zero1"]["step_ms"],
+                       "one": ref["kd"]["step_ms"]},
+        "reference_s": t_ref, "ranks_s": t_ranks,
+        "launches": counts}))
+    entries = par_kernels(dev, side, counts)
+    log(f"parallel phase s={time.perf_counter() - t_phase:.2f}")
+    return counts, entries
+
+
+def par_kernels(dev, side, counts: dict) -> list:
+    """K4 at the tp-2 pool's KV 4 (G 2) and K1-fwd / dq / dkv at the tp-2
+    KD step's H 8, KV 4 against their plain versions, timed as at the
+    one-process shapes; ``launches`` is rank 0's count in the tp-2 runs."""
+    r0 = counts["rank0"]
+    k4 = k4_check(dev, side, r0["serve"]["paged_decode"], False, KV=4)
+    kd = {k: r0["kd_tp2"][k] for k in ("flash_dq", "flash_dkv")}
+    kd["flash_fwd"] = r0["kd_tp2"]["flash_fwd"] + r0["serve"]["flash_fwd"]
+    rows = check_flash_bwd(dev, kd, side, H=8, KV=4, what="tp2 KD")
+    return [k4] + rows
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available: this smoke runs on the GPU only")
@@ -4475,6 +4786,12 @@ def main() -> None:
     for entry in kernels:   # each synthesize run's launches in phase 16
         entry["synthesize_launches"] = {run: c.get(entry["name"], 0)
                                         for run, c in synth_counts.items()}
+    par_counts, par_entries = parallel(dev, side)
+    kernels += par_entries
+    for entry in kernels:   # each rank's launches in phase 18's runs
+        entry["parallel_launches"] = {
+            rank: {run: c.get(entry["name"], 0) for run, c in runs.items()}
+            for rank, runs in par_counts.items()}
     log(f"total s={time.perf_counter() - t_all:.2f}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

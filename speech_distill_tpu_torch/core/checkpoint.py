@@ -8,6 +8,11 @@ moments and counters as plain containers (so ``torch.load`` runs with
 are synchronous, so :meth:`CheckpointManager.wait` has nothing to wait
 for. :func:`export_hf` writes an HF model directory from a plain (merged)
 weight tree, the file the JAX package writes.
+
+In a multi-process run (``mesh`` with ``specs_fn``) the ranks' slices are
+gathered and rank 0 writes the one-device format, so a run saved at one
+mesh layout resumes at another; on restore every rank reads the file and
+keeps its slices.
 """
 from __future__ import annotations
 
@@ -33,15 +38,25 @@ def _to_plain(obj: Any) -> Any:
     return obj
 
 
-def _restore_like(template: Any, saved: Any) -> Any:
+def _restore_like(template: Any, saved: Any, specs: Any = None,
+                  mesh=None) -> Any:
     """``saved`` in the structure, types, devices and dtypes of
-    ``template`` (tensors that required grad require it again)."""
+    ``template`` (tensors that required grad require it again); with
+    ``specs`` (a tree like ``template``, None for whole leaves) each
+    sharded tensor is cut to ``mesh``'s slice first."""
     if hasattr(template, "_fields"):
-        return type(template)(*(_restore_like(t, s) for t, s in
-                                zip(template, saved["values"])))
+        sp = specs if specs is not None else [None] * len(template)
+        return type(template)(*(_restore_like(t, s, p, mesh) for t, s, p in
+                                zip(template, saved["values"], sp)))
     if isinstance(template, dict):
-        return {k: _restore_like(template[k], saved[k]) for k in template}
+        return {k: _restore_like(template[k], saved[k],
+                                 specs[k] if isinstance(specs, dict)
+                                 else None, mesh) for k in template}
     if isinstance(template, torch.Tensor):
+        if specs is not None:
+            from speech_distill_tpu_torch.parallel.sharding import (
+                shard_leaf)
+            saved = shard_leaf(saved, specs, mesh)
         t = saved.to(template.device, template.dtype)
         return t.requires_grad_(True) if template.requires_grad else t
     return saved
@@ -51,9 +66,15 @@ class CheckpointManager:
     """save / latest_step / restore / wait, keeping ``max_to_keep``
     checkpoints."""
 
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3, mesh=None,
+                 specs_fn=None):
+        """``mesh`` and ``specs_fn(state) -> specs`` (e.g.
+        ``sharding.state_pspecs``): save gathers the ranks' slices and
+        rank 0 writes; restore cuts every rank's slices."""
         self.directory = directory
         self.max_to_keep = max_to_keep
+        self.mesh = mesh if mesh is not None and mesh.world > 1 else None
+        self.specs_fn = specs_fn
         os.makedirs(directory, exist_ok=True)
 
     def steps(self) -> List[int]:
@@ -64,11 +85,21 @@ class CheckpointManager:
         return os.path.join(self.directory, f"{step}.pt")
 
     def save(self, step: int, state):
+        if self.mesh is not None:
+            from speech_distill_tpu_torch.parallel import multihost
+            from speech_distill_tpu_torch.parallel.sharding import (
+                gather_state)
+            state = gather_state(state, self.specs_fn(state), self.mesh)
+            if not self.mesh.is_primary:
+                multihost.barrier()
+                return
         tmp = self._path(step) + ".tmp"
         torch.save({"state": _to_plain(state)}, tmp)
         os.replace(tmp, self._path(step))
         for old in self.steps()[:-self.max_to_keep]:
             os.remove(self._path(old))
+        if self.mesh is not None:
+            multihost.barrier()
 
     def wait(self):
         """Saves are synchronous: nothing is in flight."""
@@ -83,7 +114,10 @@ class CheckpointManager:
             return None
         saved = torch.load(self._path(step), map_location="cpu",
                            weights_only=True)
-        return _restore_like(state_template, saved["state"])
+        if self.mesh is None:
+            return _restore_like(state_template, saved["state"])
+        return _restore_like(state_template, saved["state"],
+                             self.specs_fn(state_template), self.mesh)
 
     def close(self):
         """Nothing is held open."""

@@ -275,3 +275,18 @@ class EngineConfig(_JsonOverlayMixin):
     def __post_init__(self):
         self.max_model_len = min(self.max_model_len,
                                  self.llm.max_position_embeddings)
+
+
+@dataclass
+class MeshConfig:
+    """Device-mesh layout (the JAX ``MeshConfig``): dp x pp x sp x tp
+    ranks, one process a device. ``dp=-1`` takes the ranks that remain.
+    Only dp and tp are ported; pp and sp above 1 raise in
+    ``parallel/mesh.make_mesh``."""
+
+    dp: int = -1                       # -1: all remaining devices
+    pp: int = 1                        # pipeline parallel (layer stages)
+    sp: int = 1                        # sequence/context parallel (ring attn)
+    tp: int = 1
+    # activation sequence sharding axis rides on tp when enabled
+    shard_sequence: bool = False

@@ -17,10 +17,17 @@ from typing import Any, Dict, Optional
 
 
 class MetricsLogger:
-    def __init__(self, output_dir: str, report_to: str = "none"):
+    def __init__(self, output_dir: str, report_to: str = "none",
+                 write: bool = True):
+        """``write=False``: a silent sink (the ranks but the primary of a
+        multi-process run: they must not race it on the shared
+        metrics.jsonl and stdout)."""
+        self._write = write
         self.path = os.path.join(output_dir, "metrics.jsonl")
-        os.makedirs(output_dir, exist_ok=True)
         self._wandb = None
+        if not write:
+            return
+        os.makedirs(output_dir, exist_ok=True)
         if report_to == "wandb":
             try:
                 import wandb
@@ -33,6 +40,8 @@ class MetricsLogger:
 
     def log(self, step: int, metrics: Dict[str, Any],
             tokens_per_step: Optional[int] = None):
+        if not self._write:
+            return
         now = time.perf_counter()
         dt = now - self._t_last
         self._t_last = now

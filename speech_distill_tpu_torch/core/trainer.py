@@ -41,11 +41,17 @@ class LoopConfig:
 def shuffled_stream(dataset: Iterable,
                     shuffle_seed: Optional[int] = None,
                     epoch: int = 0,
-                    shuffle_buffer: Optional[int] = None) -> Iterator:
+                    shuffle_buffer: Optional[int] = None,
+                    host_count: int = 1,
+                    host_index: int = 0) -> Iterator:
     """Stream dataset items with O(shuffle_buffer) host memory (the
     reference relies on torch DataLoader workers + sampler,
     train.py:348-353; here a windowed shuffle buffer gives the streaming
-    equivalent). The JAX multi-host shard split waits for parallelism.
+    equivalent).
+
+      * ``host_count``/``host_index``: deterministic every-Nth-item shard
+        split (the multi-host data loading hook), applied BEFORE shuffling
+        so hosts draw disjoint items regardless of buffer size.
 
       * ``shuffle_buffer=None`` (or >= dataset size): the buffer swallows
         the whole stream and emits ``rng.permutation`` of it — *identical*
@@ -58,6 +64,8 @@ def shuffled_stream(dataset: Iterable,
         (seed, epoch, W).
     """
     it = iter(dataset)
+    if host_count > 1:
+        it = (x for i, x in enumerate(it) if i % host_count == host_index)
     if shuffle_seed is None:
         yield from it
         return
@@ -84,17 +92,20 @@ def batches_from(dataset: Iterable[Dict[str, np.ndarray]],
                  drop_last: bool = True,
                  shuffle_seed: Optional[int] = None,
                  epoch: int = 0,
-                 shuffle_buffer: Optional[int] = None
-                 ) -> Iterator[Dict[str, np.ndarray]]:
+                 shuffle_buffer: Optional[int] = None,
+                 host_count: int = 1,
+                 host_index: int = 0) -> Iterator[Dict[str, np.ndarray]]:
     """Group examples into [A, B, ...] microbatched host batches.
 
     Streaming: host memory is O(shuffle_buffer + batch_size*accum), not
-    O(epoch) — see :func:`shuffled_stream` for the shuffle semantics
-    (``shuffle_buffer=None`` reproduces the old materialized order).
+    O(epoch) — see :func:`shuffled_stream` for the shuffle / shard
+    semantics (``shuffle_buffer=None`` reproduces the old materialized
+    order).
     """
     chunk = batch_size * accum
     group: List = []
-    for x in shuffled_stream(dataset, shuffle_seed, epoch, shuffle_buffer):
+    for x in shuffled_stream(dataset, shuffle_seed, epoch, shuffle_buffer,
+                             host_count, host_index):
         group.append(x)
         if len(group) < chunk:
             continue
@@ -117,7 +128,7 @@ def train_loop(step_fn: Callable, state, frozen_args: tuple,
                eval_fn: Optional[Callable] = None,
                ckpt: Optional[CheckpointManager] = None,
                tokens_per_batch: Optional[int] = None,
-               device="cuda"):
+               device="cuda", mesh=None, state_specs=None):
     """Run the loop. ``step_fn(state, *frozen_args, batch) -> (state,
     metrics)``.
 
@@ -125,18 +136,36 @@ def train_loop(step_fn: Callable, state, frozen_args: tuple,
     (by default a copy to ``device``, CUDA unless the caller names another;
     raises without it), in a background thread. ``eval_fn(state)`` returns
     metrics with a "loss". Returns the final state.
+
+    ``mesh``: one rank of a multi-process run. Every rank passes the same
+    global batches (the default ``put_batch`` keeps its dp rows,
+    ``multihost.make_global_batch``); only the primary writes metrics and
+    traces (JAX: ``MetricsLogger(write=)``), and checkpoints are gathered
+    to rank 0 in the one-device format by ``state_specs(state)``
+    (``sharding.state_pspecs``), so a resumed run may take another
+    layout. Save, restore and eval run on every rank (collectives).
     """
-    dev = resolve_device(device)
+    dev = resolve_device(device if mesh is None else mesh.device)
+    primary = mesh is None or mesh.is_primary
     if put_batch is None:
-        def put_batch(batch):
-            return put(batch, dev)
-    logger = MetricsLogger(cfg.output_dir, cfg.report_to)
+        if mesh is not None:
+            from speech_distill_tpu_torch.parallel.multihost import (
+                make_global_batch)
+
+            def put_batch(batch):
+                return make_global_batch(mesh, batch)
+        else:
+            def put_batch(batch):
+                return put(batch, dev)
+    logger = MetricsLogger(cfg.output_dir, cfg.report_to if primary
+                           else "none", write=primary)
     profiler = ProfilerWindow(
         os.environ.get("SDT_PROFILE", f"{cfg.output_dir}/trace"),
-        enabled=bool(os.environ.get("SDT_PROFILE")))
+        enabled=bool(os.environ.get("SDT_PROFILE")) and primary)
     if ckpt is None:
         ckpt = CheckpointManager(f"{cfg.output_dir}/ckpt",
-                                 cfg.save_total_limit)
+                                 cfg.save_total_limit, mesh=mesh,
+                                 specs_fn=state_specs)
 
     start_step = 0
     latest = ckpt.latest_step()
@@ -145,7 +174,8 @@ def train_loop(step_fn: Callable, state, frozen_args: tuple,
         if restored is not None:
             state = restored
             start_step = latest
-            print(f"resumed from step {latest}")
+            if primary:
+                print(f"resumed from step {latest}")
 
     global_step = start_step
     to_skip = start_step            # batches the restored steps consumed
@@ -195,8 +225,9 @@ def train_loop(step_fn: Callable, state, frozen_args: tuple,
         restored = ckpt.restore(state, best["step"])
         if restored is not None:
             state = restored
-            print(f"loaded best model from step {best['step']} "
-                  f"(eval loss {best['loss']:.4f})")
+            if primary:
+                print(f"loaded best model from step {best['step']} "
+                      f"(eval loss {best['loss']:.4f})")
     profiler.close()
     logger.close()
     return state

@@ -21,6 +21,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from speech_distill_tpu_torch.parallel.comm import global_count
+
 IGNORE_INDEX = -100
 
 
@@ -42,7 +44,9 @@ def _shift_and_mask(labels: torch.Tensor,
 
 
 def _masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    n = mask.sum()
+    """sum(values * mask) / count; under ``comm.dp_denominators`` the
+    count is the global batch's, so the dp ranks' results sum to it."""
+    n = global_count(mask.sum())
     return torch.where(n > 0, (values * mask).sum() / n.clamp_min(1.0),
                        torch.zeros_like(n))
 
@@ -109,7 +113,7 @@ def sparse_distill_loss(student_logits: torch.Tensor,
     task = _masked_mean(_ce_per_pos(s, shift_labels), valid)
 
     hits = (idx == shift_labels[..., None]).float() * valid[..., None]
-    n_hits = hits.sum()
+    n_hits = global_count(hits.sum())
     teacher = torch.where(n_hits > 0,
                           -(v * hits).sum() / n_hits.clamp_min(1.0),
                           torch.zeros_like(n_hits))

@@ -146,11 +146,13 @@ def optax_global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, g_norm=None):
     """``optax.clip_by_global_norm``: leaves scaled by max_norm / |g| in
     their own dtype when |g| >= max_norm, unchanged otherwise (a select
-    on the device, no host read)."""
-    g_norm = optax_global_norm(grads)
+    on the device, no host read). ``g_norm``: the norm when the caller
+    has it."""
+    if g_norm is None:
+        g_norm = optax_global_norm(grads)
     keep = g_norm < max_norm
     return tree_map(lambda t: torch.where(
         keep, t, (t / g_norm.to(t.dtype)) * weak(max_norm, t)), grads)
@@ -172,10 +174,12 @@ def adamw_8bit(learning_rate: Union[float, Callable[[int], float]],
         (lambda count: learning_rate)
 
     @torch.no_grad()
-    def update(grads, state: Adam8bitState, params=None):
+    def update(grads, state: Adam8bitState, params=None, g_norm=None):
         lr = -f32(lr_at(state.count))
-        ups, state2 = adam.update(clip_by_global_norm(grads, max_grad_norm),
-                                  state)
+        clipped = (clip_by_global_norm(grads, max_grad_norm)
+                   if g_norm is None else
+                   clip_by_global_norm(grads, max_grad_norm, g_norm))
+        ups, state2 = adam.update(clipped, state)
         if weight_decay:
             if params is None:
                 raise ValueError("weight decay needs the params")

@@ -26,6 +26,17 @@ were and returns new ones (``donate=False``). ``make_optimizer`` also
 builds the 8-bit AdamW (``distill/optim8bit``) and the one-traversal
 clip + AdamW (:func:`adamw` with ``fused=True``). The split apply and the 1F1B
 pipeline are not ported yet and raise.
+
+``mesh`` (``parallel/mesh.Mesh``): the step of one rank of a dp x tp run
+(the JAX step over a ``NamedSharding``-placed state). The student and the
+teacher are sharded by ``parallel/sharding.shard_params``, the trainable
+tree holds the rank's slices, the batch its dp rows. The loss divides by
+counts summed over dp (``comm.dp_denominators``), the gradients of
+leaves whole on every tp rank but computed in part are summed over tp
+(``sharding.tp_partial``), every gradient over dp, and the clip's norm
+counts each tp-sharded leaf once over its shards. ``zero1``: each rank
+keeps its dp slice of the AdamW moments (``sharding.shard_opt_state``),
+updates that slice of each leaf and all-gathers the result over dp.
 """
 from __future__ import annotations
 
@@ -49,6 +60,7 @@ from speech_distill_tpu_torch.ops.fused_lm_loss import (
     BACKENDS, fused_cross_entropy, fused_extract_top_k, fused_sparse_kd_loss,
     head_dense_kd_loss, head_sparse_kd_loss)
 from speech_distill_tpu_torch.ops.quant import quantize_params
+from speech_distill_tpu_torch.parallel import comm
 
 Params = Dict[str, Any]
 
@@ -203,11 +215,14 @@ def warmup_linear_schedule(learning_rate: float, warmup_steps: int,
     return schedule
 
 
-def clip_scale(grads: Params, max_grad_norm: float) -> torch.Tensor:
+def clip_scale(grads: Params, max_grad_norm: float,
+               g_norm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The fp32 factor of clip by global norm: 1 under ``max_grad_norm``,
     max / |g| at or over it (no epsilon, unlike ``torch.nn.utils.
-    clip_grad_norm_``), selected on the device."""
-    g_norm = global_norm(grads)
+    clip_grad_norm_``), selected on the device. ``g_norm``: the norm when
+    the caller has it (a sharded tree's, :func:`mesh_norm`)."""
+    if g_norm is None:
+        g_norm = global_norm(grads)
     return torch.where(g_norm < max_grad_norm, 1.0,
                        max_grad_norm / g_norm.clamp_min(1e-30))
 
@@ -236,8 +251,9 @@ def adamw(schedule: Callable[[int], float], b1: float = 0.9,
         return {"count": 0, "mu": zeros(), "nu": zeros()}
 
     @torch.no_grad()
-    def update(grads: Params, state: dict, params: Optional[Params] = None):
-        clip = clip_scale(grads, max_grad_norm)
+    def update(grads: Params, state: dict, params: Optional[Params] = None,
+               g_norm: Optional[torch.Tensor] = None):
+        clip = clip_scale(grads, max_grad_norm, g_norm)
         count = state["count"] + 1
         bc1, bc2 = bias_corrections(b1, b2, count)
         neg_lr = -schedule(state["count"])
@@ -304,6 +320,78 @@ def init_state(trainable: Params, optimizer: Optimizer) -> TrainState:
     return TrainState(trainable, optimizer.init(trainable), 0)
 
 
+def _has_tp(spec) -> bool:
+    return any(a == "tp" or (isinstance(a, tuple) and "tp" in a)
+               for a in spec)
+
+
+def mesh_norm(grads: Params, specs: Params, mesh) -> torch.Tensor:
+    """The global norm of a tree of one rank's slices (dp-reduced
+    gradients): each tp-sharded leaf's squares summed over tp, each whole
+    leaf counted once."""
+    whole = sharded = None
+    for g, spec in zip(tree_leaves(grads), tree_leaves(specs)):
+        sq = g.float().square().sum()
+        if _has_tp(spec):
+            sharded = sq if sharded is None else sharded + sq
+        else:
+            whole = sq if whole is None else whole + sq
+    total = torch.zeros((), device=tree_leaves(grads)[0].device)
+    if sharded is not None:
+        total = total + comm.all_reduce(sharded, mesh.group("tp"))
+    if whole is not None:
+        total = total + whole
+    return torch.sqrt(total)
+
+
+def sync_grads(grads: Params, partial: Params, mesh) -> Params:
+    """One rank's gradients made those of the global step: the leaves
+    each tp rank computes in part (``sharding.tp_partial``) summed over
+    tp, then every leaf summed over dp (the loss's counts are global, so
+    the sum is the global batch's gradient)."""
+    tp, dp = mesh.group("tp"), mesh.group("dp")
+    out = []
+    for g, part in zip(tree_leaves(grads), tree_leaves(partial)):
+        g = g.contiguous()
+        if part:
+            comm.all_reduce_(g, tp)
+        out.append(comm.all_reduce_(g, dp))
+    return tree_unflatten(grads, out)
+
+
+@torch.no_grad()
+def zero1_update(optimizer: Optimizer, grads: Params, state: TrainState,
+                 specs: Params, mesh, g_norm: torch.Tensor, donate: bool):
+    """The ZeRO-1 update: the optimizer on each leaf's dp slice
+    (``sharding.zero1_slice``) of the gradient, the parameter and the
+    moments the state holds, then the new slices all-gathered over dp
+    into the rank's leaf. AdamW is elementwise past the clip, whose norm
+    (``g_norm``) is the whole tree's, so the leaves equal the unsharded
+    update's. Returns (trainable, opt_state)."""
+    from speech_distill_tpu_torch.parallel.sharding import zero1_slice
+    leaves = tree_leaves(state.trainable)
+    views = [zero1_slice(p, sp, mesh)
+             for p, sp in zip(leaves, tree_leaves(specs))]
+    g_v = [g if v is None else zero1_slice(g, sp, mesh) for g, v, sp in
+           zip(tree_leaves(grads), views, tree_leaves(specs))]
+    p_v = [p if v is None else v for p, v in zip(leaves, views)]
+    updates, opt_state = optimizer.update(
+        tree_unflatten(grads, g_v), state.opt_state,
+        tree_unflatten(grads, p_v), g_norm=g_norm)
+    dp = mesh.group("dp")
+    out = []
+    for p, pv, v, u in zip(leaves, p_v, views, tree_leaves(updates)):
+        new = (pv.float() + u).to(p.dtype)
+        if v is not None:
+            new = comm.all_gather(new, dp, dim=0)
+        if donate:
+            p.copy_(new)
+            out.append(p)
+        else:
+            out.append(new.requires_grad_(True))
+    return tree_unflatten(state.trainable, out), opt_state
+
+
 def _accumulate(loss_and_grad: Callable, trainable: Params, batch: dict):
     """Loss and grads over the leading microbatch axis A, averaged. A == 1
     keeps the grads in each parameter's dtype; A > 1 sums them in fp32."""
@@ -342,7 +430,7 @@ def _teacher_routes(student_cfg: Qwen3Config, distill_cfg: DistillConfig,
         def teacher_extract(teacher, ids, mask):
             hidden = qwen3.forward(teacher, ids, attention_mask=mask,
                                    return_hidden=True)
-            return fused_extract_top_k(hidden, qwen3.lm_head_weight(teacher),
+            return fused_extract_top_k(hidden, qwen3.full_lm_head(teacher),
                                        distill_cfg.top_k,
                                        student_cfg.vocab_size)
     return teacher_forward, teacher_extract
@@ -395,7 +483,8 @@ def make_kd_step(student_cfg: Qwen3Config, distill_cfg: DistillConfig,
                  donate: bool = True, fused_loss: bool = False,
                  fused_backend: str = "xla", loss_chunk_size: int = 16384,
                  head_loss: str = "fused", split_apply: bool = False,
-                 pp_schedule: str = "gpipe", device="cuda"):
+                 pp_schedule: str = "gpipe", device="cuda", mesh=None,
+                 zero1: bool = False):
     """Build the KD step ``step(state, base, teacher, batch) -> (state,
     metrics)``.
 
@@ -428,9 +517,17 @@ def make_kd_step(student_cfg: Qwen3Config, distill_cfg: DistillConfig,
     forward and lets autograd differentiate the merged product. Metrics
     (0-dim tensors on the device): loss, student_loss, distill_loss,
     teacher_loss and grad_norm (global norm of the grads before clipping).
+
+    ``mesh``: this rank's step of a dp x tp run (see the module's
+    docstring), ``device`` then the mesh's; ``zero1`` keeps the moments'
+    dp slices (the state from ``sharding.shard_opt_state(...,
+    zero1=True)``). Metrics are the global batch's on every rank.
     """
-    dev = resolve_device(device)
+    dev = resolve_device(device if mesh is None else mesh.device)
     _check_mode(mode)
+    if mesh is not None:
+        from speech_distill_tpu_torch.parallel.mesh import check_ported
+        check_ported(mesh.shape)
     if fused_backend not in BACKENDS:
         raise ValueError(f"unknown fused_backend {fused_backend!r}")
     if split_apply:
@@ -458,7 +555,7 @@ def make_kd_step(student_cfg: Qwen3Config, distill_cfg: DistillConfig,
                                     teacher, mb)
         st = _effective_student(trainable, lcfg, use_lora)
         acts = _student_forward(base, st, mb, merge_weights, fused_head, dev)
-        head = qwen3.lm_head_weight(base, st.embed, st.lm_head)
+        head = qwen3.full_lm_head(base, st.embed, st.lm_head)
         labels, smask = mb["labels"], mb.get("speech_token_mask")
         if mode == "online_dense":
             if fused_head:
@@ -488,15 +585,36 @@ def make_kd_step(student_cfg: Qwen3Config, distill_cfg: DistillConfig,
         return (tree_unflatten(trainable, list(grads)),
                 {k: m.detach() for k, m in metrics.items()})
 
+    dp = mesh.group("dp") if mesh is not None else None
+
     def step(state: TrainState, base: qwen3.Qwen3, teacher, batch: dict):
         batch = _batch_to(batch, dev)
-        grads, metrics = _accumulate(
-            lambda tr, mb: loss_and_grad(tr, mb, base, teacher),
-            state.trainable, batch)
-        metrics["grad_norm"] = global_norm(grads)
-        updates, opt_state = optimizer.update(grads, state.opt_state,
-                                              state.trainable)
-        trainable = apply_updates(state.trainable, updates, in_place=donate)
+        with comm.dp_denominators(dp):
+            grads, metrics = _accumulate(
+                lambda tr, mb: loss_and_grad(tr, mb, base, teacher),
+                state.trainable, batch)
+        if mesh is None:
+            metrics["grad_norm"] = global_norm(grads)
+            updates, opt_state = optimizer.update(grads, state.opt_state,
+                                                  state.trainable)
+            trainable = apply_updates(state.trainable, updates,
+                                      in_place=donate)
+            return TrainState(trainable, opt_state, state.step + 1), metrics
+        from speech_distill_tpu_torch.parallel import sharding
+        specs = sharding.trainable_pspecs(state.trainable, student_cfg,
+                                          use_lora)
+        grads = sync_grads(grads, sharding.tp_partial(state.trainable,
+                                                      use_lora), mesh)
+        metrics = {k: comm.all_reduce(v, dp) for k, v in metrics.items()}
+        g_norm = metrics["grad_norm"] = mesh_norm(grads, specs, mesh)
+        if zero1:
+            trainable, opt_state = zero1_update(optimizer, grads, state,
+                                                specs, mesh, g_norm, donate)
+        else:
+            updates, opt_state = optimizer.update(
+                grads, state.opt_state, state.trainable, g_norm=g_norm)
+            trainable = apply_updates(state.trainable, updates,
+                                      in_place=donate)
         return TrainState(trainable, opt_state, state.step + 1), metrics
 
     return step
@@ -506,14 +624,17 @@ def make_kd_eval_step(student_cfg: Qwen3Config, distill_cfg: DistillConfig,
                       *, mode: str,
                       teacher_forward: Optional[Callable] = None,
                       use_lora: bool = True, merge_weights: bool = False,
-                      device="cuda"):
+                      device="cuda", mesh=None):
     """Loss-only evaluation ``eval_step(trainable, base, teacher, batch) ->
     metrics``: the train step's losses through the plain head (the fp32
     [B, T, V] student logits, then ``sparse_distill_loss`` or
     ``dense_distill_loss``) under ``torch.no_grad``, each metric averaged
     over the batch's microbatch axis A. Online modes extract with
-    ``losses.extract_top_k`` from the teacher's logits, as in JAX."""
-    dev = resolve_device(device)
+    ``losses.extract_top_k`` from the teacher's logits, as in JAX.
+    ``mesh``: one rank of a dp x tp run (its dp rows, its slices); the
+    metrics are the global batch's on every rank."""
+    dev = resolve_device(device if mesh is None else mesh.device)
+    dp = mesh.group("dp") if mesh is not None else None
     _check_mode(mode)
     lcfg = distill_cfg.lora
     T, alpha = distill_cfg.temperature, distill_cfg.alpha
@@ -542,9 +663,11 @@ def make_kd_eval_step(student_cfg: Qwen3Config, distill_cfg: DistillConfig,
     def eval_step(trainable: Params, base: qwen3.Qwen3, teacher,
                   batch: dict):
         batch = _batch_to(batch, dev)
-        ms = [one(trainable, {k: v[a] for k, v in batch.items()}, base,
-                  teacher) for a in range(batch["input_ids"].shape[0])]
-        return {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
+        with comm.dp_denominators(dp):
+            ms = [one(trainable, {k: v[a] for k, v in batch.items()}, base,
+                      teacher) for a in range(batch["input_ids"].shape[0])]
+        return {k: comm.all_reduce(torch.stack([m[k] for m in ms]).mean(),
+                                   dp) for k in ms[0]}
 
     return eval_step
 

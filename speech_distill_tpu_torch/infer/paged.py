@@ -33,8 +33,18 @@ Differences from the JAX engine, by design:
   * ``attn_impl`` and ``attn_win_pages`` have no counterpart: the decode
     attention wrapper launches K4 on CUDA tensors and runs its plain
     version on CPU ones, and K4 sizes its stages from the shapes
-    (``k4_plan``). ``mesh`` (tensor parallelism) is not ported and
-    raises ``NotImplementedError``.
+    (``k4_plan``).
+  * ``mesh`` (``parallel/mesh.Mesh``): one rank of an SPMD serve (JAX:
+    one controller over a ``NamedSharding``-placed state). Slots shard
+    over dp: the rank's device state holds its slots' rows. The pool's KV
+    heads shard over tp ([L, P + 1, KV / tp, ps, Dh]) and every dp rank
+    keeps every page, as JAX replicates the pool over dp: prefills run on
+    every rank and each decode step's new KV rows are all-gathered over
+    dp. K4 and the prefill's K1-fwd run on the rank's heads. Every rank
+    makes the same admission, preemption, prefix and finish decisions
+    from the same dp-gathered lengths, tokens and flags, and from rank
+    0's clock; the draws are made for the global slot batch and sliced
+    (``ops/sampling.RowDraws``), so tokens equal a one-process serve's.
 Every other option and ``serve`` argument is the JAX engine's: chunked
 prefill, the early chunk exit, the four admission policies with TTFT
 deadlines and shedding, open-loop arrivals, per-request sampling,
@@ -43,6 +53,7 @@ and prefix trie (``native/serving.py``).
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from collections import deque
@@ -60,6 +71,9 @@ from speech_distill_tpu_torch.infer.engine import (is_eos,
 from speech_distill_tpu_torch.models import qwen3
 from speech_distill_tpu_torch.ops.paged_attention import (
     paged_attention, paged_attention_plain, quantize_kv)
+from speech_distill_tpu_torch.ops.sampling import RowDraws
+from speech_distill_tpu_torch.parallel import comm
+from speech_distill_tpu_torch.parallel.mesh import check_ported
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -127,7 +141,7 @@ class PagedState:
 def paged_forward(model: qwen3.Qwen3, token: torch.Tensor,
                   pool: PagedKVCache, block_tables: torch.Tensor,
                   lengths: torch.Tensor, live: torch.Tensor,
-                  attn_impl: str = "kernel") -> torch.Tensor:
+                  attn_impl: str = "kernel", dp=None) -> torch.Tensor:
     """One decode step over the page pool.
 
     token [B]; the new token's KV is written at page
@@ -135,11 +149,17 @@ def paged_forward(model: qwen3.Qwen3, token: torch.Tensor,
     page for dead rows), then each row attends over its lengths[b] + 1
     resident keys. Updates ``pool`` in place; returns logits [B, V] fp32.
     ``attn_impl``: "kernel" (``paged_attention``: the CUDA kernel on CUDA
-    tensors) or "plain" (``paged_attention_plain``)."""
+    tensors) or "plain" (``paged_attention_plain``). A tensor-parallel
+    model attends over its KV heads of the pool; with a ``dp`` group the
+    step's new KV rows of every dp rank are written into this rank's
+    pool after the layers (no row reads another rank's fresh rows within
+    a step)."""
     cfg = model.cfg
     B = token.shape[0]
-    KV, Dh, H = cfg.num_key_value_heads, cfg.head_dim, cfg.num_attention_heads
+    Dh, KV = cfg.head_dim, pool.k.shape[2]
+    G = cfg.num_attention_heads // cfg.num_key_value_heads
     ps = pool.k.shape[3]
+    tp = qwen3.tp_group(model)
     attend = {"kernel": paged_attention,
               "plain": paged_attention_plain}[attn_impl]
     dev = token.device
@@ -155,6 +175,7 @@ def paged_forward(model: qwen3.Qwen3, token: torch.Tensor,
     offs = (lengths % ps)[:, None]
     heads = torch.arange(KV, device=dev)[None, :]              # [1, KV]
     klen = torch.where(live, lengths + 1, 0).to(torch.int32)
+    fresh = []                       # this step's KV rows, for dp
     for li, layer in enumerate(model.layers):
         y = qwen3.rms_norm(x, layer.input_ln, cfg.rms_norm_eps)
         q, k, v = qwen3.qkv_proj(layer.attn, y, cos, sin, cfg)
@@ -167,22 +188,41 @@ def paged_forward(model: qwen3.Qwen3, token: torch.Tensor,
             pool.vs[li, pages, heads, offs] = vsc
         pool.k[li, pages, heads, offs] = k1.to(pool.k.dtype)
         pool.v[li, pages, heads, offs] = v1.to(pool.v.dtype)
-        o = attend(q.reshape(B, KV, H // KV, Dh), pool.k, pool.v,
+        if dp is not None:
+            fresh.append((k1, v1) + ((ksc, vsc) if pool.quantized else ()))
+        o = attend(q.reshape(B, KV, G, Dh), pool.k, pool.v,
                    block_tables, klen, layer=li, k_scale=pool.ks,
                    v_scale=pool.vs)
-        x = qwen3.o_proj_and_mlp(layer, x, o, cfg)
+        x = qwen3.o_proj_and_mlp(layer, x, o, cfg, tp=tp)
+    if dp is not None:
+        _write_fresh(pool, fresh, pages, heads, offs, dp)
     x = qwen3.rms_norm(x, model.final_ln, cfg.rms_norm_eps)
     return qwen3.unembed(model, x)[:, 0].float()
 
 
-def make_paged_decode_fn(sp: SamplingParams):
+def _write_fresh(pool: PagedKVCache, fresh, pages, heads, offs, dp) -> None:
+    """Write every dp rank's new KV rows of a step (``fresh``: per layer
+    (k, v[, k scale, v scale]) of this rank's rows) into this rank's
+    pool: the pool stays the same on every dp rank."""
+    pages = comm.all_gather(pages, dp)
+    offs = comm.all_gather(offs, dp)
+    names = ("k", "v", "ks", "vs")
+    for j in range(len(fresh[0])):
+        rows = comm.all_gather(torch.stack([f[j] for f in fresh]), dp,
+                               dim=1)               # [L, B_all, KV(, Dh)]
+        dst = getattr(pool, names[j])
+        dst[:, pages, heads, offs] = rows.to(dst.dtype)
+
+
+def make_paged_decode_fn(sp: SamplingParams, dp=None):
     """``decode_chunk(model, state, n_steps, generator, exit_free) ->
     (steps_run, exit_tests)``: up to ``n_steps`` decode steps over the page
     pool, updating ``state`` in place. The chunk exits early once every
     slot is finished, or once ``exit_free`` slots retired inside it (the
     scheduler passes ``slots + 1`` to run to the boundary). The host
     allocator guarantees every live row has pages for ``n_steps`` more
-    tokens."""
+    tokens. With a ``dp`` group the state holds this rank's slots: the
+    exit test reads the finished flags of every dp rank."""
     win = sp.win_size
     eos_ids = tuple(sp.stop_token_ids)
     pad_id = eos_ids[0]
@@ -206,20 +246,22 @@ def make_paged_decode_fn(sp: SamplingParams):
         st.finished |= ((live & is_eos(token, eos_ids)) | capped
                         | (st.length + 1 >= max_len))
         st.last_logits = paged_forward(model, token, st.pool,
-                                       st.block_tables, st.length, live)
+                                       st.block_tables, st.length, live,
+                                       dp=dp)
         st.length += live
         st.num_generated += live
 
     def decode_chunk(model, st: PagedState, n_steps: int, generator,
                      exit_free: int):
-        fin0 = st.finished.clone()
+        fin0 = comm.all_gather(st.finished, dp).clone()
         steps = tests = 0
         while steps < n_steps:
             # the JAX while_loop tests this on the device; here it is one
             # host read per step
             tests += 1
-            retired = (st.finished & ~fin0).sum()
-            if bool(st.finished.all() | (retired >= exit_free)):
+            fin = comm.all_gather(st.finished, dp)
+            retired = (fin & ~fin0).sum()
+            if bool(fin.all() | (retired >= exit_free)):
                 break
             step(model, st, generator)
             steps += 1
@@ -442,17 +484,37 @@ class PagedEngine:
                  chunk_exit_free: Optional[int] = None,
                  cache_dtype: Optional[torch.dtype] = None,
                  admit_batch_max_width: int = 1024):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh (engine tensor parallelism) is not ported yet")
         if admission_policy not in ("fifo", "shortest_job",
                                     "shortest_prompt", "deadline"):
             raise ValueError(f"unknown admission_policy "
                              f"{admission_policy!r}")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None
+                                     else mesh.device)
+        self._tp, self._dp_group = 1, None
+        self.local_slots, self.row0 = slots, 0
+        if mesh is not None:
+            dp, tp = mesh.dp, mesh.tp
+            check_ported(mesh.shape)
+            if slots % dp != 0:
+                raise ValueError(f"slots={slots} not divisible by dp={dp}")
+            if cfg.num_key_value_heads % tp != 0:
+                raise ValueError(
+                    f"KV heads {cfg.num_key_value_heads} not divisible "
+                    f"by tp={tp}")
+            # a quantized model replicates whole (sharding.shard_params):
+            # its pool keeps every head
+            if getattr(model, "mesh", None) is not None:
+                self._tp = model.mesh.tp
+            self._dp_group = mesh.group("dp")
+            self.local_slots = slots // dp
+            self.row0 = mesh.index("dp") * self.local_slots
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, engine on "
                              f"{self.device}")
+        # the shapes of this rank's KV heads (pool, prefill caches)
+        self._kv_cfg = dataclasses.replace(
+            cfg, num_key_value_heads=cfg.num_key_value_heads // self._tp)
         self.model = model
         self.cfg = cfg
         self.sp = sp
@@ -492,9 +554,11 @@ class PagedEngine:
             native_runtime = False
         self.native_runtime = native_runtime
         self.runtime: Optional[str] = None   # "native" or "python", at serve
-        self._decode = make_paged_decode_fn(sp)
+        self._decode = make_paged_decode_fn(sp, self._dp_group)
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed)
+        self._draws = (self._generator if self._dp_group is None else
+                       RowDraws(self._generator, slots, self.row0))
         # persistent serving state (created lazily on first serve())
         self._state: Optional[PagedState] = None
         self._pool: Optional[PagePool] = None
@@ -524,13 +588,23 @@ class PagedEngine:
         return [float(self.sp.temperature), float(self.sp.top_p),
                 float(self.sp.repetition_penalty), float(self.sp.min_tokens)]
 
+    def _local(self, b: int) -> Optional[int]:
+        """Slot ``b``'s row in this rank's state, None on another dp
+        rank's."""
+        lb = b - self.row0
+        return lb if 0 <= lb < self.local_slots else None
+
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every slot's rows of a state tensor (dp ranks in order)."""
+        return comm.all_gather(t, self._dp_group)
+
     def new_state(self) -> PagedState:
-        B, V, dev = self.slots, self.cfg.vocab_size, self.device
+        B, V, dev = self.local_slots, self.cfg.vocab_size, self.device
         i64 = dict(dtype=torch.int64, device=dev)
         return PagedState(
             tokens=torch.zeros((B, self.max_len), **i64),
             length=torch.zeros((B,), **i64),
-            pool=PagedKVCache.create(self.cfg, self.num_pages, self.ps,
+            pool=PagedKVCache.create(self._kv_cfg, self.num_pages, self.ps,
                                      self.cache_dtype, dev),
             block_tables=torch.zeros((B, self.max_pages), dtype=torch.int32,
                                      device=dev),
@@ -601,7 +675,7 @@ class PagedEngine:
         if m > 0:
             tmp = self._gather_impl(state.pool, pages[:m], width)
         else:
-            tmp = qwen3.KVCache.create(self.cfg, 1, width,
+            tmp = qwen3.KVCache.create(self._kv_cfg, 1, width,
                                        self._tmp_cache_dtype, self.device)
         self.n_prefill_forwards += 1
         hidden, tmp = qwen3.forward(self.model, arr, attention_mask=mask,
@@ -614,15 +688,20 @@ class PagedEngine:
                token_row, presence_row, n_gen0: int, cap: int, samp_row, *,
                m: int, width: int) -> None:
         """Prefill (:meth:`_prefill_pages`) and slot insert, for one
-        slot."""
+        slot. On a mesh every rank prefills (the pages live on every dp
+        rank) and the slot's dp rank inserts."""
         hidden = self._prefill_pages(state, arr, mask, pages, m=m,
                                      width=width)
         # unembed ONLY the last prompt position
         pre = m * self.ps
         h_row = hidden[:, n - pre - 1:n - pre]                 # [1, 1, D]
+        logits = qwen3.unembed(self.model, h_row)[0, 0].float()
+        b = self._local(b)
+        if b is None:
+            return
         state.tokens[b] = token_row
         state.length[b] = n
-        state.last_logits[b] = qwen3.unembed(self.model, h_row)[0, 0].float()
+        state.last_logits[b] = logits
         state.presence[b] = presence_row
         state.num_generated[b] = n_gen0
         state.cap[b] = cap
@@ -654,11 +733,12 @@ class PagedEngine:
         """Batched admission: ``n`` FRESH (no shared prefix, no resumed
         generation) requests of one width bucket prefill as a single
         [n, width] forward + ONE page scatter + vectorized slot inserts.
-        Rows are independent (per-row masks), so batched == sequential."""
+        Rows are independent (per-row masks), so batched == sequential.
+        On a mesh every rank prefills and inserts the rows of its slots."""
         n = arrs.shape[0]
         masks = (torch.arange(width, device=self.device)[None]
                  < ns[:, None]).to(torch.int32)
-        tmp = qwen3.KVCache.create(self.cfg, n, width,
+        tmp = qwen3.KVCache.create(self._kv_cfg, n, width,
                                    self._tmp_cache_dtype, self.device)
         self.n_prefill_forwards += 1
         hidden, tmp = qwen3.forward(self.model, arrs, attention_mask=masks,
@@ -666,8 +746,13 @@ class PagedEngine:
         self._scatter_impl(state.pool, tmp.k, tmp.v, pages_flat)
         rows = torch.arange(n, device=self.device)
         h_rows = hidden[rows, ns - 1][:, None]                 # [n, 1, D]
-        state.last_logits[bs] = qwen3.unembed(self.model,
-                                              h_rows)[:, 0].float()
+        logits = qwen3.unembed(self.model, h_rows)[:, 0].float()
+        if self._dp_group is not None:
+            mine = (bs >= self.row0) & (bs < self.row0 + self.local_slots)
+            bs, logits, arrs, ns = (bs[mine] - self.row0, logits[mine],
+                                    arrs[mine], ns[mine])
+            caps, samps = caps[mine], samps[mine]
+        state.last_logits[bs] = logits
         state.tokens[bs] = 0
         state.tokens[bs, :width] = arrs
         state.length[bs] = ns
@@ -988,19 +1073,37 @@ class PagedEngine:
                 r["ids"] = r["ids"] + r["gen"][len(r["gen"]) - keep:]
                 queue.appendleft(r)
             release(b)
-            state.finished[b] = True
+            lb = self._local(b)
+            if lb is not None:
+                state.finished[lb] = True
+
+        world = self.mesh.group() if self.mesh is not None else None
+
+        def clock() -> float:
+            """The clock of the time-driven decisions (arrivals,
+            shedding): on a mesh rank 0's time since its serve began, on
+            each rank's own start, so every rank decides alike."""
+            t = time.perf_counter()
+            if world is None:
+                return t
+            dt = comm.broadcast(torch.tensor([t - t_serve0],
+                                             dtype=torch.float64,
+                                             device=self.device), world)
+            return t_serve0 + float(dt)
 
         while queue or pending_arrivals or any(m is not None for m in meta):
             t_phase = time.perf_counter()
             # 0. open-loop arrivals join the queue; with nothing queued
             # and nothing resident, sleep to the next one
             if pending_arrivals:
+                t_dec = clock()
                 if (not queue and all(m is None for m in meta)
-                        and pending_arrivals[0]["t_arr"] > t_phase):
-                    time.sleep(pending_arrivals[0]["t_arr"] - t_phase)
+                        and pending_arrivals[0]["t_arr"] > t_dec):
+                    time.sleep(pending_arrivals[0]["t_arr"] - t_dec)
+                    t_dec = clock()
                     t_phase = time.perf_counter()
                 while (pending_arrivals
-                       and pending_arrivals[0]["t_arr"] <= t_phase):
+                       and pending_arrivals[0]["t_arr"] <= t_dec):
                     queue.append(pending_arrivals.pop(0))
             # 1. grow live slots (oldest joins first — they keep latency)
             order = sorted((b for b in range(self.slots)
@@ -1039,7 +1142,7 @@ class PagedEngine:
 
             # 1b. load shedding, BEFORE any prefill is spent on doomed work
             if any_deadlines:
-                for r in queue.shed_expired(t_now):
+                for r in queue.shed_expired(clock()):
                     if r.get("pf"):
                         pool.free(r.pop("pf"))
                     self.shed_requests += 1
@@ -1152,13 +1255,14 @@ class PagedEngine:
             # enough slots retire to seat them (capped by chunk_exit_free);
             # with an empty queue it runs to the boundary (slots + 1 can
             # never be reached)
-            state.block_tables.copy_(torch.from_numpy(bt))
+            state.block_tables.copy_(torch.from_numpy(
+                bt[self.row0:self.row0 + self.local_slots]))
             if self.chunk_exit_free and queue:
                 exit_free = max(1, min(self.chunk_exit_free, len(queue)))
             else:
                 exit_free = self.slots + 1
             steps, tests = self._decode(self.model, state, self.chunk_steps,
-                                        self._generator, exit_free)
+                                        self._draws, exit_free)
             self.n_chunks += 1
             self.n_decode_steps += steps
             self.n_exit_syncs += tests
@@ -1166,12 +1270,12 @@ class PagedEngine:
             # 4. retire finished slots (host mirrors carry into the next
             # grow pass). Caps are enforced on the device, so `finished`
             # is exact.
-            lengths_h = state.length.cpu().numpy()
-            ngen = state.num_generated.cpu().numpy()
-            fin = state.finished.cpu().numpy()
-            tokens_h = state.tokens.cpu().numpy()
+            lengths_h = self._gather(state.length).cpu().numpy()
+            ngen = self._gather(state.num_generated).cpu().numpy()
+            fin = self._gather(state.finished).cpu().numpy()
+            tokens_h = self._gather(state.tokens).cpu().numpy()
             if self.return_logprobs:
-                lps_h = state.logps.cpu().numpy()
+                lps_h = self._gather(state.logps).cpu().numpy()
             t_now = time.perf_counter()
             self.phase_seconds["decode_sync"] += t_now - t_phase
             t_phase = t_now

@@ -9,6 +9,15 @@ step (embed and head overrides, unmerged LoRA adapters through
 ``ops/lora_linear``, per-layer activation checkpointing). Ring attention
 and pipelining belong to later slices.
 
+Tensor parallelism (a model from ``parallel/sharding.shard_params``: its
+rank's slices under the global ``cfg``, ``model.mesh`` set): q/k/v and
+gate/up are column-parallel over the local heads and MLP units, o and down
+row-parallel followed by an all-reduce over tp, the embedding
+vocab-parallel (rows outside the shard read zero, then an all-reduce) and
+the lm head gives local vocab logits, gathered where a full row is needed
+(``parallel/comm``; Megatron-LM's layout, JAX's ``param_pspecs``).
+Attention runs the existing routes on the local heads.
+
 Quantized weights (``ops/quant`` leaves: int4/int8/nf4 projections, an
 int8 embed/head) sit where the dense weights sit, as :class:`QuantWeight`
 modules holding buffers; :func:`deq` dequantizes them, a 2-D int4
@@ -38,6 +47,7 @@ from speech_distill_tpu_torch.ops.lora_linear import lora_linear
 from speech_distill_tpu_torch.ops.matmul import matmul_f32
 from speech_distill_tpu_torch.ops.quant import dequantize_array
 from speech_distill_tpu_torch.ops.quant_matmul import quantized_matmul
+from speech_distill_tpu_torch.parallel import comm
 
 # per-layer LoRA factors: {group: {key: (a [din, r], b [r, dout])}}
 LayerAdapters = Dict[str, Dict[str, Tuple[torch.Tensor, torch.Tensor]]]
@@ -140,6 +150,8 @@ class Qwen3(nn.Module):
         self.lm_head = (None if cfg.tie_word_embeddings else
                         _weight((cfg.vocab_size, cfg.hidden_size), device,
                                 dtype))
+        # the tensor-parallel mesh of a sharded model (None: whole)
+        self.mesh = None
 
     @property
     def device(self) -> torch.device:
@@ -147,6 +159,43 @@ class Qwen3(nn.Module):
 
     def forward(self, input_ids, **kw):
         return forward(self, input_ids, **kw)
+
+
+def tp_group(model: Qwen3):
+    """The tp process group of a sharded model; None when whole."""
+    mesh = getattr(model, "mesh", None)
+    return mesh.group("tp") if mesh is not None else None
+
+
+def param_pspecs(cfg: Qwen3Config, pp: bool = False) -> dict:
+    """Specs matching the JAX ``init_params`` tree (the JAX
+    ``param_pspecs``): tp shards the vocab dim of embed / lm_head, the
+    head dim of q/k/v (and their biases), the MLP hidden dim; the layer
+    axis leads with None (or "pp", not ported)."""
+    lead = "pp" if pp else None
+    attn = {"q": (lead, None, "tp"), "k": (lead, None, "tp"),
+            "v": (lead, None, "tp"), "o": (lead, "tp", None)}
+    if cfg.qk_norm:
+        attn["q_norm"] = (lead, None)
+        attn["k_norm"] = (lead, None)
+    if cfg.attention_bias:
+        attn["q_bias"] = (lead, "tp")
+        attn["k_bias"] = (lead, "tp")
+        attn["v_bias"] = (lead, "tp")
+    specs = {
+        "embed": {"weight": ("tp", None)},
+        "layers": {
+            "input_ln": {"scale": (lead, None)},
+            "attn": attn,
+            "post_ln": {"scale": (lead, None)},
+            "mlp": {"gate": (lead, None, "tp"), "up": (lead, None, "tp"),
+                    "down": (lead, "tp", None)},
+        },
+        "final_ln": {"scale": (None,)},
+    }
+    if not cfg.tie_word_embeddings:
+        specs["lm_head"] = {"weight": ("tp", None)}
+    return specs
 
 
 def _numpy_init_tree(cfg: Qwen3Config, seed: int) -> dict:
@@ -217,13 +266,33 @@ def init_params_on_device(seed: int, cfg: Qwen3Config, device="cuda"
 # ---------------------------------------------------------------------------
 
 
+def vocab_lookup(table: torch.Tensor, input_ids: torch.Tensor, group
+                 ) -> torch.Tensor:
+    """Embedding rows of ``input_ids``; with a tp ``group`` ``table`` is
+    this rank's vocab shard: ids outside it read zero, and the all-reduce
+    over tp (identity backward) sums the shards' rows."""
+    if group is None:
+        return F.embedding(input_ids, table)
+    n = table.shape[0]
+    local = input_ids - comm._index(group) * n
+    inside = (local >= 0) & (local < n)
+    rows = F.embedding(local.clamp(0, n - 1), table)
+    return comm.reduce_from_tp(
+        torch.where(inside[..., None], rows, torch.zeros_like(rows)), group)
+
+
 def embed_tokens(model: Qwen3, input_ids: torch.Tensor) -> torch.Tensor:
     """Token embedding lookup; an int8 table gathers its rows first and
-    scales only them (per-column scale [1, D]) in the model dtype."""
+    scales only them (per-column scale [1, D]) in the model dtype. A
+    tensor-parallel model looks up its vocab shard (:func:`vocab_lookup`).
+    """
     table = model.embed
     if isinstance(table, QuantWeight):
         dt = model.cfg.torch_dtype
         return table.q8[input_ids].to(dt) * table.scale[0].to(dt)
+    group = tp_group(model)
+    if group is not None:
+        return vocab_lookup(table, input_ids, group)
     return table[input_ids]
 
 
@@ -282,19 +351,20 @@ def qkv_proj(attn: Attention, x: torch.Tensor, cos, sin, cfg: Qwen3Config,
              la: Optional[dict] = None, scale: float = 1.0,
              merge: bool = False):
     """Project (+ bias) + qk-norm + rope: x [B, T, D] -> q [B, T, H, Dh],
-    k/v [B, T, KV, Dh]. The Qwen2 biases add after the projection, LoRA's
-    delta included; a Qwen2 backbone has no q/k norm. Shared with the
-    paged decode step."""
+    k/v [B, T, KV, Dh] (a tp rank's own heads: H and KV follow the
+    weights). The Qwen2 biases add after the projection, LoRA's delta
+    included; a Qwen2 backbone has no q/k norm. Shared with the paged
+    decode step."""
     B, T, _ = x.shape
-    H, KV, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    Dh = cfg.head_dim
     q = _proj(x, attn.q, la, "q", scale, merge)
     k = _proj(x, attn.k, la, "k", scale, merge)
     v = _proj(x, attn.v, la, "v", scale, merge)
     if cfg.attention_bias:
         q, k, v = q + attn.q_bias, k + attn.k_bias, v + attn.v_bias
-    q = q.reshape(B, T, H, Dh)
-    k = k.reshape(B, T, KV, Dh)
-    v = v.reshape(B, T, KV, Dh)
+    q = q.reshape(B, T, -1, Dh)
+    k = k.reshape(B, T, -1, Dh)
+    v = v.reshape(B, T, -1, Dh)
     if cfg.qk_norm:
         q = rms_norm(q, attn.q_norm, cfg.rms_norm_eps)
         k = rms_norm(k, attn.k_norm, cfg.rms_norm_eps)
@@ -347,29 +417,32 @@ def causal_bias(attention_mask: Optional[torch.Tensor], B: int, T: int,
 
 def o_proj_and_mlp(layer: DecoderLayer, x, o, cfg: Qwen3Config,
                    la: Optional[LayerAdapters] = None, scale: float = 1.0,
-                   merge: bool = False):
-    """Residual adds around the o-projection and the MLP."""
+                   merge: bool = False, tp=None):
+    """Residual adds around the o-projection and the MLP. With a tp
+    group both row-parallel products are summed over tp, and the MLP's
+    normed input is marked replicated (:func:`comm.copy_to_tp`)."""
     B, T = x.shape[:2]
     la_attn = la.get("attn") if la is not None else None
     la_mlp = la.get("mlp") if la is not None else None
-    x = x + _proj(o.reshape(B, T, cfg.q_dim), layer.attn.o, la_attn, "o",
-                  scale, merge)
-    y = rms_norm(x, layer.post_ln, cfg.rms_norm_eps)
-    return x + mlp_block(layer.mlp, y, la_mlp, scale, merge)
+    x = x + comm.reduce_from_tp(_proj(o.reshape(B, T, -1), layer.attn.o,
+                                      la_attn, "o", scale, merge), tp)
+    y = comm.copy_to_tp(rms_norm(x, layer.post_ln, cfg.rms_norm_eps), tp)
+    return x + comm.reduce_from_tp(mlp_block(layer.mlp, y, la_mlp, scale,
+                                             merge), tp)
 
 
 def layer_forward(layer: DecoderLayer, x: torch.Tensor, cos, sin,
                   mask_bias, cfg: Qwen3Config,
                   la: Optional[LayerAdapters] = None, scale: float = 1.0,
-                  merge: bool = False) -> torch.Tensor:
+                  merge: bool = False, tp=None) -> torch.Tensor:
     """One decoder layer without a cache (the JAX ``_layer``), with
-    optional per-layer LoRA factors."""
-    y = rms_norm(x, layer.input_ln, cfg.rms_norm_eps)
+    optional per-layer LoRA factors, on a tp rank's heads under ``tp``."""
+    y = comm.copy_to_tp(rms_norm(x, layer.input_ln, cfg.rms_norm_eps), tp)
     q, k, v = qkv_proj(layer.attn, y, cos, sin, cfg,
                        la.get("attn") if la is not None else None, scale,
                        merge)
     return o_proj_and_mlp(layer, x, sdpa(q, k, v, mask_bias, cfg.attn_impl),
-                          cfg, la, scale, merge)
+                          cfg, la, scale, merge, tp)
 
 
 def _check_flash_prefill(attention_mask: Optional[torch.Tensor],
@@ -426,6 +499,7 @@ def forward(model: Qwen3, input_ids: torch.Tensor, *,
     ``return_hidden``, plus the updated cache when one was given.
     """
     cfg = model.cfg
+    tp = tp_group(model)
     x = (embed_tokens(model, input_ids) if inputs_embeds is None
          else inputs_embeds)
     B, T = x.shape[:2]
@@ -439,7 +513,7 @@ def forward(model: Qwen3, input_ids: torch.Tensor, *,
         cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
         mask_bias = causal_bias(attention_mask, B, T, dev)
         for layer in model.layers:
-            x = layer_forward(layer, x, cos, sin, mask_bias, cfg)
+            x = layer_forward(layer, x, cos, sin, mask_bias, cfg, tp=tp)
     else:
         S, start = cache.k.shape[2], cache.length
         k_pos = torch.arange(S, device=dev)
@@ -479,7 +553,7 @@ def forward(model: Qwen3, input_ids: torch.Tensor, *,
             if li == 0 and use_flash(q, ck, cfg.attn_impl):
                 _check_flash_prefill(attention_mask, start)
             x = o_proj_and_mlp(layer, x, sdpa(q, ck, cv, mask_bias,
-                                              cfg.attn_impl), cfg)
+                                              cfg.attn_impl), cfg, tp=tp)
         cache = KVCache(cache.k, cache.v, start + T)
     x = rms_norm(x, model.final_ln, cfg.rms_norm_eps)
     out = x if return_hidden else unembed(model, x)
@@ -550,7 +624,10 @@ def forward_train(model: Qwen3, input_ids, *, attention_mask=None,
     model then gives only its config. With ``cfg.remat`` each layer is
     checkpointed (``torch.utils.checkpoint``, non-reentrant): its forward
     runs again in the backward. Returns the final-normed hidden states
-    [B, T, D], or fp32 logits through :func:`unembed_train`.
+    [B, T, D], or fp32 logits through :func:`unembed_train`. A
+    tensor-parallel model (``model.mesh``) reads its rank's slices of
+    every table (``embed`` / ``lm_head`` / ``weights`` too) and returns
+    the whole hidden states, or the whole logits (gathered over tp).
 
     Runs on ``device`` (CUDA by default; raises without it), where the
     model must live.
@@ -575,20 +652,23 @@ def forward_train(model: Qwen3, input_ids, *, attention_mask=None,
         layers = _layer_views(weights["layers"], cfg.num_hidden_layers)
         final_ln = weights["final_ln"]["scale"]
     table = model.embed if embed is None else embed
-    x = F.embedding(input_ids, table)
+    tp = tp_group(model)
+    x = vocab_lookup(table, input_ids, tp)
     positions = torch.arange(T, device=dev)[None].expand(B, T)
     cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     mask_bias = causal_bias(attention_mask, B, T, dev)
     per_layer = _layer_adapters(adapters, cfg.num_hidden_layers)
     for layer, la in zip(layers, per_layer):
         args = (layer, x, cos, sin, mask_bias, cfg, la, adapter_scale,
-                merge_adapters)
+                merge_adapters, tp)
         x = (checkpoint(layer_forward, *args, use_reentrant=False)
              if cfg.remat else layer_forward(*args))
     x = rms_norm(x, final_ln, cfg.rms_norm_eps)
     if return_hidden:
         return x
-    return unembed_train(x, lm_head_weight(model, embed, lm_head), cfg)
+    return comm.gather_from_tp(
+        unembed_train(comm.copy_to_tp(x, tp),
+                      lm_head_weight(model, embed, lm_head), cfg), tp)
 
 
 class _Unembed(torch.autograd.Function):
@@ -646,11 +726,24 @@ def lm_head_weight(model: Qwen3, embed: Optional[torch.Tensor] = None,
     return deq(model.embed) if embed is None else embed
 
 
+def full_lm_head(model: Qwen3, embed: Optional[torch.Tensor] = None,
+                 lm_head: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The whole [V, D] head of :func:`lm_head_weight`: a
+    tensor-parallel model's vocab shards gathered over tp (the backward
+    keeps this rank's rows), for the loss heads that take every vocab
+    row."""
+    return comm.gather_from_tp(lm_head_weight(model, embed, lm_head),
+                               tp_group(model), dim=0)
+
+
 def unembed(model: Qwen3, hidden: torch.Tensor) -> torch.Tensor:
     """lm-head product with logits in ``cfg.logits_dtype`` (fp32).
 
     As in the JAX ``preferred_element_type`` product, bf16 operands are
     accumulated in fp32 and the fp32 sum is returned unrounded
-    (``ops/matmul.matmul_f32``).
+    (``ops/matmul.matmul_f32``). A tensor-parallel model's local vocab
+    logits are gathered over tp: every rank gets the whole row.
     """
-    return unembed_train(hidden, lm_head_weight(model), model.cfg)
+    return comm.gather_from_tp(
+        unembed_train(hidden, lm_head_weight(model), model.cfg),
+        tp_group(model))

@@ -51,6 +51,7 @@ from speech_distill_tpu_torch.ops.matmul import matmul_f32
 from speech_distill_tpu_torch.ops.pallas_lm_loss import (chunked_stats,
                                                          gathered_logits,
                                                          lm_head_stats)
+from speech_distill_tpu_torch.parallel.comm import global_count
 
 BACKENDS = ("xla", "pallas")
 
@@ -122,7 +123,7 @@ def fused_sparse_kd_loss(hidden: torch.Tensor, lm_w: torch.Tensor,
     distill = _masked_mean(kl, valid) * (T * T)
     hits = (idx == labels_flat[:, None]).float() * valid[:, None] \
         * (shift_labels.reshape(-1) != IGNORE_INDEX).float()[:, None]
-    n_hits = hits.sum()
+    n_hits = global_count(hits.sum())
     teacher = torch.where(n_hits > 0,
                           -(v * hits).sum() / n_hits.clamp_min(1.0),
                           torch.zeros_like(n_hits))
@@ -168,7 +169,7 @@ class _HeadKD(torch.autograd.Function):
         gold = s.gather(1, safe[:, None])[:, 0]
         topk = s.gather(1, idx)
 
-        n = valid.sum()
+        n = global_count(valid.sum())
         inv_n = torch.where(n > 0, 1.0 / n.clamp_min(1.0),
                             torch.zeros_like(n))
         task = ((lse1 - gold) * valid).sum() * inv_n
@@ -176,7 +177,7 @@ class _HeadKD(torch.autograd.Function):
         distill = ((p * (log_p - log_q)).sum(-1) * valid).sum() * inv_n \
             * (T * T)
         hits = (idx == shift_labels[:, None]).float() * valid[:, None]
-        n_hits = hits.sum()
+        n_hits = global_count(hits.sum())
         teacher = torch.where(n_hits > 0,
                               -(v * hits).sum() / n_hits.clamp_min(1.0),
                               torch.zeros_like(n_hits))
@@ -261,7 +262,7 @@ class _HeadDenseKD(torch.autograd.Function):
             rows["gold_t"][b] = tt.gather(1, safe[b][:, None])[:, 0]
             sb[b], tb[b] = s, tt
             del s, tt
-        n = valid.sum()
+        n = global_count(valid.sum())
         inv_n = torch.where(n > 0, 1.0 / n.clamp_min(1.0),
                             torch.zeros_like(n))
         task = ((rows["lse1_s"] - rows["gold_s"]) * valid).sum() * inv_n

@@ -141,11 +141,29 @@ def top_k_top_p(x: torch.Tensor, top_k: int, temperature, top_p,
     return vals, idx
 
 
-def categorical(generator: torch.Generator, logits: torch.Tensor
-                ) -> torch.Tensor:
-    """One draw per row from softmax(logits) by Gumbel-max."""
-    u = torch.rand(logits.shape, generator=generator, device=logits.device,
-                   dtype=torch.float32)
+class RowDraws:
+    """A generator standing for rows ``row0 .. row0 + n`` of a batch of
+    ``total`` rows: each draw is made for the whole batch and sliced, so
+    a dp rank's slots sample what they sample in a one-process run."""
+
+    def __init__(self, generator: torch.Generator, total: int, row0: int):
+        self.generator, self.total, self.row0 = generator, total, row0
+
+    def rand(self, shape, device) -> torch.Tensor:
+        full = torch.rand((self.total,) + tuple(shape[1:]),
+                          generator=self.generator, device=device,
+                          dtype=torch.float32)
+        return full[self.row0:self.row0 + shape[0]]
+
+
+def categorical(generator, logits: torch.Tensor) -> torch.Tensor:
+    """One draw per row from softmax(logits) by Gumbel-max;
+    ``generator`` a ``torch.Generator`` or a :class:`RowDraws`."""
+    if isinstance(generator, RowDraws):
+        u = generator.rand(logits.shape, logits.device)
+    else:
+        u = torch.rand(logits.shape, generator=generator,
+                       device=logits.device, dtype=torch.float32)
     return torch.argmax(logits.float() - torch.log(-torch.log(u)), dim=-1)
 
 

@@ -16,8 +16,11 @@ JSON report per checkpoint.
 
 A dataset with ``teacher_top_k_v/i`` columns (the extract-logits output)
 needs no teacher: the metrics run against the stored top-K. ``--test_size``
-replays the train CLI's held-out split (same seed). One device: ``--dp``
-and ``--tp`` above 1 raise. A CosyVoice2 teacher (``--teacher_family
+replays the train CLI's held-out split (same seed). ``--dp`` / ``--tp``:
+one process a device (``torchrun --nproc_per_node N``); each dp rank
+scores its rows of every batch, the sums are added over dp, the student
+and a Qwen3 teacher shard over tp, and the primary writes the report.
+A CosyVoice2 teacher (``--teacher_family
 cosyvoice2``, a reference torch checkpoint) runs where its unified
 vocabulary is at least as wide as the student's, as in JAX; a narrower
 one raises ``ValueError`` before it loads.
@@ -57,10 +60,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="K for top-K agreement")
     p.add_argument("--pad_to_multiple_of", type=int, default=128)
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel size (> 1 is not ported)")
+                   help="tensor-parallel size")
     p.add_argument("--dp", type=int, default=0,
-                   help="data-parallel size (0 or 1: one device; > 1 is "
-                        "not ported)")
+                   help="data-parallel size (0: the processes / tp)")
     p.add_argument("--output", type=str, default=None,
                    help="JSON artifact path (default: "
                         "<student_model>/eval_quality.json)")
@@ -201,8 +203,8 @@ def run_smoke(config, s_cfg, student, prompt_ids, dev) -> dict:
 
 def evaluate(config) -> dict:
     import numpy as np
+    import torch
     from speech_distill_tpu_torch.core.config import parse_prefix
-    from speech_distill_tpu_torch.core.device import resolve_device
     from speech_distill_tpu_torch.data.collator import DistillCollator
     from speech_distill_tpu_torch.data.template import align_prefixes
     from speech_distill_tpu_torch.distill import evaluate as ev
@@ -210,10 +212,22 @@ def evaluate(config) -> dict:
     from speech_distill_tpu_torch.pipelines.common import (load_hf_dataset,
                                                            load_tokenizer)
 
-    if config.dp > 1 or config.tp > 1:
-        raise NotImplementedError("--dp / --tp above 1 are not ported "
-                                  "(ROADMAP §1 item 11)")
-    dev = resolve_device(config.device)
+    from speech_distill_tpu_torch.core.config import MeshConfig
+    from speech_distill_tpu_torch.parallel import comm, multihost, sharding
+    from speech_distill_tpu_torch.parallel import mesh as meshlib
+
+    # one process a device (torchrun, or the SDT_* variables): dp x tp
+    # ranks, dp = processes / tp unless --dp says it
+    rank_dev = None if config.device == "cuda" else config.device
+    multihost.initialize(device=rank_dev)
+    mesh = meshlib.make_mesh(MeshConfig(dp=config.dp or -1, tp=config.tp),
+                             device=rank_dev)
+    meshlib.set_active_mesh(mesh)
+    parallel = mesh.world > 1
+    dev = mesh.device
+    if config.batch_size % mesh.dp:
+        raise ValueError(f"--batch_size {config.batch_size} must divide "
+                         f"by dp={mesh.dp}")
     tokenizer = load_tokenizer(config.student_model, config.pad_token)
     dataset = load_hf_dataset(config.dataset_path)
     is_preprocessed = "student_input_ids" in dataset.column_names \
@@ -236,6 +250,9 @@ def evaluate(config) -> dict:
         dataset = dataset.map(dual, batched=True, desc="process")
 
     s_cfg, student = load_pretrained(config.student_model, device=dev)
+    student_full = student
+    if parallel:
+        student = sharding.shard_params(mesh, student, s_cfg)
     mode = "precomputed" if has_topk else "online"
     teacher = None
     if mode == "online":
@@ -255,6 +272,8 @@ def evaluate(config) -> dict:
         else:
             t_cfg, teacher = load_pretrained(config.teacher_model,
                                              device=dev)
+            if parallel:
+                teacher = sharding.shard_params(mesh, teacher, t_cfg)
         step = ev.make_agreement_step(s_cfg, t_cfg, k=config.agree_k,
                                       teacher_forward=teacher_forward,
                                       device=dev)
@@ -273,9 +292,14 @@ def evaluate(config) -> dict:
     bs = config.batch_size
     for i0 in range(0, len(dataset) - bs + 1, bs):
         batch = collator([dataset[i] for i in range(i0, i0 + bs)])
+        if parallel:
+            batch = sharding.shard_batch(mesh, batch, microbatched=False)
         s = (step(student, teacher, batch) if mode == "online"
              else step(student, batch))
-        s = {k: float(v) for k, v in s.items()}
+        # each dp rank's rows' sums, added
+        s = {k: float(comm.all_reduce(torch.as_tensor(v, device=dev),
+                                      mesh.group("dp")))
+             for k, v in s.items()}
         sums = s if sums is None else {k: sums[k] + s[k] for k in s}
         n_batches += 1
         n_rows += bs
@@ -301,8 +325,11 @@ def evaluate(config) -> dict:
         m = np.asarray(collator([row])["speech_token_mask"][0])
         nz = np.nonzero(m)[0]
         cut = int(nz[0]) + 1 if nz.size else len(ids)
-        report["smoke"] = run_smoke(config, s_cfg, student, ids[:cut], dev)
+        report["smoke"] = run_smoke(config, s_cfg, student_full, ids[:cut],
+                                    dev)
 
+    if not mesh.is_primary:
+        return report
     out_path = config.output or os.path.join(
         config.student_model, "eval_quality.json")
     with open(out_path, "w") as f:

@@ -1,12 +1,11 @@
 """Teacher top-K logprob extraction, a batched inference pass (port of the
-library parts of ``speech_distill_tpu/pipelines/extract_logits.py``).
+``speech_distill_tpu/pipelines/extract_logits.py``).
 
 Order-preserving, no-grad teacher forward, top-K of the log-softmax,
 each example truncated to its true length, fp16 values and int32
 indices: the on-disk format the precomputed KD mode reads. Sequences are
 right-padded to ``pad_to_multiple_of``, so every batch of a bucket has
-one shape. The CLI ``main`` reads ``datasets`` and ``transformers`` and is
-not ported yet.
+one shape. ``main`` is the CLI (``datasets`` and ``transformers``).
 """
 from __future__ import annotations
 
@@ -60,12 +59,24 @@ def extract_teacher_logprobs(
     attention mask, on ``device`` (CUDA by default; raises without it).
     A final short batch is repeat-padded with its last row to
     ``batch_size``. Returns per-example (fp16 values [t, K], int32 indices
-    [t, K]) truncated to the true length t. ``mesh`` (data-parallel
-    extraction) is not ported and raises."""
+    [t, K]) truncated to the true length t.
+
+    ``mesh`` (``parallel/mesh.Mesh``): data-parallel extraction, one rank
+    of it (the teacher sharded by ``sharding.shard_params``, ``device``
+    then the mesh's). Each rank runs its dp rows of every batch
+    (``batch_size`` divisible by dp) and the rows are all-gathered, so
+    every rank returns the whole, ordered result."""
+    dev = resolve_device(device if mesh is None else mesh.device)
+    dp = None
     if mesh is not None:
-        raise NotImplementedError("mesh= (parallel extraction) is not "
-                                  "ported")
-    dev = resolve_device(device)
+        from speech_distill_tpu_torch.parallel import comm
+        from speech_distill_tpu_torch.parallel.mesh import check_ported
+        from speech_distill_tpu_torch.parallel.sharding import shard_batch
+        check_ported(mesh.shape)
+        if batch_size % mesh.dp:
+            raise ValueError(f"batch_size={batch_size} not divisible by "
+                             f"dp={mesh.dp}")
+        dp = mesh.group("dp")
     fn = make_extract_fn(teacher_forward, top_k, vocab_limit, method,
                          hidden_forward, head_weight_fn)
     starts = range(0, len(sequences), batch_size)
@@ -90,8 +101,14 @@ def extract_teacher_logprobs(
             reps = batch_size - len(feats)
             ids = np.concatenate([ids, np.repeat(ids[-1:], reps, 0)])
             mask = np.concatenate([mask, np.repeat(mask[-1:], reps, 0)])
-        v, i = fn(teacher, torch.from_numpy(ids).to(dev),
-                  torch.from_numpy(mask).to(dev))
+        if dp is None:
+            v, i = fn(teacher, torch.from_numpy(ids).to(dev),
+                      torch.from_numpy(mask).to(dev))
+        else:
+            b = shard_batch(mesh, {"ids": ids, "mask": mask},
+                            microbatched=False)
+            v, i = fn(teacher, b["ids"], b["mask"])
+            v, i = comm.all_gather(v, dp), comm.all_gather(i, dp)
         v, i = v.cpu().numpy(), i.cpu().numpy()
         for b, n in enumerate(mask.sum(axis=1)[:len(feats)]):
             all_v.append(v[b, :int(n)].astype(np.float16))

@@ -2,15 +2,23 @@
 reference train.py:119-596).
 
 Flags match the JAX CLI 1:1, plus ``--device``; the engine underneath is
-the port's KD step (``distill/train_step.make_kd_step``) in ``train_loop``
-on one device. The mode follows the dataset's columns: stored top-K
+the port's KD step (``distill/train_step.make_kd_step``) in
+``train_loop``. The mode follows the dataset's columns: stored top-K
 ("precomputed"), else the teacher runs in the step ("online_sparse", or
 "online_dense" for ``--top_k`` <= 0 or a quantized teacher). The teacher
 is a Qwen3 HF directory, or with ``--teacher_family cosyvoice2`` a
 reference CosyVoice2 torch checkpoint (``models/cosyvoice2``: a Qwen2
-backbone over the unified vocabulary). The parallel flags (tensor,
-sequence and pipeline parallelism, ZeRO-1, the disaggregated teacher,
-multi-host) are not ported and raise when set.
+backbone over the unified vocabulary).
+
+Data and tensor parallelism run one process a device (``torchrun
+--nproc_per_node N -m speech_distill_tpu_torch train --tp T ...``, or
+``--coordinator_address`` / ``--num_processes`` / ``--process_id`` on each
+process): dp = processes / tp, the global batch is the per-device batch
+times dp, every rank streams the global batches and keeps its dp rows,
+and ``--zero1`` shards the AdamW moments over dp. The student and a
+Qwen3 teacher shard over tp (a quantized or CosyVoice2 teacher is
+replicated whole). Sequence and pipeline parallelism and the
+disaggregated teacher are not ported and raise when set.
 
 Where the JAX CLI fails, this one raises ``ValueError`` before the teacher
 loads: a quantized CosyVoice2 teacher, and dense KD against a CosyVoice2
@@ -22,11 +30,9 @@ import argparse
 import os
 
 # flag -> its default: set to anything else, the flag raises
-_UNPORTED = {"tp": 1, "sp": 1, "sp_zigzag": False, "pp": 1,
+_UNPORTED = {"sp": 1, "sp_zigzag": False, "pp": 1,
              "pp_microbatches": 0, "pp_schedule": "gpipe", "pp_interleave": 1,
-             "zero1": False, "teacher_devices": 0, "teacher_tp": 1,
-             "coordinator_address": None, "num_processes": None,
-             "process_id": None}
+             "teacher_devices": 0, "teacher_tp": 1}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -70,8 +76,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--per_device_train_batch_size", type=int, default=4)
     p.add_argument("--gradient_accumulation_steps", type=int, default=4)
     p.add_argument("--pad_to_multiple_of", type=int, default=128)
-    # the parallel flags: not ported (ROADMAP §1 item 11), each raises
-    # when it is not at its default
+    # sp, pp and the disaggregated teacher: not ported (ROADMAP §1 item
+    # 11), each raises when it is not at its default
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--sp", type=int, default=1)
     p.add_argument("--sp_zigzag", action="store_true")
@@ -102,8 +108,9 @@ def check_ported(config) -> None:
     for flag, default in _UNPORTED.items():
         if getattr(config, flag, default) != default:
             raise NotImplementedError(
-                f"--{flag} is not ported (parallelism and multi-host: "
-                f"ROADMAP §1 item 11)")
+                f"--{flag} is not ported (sequence and pipeline "
+                f"parallelism, the disaggregated teacher: ROADMAP §1 item "
+                f"11)")
     if config.teacher_family == "cosyvoice2" and (
             config.load_teacher_in_4bit or config.load_teacher_in_8bit):
         raise ValueError("--load_teacher_in_4bit / _8bit with "
@@ -147,9 +154,8 @@ def train(config) -> None:
     import torch
     from speech_distill_tpu_torch.core.checkpoint import export_hf
     from speech_distill_tpu_torch.core.config import (DistillConfig,
-                                                      LoraConfig,
+                                                      LoraConfig, MeshConfig,
                                                       parse_prefix)
-    from speech_distill_tpu_torch.core.device import resolve_device
     from speech_distill_tpu_torch.core.trainer import (LoopConfig,
                                                        batches_from,
                                                        train_loop)
@@ -159,13 +165,23 @@ def train(config) -> None:
     from speech_distill_tpu_torch.distill.lora import (init_lora,
                                                        merge_and_export)
     from speech_distill_tpu_torch.models.hf_loader import load_pretrained
+    from speech_distill_tpu_torch.parallel import multihost, sharding
+    from speech_distill_tpu_torch.parallel import mesh as meshlib
     from speech_distill_tpu_torch.pipelines.common import (load_hf_dataset,
                                                            load_tokenizer)
     from speech_distill_tpu_torch.pipelines.prepare_dataset import (
         make_dual_processor)
 
     check_ported(config)
-    dev = resolve_device(config.device)
+    # one process a device: the rank's card (cuda:LOCAL_RANK) unless
+    # --device names another
+    rank_dev = None if config.device == "cuda" else config.device
+    multihost.initialize(config.coordinator_address, config.num_processes,
+                         config.process_id, device=rank_dev)
+    mesh = meshlib.make_mesh(MeshConfig(tp=config.tp), device=rank_dev)
+    meshlib.set_active_mesh(mesh)
+    parallel = mesh.world > 1
+    dev = mesh.device
     tokenizer = load_tokenizer(config.student_model, config.pad_token)
     teacher_prefix, student_prefix = align_prefixes(
         parse_prefix(config.teacher_prefix),
@@ -223,27 +239,40 @@ def train(config) -> None:
                 recall=dcfg.online_topk_recall)
     elif mode != "precomputed":
         teacher = load_teacher(config.teacher_model, quant, dev)
+        if parallel:
+            teacher = sharding.shard_params(mesh, teacher, teacher.cfg)
 
     if config.use_lora:
         gen = torch.Generator().manual_seed(dcfg.seed)
         trainable, base = init_lora(student, s_cfg, dcfg.lora, gen,
                                     device=dev)
     else:
-        # full finetuning: the model's weights are the trainable tree
         base = student
-        trainable = train_step.full_trainable(student)
+    base_full = base if config.use_lora else None   # whole, for the export
+    if parallel:
+        base = sharding.shard_params(mesh, base, s_cfg)
+        if config.use_lora:
+            trainable = sharding.shard_lora(mesh, trainable)
+    if not config.use_lora:
+        # full finetuning: the model's weights are the trainable tree
+        trainable = train_step.full_trainable(base)
+    specs = sharding.trainable_pspecs(trainable, s_cfg, config.use_lora)
 
-    global_batch = dcfg.per_device_batch_size
+    global_batch = dcfg.per_device_batch_size * mesh.dp
     A = dcfg.gradient_accumulation_steps
     steps_per_epoch = len(dataset) // (global_batch * A)
     total_steps = config.max_steps or steps_per_epoch * dcfg.num_train_epochs
     opt = train_step.make_optimizer(dcfg.learning_rate, dcfg.warmup_steps,
                                     total_steps)
     state = train_step.init_state(trainable, opt)
+    step_mesh = mesh if parallel else None
+    if parallel:
+        state = state._replace(opt_state=sharding.shard_opt_state(
+            mesh, state.opt_state, specs, zero1=config.zero1))
     step_fn = train_step.make_kd_step(
         s_cfg, dcfg, opt, mode=mode, teacher_forward=teacher_forward,
         teacher_extract=teacher_extract, use_lora=config.use_lora,
-        device=dev)
+        device=dev, mesh=step_mesh, zero1=config.zero1 and parallel)
 
     collator = DistillCollator(
         pad_token_id=tokenizer.pad_token_id,
@@ -268,13 +297,15 @@ def train(config) -> None:
             eval_dataset = eval_dataset.map(dual, batched=True, desc="eval")
         eval_step = train_step.make_kd_eval_step(
             s_cfg, dcfg, mode=mode, teacher_forward=teacher_forward,
-            use_lora=config.use_lora, device=dev)
+            use_lora=config.use_lora, device=dev, mesh=step_mesh)
 
         def eval_fn(state):
             totals, n = None, 0
             for hb in batches_from(
                     (eval_dataset[i] for i in range(len(eval_dataset))),
                     collator, global_batch, 1, drop_last=False):
+                if parallel:
+                    hb = multihost.make_global_batch(mesh, hb)
                 m = {k: float(v) for k, v in eval_step(
                     state.trainable, base, teacher, hb).items()}
                 totals = m if totals is None else \
@@ -288,15 +319,21 @@ def train(config) -> None:
         eval_fn=eval_fn,
         # as the JAX CLI counts it: the padding multiple, not the length
         tokens_per_batch=global_batch * A * dcfg.pad_to_multiple_of,
-        device=dev)
+        device=dev, mesh=step_mesh,
+        state_specs=lambda st: sharding.state_pspecs(
+            st, specs, mesh, zero1=config.zero1))
 
-    # the merged model for HF consumers
-    out = os.path.join(config.output_dir, "final_model")
-    final = (merge_and_export(base, state.trainable, dcfg.lora)
-             if config.use_lora else state.trainable)
-    export_hf(final, s_cfg, out)
-    tokenizer.save_pretrained(out)
-    print("Training complete.")
+    # the merged model for HF consumers (the ranks' slices made whole;
+    # the primary writes)
+    trainable = multihost.fetch_replicated(state.trainable, specs, step_mesh)
+    if mesh.is_primary:
+        out = os.path.join(config.output_dir, "final_model")
+        final = (merge_and_export(base_full, trainable, dcfg.lora)
+                 if config.use_lora else trainable)
+        export_hf(final, s_cfg, out)
+        tokenizer.save_pretrained(out)
+        print("Training complete.")
+    multihost.barrier()
 
 
 def main(argv=None):

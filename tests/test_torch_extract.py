@@ -196,6 +196,11 @@ def test_extraction_is_the_same_alone_and_batched(teacher):
 
 
 def test_extraction_mesh_raises(teacher):
-    with pytest.raises(NotImplementedError):
+    """dp extraction is ported (``tests/test_torch_sharding.py``); a mesh
+    with sequence parallelism is not."""
+    from speech_distill_tpu_torch.parallel.mesh import Mesh
+    shape = {"dp": 1, "pp": 1, "sp": 2, "tp": 1}
+    mesh = Mesh(shape, {a: 0 for a in shape}, torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="item 11"):
         extract_teacher_logprobs(teacher[2], _port_forward, _features(1),
-                                 mesh=object(), device="cpu")
+                                 mesh=mesh, device="cpu")

@@ -307,3 +307,25 @@ def test_cosyvoice2_entry_points_raise_without_cuda(monkeypatch):
         ups, _ = opt.update({"w": torch.ones(3, 300)}, opt.init(params),
                             params)
         assert ups["w"].device.type == "cpu"
+
+
+def test_parallel_entry_points_take_the_rank_card(monkeypatch, tmp_path):
+    """The parallel layer's entry points: a rank's device is
+    ``cuda:LOCAL_RANK`` unless ``device="cpu"`` is passed, and they raise
+    without CUDA before any process group or child is started."""
+    from speech_distill_tpu_torch.parallel import mesh as meshlib
+    from speech_distill_tpu_torch.parallel import multihost
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert meshlib.rank_device() == torch.device("cuda", 3)
+    assert meshlib.rank_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (meshlib.rank_device, meshlib.make_mesh,
+                 meshlib.single_device_mesh,
+                 lambda: multihost.initialize("localhost:1", 2, 0),
+                 lambda: multihost.launch(print, 2,
+                                          store_dir=str(tmp_path))):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    assert meshlib.make_mesh(device="cpu").device == torch.device("cpu")
+    assert meshlib.single_device_mesh("cpu").world == 1

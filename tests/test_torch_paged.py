@@ -176,7 +176,15 @@ def test_allocator_refcounts():
     assert pool.free_pages == 4
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()}],
+def _pp_mesh():
+    """A rank's view of a dp 1 x pp 2 mesh: pipeline parallelism is
+    not ported (the dp x tp mesh is, ``tests/test_torch_paged_tp.py``)."""
+    from speech_distill_tpu_torch.parallel.mesh import Mesh
+    shape = {"dp": 1, "pp": 2, "sp": 1, "tp": 1}
+    return Mesh(shape, {a: 0 for a in shape}, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("kw", [{"mesh": _pp_mesh()}],
                          ids=lambda kw: next(iter(kw)))
 def test_deferred_features_raise(kw):
     _, _, _, cfg, model, sp = _setup()

@@ -523,7 +523,8 @@ def test_evaluate_cli_smoke_tiny(ws, tmp_path):
     assert sm["generated_tokens"] == 6
     if sm["status"] == "ok":
         assert sm["wav_samples"] == sm["expected_samples"]
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # --dp / --tp are ported: one process cannot hold dp 2
+    with pytest.raises(ValueError, match="device count"):
         main(["--student_model", ws["student"], "--dataset_path",
               ws["enriched"], "--dp", "2"] + CPU)
 

@@ -216,14 +216,27 @@ def test_load_teacher_quantizes_as_the_jax_cli(ws):
         assert layer_key in t.layers[0].mlp.up.leaf
 
 
+# dp x tp and the multi-process start-up are ported: on one process an
+# incomplete start-up raises ValueError before any weight loads (the runs
+# themselves: tests/test_torch_sharding.py)
+_PORTED = {"--tp": "device count", "--zero1": "device count",
+           "--coordinator_address": "process", "--num_processes": "process",
+           "--process_id": "process"}
+
+
 @pytest.mark.parametrize("flag", [
     ["--tp", "2"], ["--sp", "2"], ["--sp_zigzag"], ["--pp", "2"],
     ["--pp_microbatches", "4"], ["--pp_schedule", "1f1b"],
-    ["--pp_interleave", "2"], ["--zero1"], ["--teacher_devices", "4"],
-    ["--teacher_tp", "2"], ["--coordinator_address", "localhost:1"],
-    ["--num_processes", "2"], ["--process_id", "0"]],
+    ["--pp_interleave", "2"], ["--zero1", "--tp", "2"],
+    ["--teacher_devices", "4"], ["--teacher_tp", "2"],
+    ["--coordinator_address", "localhost:1"], ["--num_processes", "2"],
+    ["--process_id", "0", "--num_processes", "2"]],
     ids=lambda f: f[0])
 def test_unported_train_flags_raise(ws, flag):
+    if flag[0] in _PORTED:
+        with pytest.raises(ValueError, match=_PORTED[flag[0]]):
+            ttrain.main(["--dataset_path", ws["enriched"]] + flag + CPU)
+        return
     with pytest.raises(NotImplementedError, match="item 11"):
         ttrain.main(["--dataset_path", ws["enriched"]] + flag + CPU)
 
