@@ -36,7 +36,7 @@
    a decode step and K1-fwd 28 a fresh long admission, and the gate
    deferred. Logs x-realtime, TTFA, LLM tokens/s, tick ms by row count,
    the decode stall a tick and device memory. Then session 0 replayed
-   alone against its batched row, and a 150-token stream through the
+   alone against its batched row, and a 100-token stream through the
    incremental flow (fp32 caches) against the recompute (mel error and
    each chunk's ms), and a profile of an 8-row flow and HiFT tick.
 3d. The contiguous-cache engines on the JAX benchmark's decode modes,
@@ -132,7 +132,7 @@
    HiFT, the reference v2 S3 tokenizer (~0.5 GB fp32) and the published
    CAM++; two seeded int16 prompt wavs (8 s at 44.1 kHz, 9 s at 24 kHz:
    200 and 225 codes, so the first turn's prefill is a 512-token flash
-   width) and a four-turn two-speaker script, each turn capped at
+   width) and a two-turn two-speaker script, each turn capped at
    SYN_TURN_TOKENS through the run's EngineConfig. The CLI's default
    (the contiguous engine, offline), the same engine with
    ``--streaming``, then ``--llm_engine paged`` offline, with the
@@ -162,7 +162,8 @@
    bytes, peak memory, step and update ms); one KD step with the fused
    and with the default optimizer, their updates on the same gradients
    compared.
-18. dp x tp over ``torch.distributed``, after phase 16: two ranks spawned
+18. dp x tp, pp and sp over ``torch.distributed``, after phase 16: two
+   ranks spawned
    on the one card (``parallel/multihost.launch``, gloo: NCCL refuses a
    device twice, so a one-rank NCCL group's all_reduce shows its start).
    Each rank draws the full-width student on the card from the seed
@@ -177,8 +178,16 @@
    step (nothing else), the fp32 greedy tokens equal the one-process
    run's (the bf16 common prefixes are logged), the bf16 prefill logits
    and the step losses and grad norms agree with it, and a rank's
-   failure or hang (a timeout) fails the launch. Then K4 at KV 4 and
-   K1-fwd / dq / dkv at H 8, KV 4 against their plain versions, timed.
+   failure or hang (a timeout) fails the launch. Then (the same two
+   ranks) 2 LoRA KD steps at pp 2 (4 microbatches of 2 rows), GPipe and
+   then interleaved 1F1B (2 chunks of 7 layers a stage), 2 zig-zag KD
+   steps at sp 2 on a T 1,024 batch (512 positions a rank), and one
+   stage-1 step at sp 2 (B 1, T 4,096, A 1), each beside the one-process
+   run on the same batch: fails unless each rank's launches are exact
+   (pp: K1-fwd 2 x 14 x 4 and K1-dq / K1-dkv 14 x 4 a step; sp: no K1;
+   stage 1: K2 stats / dh / dW once; nothing else) and the losses and
+   grad norms agree. Then K4 at KV 4 and K1-fwd / dq / dkv at H 8, KV 4
+   and at a pp microbatch's B 2 against their plain versions, timed.
 
 Exits non-zero, printing no result, when CUDA is missing or any phase
 fails. Only one card is needed. Imports nothing of JAX.
@@ -740,9 +749,10 @@ def serve_features(cfg, model, dev) -> dict:
 TTS_SESSIONS, TTS_PROMPT, TTS_LONG = 8, 128, (700, 1000)
 TTS_FLOW_PROMPT, TTS_PROMPT_MEL, TTS_MEL_PAD = 75, 150, 160
 TTS_GEN, TTS_CHUNK_STEPS, TTS_GATE = 100, 16, -3.0   # bench: 150
-# one 150-token stream in 6 chunks of 25, incremental against recompute
-# (cut from 400 in 16 chunks to keep the smoke inside its limit)
-TTS_INC_TOKENS, TTS_INC_CHUNK, TTS_INC_FRAMES = 150, 25, 1024
+# one 100-token stream in 4 chunks of 25, incremental against recompute
+# (cut from 400 in 16 chunks, then 150 in 6, to keep the smoke inside its
+# limit)
+TTS_INC_TOKENS, TTS_INC_CHUNK, TTS_INC_FRAMES = 100, 25, 1024
 # a session replayed alone against its batched row, max |wav difference|:
 # the two differ only in how cuBLAS and cuDNN block the fp32 products of
 # an 8-row and a 1-row call (~1e-6 relative each), carried through 15
@@ -861,7 +871,8 @@ def check_tts_replay(coord, sessions, res, flow, fcfg, hift, hcfg, offset,
 
 
 def check_tts_incremental(s, flow, fcfg, hift, hcfg, dev) -> dict:
-    """One 150-token stream (6 chunks of 25 tokens, then the flush)
+    """One TTS_INC_TOKENS-token stream (chunks of TTS_INC_CHUNK tokens,
+    then the flush)
     through the recompute and the incremental flow with fp32 K/V caches:
     the mel and wav of the two, and each chunk's ms."""
     gen = np.random.default_rng(SEED + 32).integers(
@@ -1049,15 +1060,17 @@ def tts_serve(cfg, model, dev, fcfg=None, hcfg=None) -> dict:
 # --serve_phase continuous, tts_streaming)
 # Cut to keep the phase near its budget (a B = 1 step is host-bound at
 # ~37-55 ms): decode and the plain and ngram spec streams run 64 tokens
-# (bench: 256), layer_skip 32, decode_serving16 64, the continuous
-# workload has factor 1 (16 requests + the 2 long ones), tts_streaming
+# (bench: 256), layer_skip 16, decode_serving16 64, the continuous
+# workload has factor 1 (16 requests + the 2 long ones) and caps of at
+# most 224 tokens (bench: 448), tts_streaming
 # 51 tokens (bench: 151)
 DEC_PROMPT, DEC_TOKENS, DEC_MAX_LEN = 128, 64, 4096
 SPEC_GAMMA, SPEC_LAYERS, SPEC_MOTIF, SPEC_MAX_LEN = 7, 7, 8, 1024
-SPEC_SKIP_TOKENS = 32
+SPEC_SKIP_TOKENS = 16           # cut from 32
 B16_STREAMS, B16_PREFIX, B16_MAX_LEN, B16_TOKENS = 16, 700, 2048, 64
 CONT_SLOTS, CONT_FACTOR, CONT_CHUNK, CONT_MAX_LEN = 16, 1, 32, 2048
 CONT_LONG = (700, 1000)
+CONT_CAP = 224                  # the requests' longest cap (bench: 448)
 TTS_STREAM_PROMPT, TTS_STREAM_GEN, TTS_STREAM_MAX_LEN = 128, 51, 1024
 # The greedy gates (speculative and continuous against the plain
 # single-stream decode) run on the model upcast to fp32 with TF32 off: a
@@ -1139,7 +1152,7 @@ def spec_engines(cfg, model, dev, n: int, skip_n: int, **kw):
 def decode_spec(cfg, model, dev) -> dict:
     """bench.py ``decode_spec_greedy``: gamma 7, greedy, a repetitive
     8-token speech motif prompt, max_len 1024; the plain decode and the
-    ngram draft over 64 tokens, the layer_skip draft (7 layers) over 32,
+    ngram draft over 64 tokens, the layer_skip draft (7 layers) over 16,
     timed, with the drafts' verify iterations."""
     rng = np.random.default_rng(SEED + 41)
     motif = rng.integers(cfg.speech_token_offset, cfg.vocab_size,
@@ -1207,17 +1220,19 @@ def decode_serving16(cfg, model, dev) -> tuple:
 
 def continuous_workload(cfg):
     """bench.py's ``_serve_workload`` at 16 slots (factor 1, bench's 3:
-    16 requests of 64-128 tokens, caps clip(exp(160), 32, 448)), then two
+    16 requests of 64-128 tokens, caps clip(exp(160), 32, CONT_CAP; bench
+    448)), then two
     long prompts of 700 and 1,000 tokens (flash widths 768 and
     1,024)."""
     rng = np.random.default_rng(SEED + 43)
     N = CONT_FACTOR * CONT_SLOTS
     prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(
         64, 128))).tolist() for _ in range(N)]
-    caps = np.clip(rng.exponential(160, N).astype(int), 32, 448).tolist()
+    caps = np.clip(rng.exponential(160, N).astype(int), 32,
+                   CONT_CAP).tolist()
     for n in CONT_LONG:
         prompts.append(rng.integers(0, cfg.vocab_size, n).tolist())
-        caps.append(int(np.clip(rng.exponential(160), 32, 448)))
+        caps.append(int(np.clip(rng.exponential(160), 32, CONT_CAP)))
     return prompts, caps
 
 
@@ -1879,15 +1894,17 @@ def check_quant_model_path(cfg, qmodel, dev) -> None:
         fail(f"quantized decode through the kernels is less accurate: {err}")
 
 
-def kd_features(cfg, n: int, rng) -> list:
+def kd_features(cfg, n: int, rng, T: int = None) -> list:
     """Seeded synthetic precomputed-KD examples: 385-512 tokens (so a batch
-    pads right to T = 512), a speech start in the first 32, and top-K
-    columns of distinct indices with fp16 logprobs ~ N(-3, 1)."""
+    pads right to T = 512; 3 T / 4 + 1 to ``T`` tokens for another T), a
+    speech start in the first 32, and top-K columns of distinct indices
+    with fp16 logprobs ~ N(-3, 1)."""
     V, K, pad = cfg.vocab_size, TRAIN_K, cfg.eos_token_id
+    T = T or TRAIN_T
     cols = rng.permutation(V)[:K]
     feats = []
     for _ in range(n):
-        L = int(rng.integers(385, TRAIN_T + 1))
+        L = int(rng.integers(3 * T // 4 + 1, T + 1))
         ids = rng.integers(0, V, L)
         ids[np.isin(ids, (pad, SPEECH_BOS))] = 1
         ids[int(rng.integers(1, 32))] = SPEECH_BOS
@@ -2050,14 +2067,14 @@ def check_loss_falls(cfg, dcfg, base, trainable, batch, dev):
 
 
 def check_flash_bwd(dev, counts: dict, side, H: int = 16, KV: int = 8,
-                    what: str = "KD") -> list:
+                    what: str = "KD", B: int = None) -> list:
     """K1-dq and K1-dkv at the training step's shape (B 8, T 512, H 16,
-    KV 8, Dh 128; a tp-2 rank's H 8, KV 4 with ``H`` / ``KV``) against
-    the plain backward in fp32 on the same bf16 inputs, K1-fwd against
-    its plain version; K1-fwd graph-timed at the same shape. Returns the
-    kernels-line entries."""
+    KV 8, Dh 128; a tp-2 rank's H 8, KV 4 with ``H`` / ``KV``; a pp
+    microbatch's B 2 with ``B``) against the plain backward in fp32 on
+    the same bf16 inputs, K1-fwd against its plain version; K1-fwd
+    graph-timed at the same shape. Returns the kernels-line entries."""
     rng = np.random.default_rng(SEED + 5)
-    B, T = TRAIN_B, TRAIN_T
+    B, T = B or TRAIN_B, TRAIN_T
     q, k, v, do = flash_inputs(rng, dev, B, T, n=4, H=H, KV=KV)
     fwd_err = check_flash_fwd(q, k, v, what)
     abs_err, err = flash_bwd_errors(q, k, v, do, what)
@@ -3573,13 +3590,12 @@ def cli(dev) -> tuple:
 # Phase 16: synthesis. Two prompt wavs whose 16 kHz lengths give 200 and
 # 225 S3 codes (8 s at 44.1 kHz, 9 s at 24 kHz): with the prompt texts
 # and the first turn's text the first prefill holds <= 512 tokens, a
-# flash width; four turns of two speakers, each capped at SYN_TURN_TOKENS
+# flash width; two turns, one a speaker, each capped at SYN_TURN_TOKENS
 # tokens (the random 1.7B almost never samples its stop id, and the CLI
 # has no cap flag: the smoke sets the run's EngineConfig sampling)
 SYN_WAVS = (("S1", 44100, 8.0, "hello there"), ("S2", 24000, 9.0, "hi there"))
-SYN_TURNS = (("S1", "welcome to the show"), ("S2", "glad to be here"),
-             ("S1", "tell us about speech"), ("S2", "it is fun"))
-SYN_TURN_TOKENS = 30
+SYN_TURNS = (("S1", "welcome to the show"), ("S2", "glad to be here"))
+SYN_TURN_TOKENS = 24            # 2 turns of 24 (cut from 4 of 30)
 # an S3 code may differ between the card and the CPU only where the fp32
 # FSQ value of the differing digit lies this close to a +-0.5 edge
 SYN_FSQ_EDGE = 1e-4
@@ -3627,7 +3643,7 @@ def synth_model_dir(d: str, dev) -> dict:
 
 
 def synth_script(d: str) -> str:
-    """Two seeded int16 prompt wavs and the four-turn script."""
+    """Two seeded int16 prompt wavs and the two-turn script."""
     from scipy.io.wavfile import write as wav_write
     rng = np.random.default_rng(SEED + 16)
     speakers = {}
@@ -3870,7 +3886,7 @@ def check_prompt_codes(spy: SynthSpy, cpu: CpuReference) -> dict:
 def synthesis(dev) -> dict:
     """Phase 16: ``synthesize.main`` three times at full width (the 1.7B,
     the v2 S3 tokenizer, CAM++, the full-size flow and HiFT; random
-    weights) on a four-turn two-speaker script, each run through its main
+    weights) on a two-turn two-speaker script, each run through its main
     in this process with the launch counts set to 0 just before it and
     read just after: the CLI's default (the contiguous engine, offline),
     the same engine with ``--streaming``, then ``--llm_engine paged``
@@ -4422,7 +4438,8 @@ def cosyvoice2(dev, root: str, side) -> tuple:
     return {k: v["launches"] for k, v in record.items()}, entry
 
 
-# phase 18, dp x tp over torch.distributed: two ranks on the one card
+# phase 18, dp x tp, pp and sp over torch.distributed: two ranks on the
+# one card
 PAR_WORLD = 2
 # the serve: two short prompts (one batched 128-wide prefill) and two
 # fresh long ones (512 and 768 wide: K1-fwd at the ranks' heads)
@@ -4438,6 +4455,21 @@ PAR_LORA_SEED = 7               # gaussian LoRA, drawn on the host
 # means over 4,088 positions, against the one-process bf16 step
 PAR_LOSS_RTOL, PAR_GRAD_NORM_RTOL = 1e-2, 5e-2
 PAR_TIMEOUT_S = 600
+# pp 2: the KD steps' batch in 4 microbatches of 2 rows, GPipe
+# and interleaved 1F1B (2 chunks of 7 layers a stage); sp 2: zig-zag KD
+# steps on rows of 769-1,024 tokens (T 1,024: 512 a rank) and one stage-1
+# step of B 1, T 4,096, A 1 (2,048 positions a rank)
+PAR_PP_MICRO, PAR_PP_INTERLEAVE = 4, 2
+PAR_SP_T = 1024
+PAR_S1_ROWS = 1
+
+
+# the runs of each rank, and the one-process reference of each step run
+PAR_RUNS = ("serve", "serve_fp32", "kd_tp2", "kd_dp2_zero1", "kd_pp2_gpipe",
+            "kd_pp2_1f1b_v2", "kd_sp2_zigzag", "stage1_sp2")
+PAR_STEP_REFS = {"kd_tp2": "kd", "kd_dp2_zero1": "kd", "kd_pp2_gpipe": "kd",
+                 "kd_pp2_1f1b_v2": "kd", "kd_sp2_zigzag": "kd_sp",
+                 "stage1_sp2": "stage1"}
 
 
 def par_prompts(cfg) -> list:
@@ -4494,7 +4526,13 @@ def par_lora(model, cfg, dev):
                      device=dev)
 
 
-def par_kd(cfg, base, lora, batch, dev, mesh=None, zero1=False) -> dict:
+def par_copy(tree):
+    from speech_distill_tpu_torch.core.tree import tree_map
+    return tree_map(lambda x: x.detach().clone().requires_grad_(True), tree)
+
+
+def par_kd(cfg, base, lora, batch, dev, mesh=None, zero1=False,
+           pp_schedule="gpipe") -> dict:
     """PAR_STEPS precomputed LoRA KD steps on one batch (the trainable
     tree this rank's slices, the batch its dp rows under ``mesh``), the
     launch counts set to 0 just before and read just after."""
@@ -4503,11 +4541,13 @@ def par_kd(cfg, base, lora, batch, dev, mesh=None, zero1=False) -> dict:
     state = train_step.init_state(lora, opt)
     if mesh is not None:
         state = state._replace(opt_state=sharding.shard_opt_state(
-            mesh, state.opt_state, sharding.lora_pspecs(lora), zero1=zero1))
+            mesh, state.opt_state, sharding.trainable_pspecs(
+                lora, cfg, True, mesh), zero1=zero1))
         batch = sharding.shard_batch(mesh, batch)
     step = train_step.make_kd_step(cfg, DistillConfig(), opt,
                                    mode="precomputed", device=dev,
-                                   mesh=mesh, zero1=zero1)
+                                   mesh=mesh, zero1=zero1,
+                                   pp_schedule=pp_schedule)
     torch.cuda.synchronize()
     _cuda.reset_launches()
     times, losses_, norms = [], [], []
@@ -4522,10 +4562,55 @@ def par_kd(cfg, base, lora, batch, dev, mesh=None, zero1=False) -> dict:
             [t * 1e3 for t in times], "launches": dict(_cuda.launches)}
 
 
+def par_sp_batch(cfg) -> dict:
+    """The zig-zag steps' batch: TRAIN_B rows of 769-1,024 tokens."""
+    feats = kd_features(cfg, TRAIN_B, np.random.default_rng(SEED + 20),
+                        T=PAR_SP_T)
+    collate = DistillCollator(pad_token_id=cfg.eos_token_id,
+                              speech_bos_id=SPEECH_BOS,
+                              pad_to_multiple_of=128)
+    return {k: v[None] for k, v in collate(feats).items()}
+
+
+def par_stage1(cfg, model, dev, mesh=None) -> dict:
+    """One stage-1 step (B 1, T 4,096, A 1, the fused CE through K2) on
+    the embedding of ``model``: one process, or this rank's positions on
+    ``mesh``'s sp ring (``cfg`` "ring"); launch counts set to 0 just
+    before and read just after."""
+    from speech_distill_tpu_torch.parallel import sharding
+    old_vocab = cfg.vocab_size - S1_NEW_TOKENS
+    rows = stage1_rows(cfg, old_vocab, PAR_S1_ROWS,
+                       np.random.default_rng(SEED + 21))
+    batch = {"input_ids": rows[None], "attention_mask":
+             np.ones_like(rows)[None], "labels": rows[None].astype(np.int64)}
+    tr = {"embed": {"weight": model.embed.detach().clone()
+                    .requires_grad_(True)}}
+    opt = train_step.make_optimizer(S1_LR, S1_WARMUP, 10,
+                                    weight_decay=S1_WD)
+    state = train_step.init_state(tr, opt)
+    base = model
+    if mesh is not None:
+        base = sharding.shard_params(mesh, model, cfg)
+        batch = sharding.shard_batch(mesh, batch)
+    step = train_step.make_stage1_step(cfg, opt, old_vocab, fused_loss=True,
+                                       fused_backend="pallas", device=dev,
+                                       mesh=mesh)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    state, m = step(state, base, batch)
+    torch.cuda.synchronize()
+    return {"loss": [float(m["loss"])], "grad_norm": [float(m["grad_norm"])],
+            "step_ms": [(time.perf_counter() - t0) * 1e3],
+            "launches": dict(_cuda.launches)}
+
+
 def par_rank(rank: int, world: int, device: str) -> dict:
     """One rank of phase 18 (a spawned process on the one card, gloo):
     (a) the tp-2 serve in bf16 and in fp32 and the bf16 prefill logits,
-    (b) the LoRA KD steps at dp 1 x tp 2 and at dp 2 x tp 1 with ZeRO-1.
+    (b) the LoRA KD steps at dp 1 x tp 2 and at dp 2 x tp 1 with ZeRO-1,
+    (c) the LoRA KD steps at pp 2, GPipe and interleaved 1F1B, (d) the
+    zig-zag KD steps and one stage-1 step at sp 2.
     Every rank draws the full-width model on the card from the seed
     (``init_params_on_device``: the same weights in every process) and
     takes its slices (``sharding.shard_params``); the fp32 model is the
@@ -4558,6 +4643,28 @@ def par_rank(rank: int, world: int, device: str) -> dict:
     out["kd_dp2_zero1"] = par_kd(cfg, sharding.shard_params(dp2, full, cfg),
                                  sharding.shard_lora(dp2, lora), batch, dev,
                                  dp2, zero1=True)
+    # pp 2: GPipe, then interleaved 1F1B, each stage holding 14 layers
+    pp2 = meshlib.make_mesh(MeshConfig(dp=1, pp=world), device=dev)
+    for run, schedule, inter in (("kd_pp2_gpipe", "gpipe", 1),
+                                 ("kd_pp2_1f1b_v2", "1f1b",
+                                  PAR_PP_INTERLEAVE)):
+        pcfg = dataclasses.replace(cfg, pp_microbatches=PAR_PP_MICRO,
+                                   pp_interleave=inter)
+        base = sharding.shard_params(pp2, full, pcfg)
+        out[run] = par_kd(pcfg, base, sharding.shard_lora(pp2, lora, pcfg),
+                          batch, dev, pp2, pp_schedule=schedule)
+        del base
+    # sp 2: the zig-zag ring (the student's attention in plain matmuls,
+    # no K1), then stage 1 on the contiguous ring (K2 on 2,048 rows)
+    sp2 = meshlib.make_mesh(MeshConfig(dp=1, sp=world), device=dev)
+    zcfg = dataclasses.replace(cfg, attn_impl="ring_zigzag")
+    out["kd_sp2_zigzag"] = par_kd(zcfg, sharding.shard_params(sp2, full,
+                                                              zcfg),
+                                  sharding.shard_lora(sp2, lora, zcfg),
+                                  par_sp_batch(cfg), dev, sp2)
+    out["stage1_sp2"] = par_stage1(dataclasses.replace(cfg,
+                                                       attn_impl="ring"),
+                                   full, dev, sp2)
     return out
 
 
@@ -4577,7 +4684,11 @@ def parallel(dev, side) -> tuple:
            "prefill_logits": par_prefill_logits(model, cfg, dev)}
     lora, _ = par_lora(model, cfg, dev)
     batch = par_kd_batch(cfg)
-    ref["kd"] = par_kd(cfg, model, lora, batch, dev)
+    # each run from the same LoRA (a step updates its tree in place)
+    ref["kd"] = par_kd(cfg, model, par_copy(lora), batch, dev)
+    ref["kd_sp"] = par_kd(cfg, model, par_copy(lora), par_sp_batch(cfg),
+                          dev)
+    ref["stage1"] = par_stage1(cfg, model, dev)
     f32 = dataclasses.replace(cfg, dtype="float32")
     tree = model_to_tree(model)
     del model, lora
@@ -4617,24 +4728,27 @@ def parallel(dev, side) -> tuple:
     t_ranks = time.perf_counter() - t0
 
     counts = {}
+    # a pp stage runs its 14 layers on each of the M microbatches, again
+    # in the backward's recompute (full remat), and differentiates them
+    stage = L // PAR_WORLD * PAR_PP_MICRO * PAR_STEPS
+    kd = {"flash_fwd": 2 * L * PAR_STEPS, "flash_dq": L * PAR_STEPS,
+          "flash_dkv": L * PAR_STEPS}
+    pp = {"flash_fwd": 2 * stage, "flash_dq": stage, "flash_dkv": stage}
     for r, res in enumerate(ranks):
-        c = {run: res[run]["launches"] for run in
-             ("serve", "serve_fp32", "kd_tp2", "kd_dp2_zero1")}
+        c = {run: res[run]["launches"] for run in PAR_RUNS}
         counts[f"rank{r}"] = c
         steps = res["serve"]["decode_steps"]
         want = {"serve": {"paged_decode": L * steps,
                           "flash_fwd": L * PAR_FLASH_PREFILLS},
-                "kd_tp2": {"flash_fwd": 2 * L * PAR_STEPS,
-                           "flash_dq": L * PAR_STEPS,
-                           "flash_dkv": L * PAR_STEPS},
-                "kd_dp2_zero1": {"flash_fwd": 2 * L * PAR_STEPS,
-                                 "flash_dq": L * PAR_STEPS,
-                                 "flash_dkv": L * PAR_STEPS}}
+                "kd_tp2": kd, "kd_dp2_zero1": kd, "kd_pp2_gpipe": pp,
+                "kd_pp2_1f1b_v2": pp, "kd_sp2_zigzag": {},
+                "stage1_sp2": {"lm_head_stats": 1, "lm_head_dh": 1,
+                               "lm_head_dw": 1}}
         for run, w in want.items():
             got = {k: c[run][k] for k in w}
             if got != w:
                 fail(f"parallel rank {r} {run}: launches {got} != {w}")
-        for run in ("kd_tp2", "kd_dp2_zero1"):
+        for run in PAR_RUNS[2:]:
             other = {k: v for k, v in c[run].items()
                      if v and k not in want[run]}
             if other:
@@ -4662,8 +4776,8 @@ def parallel(dev, side) -> tuple:
         if not e_tp <= BF16_ERR_RATIO * e_one:
             fail(f"parallel rank {r}: bf16 tp-2 prefill logits {e_tp} "
                  f"against the one-process bf16 {e_one}")
-        for run in ("kd_tp2", "kd_dp2_zero1"):
-            got, want_ = res[run], ref["kd"]
+        for run, ref_run in PAR_STEP_REFS.items():
+            got, want_ = res[run], ref[ref_run]
             lerr = max(abs(x - y) / abs(y) for x, y in
                        zip(got["loss"], want_["loss"]))
             gerr = max(abs(x - y) / abs(y) for x, y in
@@ -4687,7 +4801,13 @@ def parallel(dev, side) -> tuple:
                          "one": ref["serve_fp32"]["seconds"]},
         "kd_step_ms": {"tp2": r0["kd_tp2"]["step_ms"],
                        "dp2_zero1": r0["kd_dp2_zero1"]["step_ms"],
+                       "pp2_gpipe": r0["kd_pp2_gpipe"]["step_ms"],
+                       "pp2_1f1b_v2": r0["kd_pp2_1f1b_v2"]["step_ms"],
                        "one": ref["kd"]["step_ms"]},
+        "kd_sp_step_ms": {"sp2_zigzag": r0["kd_sp2_zigzag"]["step_ms"],
+                          "one": ref["kd_sp"]["step_ms"]},
+        "stage1_step_ms": {"sp2": r0["stage1_sp2"]["step_ms"],
+                           "one": ref["stage1"]["step_ms"]},
         "reference_s": t_ref, "ranks_s": t_ranks,
         "launches": counts}))
     entries = par_kernels(dev, side, counts)
@@ -4696,14 +4816,20 @@ def parallel(dev, side) -> tuple:
 
 
 def par_kernels(dev, side, counts: dict) -> list:
-    """K4 at the tp-2 pool's KV 4 (G 2) and K1-fwd / dq / dkv at the tp-2
-    KD step's H 8, KV 4 against their plain versions, timed as at the
-    one-process shapes; ``launches`` is rank 0's count in the tp-2 runs."""
+    """K4 at the tp-2 pool's KV 4 (G 2), K1-fwd / dq / dkv at the tp-2 KD
+    step's H 8, KV 4, and at a pp stage's microbatch (B 2, T 512, H 16,
+    KV 8) against their plain versions, timed as at the one-process
+    shapes; ``launches`` is rank 0's count in the tp-2 runs, and in the
+    two pp runs."""
     r0 = counts["rank0"]
     k4 = k4_check(dev, side, r0["serve"]["paged_decode"], False, KV=4)
     kd = {k: r0["kd_tp2"][k] for k in ("flash_dq", "flash_dkv")}
     kd["flash_fwd"] = r0["kd_tp2"]["flash_fwd"] + r0["serve"]["flash_fwd"]
     rows = check_flash_bwd(dev, kd, side, H=8, KV=4, what="tp2 KD")
+    pp = {k: r0["kd_pp2_gpipe"][k] + r0["kd_pp2_1f1b_v2"][k]
+          for k in ("flash_fwd", "flash_dq", "flash_dkv")}
+    rows += check_flash_bwd(dev, pp, side, what="pp stage microbatch",
+                            B=TRAIN_B // PAR_PP_MICRO)
     return [k4] + rows
 
 

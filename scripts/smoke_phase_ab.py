@@ -17,7 +17,9 @@ synchronise. A phase a checkout lacks is skipped. Phases: ``tts_serve``
 ``parallel`` (18). A failing check fails the process, as in the smoke.
 
 Prints one JSON line a DIR (and appends it to ``--out``): the card and
-its power limit, and each phase's seconds. Imports no JAX.
+its power limit, and each phase's seconds; with ``--out`` each DIR's own
+output (the phases' log lines) goes to ``FILE.<n>.log``, n its turn.
+Imports no JAX.
 """
 from __future__ import annotations
 
@@ -75,7 +77,7 @@ def main() -> None:
     if args.child:
         print("PHASEAB " + json.dumps(child(args.phases)), flush=True)
         return
-    for d in args.dirs:
+    for n, d in enumerate(args.dirs):
         res = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--child",
              "--phases", *args.phases], cwd=os.path.abspath(d),
@@ -90,6 +92,8 @@ def main() -> None:
         if args.out:
             with open(args.out, "a") as f:
                 f.write(line + "\n")
+            with open(f"{args.out}.{n}.log", "w") as f:
+                f.write(res.stdout)
 
 
 if __name__ == "__main__":

@@ -94,8 +94,14 @@ class Qwen3Config(_JsonOverlayMixin):
     remat_policy: str = "full"
     # auto: the flash kernel where it applies (ops/attention.use_flash);
     # xla: the plain route; pallas: the kernel route, raising where the
-    # kernel cannot take the input (the JAX names)
+    # kernel cannot take the input; ring / ring_zigzag: ring attention
+    # over the mesh's sp axis (ops/ring_attention; the JAX names)
     attn_impl: str = "auto"
+    # > 0: pipeline the layer stack over the mesh's pp axis in this many
+    # microbatches (parallel/pipeline)
+    pp_microbatches: int = 0
+    # > 1: virtual stages a pp rank (interleaved 1F1B only)
+    pp_interleave: int = 1
     # dtype of the lm-head cotangent in the unfused head's backward
     head_bwd_dtype: str = "float32"
 
@@ -280,9 +286,7 @@ class EngineConfig(_JsonOverlayMixin):
 @dataclass
 class MeshConfig:
     """Device-mesh layout (the JAX ``MeshConfig``): dp x pp x sp x tp
-    ranks, one process a device. ``dp=-1`` takes the ranks that remain.
-    Only dp and tp are ported; pp and sp above 1 raise in
-    ``parallel/mesh.make_mesh``."""
+    ranks, one process a device. ``dp=-1`` takes the ranks that remain."""
 
     dp: int = -1                       # -1: all remaining devices
     pp: int = 1                        # pipeline parallel (layer stages)

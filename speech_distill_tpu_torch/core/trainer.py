@@ -182,6 +182,16 @@ def train_loop(step_fn: Callable, state, frozen_args: tuple,
     done = False
     best = {"loss": float("inf"), "step": None}
 
+    # the last saved step, kept here: a rank that read the directory would
+    # see the primary's new file or not depending on timing, and skip or
+    # enter the save's collectives unlike the others
+    saved = {"step": latest}
+
+    def save():
+        if saved["step"] != global_step:
+            ckpt.save(global_step, state)
+            saved["step"] = global_step
+
     def run_eval():
         eval_metrics = eval_fn(state)
         logger.log(global_step,
@@ -190,8 +200,7 @@ def train_loop(step_fn: Callable, state, frozen_args: tuple,
         if loss < best["loss"]:
             best["loss"] = loss
             best["step"] = global_step
-            if ckpt.latest_step() != global_step:
-                ckpt.save(global_step, state)
+            save()
 
     for epoch in range(cfg.num_epochs):
         if done:
@@ -206,7 +215,7 @@ def train_loop(step_fn: Callable, state, frozen_args: tuple,
             if global_step % cfg.logging_steps == 0:
                 logger.log(global_step, metrics, tokens_per_batch)
             if cfg.save_steps and global_step % cfg.save_steps == 0:
-                ckpt.save(global_step, state)
+                save()
             if cfg.eval_steps and eval_fn and \
                     global_step % cfg.eval_steps == 0:
                 run_eval()
@@ -215,10 +224,9 @@ def train_loop(step_fn: Callable, state, frozen_args: tuple,
                 break
         if eval_fn and not cfg.eval_steps and not to_skip:
             run_eval()                        # per-epoch eval (reference)
-        if not cfg.save_steps and ckpt.latest_step() != global_step:
-            ckpt.save(global_step, state)     # per-epoch save (reference)
-    if ckpt.latest_step() != global_step:
-        ckpt.save(global_step, state)
+        if not cfg.save_steps:
+            save()                            # per-epoch save (reference)
+    save()
     ckpt.wait()
     if (cfg.load_best_at_end and eval_fn and best["step"] is not None
             and best["step"] != global_step):

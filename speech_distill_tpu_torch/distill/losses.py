@@ -94,31 +94,28 @@ def sparse_distill_loss(student_logits: torch.Tensor,
                         alpha: float = 0.5) -> DistillLossOutput:
     """Sparse top-K path. teacher_top_k_v: [B, T, K] teacher logprobs (any
     float dtype); teacher_top_k_i: [B, T, K] indices into the student
-    vocab; student_logits [B, T, V]."""
-    T = temperature
-    s = student_logits[:, :-1, :].float()
-    v = teacher_top_k_v[:, :-1, :].float().detach()
+    vocab; student_logits [B, T, V]. :func:`sparse_distill_sums` of the
+    shifted inputs over the batch's own (global) counts."""
+    shift_labels, valid, idx, denom, n_hits = sparse_targets(
+        labels, speech_token_mask, teacher_top_k_i)
+    return sparse_distill_sums(
+        student_logits[:, :-1, :], shift_labels, valid,
+        teacher_top_k_v[:, :-1, :], idx, denom, n_hits, temperature, alpha)
+
+
+def sparse_targets(labels: torch.Tensor,
+                   speech_token_mask: Optional[torch.Tensor],
+                   teacher_top_k_i: torch.Tensor):
+    """The shifted targets of :func:`sparse_distill_sums` for a batch:
+    (labels [B, T-1], fp32 valid mask, top-K indices [B, T-1, K], denom,
+    n_hits), the two counts global (``comm.global_count``) and at least 1
+    (data only)."""
+    shift_labels, valid = _shift_and_mask(labels.long(), speech_token_mask)
     idx = teacher_top_k_i[:, :-1, :].long()
-    shift_labels, valid = _shift_and_mask(labels, speech_token_mask)
-
-    # teacher distribution renormalised over its top-K at temperature T
-    log_p = torch.log_softmax(v / T, dim=-1)
-    p = log_p.exp()
-    # student log-probs at the teacher indices, gather-then-normalise
-    lse_t = torch.logsumexp(s / T, dim=-1)
-    log_q = s.gather(-1, idx) / T - lse_t[..., None]
-
-    kl_per_pos = (p * (log_p - log_q)).sum(-1)
-    distill = _masked_mean(kl_per_pos, valid) * (T * T)
-    task = _masked_mean(_ce_per_pos(s, shift_labels), valid)
-
     hits = (idx == shift_labels[..., None]).float() * valid[..., None]
-    n_hits = global_count(hits.sum())
-    teacher = torch.where(n_hits > 0,
-                          -(v * hits).sum() / n_hits.clamp_min(1.0),
-                          torch.zeros_like(n_hits))
-    total = alpha * task + (1.0 - alpha) * distill
-    return DistillLossOutput(total, task, distill, teacher)
+    return (shift_labels, valid, idx,
+            global_count(valid.sum()).clamp_min(1.0),
+            global_count(hits.sum()).clamp_min(1.0))
 
 
 def distillation_loss(student_logits: torch.Tensor,
@@ -141,6 +138,42 @@ def distillation_loss(student_logits: torch.Tensor,
                                    teacher_top_k_i, labels,
                                    speech_token_mask, temperature, alpha)
     raise ValueError("Either teacher_logits or top_k values must be provided")
+
+
+def sparse_distill_sums(student_logits_shifted: torch.Tensor,
+                        shift_labels: torch.Tensor, valid: torch.Tensor,
+                        teacher_v_shifted: torch.Tensor,
+                        teacher_i_shifted: torch.Tensor,
+                        denom: torch.Tensor, n_hits: torch.Tensor,
+                        temperature: float = 2.0,
+                        alpha: float = 0.5) -> DistillLossOutput:
+    """The sparse top-K losses in sum form over a slice of the batch,
+    normalised by global denominators (the JAX ``sparse_distill_sums``):
+    the outputs of disjoint row slices sum to the full batch's masked
+    means. The per-microbatch head of the 1F1B schedule; over the whole
+    batch, :func:`sparse_distill_loss`.
+
+    Every input is pre-shifted ([B_mb, T-1, ...]); ``valid`` is the slice's
+    fp32 validity mask; ``denom`` = max(global count of valid, 1) and
+    ``n_hits`` = max(global count of top-K gold hits, 1) come from the
+    whole batch (data only, no gradient)."""
+    T = temperature
+    s = student_logits_shifted.float()
+    v = teacher_v_shifted.float().detach()
+    idx = teacher_i_shifted.long()
+    # teacher distribution renormalised over its top-K at temperature T
+    log_p = torch.log_softmax(v / T, dim=-1)
+    p = log_p.exp()
+    # student log-probs at the teacher indices, gather-then-normalise
+    lse_t = torch.logsumexp(s / T, dim=-1)
+    log_q = s.gather(-1, idx) / T - lse_t[..., None]
+    kl_per_pos = (p * (log_p - log_q)).sum(-1)
+    distill = (kl_per_pos * valid).sum() / denom * (T * T)
+    task = (_ce_per_pos(s, shift_labels) * valid).sum() / denom
+    hits = (idx == shift_labels[..., None]).float() * valid[..., None]
+    teacher = -(v * hits).sum() / n_hits
+    total = alpha * task + (1.0 - alpha) * distill
+    return DistillLossOutput(total, task, distill, teacher)
 
 
 def segmented_top_k(x: torch.Tensor, k: int, group: int = 64):

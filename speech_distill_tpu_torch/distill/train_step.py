@@ -24,19 +24,29 @@ The JAX step donates its state; the port updates the trainable tensors of
 the state in place the same way (``donate=True``), or leaves them as they
 were and returns new ones (``donate=False``). ``make_optimizer`` also
 builds the 8-bit AdamW (``distill/optim8bit``) and the one-traversal
-clip + AdamW (:func:`adamw` with ``fused=True``). The split apply and the 1F1B
-pipeline are not ported yet and raise.
+clip + AdamW (:func:`adamw` with ``fused=True``). The split apply is not
+ported yet and raises (ROADMAP §1 item 15).
 
-``mesh`` (``parallel/mesh.Mesh``): the step of one rank of a dp x tp run
-(the JAX step over a ``NamedSharding``-placed state). The student and the
-teacher are sharded by ``parallel/sharding.shard_params``, the trainable
-tree holds the rank's slices, the batch its dp rows. The loss divides by
-counts summed over dp (``comm.dp_denominators``), the gradients of
-leaves whole on every tp rank but computed in part are summed over tp
-(``sharding.tp_partial``), every gradient over dp, and the clip's norm
-counts each tp-sharded leaf once over its shards. ``zero1``: each rank
-keeps its dp slice of the AdamW moments (``sharding.shard_opt_state``),
-updates that slice of each leaf and all-gathers the result over dp.
+``mesh`` (``parallel/mesh.Mesh``): the step of one rank of a dp x pp x sp
+x tp run (the JAX step over a ``NamedSharding``-placed state). The student
+and the teacher are sharded by ``parallel/sharding.shard_params``, the
+trainable tree holds the rank's slices, the batch its dp rows. The loss
+divides by counts summed over dp and sp (``comm.dp_denominators``), the
+gradients of leaves whole on every tp rank but computed in part are
+summed over tp (``sharding.tp_partial``), every gradient over dp and sp,
+and the clip's norm counts each tp- or pp-sharded leaf once over its
+shards. ``zero1``: each rank keeps its dp slice of the AdamW moments
+(``sharding.shard_opt_state``), updates that slice of each leaf and
+all-gathers the result over dp.
+
+Under sp (a ring ``attn_impl``) each rank's forward gives its positions
+of the sequence (``qwen3.sequence_layout``) and the losses read their
+targets, shifted on the whole sequence first (``sharding.
+split_sequence``). Under pp the student's stack runs GPipe inside
+``forward_train`` (``pp_schedule="gpipe"``) or the hand-scheduled 1F1B
+(``"1f1b"``, interleaved with ``cfg.pp_interleave``; precomputed mode):
+every stage gets the loss and the same gradient of each leaf replicated
+over pp (embed, head, final norm), and its own layers' gradients.
 """
 from __future__ import annotations
 
@@ -320,42 +330,44 @@ def init_state(trainable: Params, optimizer: Optimizer) -> TrainState:
     return TrainState(trainable, optimizer.init(trainable), 0)
 
 
-def _has_tp(spec) -> bool:
-    return any(a == "tp" or (isinstance(a, tuple) and "tp" in a)
-               for a in spec)
+def _sharded_axes(spec) -> tuple:
+    """The model axes (tp, pp) a leaf's spec splits it over."""
+    axes = set()
+    for a in spec:
+        axes.update(a if isinstance(a, tuple) else (a,))
+    return tuple(a for a in ("pp", "tp") if a in axes)
 
 
 def mesh_norm(grads: Params, specs: Params, mesh) -> torch.Tensor:
-    """The global norm of a tree of one rank's slices (dp-reduced
-    gradients): each tp-sharded leaf's squares summed over tp, each whole
-    leaf counted once."""
-    whole = sharded = None
+    """The global norm of a tree of one rank's slices (dp- and sp-reduced
+    gradients): each tp- or pp-sharded leaf's squares summed over its
+    axes, each whole leaf counted once."""
+    sums: dict = {}
     for g, spec in zip(tree_leaves(grads), tree_leaves(specs)):
+        key = _sharded_axes(spec)
         sq = g.float().square().sum()
-        if _has_tp(spec):
-            sharded = sq if sharded is None else sharded + sq
-        else:
-            whole = sq if whole is None else whole + sq
+        sums[key] = sq if key not in sums else sums[key] + sq
     total = torch.zeros((), device=tree_leaves(grads)[0].device)
-    if sharded is not None:
-        total = total + comm.all_reduce(sharded, mesh.group("tp"))
-    if whole is not None:
-        total = total + whole
+    for key in sorted(sums, key=lambda k: (not k, k)):   # whole ones last
+        total = total + comm.all_reduce_over(
+            sums[key], *(mesh.group(a) for a in key))
     return torch.sqrt(total)
 
 
 def sync_grads(grads: Params, partial: Params, mesh) -> Params:
     """One rank's gradients made those of the global step: the leaves
     each tp rank computes in part (``sharding.tp_partial``) summed over
-    tp, then every leaf summed over dp (the loss's counts are global, so
-    the sum is the global batch's gradient)."""
-    tp, dp = mesh.group("tp"), mesh.group("dp")
+    tp, then every leaf summed over dp and sp (the loss's counts are
+    global, so the sum is the global batch's gradient). Leaves replicated
+    over pp already hold the same gradient on every stage."""
+    tp, dp, sp = mesh.group("tp"), mesh.group("dp"), mesh.group("sp")
     out = []
     for g, part in zip(tree_leaves(grads), tree_leaves(partial)):
         g = g.contiguous()
         if part:
             comm.all_reduce_(g, tp)
-        out.append(comm.all_reduce_(g, dp))
+        comm.all_reduce_(g, dp)
+        out.append(comm.all_reduce_(g, sp))
     return tree_unflatten(grads, out)
 
 
@@ -470,6 +482,176 @@ def check_width(teacher_width: int, student_vocab: int) -> None:
                          f"{student_vocab}")
 
 
+def _batch_groups(mesh) -> tuple:
+    """The groups a loss's counts and metrics are summed over: dp, and sp
+    (each sp rank holds a piece of every sequence)."""
+    return () if mesh is None else (mesh.group("dp"), mesh.group("sp"))
+
+
+def _split(base: qwen3.Qwen3, mb: dict, mesh):
+    """Under sp: (the student's ``qwen3.sequence_layout``, the targets of
+    this rank's positions, ``sharding.split_sequence``) of the microbatch;
+    None otherwise."""
+    if mesh is None or mesh.sp == 1:
+        return None
+    from speech_distill_tpu_torch.parallel.sharding import split_sequence
+    T = mb["input_ids"].shape[1]
+    layout = qwen3.sequence_layout(base, T, mb["input_ids"].device)
+    if layout is None:
+        raise ValueError(
+            f"sp={mesh.sp} needs the student's attn_impl 'ring' or "
+            f"'ring_zigzag' (it is {base.cfg.attn_impl!r}) and a sequence "
+            f"length dividing by sp (it is {T})")
+    keep = ("labels", "speech_token_mask", "teacher_top_k_v",
+            "teacher_top_k_i")
+    return layout, split_sequence({k: v for k, v in mb.items()
+                                   if k in keep}, layout[0])
+
+
+def _local_teacher(t_out, teacher, T: int, layout):
+    """The teacher's outputs at this sp rank's positions (the student's
+    ``layout``): as they come when the teacher's forward splits the
+    length-T sequence too (``qwen3.sequence_layout``), which must then be
+    the student's split, else taken there."""
+    own = qwen3.sequence_layout(teacher, T)
+    if own is not None:
+        if own[1] != layout[1]:
+            raise ValueError("the teacher and the student split the "
+                             "sequence over sp differently (one zig-zag, "
+                             "one contiguous): give both one ring "
+                             "attn_impl")
+        return t_out
+    pos = layout[0]
+    return tuple(t.index_select(1, pos) for t in t_out) \
+        if isinstance(t_out, tuple) else t_out.index_select(1, pos)
+
+
+def _pad_row(t: torch.Tensor, value, first: bool) -> torch.Tensor:
+    pad = torch.full_like(t[:, :1], value)
+    return torch.cat([pad, t] if first else [t, pad], dim=1)
+
+
+def _presplit_loss_inputs(acts, targets: dict, t_out):
+    """The losses' inputs for pre-shifted targets: the losses drop the
+    last position of the logits (and the top-K) and the first of the
+    labels (and the speech mask), so each gets one padding position there
+    and the rank's own positions meet their own targets."""
+    mb = {}
+    for k, v in targets.items():
+        if k in ("labels", "speech_token_mask"):
+            mb[k] = _pad_row(v, -100 if k == "labels" else 0, True)
+        else:
+            mb[k] = _pad_row(v, 0, False)
+    if t_out is not None:
+        t_out = tuple(_pad_row(t, 0, False) for t in t_out) \
+            if isinstance(t_out, tuple) else _pad_row(t_out, 0, False)
+    return _pad_row(acts, 0, False), mb, t_out
+
+
+def _make_1f1b_loss_and_grad(student_cfg: Qwen3Config,
+                             distill_cfg: DistillConfig, lcfg: LoraConfig,
+                             use_lora: bool, merge_weights: bool, mesh):
+    """Loss and gradients of the precomputed sparse-KD step under the
+    hand-scheduled 1F1B pipeline (``parallel/pipeline.
+    pipelined_grads_interleaved``; ``cfg.pp_interleave`` > 1 adds virtual
+    stages), the JAX ``_make_1f1b_grad_fn``: the head runs per microbatch
+    on the last stage in sum form over global denominators
+    (``losses.sparse_distill_sums``), so the summed microbatches give the
+    full-batch masked means; the embedding's gradient chains through the
+    pipeline input's (``g_x``), a tied head's is added into it; the frozen
+    base stack gets no gradient (LoRA), full finetuning its layers'."""
+    from speech_distill_tpu_torch.parallel.pipeline import (
+        mesh_pp, pipelined_grads_interleaved)
+    if mesh_pp(mesh) <= 1:
+        raise ValueError("pp_schedule='1f1b' needs a mesh with pp > 1")
+    if merge_weights:
+        raise ValueError("pp_schedule='1f1b' differentiates the adapter "
+                         "stack directly; merge_weights is unsupported")
+    M, V = student_cfg.pp_microbatches, max(student_cfg.pp_interleave, 1)
+    if M <= 0:
+        raise ValueError("pp_schedule='1f1b' requires pp_microbatches > 0")
+    cfg = student_cfg
+    names = ("student_loss", "distill_loss", "teacher_loss")
+
+    def loss_and_grad(trainable: Params, mb: dict, base: qwen3.Qwen3,
+                      teacher):
+        del teacher                  # precomputed: the top-K rides the batch
+        st = _effective_student(trainable, lcfg, use_lora)
+        ids, labels = mb["input_ids"].long(), mb["labels"]
+        smask = mb.get("speech_token_mask")
+        B, T = ids.shape
+        dev = ids.device
+        full_ft = not use_lora
+        tied = base.lm_head is None
+        embed_grad = full_ft or "embed" in trainable
+        head_grad = full_ft or "lm_head" in trainable or (tied and
+                                                          embed_grad)
+        tp = qwen3.tp_group(base)
+        table = base.embed if st.embed is None else st.embed
+        with torch.set_grad_enabled(embed_grad):
+            x = qwen3.vocab_lookup(table, ids, tp)
+        positions = torch.arange(T, device=dev)[None].expand(B, T)
+        cos, sin = qwen3.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+        bias = qwen3.causal_bias(mb["attention_mask"], B, T, dev)
+        # targets and global denominators of the sum-form head
+        shift, valid, idx_s, denom, n_hits = losses.sparse_targets(
+            labels, smask, mb["teacher_top_k_i"])
+        v_s = mb["teacher_top_k_v"][:, :-1]
+        mbs = B // M
+
+        # the stage's chunks: local layers [v Lc, (v + 1) Lc)
+        src = st.weights["layers"] if full_ft else st.adapters
+        leaves = tree_leaves(src) if src is not None else []
+        Lc = len(base.layers) // V
+        chunk_leaves = [[l[v * Lc:(v + 1) * Lc] for l in leaves]
+                        for v in range(V)]
+        run_chunk = qwen3.stage_chunk_fn(base, src, cos, sin, bias, mbs, Lc,
+                                         full_ft=full_ft,
+                                         scale=st.adapter_scale)
+
+        w_local = qwen3.lm_head_weight(base, st.embed, st.lm_head)
+        ln = st.weights["final_ln"]["scale"] if full_ft else base.final_ln
+        head_leaves = [w_local, ln] if head_grad else []
+
+        def head_fn(h, m, hl):
+            w, g = (hl if hl else (w_local, ln))
+            rows = slice(m * mbs, (m + 1) * mbs)
+            hn = qwen3.rms_norm(h, g, cfg.rms_norm_eps)
+            # the unfused head's product (fp32 logits and cotangent)
+            s = qwen3.unembed_train(hn[:, :-1],
+                                    comm.gather_from_tp(w, tp, 0), cfg)
+            out = losses.sparse_distill_sums(
+                s, shift[rows], valid[rows], v_s[rows], idx_s[rows], denom,
+                n_hits, distill_cfg.temperature, distill_cfg.alpha)
+            return out.total, {"student_loss": out.task,
+                               "distill_loss": out.distill,
+                               "teacher_loss": out.teacher}
+
+        res = pipelined_grads_interleaved(
+            run_chunk, chunk_leaves, x.detach(), head_fn, head_leaves, mesh,
+            M, V, grad_x=embed_grad, metric_names=names)
+        g_layers = [torch.cat([res.g_chunks[v][j] for v in range(V)])
+                    for j in range(len(leaves))]
+        grads: Params = {}
+        if src is not None:
+            grads["layers"] = tree_unflatten(src, g_layers)
+        g_w = res.g_head[0] if head_grad else None
+        if embed_grad:
+            (g_e,) = torch.autograd.grad(x, table, res.g_x.to(x.dtype))
+            g_e = g_e.float()
+            if tied and head_grad:
+                g_e = g_e + g_w
+            grads["embed"] = {"weight": g_e}
+        if "lm_head" in trainable:
+            grads["lm_head"] = {"weight": g_w}
+        if full_ft:
+            grads["final_ln"] = {"scale": res.g_head[1]}
+        metrics = {"loss": res.loss, **res.metrics}
+        return tree_unflatten(trainable, tree_leaves(grads)), metrics
+
+    return loss_and_grad
+
+
 def _check_mode(mode: str) -> None:
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r} ({MODES})")
@@ -525,17 +707,18 @@ def make_kd_step(student_cfg: Qwen3Config, distill_cfg: DistillConfig,
     """
     dev = resolve_device(device if mesh is None else mesh.device)
     _check_mode(mode)
-    if mesh is not None:
-        from speech_distill_tpu_torch.parallel.mesh import check_ported
-        check_ported(mesh.shape)
     if fused_backend not in BACKENDS:
         raise ValueError(f"unknown fused_backend {fused_backend!r}")
     if split_apply:
-        raise NotImplementedError("split_apply is not ported")
-    if pp_schedule == "1f1b":
-        raise NotImplementedError("pp_schedule='1f1b' is not ported")
-    if pp_schedule != "gpipe":
+        raise NotImplementedError("split_apply is not ported (ROADMAP §1 "
+                                  "item 15)")
+    if pp_schedule not in ("gpipe", "1f1b"):
         raise ValueError(f"unknown pp_schedule {pp_schedule!r}")
+    if pp_schedule == "1f1b" and mode != "precomputed":
+        raise ValueError(
+            "pp_schedule='1f1b' supports mode='precomputed'; for online KD "
+            "disaggregate the teacher (--teacher_devices), which streams "
+            "precomputed-style artifacts")
     if head_loss not in ("fused", "unfused"):
         raise ValueError(f"unknown head_loss {head_loss!r}")
     lcfg = distill_cfg.lora
@@ -544,18 +727,29 @@ def make_kd_step(student_cfg: Qwen3Config, distill_cfg: DistillConfig,
     fused_head = fused_loss or head_loss == "fused"
     teacher_forward, teacher_extract = _teacher_routes(
         student_cfg, distill_cfg, mode, teacher_forward, teacher_extract)
+    pp_1f1b = None
+    if pp_schedule == "1f1b":
+        pp_1f1b = _make_1f1b_loss_and_grad(student_cfg, distill_cfg, lcfg,
+                                           use_lora, merge_weights, mesh)
 
     def loss_and_grad(trainable: Params, mb: dict, base: qwen3.Qwen3,
                       teacher):
         # the teacher first: its logits are freed (sparse) before the
         # student's are made
+        split = _split(base, mb, mesh)
         if mode != "precomputed":
             t_out = _online_teacher(mode, student_cfg, distill_cfg,
                                     teacher_forward, teacher_extract,
                                     teacher, mb)
+            if split is not None:
+                t_out = _local_teacher(t_out, teacher,
+                                       mb["input_ids"].shape[1], split[0])
         st = _effective_student(trainable, lcfg, use_lora)
         acts = _student_forward(base, st, mb, merge_weights, fused_head, dev)
         head = qwen3.full_lm_head(base, st.embed, st.lm_head)
+        if split is not None:
+            acts, mb, t_out = _presplit_loss_inputs(
+                acts, split[1], t_out if mode != "precomputed" else None)
         labels, smask = mb["labels"], mb.get("speech_token_mask")
         if mode == "online_dense":
             if fused_head:
@@ -585,11 +779,13 @@ def make_kd_step(student_cfg: Qwen3Config, distill_cfg: DistillConfig,
         return (tree_unflatten(trainable, list(grads)),
                 {k: m.detach() for k, m in metrics.items()})
 
-    dp = mesh.group("dp") if mesh is not None else None
+    if pp_1f1b is not None:
+        loss_and_grad = pp_1f1b     # noqa: F811
+    groups = _batch_groups(mesh)
 
     def step(state: TrainState, base: qwen3.Qwen3, teacher, batch: dict):
         batch = _batch_to(batch, dev)
-        with comm.dp_denominators(dp):
+        with comm.dp_denominators(*groups):
             grads, metrics = _accumulate(
                 lambda tr, mb: loss_and_grad(tr, mb, base, teacher),
                 state.trainable, batch)
@@ -602,10 +798,11 @@ def make_kd_step(student_cfg: Qwen3Config, distill_cfg: DistillConfig,
             return TrainState(trainable, opt_state, state.step + 1), metrics
         from speech_distill_tpu_torch.parallel import sharding
         specs = sharding.trainable_pspecs(state.trainable, student_cfg,
-                                          use_lora)
+                                          use_lora, mesh)
         grads = sync_grads(grads, sharding.tp_partial(state.trainable,
                                                       use_lora), mesh)
-        metrics = {k: comm.all_reduce(v, dp) for k, v in metrics.items()}
+        metrics = {k: comm.all_reduce_over(v, *groups)
+                   for k, v in metrics.items()}
         g_norm = metrics["grad_norm"] = mesh_norm(grads, specs, mesh)
         if zero1:
             trainable, opt_state = zero1_update(optimizer, grads, state,
@@ -631,10 +828,11 @@ def make_kd_eval_step(student_cfg: Qwen3Config, distill_cfg: DistillConfig,
     ``dense_distill_loss``) under ``torch.no_grad``, each metric averaged
     over the batch's microbatch axis A. Online modes extract with
     ``losses.extract_top_k`` from the teacher's logits, as in JAX.
-    ``mesh``: one rank of a dp x tp run (its dp rows, its slices); the
-    metrics are the global batch's on every rank."""
+    ``mesh``: one rank of a dp x pp x sp x tp run (its dp rows, its
+    slices; its positions under sp); the metrics are the global batch's on
+    every rank."""
     dev = resolve_device(device if mesh is None else mesh.device)
-    dp = mesh.group("dp") if mesh is not None else None
+    groups = _batch_groups(mesh)
     _check_mode(mode)
     lcfg = distill_cfg.lora
     T, alpha = distill_cfg.temperature, distill_cfg.alpha
@@ -642,11 +840,18 @@ def make_kd_eval_step(student_cfg: Qwen3Config, distill_cfg: DistillConfig,
                                          teacher_forward, None)
 
     def one(trainable, mb, base, teacher):
+        split = _split(base, mb, mesh)
         if mode != "precomputed":
             t_out = _online_teacher(mode, student_cfg, distill_cfg,
                                     teacher_forward, None, teacher, mb)
+            if split is not None:
+                t_out = _local_teacher(t_out, teacher,
+                                       mb["input_ids"].shape[1], split[0])
         st = _effective_student(trainable, lcfg, use_lora)
         logits = _student_forward(base, st, mb, merge_weights, False, dev)
+        if split is not None:
+            logits, mb, t_out = _presplit_loss_inputs(
+                logits, split[1], t_out if mode != "precomputed" else None)
         labels, smask = mb["labels"], mb.get("speech_token_mask")
         if mode == "online_dense":
             out = losses.dense_distill_loss(logits, t_out, labels, smask, T,
@@ -663,11 +868,11 @@ def make_kd_eval_step(student_cfg: Qwen3Config, distill_cfg: DistillConfig,
     def eval_step(trainable: Params, base: qwen3.Qwen3, teacher,
                   batch: dict):
         batch = _batch_to(batch, dev)
-        with comm.dp_denominators(dp):
+        with comm.dp_denominators(*groups):
             ms = [one(trainable, {k: v[a] for k, v in batch.items()}, base,
                       teacher) for a in range(batch["input_ids"].shape[0])]
-        return {k: comm.all_reduce(torch.stack([m[k] for m in ms]).mean(),
-                                   dp) for k in ms[0]}
+        return {k: comm.all_reduce_over(torch.stack([m[k] for m in ms])
+                                        .mean(), *groups) for k in ms[0]}
 
     return eval_step
 
@@ -697,14 +902,17 @@ def _batch_to(batch: dict, dev) -> dict:
     return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
 
 
-def make_stage1_eval_step(cfg: Qwen3Config, device="cuda"):
+def make_stage1_eval_step(cfg: Qwen3Config, device="cuda", mesh=None):
     """Loss-only stage-1 evaluation ``eval_step(trainable, base, batch)``:
     next-token CE over labels != -100 through the plain head (the fp32
     [B, T, V] logits are materialised, as in JAX). The batch carries the
     [A, B, T] microbatch axis; returns {"loss_sum", "n_tokens"} summed over
     it (sums, not means: the caller aggregates groups by their valid-token
-    count, so the overall metric is the exact per-token mean)."""
-    dev = resolve_device(device)
+    count, so the overall metric is the exact per-token mean). ``mesh``:
+    one rank of a dp x sp run (its dp rows, its positions under sp); the
+    sums are the global batch's on every rank."""
+    dev = resolve_device(device if mesh is None else mesh.device)
+    groups = _batch_groups(mesh)
 
     @torch.no_grad()
     def eval_step(trainable: Params, base: qwen3.Qwen3, batch: dict):
@@ -713,17 +921,22 @@ def make_stage1_eval_step(cfg: Qwen3Config, device="cuda"):
         loss_sum = torch.zeros((), device=dev)
         n_tokens = torch.zeros((), device=dev)
         for a in range(batch["input_ids"].shape[0]):
+            mb = {k: v[a] for k, v in batch.items()}
             logits = qwen3.forward_train(
-                base, batch["input_ids"][a],
-                attention_mask=batch["attention_mask"][a], embed=embed,
-                lm_head=lm_head, return_hidden=False, device=dev)
-            shift = batch["labels"][a][:, 1:]
+                base, mb["input_ids"], attention_mask=mb["attention_mask"],
+                embed=embed, lm_head=lm_head, return_hidden=False,
+                device=dev)
+            split = _split(base, mb, mesh)
+            if split is not None:
+                logits, mb, _ = _presplit_loss_inputs(logits, split[1], None)
+            shift = mb["labels"][:, 1:]
             valid = (shift != losses.IGNORE_INDEX).float()
             ce = losses._ce_per_pos(logits[:, :-1, :], shift)
             del logits
             loss_sum += (ce * valid).sum()
             n_tokens += valid.sum()
-        return {"loss_sum": loss_sum, "n_tokens": n_tokens}
+        return {"loss_sum": comm.all_reduce_over(loss_sum, *groups),
+                "n_tokens": comm.all_reduce_over(n_tokens, *groups)}
 
     return eval_step
 
@@ -731,7 +944,7 @@ def make_stage1_eval_step(cfg: Qwen3Config, device="cuda"):
 def make_stage1_step(cfg: Qwen3Config, optimizer: Optimizer,
                      old_vocab_size: int, donate: bool = True,
                      fused_loss: bool = False, fused_backend: str = "xla",
-                     device="cuda"):
+                     device="cuda", mesh=None):
     """The stage-1 SFT step ``step(state, base, batch) -> (state,
     metrics)``: next-token CE over labels != -100 (TRL SFT semantics) with
     only ``state.trainable`` = {"embed": ..., ["lm_head": ...]} trained
@@ -744,18 +957,27 @@ def make_stage1_step(cfg: Qwen3Config, optimizer: Optimizer,
     ``fused_cross_entropy`` with ``fused_backend`` "xla" (the chunked
     plain route) or "pallas" (the K2 op). Metrics: loss, grad_norm (of the
     masked grads, before clipping).
+
+    ``mesh``: one rank of a dp x sp run (tp 1, as the JAX CLI's stage-1
+    mesh): its dp rows, its positions of each sequence under sp (a ring
+    ``attn_impl``; the head, K2 on the card, on its B T / sp rows), the
+    counts and the gradients summed over dp and sp.
     """
-    dev = resolve_device(device)
+    dev = resolve_device(device if mesh is None else mesh.device)
     if fused_backend not in BACKENDS:
         raise ValueError(f"unknown fused_backend {fused_backend!r}")
+    groups = _batch_groups(mesh)
 
     def loss_and_grad(trainable: Params, mb: dict, base: qwen3.Qwen3):
         embed, lm_head = _stage1_tables(trainable)
-        labels = mb["labels"]
         acts = qwen3.forward_train(
             base, mb["input_ids"], attention_mask=mb["attention_mask"],
             embed=embed, lm_head=lm_head, return_hidden=fused_loss,
             device=dev)
+        split = _split(base, mb, mesh)
+        if split is not None:
+            acts, mb, _ = _presplit_loss_inputs(acts, split[1], None)
+        labels = mb["labels"]
         if fused_loss:
             head = qwen3.lm_head_weight(base, embed, lm_head)
             loss = fused_cross_entropy(acts, head, labels,
@@ -771,9 +993,15 @@ def make_stage1_step(cfg: Qwen3Config, optimizer: Optimizer,
 
     def step(state: TrainState, base: qwen3.Qwen3, batch: dict):
         batch = _batch_to(batch, dev)
-        grads, metrics = _accumulate(
-            lambda tr, mb: loss_and_grad(tr, mb, base), state.trainable,
-            batch)
+        with comm.dp_denominators(*groups):
+            grads, metrics = _accumulate(
+                lambda tr, mb: loss_and_grad(tr, mb, base), state.trainable,
+                batch)
+        if mesh is not None:
+            grads = tree_map(lambda g: comm.all_reduce_over(g, *groups),
+                             grads)
+            metrics = {k: comm.all_reduce_over(v, *groups)
+                       for k, v in metrics.items()}
         grads = mask_new_token_grads(grads, old_vocab_size)
         metrics["grad_norm"] = global_norm(grads)
         updates, opt_state = optimizer.update(grads, state.opt_state,

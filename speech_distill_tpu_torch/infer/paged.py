@@ -40,7 +40,9 @@ Differences from the JAX engine, by design:
     heads shard over tp ([L, P + 1, KV / tp, ps, Dh]) and every dp rank
     keeps every page, as JAX replicates the pool over dp: prefills run on
     every rank and each decode step's new KV rows are all-gathered over
-    dp. K4 and the prefill's K1-fwd run on the rank's heads. Every rank
+    dp. K4 and the prefill's K1-fwd run on the rank's heads. The ranks
+    of a pp or sp axis serve replicas (JAX's engine shards only over dp
+    and tp and replicates the rest); a pipelined model raises. Every rank
     makes the same admission, preemption, prefix and finish decisions
     from the same dp-gathered lengths, tokens and flags, and from rank
     0's clock; the draws are made for the global slot batch and sliced
@@ -73,7 +75,6 @@ from speech_distill_tpu_torch.ops.paged_attention import (
     paged_attention, paged_attention_plain, quantize_kv)
 from speech_distill_tpu_torch.ops.sampling import RowDraws
 from speech_distill_tpu_torch.parallel import comm
-from speech_distill_tpu_torch.parallel.mesh import check_ported
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -495,7 +496,12 @@ class PagedEngine:
         self.local_slots, self.row0 = slots, 0
         if mesh is not None:
             dp, tp = mesh.dp, mesh.tp
-            check_ported(mesh.shape)
+            if qwen3.pipelined(model):
+                raise ValueError("PagedEngine runs every layer on each "
+                                 "rank: pass a model without "
+                                 "pp_microbatches (its pp and sp ranks "
+                                 "serve replicas, as JAX's engine "
+                                 "replicates over pp and sp)")
             if slots % dp != 0:
                 raise ValueError(f"slots={slots} not divisible by dp={dp}")
             if cfg.num_key_value_heads % tp != 0:

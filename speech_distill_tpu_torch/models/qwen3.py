@@ -6,8 +6,19 @@ contiguous cache with per-row RoPE ``positions``, per-row write columns
 ``cache_positions`` and the layer-skip draft's ``num_layers``, under
 ``torch.no_grad``) and the grad-enabled :func:`forward_train` of the KD
 step (embed and head overrides, unmerged LoRA adapters through
-``ops/lora_linear``, per-layer activation checkpointing). Ring attention
-and pipelining belong to later slices.
+``ops/lora_linear``, per-layer activation checkpointing).
+
+Sequence parallelism (a model whose ``model.mesh`` has sp > 1 and whose
+``attn_impl`` is "ring" or "ring_zigzag"): both cache-less forwards take
+the whole [B, T] sequence on every sp rank and compute only the rank's
+positions (:func:`sequence_layout`: contiguous, or the zig-zag chunk
+pair), with RoPE at those global positions and attention over the ring
+(``ops/ring_attention``), no [B, 1, T, T] bias; they return that rank's
+[B, T / sp, ...] in natural order (``sharding.gather_sequence`` makes the
+whole). Pipeline parallelism (``cfg.pp_microbatches`` > 0 on a mesh with
+pp > 1, the model holding its stage's layers): the stack runs GPipe over
+pp (``parallel/pipeline.pipelined_layers``) and every stage gets the
+output. The two do not nest (``ValueError``, as in JAX).
 
 Tensor parallelism (a model from ``parallel/sharding.shard_params``: its
 rank's slices under the global ``cfg``, ``model.mesh`` set): q/k/v and
@@ -32,7 +43,7 @@ JAX pytree across leaf by leaf.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,7 +53,8 @@ from torch.utils.checkpoint import checkpoint
 
 from speech_distill_tpu_torch.core.config import Qwen3Config, torch_dtype
 from speech_distill_tpu_torch.core.device import resolve_device
-from speech_distill_tpu_torch.ops.attention import sdpa, use_flash
+from speech_distill_tpu_torch.ops.attention import (RING_IMPLS, sdpa,
+                                                    use_flash)
 from speech_distill_tpu_torch.ops.lora_linear import lora_linear
 from speech_distill_tpu_torch.ops.matmul import matmul_f32
 from speech_distill_tpu_torch.ops.quant import dequantize_array
@@ -171,7 +183,9 @@ def param_pspecs(cfg: Qwen3Config, pp: bool = False) -> dict:
     """Specs matching the JAX ``init_params`` tree (the JAX
     ``param_pspecs``): tp shards the vocab dim of embed / lm_head, the
     head dim of q/k/v (and their biases), the MLP hidden dim; the layer
-    axis leads with None (or "pp", not ported)."""
+    axis leads with None, or with "pp" for a pipelined model (in
+    interleaved chunk order under ``cfg.pp_interleave``:
+    ``sharding.Interleaved``)."""
     lead = "pp" if pp else None
     attn = {"q": (lead, None, "tp"), "k": (lead, None, "tp"),
             "v": (lead, None, "tp"), "o": (lead, "tp", None)}
@@ -193,6 +207,11 @@ def param_pspecs(cfg: Qwen3Config, pp: bool = False) -> dict:
         },
         "final_ln": {"scale": (None,)},
     }
+    if pp and cfg.pp_interleave > 1:
+        from speech_distill_tpu_torch.core.tree import tree_map
+        from speech_distill_tpu_torch.parallel.sharding import Interleaved
+        specs["layers"] = tree_map(
+            lambda sp: Interleaved(sp, cfg.pp_interleave), specs["layers"])
     if not cfg.tie_word_embeddings:
         specs["lm_head"] = {"weight": ("tp", None)}
     return specs
@@ -434,15 +453,111 @@ def o_proj_and_mlp(layer: DecoderLayer, x, o, cfg: Qwen3Config,
 def layer_forward(layer: DecoderLayer, x: torch.Tensor, cos, sin,
                   mask_bias, cfg: Qwen3Config,
                   la: Optional[LayerAdapters] = None, scale: float = 1.0,
-                  merge: bool = False, tp=None) -> torch.Tensor:
+                  merge: bool = False, tp=None, sp=None,
+                  zigzag: bool = False) -> torch.Tensor:
     """One decoder layer without a cache (the JAX ``_layer``), with
-    optional per-layer LoRA factors, on a tp rank's heads under ``tp``."""
+    optional per-layer LoRA factors, on a tp rank's heads under ``tp``;
+    ``sp``: the mesh whose sp ring the ring routes take, on this rank's
+    zig-zag chunk pair with ``zigzag`` (:func:`sequence_layout`)."""
     y = comm.copy_to_tp(rms_norm(x, layer.input_ln, cfg.rms_norm_eps), tp)
     q, k, v = qkv_proj(layer.attn, y, cos, sin, cfg,
                        la.get("attn") if la is not None else None, scale,
                        merge)
-    return o_proj_and_mlp(layer, x, sdpa(q, k, v, mask_bias, cfg.attn_impl),
-                          cfg, la, scale, merge, tp)
+    return o_proj_and_mlp(layer, x, sdpa(q, k, v, mask_bias, cfg.attn_impl,
+                                         sp, zigzag), cfg, la, scale, merge,
+                          tp)
+
+
+def sequence_layout(model, T: int, device=None):
+    """(positions, zigzag) of this sp rank's share of a length-T sequence
+    when the cache-less forward splits it: a ring ``attn_impl`` on a mesh
+    whose sp axis has more than one rank and divides T (the JAX
+    ``ring_available``); the zig-zag pair for "ring_zigzag" where T splits
+    into 2 sp chunks, else contiguous. None when the forward runs the
+    whole sequence (JAX then builds the bias). The one place the layout
+    is decided: the forwards, the steps' targets, the online teacher and
+    extraction all read it. ``model``: a :class:`Qwen3`, or a model
+    holding one as ``backbone`` (the CosyVoice2 teacher)."""
+    from speech_distill_tpu_torch.ops import ring_attention as ra
+    model = getattr(model, "backbone", model)
+    cfg, mesh = model.cfg, getattr(model, "mesh", None)
+    if cfg.attn_impl not in RING_IMPLS or not ra.ring_available(mesh, T):
+        return None
+    zz = cfg.attn_impl == "ring_zigzag" and ra.zigzag_available(mesh, T)
+    return ra.local_positions(T, mesh, zz, device), zz
+
+
+def pipelined(model: Qwen3) -> bool:
+    """Whether the model's cache-less forward pipelines its stack over pp
+    (``sharding.pp_sharded`` on ``model.mesh``)."""
+    from speech_distill_tpu_torch.parallel.sharding import pp_sharded
+    return pp_sharded(model.cfg, getattr(model, "mesh", None))
+
+
+def _stack(model: Qwen3, layers, x, cos, sin, mask_bias, layout, *,
+           adapters=None, scale: float = 1.0, merge: bool = False,
+           weights: Optional[dict] = None, remat: bool = False):
+    """The decoder stack of the cache-less forwards: each layer in turn
+    (checkpointed with ``remat``), the ring over sp with a ``layout``, or
+    GPipe over pp for a pipelined model. ``adapters`` (stacked LoRA
+    factors) or ``weights["layers"]`` (full finetuning) are this stage's
+    and ride the pipeline as its trainable leaves."""
+    cfg, tp = model.cfg, tp_group(model)
+    sp = model.mesh if layout is not None else None
+    zigzag = layout is not None and layout[1]
+    if not pipelined(model):
+        per_layer = _layer_adapters(adapters, len(layers))
+        for layer, la in zip(layers, per_layer):
+            args = (layer, x, cos, sin, mask_bias, cfg, la, scale, merge, tp,
+                    sp, zigzag)
+            x = (checkpoint(layer_forward, *args, use_reentrant=False)
+                 if remat else layer_forward(*args))
+        return x
+    if layout is not None:
+        raise ValueError("ring attention (sp) and pipeline (pp) cannot "
+                         "nest; use one of them")
+    from speech_distill_tpu_torch.core.tree import tree_leaves
+    from speech_distill_tpu_torch.parallel.pipeline import pipelined_layers
+    src = weights["layers"] if weights is not None else adapters
+    M, V = cfg.pp_microbatches, max(cfg.pp_interleave, 1)
+    Lc = len(layers) // V
+    run = stage_chunk_fn(model, src, cos, sin, mask_bias, x.shape[0] // M,
+                         Lc, full_ft=weights is not None, scale=scale,
+                         merge=merge)
+
+    def run_chunk(v, h, m, leaves):   # GPipe gives a chunk the whole leaves
+        return run(v, h, m, [t[v * Lc:(v + 1) * Lc] for t in leaves])
+    leaves = tree_leaves(src) if src is not None else []
+    return pipelined_layers(run_chunk, x, model.mesh, M, leaves, V)
+
+
+def stage_chunk_fn(model: Qwen3, src: Optional[dict], cos, sin, mask_bias,
+                   mb: int, Lc: int, *, full_ft: bool, scale: float = 1.0,
+                   merge: bool = False) -> Callable:
+    """``run_chunk(v, h, m, leaves)`` of the pipeline schedules
+    (``parallel/pipeline.py``): this stage's chunk ``v`` (its local layers
+    [v Lc, (v + 1) Lc)) applied to microbatch ``m``'s activations ``h``
+    (rows [m mb, (m + 1) mb) of ``cos`` / ``sin`` / ``mask_bias``).
+    ``leaves`` are the chunk's slices of the leaves of ``src``: stacked
+    LoRA factors, or with ``full_ft`` the JAX-layout stacked layer tree
+    read in place of the model's layers; ``src`` None is a frozen stack."""
+    from speech_distill_tpu_torch.core.tree import tree_unflatten
+    cfg, tp = model.cfg, tp_group(model)
+
+    def run_chunk(v, h, m, leaves):
+        rows = slice(m * mb, (m + 1) * mb)
+        tree = (tree_unflatten(src, list(leaves)) if src is not None
+                else None)
+        if full_ft:
+            lays, per = _layer_views(tree, Lc), [None] * Lc
+        else:
+            lays = model.layers[v * Lc:(v + 1) * Lc]
+            per = _layer_adapters(tree, Lc)
+        for layer, la in zip(lays, per):
+            h = layer_forward(layer, h, cos[rows], sin[rows],
+                              mask_bias[rows], cfg, la, scale, merge, tp)
+        return h
+    return run_chunk
 
 
 def _check_flash_prefill(attention_mask: Optional[torch.Tensor],
@@ -487,7 +602,10 @@ def forward(model: Qwen3, input_ids: torch.Tensor, *,
     what a full forward writes, layers >= K keep their cache contents.
     ``inputs_embeds`` [B, T, D] replaces the embedding lookup
     (``input_ids`` is then unused and may be None), as the CosyVoice2
-    teacher's unified table needs.
+    teacher's unified table needs. Without a cache the forward may split
+    the sequence over sp or pipeline the stack over pp (see the module
+    docstring): it then embeds and returns only this sp rank's positions
+    (:func:`sequence_layout`).
 
     The cache is updated in place; the returned :class:`KVCache` shares
     its tensors with length ``cache.length + T`` (callers may rewind it
@@ -500,21 +618,29 @@ def forward(model: Qwen3, input_ids: torch.Tensor, *,
     """
     cfg = model.cfg
     tp = tp_group(model)
-    x = (embed_tokens(model, input_ids) if inputs_embeds is None
-         else inputs_embeds)
+    x = input_ids if inputs_embeds is None else inputs_embeds
     B, T = x.shape[:2]
-    dev = x.device
+    dev = model.device if inputs_embeds is None else x.device
     if cache is None:
         if num_layers is not None or cache_positions is not None:
             raise NotImplementedError(
                 "num_layers and cache_positions are cache-path features")
         if positions is None:
             positions = torch.arange(T, device=dev)[None].expand(B, T)
+        layout = sequence_layout(model, T, dev)
+        mask_bias = None
+        if layout is not None:        # this rank's positions, ids or rows
+            x = x.index_select(1, layout[0].to(x.device))
+            positions = positions[:, layout[0]]
+        else:
+            mask_bias = causal_bias(attention_mask, B, T, dev)
+        if inputs_embeds is None:
+            x = embed_tokens(model, x)
         cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
-        mask_bias = causal_bias(attention_mask, B, T, dev)
-        for layer in model.layers:
-            x = layer_forward(layer, x, cos, sin, mask_bias, cfg, tp=tp)
+        x = _stack(model, model.layers, x, cos, sin, mask_bias, layout)
     else:
+        if inputs_embeds is None:
+            x = embed_tokens(model, x)
         S, start = cache.k.shape[2], cache.length
         k_pos = torch.arange(S, device=dev)
         if cache_positions is not None:
@@ -627,7 +753,10 @@ def forward_train(model: Qwen3, input_ids, *, attention_mask=None,
     [B, T, D], or fp32 logits through :func:`unembed_train`. A
     tensor-parallel model (``model.mesh``) reads its rank's slices of
     every table (``embed`` / ``lm_head`` / ``weights`` too) and returns
-    the whole hidden states, or the whole logits (gathered over tp).
+    the whole hidden states, or the whole logits (gathered over tp). On
+    an sp ring it returns this rank's positions (:func:`sequence_layout`);
+    pipelined over pp, GPipe with each microbatch's stage forward run again
+    in the backward (full remat, whatever ``cfg.remat``).
 
     Runs on ``device`` (CUDA by default; raises without it), where the
     model must live.
@@ -638,7 +767,8 @@ def forward_train(model: Qwen3, input_ids, *, attention_mask=None,
     cfg = model.cfg
     if cfg.remat and cfg.remat_policy != "full":
         raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r}: only 'full' is ported")
+            f"remat_policy={cfg.remat_policy!r}: only 'full' is ported "
+            f"(ROADMAP §1 item 15)")
     input_ids = torch.as_tensor(input_ids, device=dev).long()
     if attention_mask is not None:
         attention_mask = torch.as_tensor(attention_mask, device=dev)
@@ -649,20 +779,22 @@ def forward_train(model: Qwen3, input_ids, *, attention_mask=None,
             raise ValueError("weights (full finetuning) and adapters")
         embed = weights["embed"]["weight"]
         lm_head = weights.get("lm_head", {}).get("weight")
-        layers = _layer_views(weights["layers"], cfg.num_hidden_layers)
+        layers = _layer_views(weights["layers"], len(model.layers))
         final_ln = weights["final_ln"]["scale"]
     table = model.embed if embed is None else embed
     tp = tp_group(model)
-    x = vocab_lookup(table, input_ids, tp)
     positions = torch.arange(T, device=dev)[None].expand(B, T)
+    layout = sequence_layout(model, T, dev)
+    mask_bias = None
+    if layout is not None:
+        input_ids, positions = input_ids[:, layout[0]], positions[:, layout[0]]
+    else:
+        mask_bias = causal_bias(attention_mask, B, T, dev)
+    x = vocab_lookup(table, input_ids, tp)
     cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
-    mask_bias = causal_bias(attention_mask, B, T, dev)
-    per_layer = _layer_adapters(adapters, cfg.num_hidden_layers)
-    for layer, la in zip(layers, per_layer):
-        args = (layer, x, cos, sin, mask_bias, cfg, la, adapter_scale,
-                merge_adapters, tp)
-        x = (checkpoint(layer_forward, *args, use_reentrant=False)
-             if cfg.remat else layer_forward(*args))
+    x = _stack(model, layers, x, cos, sin, mask_bias, layout,
+               adapters=adapters, scale=adapter_scale, merge=merge_adapters,
+               weights=weights, remat=cfg.remat)
     x = rms_norm(x, final_ln, cfg.rms_norm_eps)
     if return_hidden:
         return x

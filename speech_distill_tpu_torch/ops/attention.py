@@ -12,9 +12,13 @@
   — CUDA tensors, T >= 512, T == S, T % 256 == 0 (the JAX predicate) and
   what the kernels take (bf16, Dh in {64, 128}) — and the plain route
   otherwise. The JAX ``try/except`` fallback is not carried over: on the
-  kernel route the kernel runs or raises.
-
-The ring routes (sequence parallelism) are not ported and raise.
+  kernel route the kernel runs or raises;
+* ``"ring"`` / ``"ring_zigzag"``: with no bias and T == S, ring attention
+  over the sp axis of ``mesh`` (default: the active mesh;
+  ``ops/ring_attention``) on this rank's sequence shard, the zig-zag ring
+  where the global length splits into 2 sp chunks and the contiguous ring
+  otherwise; with a bias (the forward found no ring to take) the plain
+  route.
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ from speech_distill_tpu_torch.ops.flash_attention import (flash_attention,
 
 FLASH_MIN_SEQ = 512
 FLASH_BLOCK = 256
-IMPLS = ("auto", "xla", "pallas")
+IMPLS = ("auto", "xla", "pallas", "ring", "ring_zigzag")
+RING_IMPLS = ("ring", "ring_zigzag")
 
 
 def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -61,8 +66,8 @@ def use_flash(q: torch.Tensor, k: torch.Tensor, impl: str = "auto") -> bool:
     """Whether ``sdpa`` takes the flash route for these inputs."""
     if impl == "xla":
         return False
-    if impl == "pallas":
-        return True
+    if impl in ("pallas", *RING_IMPLS):
+        return impl == "pallas"
     if impl != "auto":
         raise NotImplementedError(
             f"attn_impl={impl!r} is not ported (the port has {IMPLS})")
@@ -73,11 +78,24 @@ def use_flash(q: torch.Tensor, k: torch.Tensor, impl: str = "auto") -> bool:
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         mask_bias: Optional[torch.Tensor], impl: str = "auto"
-         ) -> torch.Tensor:
+         mask_bias: Optional[torch.Tensor], impl: str = "auto", mesh=None,
+         zigzag: bool = False) -> torch.Tensor:
     """Attention output [B, T, H, Dh] by the route :func:`use_flash`
-    picks. On the flash route the mask is implied (causal; right padding
-    is exact) and gradients flow through the kernels' backward."""
+    picks, or a ring route. On the flash and ring routes the mask is
+    implied (causal; right padding is exact) and gradients flow through
+    the kernels' backward or the ring's. A ring route runs over ``mesh``'s
+    sp axis (default the active mesh) on this rank's shard, the zig-zag
+    chunk pair with ``zigzag``: the caller's layout of the sequence
+    (``qwen3.sequence_layout``)."""
+    if impl in RING_IMPLS:
+        if mask_bias is None and q.shape[1] == k.shape[1]:
+            from speech_distill_tpu_torch.ops import ring_attention as ra
+            from speech_distill_tpu_torch.parallel.mesh import \
+                get_active_mesh
+            mesh = mesh if mesh is not None else get_active_mesh()
+            ring = ra.zigzag_ring_attention if zigzag else ra.ring_attention
+            return ring(q, k, v, mesh)
+        return sdpa_plain(q, k, v, mask_bias)
     if use_flash(q, k, impl):
         return flash_attention(q, k, v)
     return sdpa_plain(q, k, v, mask_bias)

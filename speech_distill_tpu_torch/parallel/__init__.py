@@ -1,5 +1,6 @@
-"""Data and tensor parallelism over ``torch.distributed`` (port of
-``speech_distill_tpu/parallel``): one process a device, every rank running
-the same host code on the same inputs and holding its local shards as
-plain tensors (``mesh``, ``sharding``, ``multihost``, ``comm``). Sequence
-and pipeline parallelism are not ported (ROADMAP §1 item 11)."""
+"""Data, tensor, sequence and pipeline parallelism over
+``torch.distributed`` (port of ``speech_distill_tpu/parallel``): one
+process a device, every rank running the same host code and holding its
+local shards as plain tensors (``mesh``, ``sharding``, ``multihost``,
+``comm``); ring attention over sp lives in ``ops/ring_attention``, the
+pipeline schedules over pp in ``pipeline``."""

@@ -6,13 +6,20 @@ would: the tensor-parallel pair of Megatron-LM (``copy_to_tp``: identity
 forward, all-reduce backward, before a column-parallel product;
 ``reduce_from_tp``: all-reduce forward, identity backward, after a
 row-parallel one), the vocab gathers of the lm head, and the loss
-denominators summed over dp (:func:`dp_denominators`).
+denominators summed over dp (and sp: :func:`dp_denominators`), and the
+point-to-point shifts of sequence and pipeline parallelism: the ring
+shifts of ring attention with their autograd pair
+(:func:`ring_rotations`: the backward shifts the other way, JAX's
+transposed ``ppermute``) and the stage-to-stage messages of the pipeline
+schedules (:func:`exchange`).
 
-Only all_reduce, all_gather and broadcast are used, which NCCL and gloo
-both provide, so the CPU tests (gloo) run the code the card runs. gloo
-takes CUDA tensors for few collectives, so on a gloo group a CUDA tensor
-goes through a host copy (two ranks on one card, where NCCL refuses a
-second rank of the same device).
+Only all_reduce, all_gather, broadcast and isend / irecv (posted
+together through ``batch_isend_irecv``: blocking pairs deadlock on a
+ring) are used, which NCCL and gloo both provide, so the CPU tests
+(gloo) run the code the card runs. gloo takes CUDA tensors for few
+collectives, so on a gloo group a CUDA tensor goes through a host copy
+(two ranks on one card, where NCCL refuses a second rank of the same
+device).
 
 A ``group`` of None is a one-rank axis: every function is then the
 identity.
@@ -82,6 +89,89 @@ def _index(group) -> int:
     return dist.get_rank(group)
 
 
+def exchange(sends, recvs, group, device=None) -> list:
+    """Point-to-point messages within ``group``, all posted together and
+    waited for: ``sends`` is a list of (tensor, peer, tag), ``recvs`` of
+    (shape, dtype, peer, tag); a peer is an index in the group. Returns
+    the received tensors, on ``device`` (default: the first sent
+    tensor's). Every rank must post the pairs its peers post."""
+    if not sends and not recvs:
+        return []
+    if device is None:
+        device = sends[0][0].device if sends else torch.device("cpu")
+    staged = device.type == "cuda" and dist.get_backend(group) == "gloo"
+    host = torch.device("cpu") if staged else device
+    ops, bufs, keep = [], [], []
+    for t, peer, tag in sends:
+        w = t.detach().contiguous()
+        w = w.cpu() if staged else w
+        keep.append(w)
+        ops.append(dist.P2POp(dist.isend, w, dist.get_global_rank(
+            group, peer), group, tag))
+    for shape, dtype, peer, tag in recvs:
+        b = torch.empty(shape, dtype=dtype, device=host)
+        bufs.append(b)
+        ops.append(dist.P2POp(dist.irecv, b, dist.get_global_rank(
+            group, peer), group, tag))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return [b.to(device) for b in bufs]
+
+
+def shift(xs, group, step: int = 1) -> list:
+    """Each rank i's tensors ``xs`` to rank i + ``step`` of ``group``
+    (mod its size); returns what rank i - ``step`` sent, in one message
+    (the tensors are flattened into one buffer of their common dtype)."""
+    n = dist.get_world_size(group)
+    i = _index(group)
+    flat = torch.cat([x.detach().reshape(-1) for x in xs])
+    (got,) = exchange([(flat, (i + step) % n, 0)],
+                      [(flat.shape, flat.dtype, (i - step) % n, 0)],
+                      group, flat.device)
+    out, at = [], 0
+    for x in xs:
+        out.append(got[at:at + x.numel()].view_as(x))
+        at += x.numel()
+    return out
+
+
+class _RingRotations(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, n, *xs):
+        ctx.group, ctx.n, ctx.k = group, n, len(xs)
+        outs, cur = list(xs), list(xs)
+        for _ in range(1, n):
+            cur = shift(cur, group, 1)
+            outs += cur
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        k, n = ctx.k, ctx.n
+        gs = [torch.zeros_like(g) if g is None else g for g in gs]
+        acc = gs[(n - 1) * k:]
+        for s in range(n - 1, 0, -1):
+            acc = shift(acc, ctx.group, -1)
+            acc = [a + g for a, g in zip(acc, gs[(s - 1) * k:s * k])]
+        return (None, None, *acc)
+
+
+def ring_rotations(xs, group) -> list:
+    """The n rotations of ``xs`` (tensors of one dtype) around the ring
+    ``group`` of n ranks: entry s holds, on rank i, rank (i - s)'s
+    tensors (entry 0 its own), after s shifts i -> i + 1. Differentiable:
+    the backward shifts the cotangents the other way n - 1 times (the
+    transposed ``ppermute`` of JAX's ring), on every rank whichever
+    rotations its loss reads, so the ranks' shifts always pair."""
+    if group is None:
+        return [tuple(xs)]
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+    flat = _RingRotations.apply(group, n, *xs)
+    k = len(xs)
+    return [tuple(flat[s * k:(s + 1) * k]) for s in range(n)]
+
+
 class _CopyToTP(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -139,29 +229,41 @@ def gather_from_tp(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Loss denominators over dp
+# Loss denominators over dp (and sp)
 # ---------------------------------------------------------------------------
 
-_DP_GROUP: Optional[object] = None
+_DP_GROUPS: tuple = ()
 
 
 @contextlib.contextmanager
-def dp_denominators(group):
+def dp_denominators(*groups):
     """Inside the block, :func:`global_count` sums a loss's counts over
-    the dp ``group``: each rank's masked sums then divide by the global
-    count, and the sum of the ranks' losses (and gradients) is the loss of
-    the global batch, whatever the number of valid tokens each rank
-    holds (JAX normalises over the global batch)."""
-    global _DP_GROUP
-    prev, _DP_GROUP = _DP_GROUP, group
+    each of ``groups`` (the dp group, and the sp group when each rank
+    holds a piece of the sequence): each rank's masked sums then divide
+    by the global count, and the sum of the ranks' losses (and gradients)
+    is the loss of the global batch, whatever the number of valid tokens
+    each rank holds (JAX normalises over the global batch). None entries
+    (one-rank axes) are skipped."""
+    global _DP_GROUPS
+    prev = _DP_GROUPS
+    _DP_GROUPS = tuple(g for g in groups if g is not None)
     try:
         yield
     finally:
-        _DP_GROUP = prev
+        _DP_GROUPS = prev
 
 
 def global_count(n: torch.Tensor) -> torch.Tensor:
-    """``n`` summed over the active dp group (no gradient: a count)."""
-    if _DP_GROUP is None:
-        return n
-    return all_reduce(n.detach(), _DP_GROUP)
+    """``n`` summed over the active groups (no gradient: a count)."""
+    n = n.detach()
+    for g in _DP_GROUPS:
+        n = all_reduce(n, g)
+    return n
+
+
+def all_reduce_over(t: torch.Tensor, *groups) -> torch.Tensor:
+    """``t`` summed over each of ``groups`` in turn (None: skipped), a
+    new tensor: the sum over their product."""
+    for g in groups:
+        t = all_reduce(t, g)
+    return t

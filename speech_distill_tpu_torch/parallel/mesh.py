@@ -11,9 +11,13 @@ each axis, the process group of each axis and the rank's device.
 
 Axes:
   dp — data parallel (batch dim)
-  pp — pipeline parallel (not ported)
-  sp — sequence/context parallel (not ported)
+  pp — pipeline parallel (layer stages, ``parallel/pipeline``)
+  sp — sequence/context parallel (ring attention,
+       ``ops/ring_attention``)
   tp — tensor parallel (attention heads / mlp hidden / vocab)
+
+An axis's process group orders its ranks by their index on the axis, so
+a neighbour on the sp ring or the pp chain is an index in that group.
 
 JAX's ``serialize_collective_chains`` has no counterpart: it orders two
 independent collective chains of one XLA:CPU program against a deadlock
@@ -93,6 +97,14 @@ class Mesh:
         return self.shape[TP_AXIS]
 
     @property
+    def sp(self) -> int:
+        return self.shape[SP_AXIS]
+
+    @property
+    def pp(self) -> int:
+        return self.shape[PP_AXIS]
+
+    @property
     def world(self) -> int:
         n = 1
         for a in AXES:
@@ -127,25 +139,14 @@ class Mesh:
                 f"device={self.device})")
 
 
-def check_ported(shape: Dict[str, int]) -> None:
-    """Raise ``NotImplementedError`` for a mesh shape with pp or sp above
-    1: pipeline and sequence parallelism are not ported."""
-    if shape[PP_AXIS] > 1 or shape[SP_AXIS] > 1:
-        raise NotImplementedError(
-            "pipeline (pp) and sequence (sp) parallelism are not ported "
-            "(ROADMAP §1 item 11)")
-
-
 def make_mesh(cfg: Optional[MeshConfig] = None, device=None) -> Mesh:
     """The (dp, pp, sp, tp) mesh over every rank of the process group
     (one rank when none is initialized; ``multihost.initialize`` starts
-    one). ``device``: this rank's device (:func:`rank_device`). pp or sp
-    above 1 raise ``NotImplementedError`` (ROADMAP §1 item 11)."""
+    one). ``device``: this rank's device (:func:`rank_device`)."""
     import torch.distributed as dist
 
     n = dist.get_world_size() if dist.is_initialized() else 1
     shape = mesh_shape(cfg, n)
-    check_ported(shape)
     dev = rank_device(device)
     if n == 1:
         return single_device_mesh(dev)
@@ -167,9 +168,9 @@ _ACTIVE_MESH: Optional[Mesh] = None
 
 
 def set_active_mesh(mesh: Optional[Mesh]) -> None:
-    """Register the mesh that ops needing explicit collectives read (ring
-    attention, in a later slice); pipelines set it once after
-    :func:`make_mesh`."""
+    """Register the mesh that ops needing explicit collectives read when
+    no mesh is passed to them (``ops/attention.sdpa``'s ring routes);
+    pipelines set it once after :func:`make_mesh`."""
     global _ACTIVE_MESH
     _ACTIVE_MESH = mesh
 

@@ -65,14 +65,17 @@ def extract_teacher_logprobs(
     of it (the teacher sharded by ``sharding.shard_params``, ``device``
     then the mesh's). Each rank runs its dp rows of every batch
     (``batch_size`` divisible by dp) and the rows are all-gathered, so
-    every rank returns the whole, ordered result."""
+    every rank returns the whole, ordered result. A teacher whose forward
+    splits the sequence over sp (a ring ``attn_impl``) gives each rank its
+    positions, gathered over sp (``sharding.gather_sequence``); a
+    pipelined one gives every pp rank the whole output."""
     dev = resolve_device(device if mesh is None else mesh.device)
     dp = None
     if mesh is not None:
+        from speech_distill_tpu_torch.models.qwen3 import sequence_layout
         from speech_distill_tpu_torch.parallel import comm
-        from speech_distill_tpu_torch.parallel.mesh import check_ported
-        from speech_distill_tpu_torch.parallel.sharding import shard_batch
-        check_ported(mesh.shape)
+        from speech_distill_tpu_torch.parallel.sharding import (
+            gather_sequence, shard_batch)
         if batch_size % mesh.dp:
             raise ValueError(f"batch_size={batch_size} not divisible by "
                              f"dp={mesh.dp}")
@@ -101,13 +104,17 @@ def extract_teacher_logprobs(
             reps = batch_size - len(feats)
             ids = np.concatenate([ids, np.repeat(ids[-1:], reps, 0)])
             mask = np.concatenate([mask, np.repeat(mask[-1:], reps, 0)])
-        if dp is None:
+        if mesh is None:
             v, i = fn(teacher, torch.from_numpy(ids).to(dev),
                       torch.from_numpy(mask).to(dev))
         else:
             b = shard_batch(mesh, {"ids": ids, "mask": mask},
                             microbatched=False)
             v, i = fn(teacher, b["ids"], b["mask"])
+            layout = sequence_layout(teacher, ids.shape[1])
+            if layout is not None:              # this sp rank's positions
+                v = gather_sequence(v, mesh, layout[1])
+                i = gather_sequence(i, mesh, layout[1])
             v, i = comm.all_gather(v, dp), comm.all_gather(i, dp)
         v, i = v.cpu().numpy(), i.cpu().numpy()
         for b, n in enumerate(mask.sum(axis=1)[:len(feats)]):

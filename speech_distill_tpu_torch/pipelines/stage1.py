@@ -15,10 +15,17 @@ here:
 * :func:`make_eval_fn`, the eval aggregator (exact per-token mean over
   every eval row, scored once);
 * :func:`fused_route`, the choice of the fused CE.
+
+``--sp`` (JAX ``stage1.py:45-47, 99-101``): ring attention over a mesh of
+tp 1, sp ``--sp`` and dp the processes that remain (one process a device,
+started by ``torchrun`` or ``parallel/multihost``'s variables): every
+rank streams the global batches of ``--batch_size`` x dp rows, keeps its
+dp rows, and runs the head (K2 on the card) on its positions.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 from typing import Callable, Dict, Iterator, List, Tuple
 
@@ -60,14 +67,16 @@ def stage1_batches(packed: np.ndarray, batch_size: int, accum: int,
 
 
 def make_eval_fn(eval_step: Callable, eval_packed: np.ndarray,
-                 eval_batch_size: int, base) -> Callable:
+                 eval_batch_size: int, base, put=None) -> Callable:
     """``eval_fn(state) -> {"loss": mean CE per valid token}`` over every
     row of ``eval_packed`` in groups of ``eval_batch_size``. The last short
     group is padded to the full size with copies of its last row whose
     labels are all -100, so they add no valid token; ``eval_step``
     (``make_stage1_eval_step``) returns per-group sums, so the result is
-    the exact per-token mean however the valid tokens fall."""
+    the exact per-token mean however the valid tokens fall. ``put``
+    places a host batch (a rank's dp rows under a mesh)."""
     eb = max(eval_batch_size, 1)
+    put = put or (lambda b: b)
 
     def eval_fn(state) -> Dict[str, float]:
         loss_sum, n_tokens = 0.0, 0.0
@@ -80,9 +89,9 @@ def make_eval_fn(eval_step: Callable, eval_packed: np.ndarray,
             labels = rows[None].astype(np.int64)
             labels[0, n_real:] = IGNORE_INDEX
             m = eval_step(state.trainable, base,
-                          {"input_ids": rows[None],
-                           "attention_mask": np.ones_like(rows)[None],
-                           "labels": labels})
+                          put({"input_ids": rows[None],
+                               "attention_mask": np.ones_like(rows)[None],
+                               "labels": labels}))
             loss_sum += float(m["loss_sum"])
             n_tokens += float(m["n_tokens"])
         return {"loss": loss_sum / max(n_tokens, 1.0)}
@@ -144,12 +153,20 @@ def train_stage1(config):
     from speech_distill_tpu_torch.tokenizer.s3 import (
         default_speech_tokens_fn)
 
-    if getattr(config, "sp", 1) > 1:
-        raise NotImplementedError("--sp (ring attention) is not ported: "
-                                  "ROADMAP §1 item 11")
-    dev = resolve_device(config.device)
+    from speech_distill_tpu_torch.core.config import MeshConfig
+    from speech_distill_tpu_torch.parallel import multihost, sharding
+    from speech_distill_tpu_torch.parallel import mesh as meshlib
+    sp = getattr(config, "sp", 1)
+    rank_dev = None if config.device == "cuda" else config.device
+    mesh = None
+    if multihost.initialize(device=rank_dev) or sp > 1:
+        mesh = meshlib.make_mesh(MeshConfig(tp=1, sp=sp), device=rank_dev)
+        meshlib.set_active_mesh(mesh)
+    dev = resolve_device(config.device) if mesh is None else mesh.device
     tokenizer = load_tokenizer(config.model_path)
     cfg, model = load_pretrained(config.model_path, device=dev)
+    if sp > 1:
+        cfg = dataclasses.replace(cfg, attn_impl="ring")
     old_vocab_size = cfg.vocab_size - config.num_new_tokens
 
     dataset = load_hf_dataset(config.dataset_path)
@@ -192,7 +209,9 @@ def train_stage1(config):
     if model.lm_head is not None:
         trainable["lm_head"] = {"weight": model.lm_head.detach().clone()
                                 .requires_grad_(True)}
-    B, A = config.batch_size, config.gradient_accumulation_steps
+    dp = mesh.dp if mesh is not None else 1
+    base = model if mesh is None else sharding.shard_params(mesh, model, cfg)
+    B, A = config.batch_size * dp, config.gradient_accumulation_steps
     steps = max(1, len(packed) // (B * A)) * config.num_epochs
     opt = train_step.make_optimizer(config.learning_rate,
                                     config.warmup_steps, steps,
@@ -203,12 +222,19 @@ def train_stage1(config):
                                  cfg.torch_dtype, cfg.hidden_size)
     step_fn = train_step.make_stage1_step(cfg, opt, old_vocab_size,
                                           fused_loss=fused,
-                                          fused_backend=backend, device=dev)
+                                          fused_backend=backend, device=dev,
+                                          mesh=mesh)
+    put = None
+    if mesh is not None:
+        def put(batch):
+            return multihost.make_global_batch(mesh, batch)
     eval_fn = None
     if len(eval_packed) > 0:
+        # the eval batch rounded up to a multiple of dp (JAX)
+        eb = (max(config.eval_batch_size, 1) + dp - 1) // dp * dp
         eval_fn = make_eval_fn(
-            train_step.make_stage1_eval_step(cfg, device=dev), eval_packed,
-            config.eval_batch_size, model)
+            train_step.make_stage1_eval_step(cfg, device=dev, mesh=mesh),
+            eval_packed, eb, base, put)
 
     loop_cfg = LoopConfig(
         num_epochs=config.num_epochs, logging_steps=config.logging_steps,
@@ -217,19 +243,24 @@ def train_stage1(config):
         load_best_at_end=eval_fn is not None,  # stage1.py:311
         report_to="wandb" if config.use_wandb else "none")
     state = train_loop(
-        step_fn, state, (model,),
+        step_fn, state, (base,),
         lambda epoch: stage1_batches(packed, B, A, config.seed, epoch),
-        loop_cfg, eval_fn=eval_fn,
-        tokens_per_batch=B * A * config.max_seq_length, device=dev)
+        loop_cfg, put_batch=put, eval_fn=eval_fn,
+        tokens_per_batch=B * A * config.max_seq_length, device=dev,
+        mesh=mesh, state_specs=(lambda st: sharding.state_pspecs(
+            st, {k: {"weight": ()} for k in st.trainable}, mesh))
+        if mesh is not None else None)
 
     # the final model: the base with the trained tables
     final = model_to_tree(model)
     for name in trainable:
         final[name] = {"weight": state.trainable[name]["weight"].detach()}
-    out = os.path.join(config.output_dir, "final_model")
-    export_hf(final, cfg, out)
-    tokenizer.save_pretrained(out)
-    print("Stage-1 training completed!")
+    if mesh is None or mesh.is_primary:
+        out = os.path.join(config.output_dir, "final_model")
+        export_hf(final, cfg, out)
+        tokenizer.save_pretrained(out)
+        print("Stage-1 training completed!")
+    multihost.barrier()
 
 
 def build_parser():
@@ -253,8 +284,7 @@ def build_parser():
     p.add_argument("--eval_size", type=float, default=0)
     p.add_argument("--max_seq_length", type=int, default=4096)
     p.add_argument("--sp", type=int, default=1,
-                   help="sequence-parallel size (not ported: ROADMAP §1 "
-                        "item 11)")
+                   help="sequence-parallel size (ring attention)")
     p.add_argument("--num_workers", type=int, default=4)
     p.add_argument("--num_new_tokens", type=int, default=8220)
     p.add_argument("--prefix", type=str, default="")

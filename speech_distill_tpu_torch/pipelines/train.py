@@ -13,12 +13,17 @@ backbone over the unified vocabulary).
 Data and tensor parallelism run one process a device (``torchrun
 --nproc_per_node N -m speech_distill_tpu_torch train --tp T ...``, or
 ``--coordinator_address`` / ``--num_processes`` / ``--process_id`` on each
-process): dp = processes / tp, the global batch is the per-device batch
-times dp, every rank streams the global batches and keeps its dp rows,
-and ``--zero1`` shards the AdamW moments over dp. The student and a
-Qwen3 teacher shard over tp (a quantized or CosyVoice2 teacher is
-replicated whole). Sequence and pipeline parallelism and the
-disaggregated teacher are not ported and raise when set.
+process): dp = processes / (tp sp pp), the global batch is the
+per-device batch times dp, every rank streams the global batches and
+keeps its dp rows, and ``--zero1`` shards the AdamW moments over dp. The
+student and a Qwen3 teacher shard over tp (a quantized or CosyVoice2
+teacher is replicated whole). ``--sp`` splits each sequence over a ring
+(``--sp_zigzag``: the zig-zag ring), student and teacher alike;
+``--pp`` pipelines the student's stack (and a teacher's whose layer
+count pp divides) in ``--pp_microbatches`` (default 2 pp) microbatches,
+GPipe or ``--pp_schedule 1f1b`` (``--pp_interleave`` virtual stages).
+As in JAX, sp and pp do not combine. The disaggregated teacher
+(``--teacher_devices``, ``--teacher_tp``) is not ported and raises.
 
 Where the JAX CLI fails, this one raises ``ValueError`` before the teacher
 loads: a quantized CosyVoice2 teacher, and dense KD against a CosyVoice2
@@ -27,12 +32,11 @@ teacher whose unified vocabulary is narrower than the student's.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 
 # flag -> its default: set to anything else, the flag raises
-_UNPORTED = {"sp": 1, "sp_zigzag": False, "pp": 1,
-             "pp_microbatches": 0, "pp_schedule": "gpipe", "pp_interleave": 1,
-             "teacher_devices": 0, "teacher_tp": 1}
+_UNPORTED = {"teacher_devices": 0, "teacher_tp": 1}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -76,8 +80,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--per_device_train_batch_size", type=int, default=4)
     p.add_argument("--gradient_accumulation_steps", type=int, default=4)
     p.add_argument("--pad_to_multiple_of", type=int, default=128)
-    # sp, pp and the disaggregated teacher: not ported (ROADMAP §1 item
-    # 11), each raises when it is not at its default
+    # the disaggregated teacher (--teacher_devices, --teacher_tp): not
+    # ported (ROADMAP §1 item 15), each raises when not at its default
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--sp", type=int, default=1)
     p.add_argument("--sp_zigzag", action="store_true")
@@ -103,14 +107,22 @@ def build_parser() -> argparse.ArgumentParser:
 
 def check_ported(config) -> None:
     """Raise ``NotImplementedError`` for a flag the port does not have,
-    and ``ValueError`` for a quantized CosyVoice2 teacher (the JAX CLI
-    fails on its int8 embedding)."""
+    and ``ValueError`` where the JAX CLI refuses (sp with pp, an
+    interleave without 1F1B) or fails (a quantized CosyVoice2 teacher, on
+    its int8 embedding)."""
     for flag, default in _UNPORTED.items():
         if getattr(config, flag, default) != default:
             raise NotImplementedError(
-                f"--{flag} is not ported (sequence and pipeline "
-                f"parallelism, the disaggregated teacher: ROADMAP §1 item "
-                f"11)")
+                f"--{flag} is not ported (the disaggregated teacher: "
+                f"ROADMAP §1 item 15)")
+    if config.sp > 1 and config.pp > 1:
+        raise ValueError("--sp (ring attention) and --pp (pipeline) "
+                         "cannot combine; pick one")
+    if config.pp_interleave > 1 and config.pp_schedule != "1f1b":
+        raise ValueError("--pp_interleave > 1 requires --pp_schedule 1f1b")
+    if config.pp_schedule == "1f1b" and config.pp <= 1:
+        # JAX's step raises it once the model has loaded
+        raise ValueError("--pp_schedule 1f1b needs a mesh with pp > 1")
     if config.teacher_family == "cosyvoice2" and (
             config.load_teacher_in_4bit or config.load_teacher_in_8bit):
         raise ValueError("--load_teacher_in_4bit / _8bit with "
@@ -150,6 +162,25 @@ def load_teacher(path: str, quant: str, dev):
     return params_from_jax(tree, t_cfg, dev)
 
 
+def parallel_cfg(cfg, config, teacher: bool = False):
+    """A model config on the CLI's mesh: the ring (``--sp``) or the
+    pipeline (``--pp``: ``--pp_microbatches``, default 2 pp; the
+    student's ``--pp_interleave``). A teacher pipelines GPipe when pp
+    divides its layer count, else it runs whole on every stage (the JAX
+    CLI)."""
+    if config.sp > 1:
+        cfg = dataclasses.replace(
+            cfg, attn_impl="ring_zigzag" if config.sp_zigzag else "ring")
+    if config.pp > 1 and not (teacher and
+                              cfg.num_hidden_layers % config.pp):
+        cfg = dataclasses.replace(
+            cfg, pp_microbatches=config.pp_microbatches or 2 * config.pp)
+        if not teacher:
+            cfg = dataclasses.replace(
+                cfg, pp_interleave=max(config.pp_interleave, 1))
+    return cfg
+
+
 def train(config) -> None:
     import torch
     from speech_distill_tpu_torch.core.checkpoint import export_hf
@@ -178,7 +209,8 @@ def train(config) -> None:
     rank_dev = None if config.device == "cuda" else config.device
     multihost.initialize(config.coordinator_address, config.num_processes,
                          config.process_id, device=rank_dev)
-    mesh = meshlib.make_mesh(MeshConfig(tp=config.tp), device=rank_dev)
+    mesh = meshlib.make_mesh(MeshConfig(tp=config.tp, sp=config.sp,
+                                        pp=config.pp), device=rank_dev)
     meshlib.set_active_mesh(mesh)
     parallel = mesh.world > 1
     dev = mesh.device
@@ -222,6 +254,7 @@ def train(config) -> None:
                         init_weights=config.init_lora_weights))
 
     s_cfg, student = load_pretrained(config.student_model, device=dev)
+    s_cfg = parallel_cfg(s_cfg, config)
     mode = "precomputed" if has_topk else (
         "online_dense" if dcfg.use_dense else "online_sparse")
     teacher = teacher_forward = teacher_extract = None
@@ -231,6 +264,13 @@ def train(config) -> None:
             train_step.check_width(cv2.CosyVoice2Config().unified_vocab_size,
                                    s_cfg.vocab_size)
         teacher = cv2.load(config.teacher_model, dev)
+        if parallel and mesh.tp == 1:
+            # the ring / pipeline of the backbone (replicated whole under
+            # tp, as before)
+            bcfg = parallel_cfg(teacher.cfg.backbone, config, teacher=True)
+            teacher.backbone = sharding.shard_params(mesh, teacher.backbone,
+                                                     bcfg)
+            teacher.cfg = dataclasses.replace(teacher.cfg, backbone=bcfg)
         teacher_forward = cv2.make_teacher_forward(teacher.cfg)
         if mode == "online_sparse":
             teacher_extract = cv2.make_teacher_extract(
@@ -240,7 +280,9 @@ def train(config) -> None:
     elif mode != "precomputed":
         teacher = load_teacher(config.teacher_model, quant, dev)
         if parallel:
-            teacher = sharding.shard_params(mesh, teacher, teacher.cfg)
+            teacher = sharding.shard_params(
+                mesh, teacher, parallel_cfg(teacher.cfg, config,
+                                            teacher=True))
 
     if config.use_lora:
         gen = torch.Generator().manual_seed(dcfg.seed)
@@ -252,11 +294,12 @@ def train(config) -> None:
     if parallel:
         base = sharding.shard_params(mesh, base, s_cfg)
         if config.use_lora:
-            trainable = sharding.shard_lora(mesh, trainable)
+            trainable = sharding.shard_lora(mesh, trainable, s_cfg)
     if not config.use_lora:
         # full finetuning: the model's weights are the trainable tree
         trainable = train_step.full_trainable(base)
-    specs = sharding.trainable_pspecs(trainable, s_cfg, config.use_lora)
+    specs = sharding.trainable_pspecs(trainable, s_cfg, config.use_lora,
+                                      mesh)
 
     global_batch = dcfg.per_device_batch_size * mesh.dp
     A = dcfg.gradient_accumulation_steps
@@ -272,7 +315,8 @@ def train(config) -> None:
     step_fn = train_step.make_kd_step(
         s_cfg, dcfg, opt, mode=mode, teacher_forward=teacher_forward,
         teacher_extract=teacher_extract, use_lora=config.use_lora,
-        device=dev, mesh=step_mesh, zero1=config.zero1 and parallel)
+        pp_schedule=config.pp_schedule, device=dev, mesh=step_mesh,
+        zero1=config.zero1 and parallel)
 
     collator = DistillCollator(
         pad_token_id=tokenizer.pad_token_id,

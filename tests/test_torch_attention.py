@@ -146,7 +146,10 @@ def test_auto_route_predicate(monkeypatch, shape, dtype, route):
 def test_named_routes():
     """'pallas' takes the flash op (the plain versions on CPU tensors, as
     JAX interprets the kernel) and raises where it cannot apply; 'xla' is
-    the plain route; the ring routes are not ported."""
+    the plain route; the ring routes take the plain route where the
+    forward built a bias, as JAX's ``sdpa`` does, and without one and
+    without an sp mesh are a ring of one rank: causal attention (the ring
+    ranks themselves: ``tests/test_torch_ring_attention.py``)."""
     q, k, v = map(torch.from_numpy, _qkv(B=1, T=64, seed=8))
     pos = torch.arange(64)
     bias = torch.where(pos[None] <= pos[:, None], 0.0,
@@ -157,5 +160,10 @@ def test_named_routes():
                                sdpa_plain(q, k, v, bias))
     with pytest.raises(ValueError, match="matching q"):
         sdpa(q[:, :32], k, v, bias[:, :, :32], "pallas")
+    for impl in ("ring", "ring_zigzag"):
+        torch.testing.assert_close(sdpa(q, k, v, bias, impl),
+                                   sdpa_plain(q, k, v, bias))
+        torch.testing.assert_close(sdpa(q, k, v, None, impl, mesh=None),
+                                   sdpa_plain(q, k, v, bias))
     with pytest.raises(NotImplementedError, match="not ported"):
-        sdpa(q, k, v, bias, "ring")
+        sdpa(q, k, v, bias, "ring_bidirectional")

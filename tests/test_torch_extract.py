@@ -196,11 +196,20 @@ def test_extraction_is_the_same_alone_and_batched(teacher):
 
 
 def test_extraction_mesh_raises(teacher):
-    """dp extraction is ported (``tests/test_torch_sharding.py``); a mesh
-    with sequence parallelism is not."""
+    """dp extraction runs on gloo ranks (``tests/test_torch_sharding.
+    py``), an sp-split teacher there too (``tests/test_torch_ring_
+    attention.py``). A mesh with sp over a teacher that runs the whole
+    sequence (no ring ``attn_impl``) extracts as without a mesh, as JAX's
+    GSPMD extraction gives the same values whatever the sharding."""
     from speech_distill_tpu_torch.parallel.mesh import Mesh
     shape = {"dp": 1, "pp": 1, "sp": 2, "tp": 1}
     mesh = Mesh(shape, {a: 0 for a in shape}, torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        extract_teacher_logprobs(teacher[2], _port_forward, _features(1),
-                                 mesh=mesh, device="cpu")
+    feats = _features(3)
+    got = extract_teacher_logprobs(teacher[2], _port_forward, feats,
+                                   top_k=K, batch_size=4, mesh=mesh,
+                                   progress=False, device="cpu")
+    want = extract_teacher_logprobs(teacher[2], _port_forward, feats,
+                                    top_k=K, batch_size=4, progress=False,
+                                    device="cpu")
+    for a, b in zip(got[0] + got[1], want[0] + want[1]):
+        np.testing.assert_array_equal(a, b)

@@ -389,6 +389,7 @@ def test_unknown_mode_raises():
     with pytest.raises(ValueError, match="unknown mode"):
         tts.make_kd_step(cfg, DistillConfig(), opt, mode="online",
                          device="cpu")
-    with pytest.raises(NotImplementedError):
+    # 1F1B takes the precomputed mode only: ValueError, as in JAX
+    with pytest.raises(ValueError, match="supports mode='precomputed'"):
         tts.make_kd_step(cfg, DistillConfig(), opt, mode="online_sparse",
                          pp_schedule="1f1b", device="cpu")

@@ -177,8 +177,9 @@ def test_allocator_refcounts():
 
 
 def _pp_mesh():
-    """A rank's view of a dp 1 x pp 2 mesh: pipeline parallelism is
-    not ported (the dp x tp mesh is, ``tests/test_torch_paged_tp.py``)."""
+    """A rank's view of a dp 1 x pp 2 mesh (no process group: the serve
+    calls no collective on it); the dp x tp mesh runs on gloo ranks in
+    ``tests/test_torch_paged_tp.py``."""
     from speech_distill_tpu_torch.parallel.mesh import Mesh
     shape = {"dp": 1, "pp": 2, "sp": 1, "tp": 1}
     return Mesh(shape, {a: 0 for a in shape}, torch.device("cpu"))
@@ -187,9 +188,27 @@ def _pp_mesh():
 @pytest.mark.parametrize("kw", [{"mesh": _pp_mesh()}],
                          ids=lambda kw: next(iter(kw)))
 def test_deferred_features_raise(kw):
-    _, _, _, cfg, model, sp = _setup()
-    with pytest.raises(NotImplementedError):
-        tpaged.PagedEngine(model, cfg, sp, device="cpu", **kw)
+    """A mesh with pp serves a replica on each pp rank, as JAX's engine
+    shards only over dp and tp: the greedy tokens equal JAX's engine on a
+    dp 4 x pp 2 mesh of its 8 devices. A pipelined model (each rank
+    holding a stage's layers) raises ``ValueError``."""
+    import copy
+    import dataclasses
+    from speech_distill_tpu.core.config import MeshConfig as JMesh
+    from speech_distill_tpu.parallel import mesh as jmesh
+    jcfg, params, jsp, cfg, model, sp = _setup()
+    prompts = [[1, 2, 3], [4, 5, 6, 7], [8], [9, 10]]
+    jeng = jpaged.PagedEngine(params, jcfg, jsp, cache_dtype=jnp.float32,
+                              attn_impl="xla", slots=4, max_len=32,
+                              page_size=8, mesh=jmesh.make_mesh(JMesh(pp=2)))
+    teng = tpaged.PagedEngine(model, cfg, sp, device="cpu", slots=4,
+                              max_len=32, page_size=8, **kw)
+    assert teng.serve(prompts, max_new=6) == jeng.serve(prompts, max_new=6)
+    piped = copy.copy(model)
+    piped.cfg = dataclasses.replace(cfg, pp_microbatches=2)
+    piped.mesh = kw["mesh"]
+    with pytest.raises(ValueError, match="pp_microbatches"):
+        tpaged.PagedEngine(piped, piped.cfg, sp, device="cpu", **kw)
 
 
 def _noop(*_):

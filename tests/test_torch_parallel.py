@@ -59,16 +59,33 @@ def test_mesh_shape_errors_match_jax(kw):
 
 @pytest.mark.parametrize("kw", [dict(sp=2), dict(pp=2)])
 def test_make_mesh_raises_for_sp_and_pp(kw, monkeypatch):
-    """sp and pp are not ported: ``make_mesh`` names ROADMAP item 11
-    once the arithmetic holds (a world of two ranks, faked: the check
-    comes before any group is made)."""
+    """One process asking for 2 ranks raises the arithmetic's
+    ``ValueError``; on a world of two (faked, with the device mesh
+    stubbed) ``make_mesh`` builds the sp or pp axis like any other, with
+    JAX's shape (the real groups: ``tests/test_torch_ring_attention.py``,
+    ``tests/test_torch_pipeline.py``)."""
     import torch.distributed as dist
+    import torch.distributed.device_mesh as dm
     with pytest.raises(ValueError):          # one process: 2 ranks asked
         meshlib.make_mesh(MeshConfig(**kw), device="cpu")
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        meshlib.make_mesh(MeshConfig(**kw), device="cpu")
+    made = {}
+
+    class FakeDeviceMesh:
+        def __init__(self, device_type, shape, mesh_dim_names):
+            made.update(type=device_type, shape=shape, names=mesh_dim_names)
+
+        def get_local_rank(self, axis):
+            return 0
+    monkeypatch.setattr(dm, "init_device_mesh", FakeDeviceMesh)
+    mesh = meshlib.make_mesh(MeshConfig(**kw), device="cpu")
+    axis = next(iter(kw))
+    want = jmesh.make_mesh(JMeshConfig(**kw), devices=jax.devices()[:2])
+    assert mesh.shape == {a: int(want.shape[a]) for a in meshlib.AXES}
+    assert made == {"type": "cpu", "names": meshlib.AXES,
+                    "shape": tuple(mesh.shape[a] for a in meshlib.AXES)}
+    assert getattr(mesh, axis) == 2 and mesh.world == 2
 
 
 def _jax_mesh(dp, tp):

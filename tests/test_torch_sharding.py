@@ -458,12 +458,26 @@ def test_checkpoints_move_between_layouts(run, jax_side):
 
 
 def test_unported_train_flags_still_raise():
+    """The sp and pp flags are ported (``tests/test_torch_ring_attention.
+    py``, ``tests/test_torch_pipeline.py``): ``check_ported`` takes them,
+    and refuses what the JAX CLI refuses (sp with pp, an interleave
+    without 1F1B) with ``ValueError``; the disaggregated teacher's flags
+    still raise, naming the ROADMAP item of the last slice."""
     from speech_distill_tpu_torch.pipelines import train as ttrain
+
+    def config(flag):
+        return ttrain.build_parser().parse_args(["--dataset_path", "x"] +
+                                                flag)
     for flag in (["--sp", "2"], ["--sp_zigzag"], ["--pp", "2"],
-                 ["--pp_microbatches", "2"], ["--pp_schedule", "1f1b"],
-                 ["--pp_interleave", "2"], ["--teacher_devices", "2"],
-                 ["--teacher_tp", "2"]):
-        config = ttrain.build_parser().parse_args(
-            ["--dataset_path", "x"] + flag)
-        with pytest.raises(NotImplementedError, match="item 11"):
-            ttrain.check_ported(config)
+                 ["--pp_microbatches", "2"],
+                 ["--pp", "2", "--pp_schedule", "1f1b", "--pp_interleave",
+                  "2"]):
+        ttrain.check_ported(config(flag))
+    for flag, match in ((["--sp", "2", "--pp", "2"], "cannot combine"),
+                        (["--pp_interleave", "2"], "requires"),
+                        (["--pp_schedule", "1f1b"], "pp > 1")):
+        with pytest.raises(ValueError, match=match):
+            ttrain.check_ported(config(flag))
+    for flag in (["--teacher_devices", "2"], ["--teacher_tp", "2"]):
+        with pytest.raises(NotImplementedError, match="item 15"):
+            ttrain.check_ported(config(flag))

@@ -218,10 +218,19 @@ def test_load_teacher_quantizes_as_the_jax_cli(ws):
 
 # dp x tp and the multi-process start-up are ported: on one process an
 # incomplete start-up raises ValueError before any weight loads (the runs
-# themselves: tests/test_torch_sharding.py)
+# themselves: tests/test_torch_sharding.py, tests/test_torch_ring_attention
+# .py, tests/test_torch_pipeline.py). One process asking for an sp or pp
+# axis fails the mesh's arithmetic; --pp_interleave without 1F1B and 1F1B
+# without a pp axis raise as JAX's CLI does (JAX's step raises the latter
+# once the model has loaded)
 _PORTED = {"--tp": "device count", "--zero1": "device count",
            "--coordinator_address": "process", "--num_processes": "process",
-           "--process_id": "process"}
+           "--process_id": "process", "--sp": "device count",
+           "--pp": "device count", "--pp_interleave": "requires",
+           "--pp_schedule": "pp > 1"}
+# flags that change nothing on one rank (sp 1, pp 1): check_ported takes
+# them and the run is the plain one
+_NO_OP = ("--sp_zigzag", "--pp_microbatches")
 
 
 @pytest.mark.parametrize("flag", [
@@ -237,15 +246,19 @@ def test_unported_train_flags_raise(ws, flag):
         with pytest.raises(ValueError, match=_PORTED[flag[0]]):
             ttrain.main(["--dataset_path", ws["enriched"]] + flag + CPU)
         return
-    with pytest.raises(NotImplementedError, match="item 11"):
+    if flag[0] in _NO_OP:
+        ttrain.check_ported(ttrain.build_parser().parse_args(
+            ["--dataset_path", ws["enriched"]] + flag + CPU))
+        return
+    with pytest.raises(NotImplementedError, match="item 15"):
         ttrain.main(["--dataset_path", ws["enriched"]] + flag + CPU)
 
 
 def test_unported_family_and_stage1_flags_raise(ws, tmp_path):
-    """The CosyVoice2 teacher and the 8-bit optimizer are ported (item 8):
-    what still raises is stage 1's --sp (item 11) and a quantized
-    CosyVoice2 teacher (ValueError: the JAX CLI fails on it), both before
-    any weight loads."""
+    """The CosyVoice2 teacher and the 8-bit optimizer are ported (item 8),
+    stage 1's --sp too (item 11: one process asking for 2 ranks fails the
+    mesh's arithmetic before any weight loads); a quantized CosyVoice2
+    teacher raises ValueError (the JAX CLI fails on it)."""
     from speech_distill_tpu_torch.pipelines import stage1
     for flag in ("--load_teacher_in_8bit", "--load_teacher_in_4bit"):
         with pytest.raises(ValueError, match="quantized CosyVoice2"):
@@ -253,7 +266,7 @@ def test_unported_family_and_stage1_flags_raise(ws, tmp_path):
                          "--teacher_family", "cosyvoice2", flag] + CPU)
     base = ["--model_path", ws["student"], "--dataset_path", ws["raw"],
             "--output_dir", str(tmp_path)] + CPU
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="device count"):
         stage1.main(base + ["--sp", "2"])
 
 
