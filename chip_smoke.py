@@ -88,6 +88,13 @@
    route and the plain route in bf16, against the plain route in fp32.
 9. Two KD steps with ``fused_loss=True, fused_backend="pallas"`` (the K2
    kernels) on one batch, held to the default fused-head route.
+9a. The remat policies: 2 KD steps (B 8, T 512, K 128) from phase 6's
+   LoRA under "full", "dots", "half" and "everything" and without remat;
+   fails unless K1-fwd ran 56 / 56 / 42 / 28 / 28 a step and K1-dq /
+   dkv 28, nothing else, and the losses, grad norms and adapters equal
+   "full"'s (bit for bit, else within 1e-6); logs each policy's peak
+   memory and step ms. (``split_apply=True`` builds the same eager step
+   as the monolithic one, so no run holds one against the other.)
 10. Stage 1 at the reference CLI's defaults on a fresh full-width model:
    ``make_stage1_step`` (fused CE through K2) in ``train_loop`` for 4
    steps of B 4, T 4096, A 4 over packed seeded speech-token data, one
@@ -188,6 +195,16 @@
    stage 1: K2 stats / dh / dW once; nothing else) and the losses and
    grad norms agree. Then K4 at KV 4 and K1-fwd / dq / dkv at H 8, KV 4
    and at a pp microbatch's B 2 against their plain versions, timed.
+   Last on the two ranks, the disaggregated teacher
+   (``distill/disaggregate``): rank 1 draws the 1.7B teacher and serves
+   its exact top-K, rank 0 runs 3 precomputed KD steps (B 8, T 512, K
+   128) on the streamed batches; fails unless the student's launches are
+   a KD step's (K1-fwd 56, dq / dkv 28 a step), the teacher's K1-fwd 28
+   an extraction, nothing else, and the losses and grad norms agree with
+   the one-process online-sparse steps (1e-3, 1e-2); logs each side's ms
+   and the student's waits. Then the multi-process dry run
+   (``parallel/multihost_dryrun``) on 2 x 2 ranks on the card over gloo:
+   fails unless every rank reports ``MULTIHOST_OK``.
 
 Exits non-zero, printing no result, when CUDA is missing or any phase
 fails. Only one card is needed. Imports nothing of JAX.
@@ -2347,6 +2364,116 @@ def check_fused_kd(cfg, base, lora, dev) -> dict:
     return counts
 
 
+# phase 6/7, the remat policies at full width: 2 KD steps (B 8, T 512,
+# K 128) from the phase-6 LoRA under each policy, and without remat; the
+# forward is the same under every policy and a recompute repeats it, so
+# the losses, grad norms and adapters equal "full"'s bit for bit where the
+# kernels are deterministic, else within REMAT_RTOL
+REMAT_RUNS = ("full", "dots", "half", "everything", "no_remat")
+REMAT_STEPS = 2
+REMAT_RTOL = 1e-6
+
+
+def remat_batch(cfg) -> dict:
+    collate = DistillCollator(pad_token_id=cfg.eos_token_id,
+                              speech_bos_id=SPEECH_BOS,
+                              pad_to_multiple_of=128)
+    feats = kd_features(cfg, TRAIN_B, np.random.default_rng(SEED + 9))
+    return {k: v[None] for k, v in collate(feats).items()}
+
+
+def remat_steps(cfg, base, lora, batch, dev) -> dict:
+    """REMAT_STEPS precomputed KD steps from a copy of ``lora`` (the
+    launch counts set to 0 just before, read just after), with each
+    step's ms and the device memory peak over the start."""
+    opt = train_step.make_optimizer(2e-4, 1, 10)
+    step = train_step.make_kd_step(cfg, DistillConfig(), opt,
+                                   mode="precomputed", donate=False,
+                                   device=dev)
+    state = train_step.init_state(
+        tree_map(lambda t: t.detach().clone().requires_grad_(), lora), opt)
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    times, metrics = [], []
+    for _ in range(REMAT_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, base, None, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+    return {"loss": [float(m["loss"]) for m in metrics],
+            "grad_norm": [float(m["grad_norm"]) for m in metrics],
+            "metrics": metrics, "step_ms": times,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "peak_over_start_gib": (torch.cuda.max_memory_allocated()
+                                    - start) / 2**30,
+            "launches": dict(_cuda.launches),
+            "trainable": [t.detach() for t in tree_leaves(state.trainable)]}
+
+
+def rel_gap(a: list, b: list) -> float:
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def remat_policies(cfg, base, lora, dev) -> dict:
+    """The remat policies (``models/qwen3.layer_runners``) at full width:
+    fails unless K1-fwd ran 2 x 28 a step under "full" and "dots" (JAX's
+    Pallas call is not a dot: the kernel runs again in the recompute), 28
+    + 14 under "half", 28 under "everything" and without remat, K1-dq and
+    K1-dkv 28 each, nothing else, and the losses, grad norms and adapters
+    equal "full"'s. Logs each policy's peak memory and step ms. Returns
+    the launch counts by policy."""
+    batch = remat_batch(cfg)
+    L = cfg.num_hidden_layers
+    fwd = {"full": 2 * L, "dots": 2 * L, "half": L + L // 2,
+           "everything": L, "no_remat": L}
+    own, runs = base.cfg, {}
+    try:
+        for run in REMAT_RUNS:
+            pcfg = dataclasses.replace(
+                cfg, remat=run != "no_remat",
+                remat_policy="full" if run == "no_remat" else run)
+            base.cfg = pcfg
+            runs[run] = remat_steps(pcfg, base, lora, batch, dev)
+    finally:
+        base.cfg = own
+    full = runs["full"]
+    record = {}
+    for run, r in runs.items():
+        bitwise = all(torch.equal(a, b) for a, b in
+                      zip(r["trainable"], full["trainable"])) and all(
+            torch.equal(x[k], y[k]) for x, y in
+            zip(r["metrics"], full["metrics"]) for k in x)
+        leaf = max(float(((a.float() - b.float()).abs() /
+                          b.float().abs().clamp_min(1e-30)).max())
+                   for a, b in zip(r["trainable"], full["trainable"]))
+        record[run] = {k: r[k] for k in ("loss", "grad_norm", "step_ms",
+                                         "peak_gib", "peak_over_start_gib")}
+        record[run].update(
+            bitwise_equal_full=bitwise,
+            loss_rel=rel_gap(r["loss"], full["loss"]),
+            grad_norm_rel=rel_gap(r["grad_norm"], full["grad_norm"]),
+            launches={k: r["launches"][k] for k in
+                      ("flash_fwd", "flash_dq", "flash_dkv")})
+        want = {"flash_fwd": fwd[run] * REMAT_STEPS,
+                "flash_dq": L * REMAT_STEPS, "flash_dkv": L * REMAT_STEPS}
+        got = {k: v for k, v in r["launches"].items() if v}
+        if got != want:
+            fail(f"remat {run}: launches {got} != {want}")
+        if not bitwise and not (record[run]["loss_rel"] <= REMAT_RTOL
+                                and record[run]["grad_norm_rel"]
+                                <= REMAT_RTOL and leaf <= REMAT_RTOL):
+            fail(f"remat {run}: apart from 'full' (loss "
+                 f"{record[run]['loss_rel']:.3e}, grad norm "
+                 f"{record[run]['grad_norm_rel']:.3e}, leaf {leaf:.3e})")
+    log("remat policies " + json.dumps({
+        "B": TRAIN_B, "T": TRAIN_T, "K": TRAIN_K, "steps": REMAT_STEPS,
+        "device": torch.cuda.get_device_name(0), "runs": record}))
+    return {run: r["launches"] for run, r in runs.items()}
+
+
 # phase 9b, the teacher in the loop: the JAX benchmark's online modes
 # (bench.py --mode online_sparse / online_dense, --teacher_quant, eval,
 # extract: B 8, T 512, top-K 128, gaussian LoRA r 32, make_optimizer(5e-5,
@@ -4462,6 +4589,13 @@ PAR_TIMEOUT_S = 600
 PAR_PP_MICRO, PAR_PP_INTERLEAVE = 4, 2
 PAR_SP_T = 1024
 PAR_S1_ROWS = 1
+# the disaggregated teacher: 3 online KD steps (B 8, T 512, K 128, exact
+# top-K) with the student on rank 0 and the 1.7B teacher serving from rank
+# 1, against the one-process online-sparse steps; the same numbers but
+# for summation order (as ONLINE_PRE_RTOL), the grad norms as the other
+# runs of the phase
+PAR_DISAGG_STEPS = 3
+PAR_DISAGG_LOSS_RTOL, PAR_DISAGG_GRAD_NORM_RTOL = 1e-3, 1e-2
 
 
 # the runs of each rank, and the one-process reference of each step run
@@ -4605,12 +4739,93 @@ def par_stage1(cfg, model, dev, mesh=None) -> dict:
             "launches": dict(_cuda.launches)}
 
 
+def par_disagg_batches(cfg) -> list:
+    """The online steps' batches: bench.py's KD batch, 3 seeds."""
+    return [bench_kd_batch(cfg, np.random.default_rng(SEED + 22 + i))
+            for i in range(PAR_DISAGG_STEPS)]
+
+
+def par_online(cfg, model, lora, dev) -> dict:
+    """The one-process reference of the disaggregated run: the online
+    sparse steps with the teacher in the step, on the same batches."""
+    teacher = qwen3.init_params_on_device(TEACHER_SEED,
+                                          qwen3_teacher_1p7b(), dev)
+    opt = train_step.make_optimizer(2e-4, 1, 10)
+    step = train_step.make_kd_step(cfg, DistillConfig(top_k=TRAIN_K), opt,
+                                   mode="online_sparse", device=dev)
+    state = train_step.init_state(lora, opt)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    times, losses_, norms = [], [], []
+    for batch in par_disagg_batches(cfg):
+        t0 = time.perf_counter()
+        state, m = step(state, model, teacher, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses_.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return {"loss": losses_, "grad_norm": norms, "step_ms": times,
+            "launches": dict(_cuda.launches)}
+
+
+def par_disagg(cfg, full, lora, dev) -> dict:
+    """``distill/disaggregate`` on the phase's two ranks: rank 1 draws the
+    1.7B teacher and serves its exact top-K (``TeacherService.serve``),
+    rank 0 runs the precomputed KD steps on the streamed batches
+    (``pipeline_batches``, depth 2). The launch counts are set to 0 just
+    before the run on each rank and read just after."""
+    from speech_distill_tpu_torch.core.config import MeshConfig
+    from speech_distill_tpu_torch.distill import disaggregate
+    from speech_distill_tpu_torch.parallel import mesh as meshlib
+    ranks = disaggregate.split_devices(1)
+    t_mesh = meshlib.make_mesh(MeshConfig(), dev, ranks=ranks[1])
+    meshlib.make_mesh(MeshConfig(), dev, ranks=ranks[0])
+    teacher = None
+    if t_mesh is not None:
+        teacher = qwen3.init_params_on_device(TEACHER_SEED,
+                                              qwen3_teacher_1p7b(), dev)
+    svc = disaggregate.make_teacher_service(
+        teacher, None, t_mesh, top_k=TRAIN_K,
+        student_vocab_size=cfg.vocab_size, method="exact", depth=2,
+        ranks=ranks)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    if svc.is_teacher:
+        took = svc.serve()
+        torch.cuda.synchronize()
+        return {"role": "teacher", "extract_ms": [t * 1e3 for t in took],
+                "seconds": time.perf_counter() - t0,
+                "launches": dict(_cuda.launches)}
+    opt = train_step.make_optimizer(2e-4, 1, 10)
+    step = train_step.make_kd_step(cfg, DistillConfig(top_k=TRAIN_K), opt,
+                                   mode="precomputed", device=dev)
+    state = train_step.init_state(par_copy(lora), opt)
+    times, losses_, norms = [], [], []
+    try:
+        for hb in disaggregate.pipeline_batches(
+                iter(par_disagg_batches(cfg)), svc):
+            t1 = time.perf_counter()
+            state, m = step(state, full, None, hb)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+            losses_.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+    finally:
+        svc.close()                     # the teacher rank returns
+    return {"role": "student", "loss": losses_, "grad_norm": norms,
+            "step_ms": times, "wait_ms": [w * 1e3 for w in svc.wait_s],
+            "seconds": time.perf_counter() - t0,
+            "launches": dict(_cuda.launches)}
+
+
 def par_rank(rank: int, world: int, device: str) -> dict:
     """One rank of phase 18 (a spawned process on the one card, gloo):
     (a) the tp-2 serve in bf16 and in fp32 and the bf16 prefill logits,
     (b) the LoRA KD steps at dp 1 x tp 2 and at dp 2 x tp 1 with ZeRO-1,
     (c) the LoRA KD steps at pp 2, GPipe and interleaved 1F1B, (d) the
-    zig-zag KD steps and one stage-1 step at sp 2.
+    zig-zag KD steps and one stage-1 step at sp 2, (e) the disaggregated
+    teacher (:func:`par_disagg`).
     Every rank draws the full-width model on the card from the seed
     (``init_params_on_device``: the same weights in every process) and
     takes its slices (``sharding.shard_params``); the fp32 model is the
@@ -4665,6 +4880,7 @@ def par_rank(rank: int, world: int, device: str) -> dict:
     out["stage1_sp2"] = par_stage1(dataclasses.replace(cfg,
                                                        attn_impl="ring"),
                                    full, dev, sp2)
+    out["kd_disagg"] = par_disagg(cfg, full, lora, dev)
     return out
 
 
@@ -4689,6 +4905,9 @@ def parallel(dev, side) -> tuple:
     ref["kd_sp"] = par_kd(cfg, model, par_copy(lora), par_sp_batch(cfg),
                           dev)
     ref["stage1"] = par_stage1(cfg, model, dev)
+    ref["kd_disagg"] = par_online(cfg, model, par_copy(lora), dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     f32 = dataclasses.replace(cfg, dtype="float32")
     tree = model_to_tree(model)
     del model, lora
@@ -4735,7 +4954,7 @@ def parallel(dev, side) -> tuple:
           "flash_dkv": L * PAR_STEPS}
     pp = {"flash_fwd": 2 * stage, "flash_dq": stage, "flash_dkv": stage}
     for r, res in enumerate(ranks):
-        c = {run: res[run]["launches"] for run in PAR_RUNS}
+        c = {run: res[run]["launches"] for run in PAR_RUNS + ("kd_disagg",)}
         counts[f"rank{r}"] = c
         steps = res["serve"]["decode_steps"]
         want = {"serve": {"paged_decode": L * steps,
@@ -4790,6 +5009,7 @@ def parallel(dev, side) -> tuple:
             if not (lerr <= PAR_LOSS_RTOL and gerr <= PAR_GRAD_NORM_RTOL):
                 fail(f"parallel rank {r} {run}: loss / grad_norm apart "
                      f"from the one-process run")
+    check_par_disagg(ranks, ref, L)
     r0 = ranks[0]
     log("parallel " + json.dumps({
         "world": PAR_WORLD, "device": torch.cuda.get_device_name(0),
@@ -4813,6 +5033,61 @@ def parallel(dev, side) -> tuple:
     entries = par_kernels(dev, side, counts)
     log(f"parallel phase s={time.perf_counter() - t_phase:.2f}")
     return counts, entries
+
+
+def check_par_disagg(ranks: list, ref: dict, L: int) -> None:
+    """The disaggregated run: rank 0 the student, rank 1 the teacher; each
+    rank's launches exact (the student's precomputed steps: K1-fwd 2 x 28,
+    K1-dq / dkv 28 a step; the teacher's extraction: K1-fwd 28 a batch at
+    H 16, KV 8, Dh 128), nothing else, and the student's losses and grad
+    norms held to the one-process online steps."""
+    st, te = ranks[0]["kd_disagg"], ranks[1]["kd_disagg"]
+    if (st["role"], te["role"]) != ("student", "teacher"):
+        fail(f"parallel disaggregated roles {st['role']}, {te['role']}")
+    n, Lt = PAR_DISAGG_STEPS, qwen3_teacher_1p7b().num_hidden_layers
+    for r, got, want in ((0, st, {"flash_fwd": 2 * L * n, "flash_dq": L * n,
+                                  "flash_dkv": L * n}),
+                         (1, te, {"flash_fwd": Lt * n})):
+        have = {k: v for k, v in got["launches"].items() if v}
+        if have != want:
+            fail(f"parallel disaggregated rank {r}: launches {have} != "
+                 f"{want}")
+    one = ref["kd_disagg"]
+    lerr = rel_gap(st["loss"], one["loss"])
+    gerr = rel_gap(st["grad_norm"], one["grad_norm"])
+    log("parallel disaggregated " + json.dumps({
+        "steps": n, "B": TRAIN_B, "T": TRAIN_T, "K": TRAIN_K,
+        "student_rank0": {k: st[k] for k in ("loss", "grad_norm", "step_ms",
+                                             "wait_ms", "seconds")},
+        "teacher_rank1": {k: te[k] for k in ("extract_ms", "seconds")},
+        "one_process_online": {k: one[k] for k in
+                               ("loss", "grad_norm", "step_ms",
+                                "launches")},
+        "loss_rel": lerr, "grad_norm_rel": gerr,
+        "tol": [PAR_DISAGG_LOSS_RTOL, PAR_DISAGG_GRAD_NORM_RTOL],
+        "note": "two ranks time-slice one card: no overlap is shown"}))
+    if not (lerr <= PAR_DISAGG_LOSS_RTOL
+            and gerr <= PAR_DISAGG_GRAD_NORM_RTOL):
+        fail("parallel disaggregated: loss / grad_norm apart from the "
+             "one-process online steps")
+
+
+def dryrun() -> None:
+    """The multi-process dry run (``parallel/multihost_dryrun``) on the
+    card: 2 x 2 ranks on cuda:0 over gloo; fails unless every rank
+    reports ``MULTIHOST_OK``."""
+    from speech_distill_tpu_torch.parallel import multihost_dryrun
+    t0 = time.perf_counter()
+    try:
+        lines = multihost_dryrun.launch(2, 2, device="cuda:0",
+                                        backend="gloo", timeout_s=600)
+    except RuntimeError as e:
+        fail(f"multihost dry run: {e}")
+    ok = [x for x in lines if x.startswith(multihost_dryrun.OK_MARK)]
+    log(f"multihost dry run: {len(ok)} of 4 ranks {multihost_dryrun.OK_MARK}"
+        f" s={time.perf_counter() - t0:.2f}")
+    if len(ok) != 4:
+        fail(f"multihost dry run: {lines}")
 
 
 def par_kernels(dev, side, counts: dict) -> list:
@@ -4885,12 +5160,15 @@ def main() -> None:
     kernels += check_flash_bwd(dev, train_counts, side)
     check_grad_path(cfg, model, lora, dev)
     check_fused_kd(cfg, base, lora, dev)
+    remat_counts = remat_policies(cfg, base, lora, dev)
     del lora, base, model
     log(f"train phases s={time.perf_counter() - t0:.2f}")
     online_counts = online_kd(cfg, dev)
     for entry in kernels:   # K1 at the KD shape: phase 9b's step loops
-        if entry.get("path") == "KD":
+        if entry.get("path") == "KD":   # and the remat policies' steps
             entry["online_kd_launches"] = online_counts[entry["name"]]
+            entry["remat_launches"] = {run: c.get(entry["name"], 0)
+                                       for run, c in remat_counts.items()}
     t0 = time.perf_counter()
     s1_counts, model, rows = stage1(cfg, dev)
     kernels += check_lm_head(dev, model, s1_counts, side)
@@ -4914,6 +5192,7 @@ def main() -> None:
                                         for run, c in synth_counts.items()}
     par_counts, par_entries = parallel(dev, side)
     kernels += par_entries
+    dryrun()
     for entry in kernels:   # each rank's launches in phase 18's runs
         entry["parallel_launches"] = {
             rank: {run: c.get(entry["name"], 0) for run, c in runs.items()}

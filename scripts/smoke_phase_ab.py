@@ -14,7 +14,9 @@ seed where a phase needs it (not timed), then runs each phase as
 ``main()`` calls it and times it with the host clock after a
 synchronise. A phase a checkout lacks is skipped. Phases: ``tts_serve``
 (3c), ``decode_engines`` (3d), ``online_kd`` (9b), ``synthesis`` (16),
-``parallel`` (18). A failing check fails the process, as in the smoke.
+``parallel`` (18), ``remat`` (the remat policies after phase 9, on a
+PiSSA LoRA of a fresh 0.6B) and ``dryrun`` (the multi-process dry run
+after phase 18). A failing check fails the process, as in the smoke.
 
 Prints one JSON line a DIR (and appends it to ``--out``): the card and
 its power limit, and each phase's seconds; with ``--out`` each DIR's own
@@ -31,7 +33,14 @@ import sys
 import time
 
 PHASES = ("tts_serve", "decode_engines", "online_kd", "synthesis",
-          "parallel")
+          "parallel", "remat", "dryrun")
+CALLED = {"remat": "remat_policies"}     # a phase's function, by name
+
+
+def remat(cs, cfg, dev) -> None:
+    model = cs.qwen3.init_params(cfg, seed=cs.SEED, device=dev)
+    lora, base = cs.init_lora(model, cfg, cs.LoraConfig(), device=dev)
+    cs.remat_policies(cfg, base, lora, dev)
 
 
 def child(phases) -> dict:
@@ -50,10 +59,12 @@ def child(phases) -> dict:
              "decode_engines": lambda: cs.decode_engines(cfg, model, dev),
              "online_kd": lambda: cs.online_kd(cfg, dev),
              "synthesis": lambda: cs.synthesis(dev),
-             "parallel": lambda: cs.parallel(dev, side)}
+             "parallel": lambda: cs.parallel(dev, side),
+             "remat": lambda: remat(cs, cfg, dev),
+             "dryrun": lambda: cs.dryrun()}
     out = {"dir": os.getcwd(), "card": card, "seconds": {}}
     for name in phases:
-        if not hasattr(cs, name):
+        if not hasattr(cs, CALLED.get(name, name)):
             out["seconds"][name] = None           # not in this checkout
             continue
         if name in ("tts_serve", "decode_engines") and model is None:

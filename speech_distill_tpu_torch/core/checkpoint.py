@@ -91,7 +91,7 @@ class CheckpointManager:
                 gather_state)
             state = gather_state(state, self.specs_fn(state), self.mesh)
             if not self.mesh.is_primary:
-                multihost.barrier()
+                multihost.barrier(self.mesh)
                 return
         tmp = self._path(step) + ".tmp"
         torch.save({"state": _to_plain(state)}, tmp)
@@ -99,7 +99,7 @@ class CheckpointManager:
         for old in self.steps()[:-self.max_to_keep]:
             os.remove(self._path(old))
         if self.mesh is not None:
-            multihost.barrier()
+            multihost.barrier(self.mesh)
 
     def wait(self):
         """Saves are synchronous: nothing is in flight."""

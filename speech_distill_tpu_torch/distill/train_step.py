@@ -24,8 +24,8 @@ The JAX step donates its state; the port updates the trainable tensors of
 the state in place the same way (``donate=True``), or leaves them as they
 were and returns new ones (``donate=False``). ``make_optimizer`` also
 builds the 8-bit AdamW (``distill/optim8bit``) and the one-traversal
-clip + AdamW (:func:`adamw` with ``fused=True``). The split apply is not
-ported yet and raises (ROADMAP §1 item 15).
+clip + AdamW (:func:`adamw` with ``fused=True``). JAX's ``split_apply``
+(two programs) is the eager step as it is.
 
 ``mesh`` (``parallel/mesh.Mesh``): the step of one rank of a dp x pp x sp
 x tp run (the JAX step over a ``NamedSharding``-placed state). The student
@@ -696,9 +696,14 @@ def make_kd_step(student_cfg: Qwen3Config, distill_cfg: DistillConfig,
     ``head_dense_kd_loss``) or 'unfused' (autograd through
     ``unembed_train`` and ``sparse_distill_loss`` / ``dense_distill_loss``).
     ``merge_weights`` folds the adapters into the weights inside the
-    forward and lets autograd differentiate the merged product. Metrics
-    (0-dim tensors on the device): loss, student_loss, distill_loss,
-    teacher_loss and grad_norm (global norm of the grads before clipping).
+    forward and lets autograd differentiate the merged product.
+    ``split_apply``: JAX's step as two programs, the accumulated gradients
+    and then the optimizer's update with the state donated (a workaround
+    of the TPU compiler). The eager step already runs the gradients and
+    then the update, so the value changes nothing; donation has no eager
+    counterpart beyond ``donate``'s in-place update. Metrics (0-dim
+    tensors on the device): loss, student_loss, distill_loss, teacher_loss
+    and grad_norm (global norm of the grads before clipping).
 
     ``mesh``: this rank's step of a dp x tp run (see the module's
     docstring), ``device`` then the mesh's; ``zero1`` keeps the moments'
@@ -707,11 +712,9 @@ def make_kd_step(student_cfg: Qwen3Config, distill_cfg: DistillConfig,
     """
     dev = resolve_device(device if mesh is None else mesh.device)
     _check_mode(mode)
+    del split_apply                 # the same step either way (above)
     if fused_backend not in BACKENDS:
         raise ValueError(f"unknown fused_backend {fused_backend!r}")
-    if split_apply:
-        raise NotImplementedError("split_apply is not ported (ROADMAP §1 "
-                                  "item 15)")
     if pp_schedule not in ("gpipe", "1f1b"):
         raise ValueError(f"unknown pp_schedule {pp_schedule!r}")
     if pp_schedule == "1f1b" and mode != "precomputed":

@@ -494,24 +494,67 @@ def pipelined(model: Qwen3) -> bool:
     return pp_sharded(model.cfg, getattr(model, "mesh", None))
 
 
+REMAT_POLICIES = ("full", "dots", "half", "everything")
+# the matrix products whose outputs "dots" keeps (the JAX checkpoint_dots:
+# every dot_general); what the products' wrappers compute around them, and
+# a kernel launched from an autograd.Function (K1-fwd, not an aten op, as
+# JAX's Pallas call is not a dot), runs again in the backward
+DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+           torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return create_selective_checkpoint_contexts(list(DOT_OPS))
+
+
+def _checkpointed(fn, dots: bool = False):
+    def run(*args):
+        if dots:
+            return checkpoint(fn, *args, use_reentrant=False,
+                              context_fn=_save_dots)
+        return checkpoint(fn, *args, use_reentrant=False)
+    return run
+
+
+def layer_runners(cfg: Qwen3Config, n: int, remat: bool) -> list:
+    """Each of ``n`` layers' forward under ``cfg.remat_policy`` (JAX
+    ``models/qwen3.py:554-619``): "full" checkpoints the layer (all of it
+    runs again in the backward); "dots" keeps the outputs of its matrix
+    products (:data:`DOT_OPS`, selective checkpointing) and recomputes the
+    rest; "half" checkpoints the first ``n // 2`` layers fully and saves
+    everything for the others; "everything" saves every residual, the
+    same as no checkpoint (``remat`` False)."""
+    policy = cfg.remat_policy
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {policy!r} "
+                         f"({REMAT_POLICIES})")
+    if not remat or policy == "everything":
+        return [layer_forward] * n
+    if policy == "half":
+        return ([_checkpointed(layer_forward)] * (n // 2)
+                + [layer_forward] * (n - n // 2))
+    return [_checkpointed(layer_forward, dots=policy == "dots")] * n
+
+
 def _stack(model: Qwen3, layers, x, cos, sin, mask_bias, layout, *,
            adapters=None, scale: float = 1.0, merge: bool = False,
            weights: Optional[dict] = None, remat: bool = False):
     """The decoder stack of the cache-less forwards: each layer in turn
-    (checkpointed with ``remat``), the ring over sp with a ``layout``, or
-    GPipe over pp for a pipelined model. ``adapters`` (stacked LoRA
-    factors) or ``weights["layers"]`` (full finetuning) are this stage's
-    and ride the pipeline as its trainable leaves."""
+    (checkpointed with ``remat`` under ``cfg.remat_policy``,
+    :func:`layer_runners`), the ring over sp with a ``layout``, or GPipe
+    over pp for a pipelined model. ``adapters`` (stacked LoRA factors) or
+    ``weights["layers"]`` (full finetuning) are this stage's and ride the
+    pipeline as its trainable leaves."""
     cfg, tp = model.cfg, tp_group(model)
     sp = model.mesh if layout is not None else None
     zigzag = layout is not None and layout[1]
     if not pipelined(model):
         per_layer = _layer_adapters(adapters, len(layers))
-        for layer, la in zip(layers, per_layer):
-            args = (layer, x, cos, sin, mask_bias, cfg, la, scale, merge, tp,
+        runners = layer_runners(cfg, len(layers), remat)
+        for run, layer, la in zip(runners, layers, per_layer):
+            x = run(layer, x, cos, sin, mask_bias, cfg, la, scale, merge, tp,
                     sp, zigzag)
-            x = (checkpoint(layer_forward, *args, use_reentrant=False)
-                 if remat else layer_forward(*args))
         return x
     if layout is not None:
         raise ValueError("ring attention (sp) and pipeline (pp) cannot "
@@ -747,16 +790,21 @@ def forward_train(model: Qwen3, input_ids, *, attention_mask=None,
     weights with ``merge_adapters``. ``weights`` (full finetuning) is a
     JAX-layout tree of every weight ({"embed", "final_ln", "layers"
     stacked [L, ...], ["lm_head"]}) read in place of the model's own; the
-    model then gives only its config. With ``cfg.remat`` each layer is
-    checkpointed (``torch.utils.checkpoint``, non-reentrant): its forward
-    runs again in the backward. Returns the final-normed hidden states
-    [B, T, D], or fp32 logits through :func:`unembed_train`. A
+    model then gives only its config. With ``cfg.remat`` the layers are
+    checkpointed (``torch.utils.checkpoint``, non-reentrant) under
+    ``cfg.remat_policy`` (:func:`layer_runners`: "full", "dots", "half",
+    "everything"); the values do not depend on it. Returns the
+    final-normed hidden states [B, T, D], or fp32 logits through
+    :func:`unembed_train`. A
     tensor-parallel model (``model.mesh``) reads its rank's slices of
     every table (``embed`` / ``lm_head`` / ``weights`` too) and returns
     the whole hidden states, or the whole logits (gathered over tp). On
     an sp ring it returns this rank's positions (:func:`sequence_layout`);
     pipelined over pp, GPipe with each microbatch's stage forward run again
-    in the backward (full remat, whatever ``cfg.remat``).
+    in the backward (full remat, whatever ``cfg.remat`` and its policy;
+    JAX's GPipe checkpoints its layer body under the policy: "dots" keeps
+    the products' outputs, "everything" every residual, "full" and "half"
+    nothing, and with ``remat`` False it saves everything).
 
     Runs on ``device`` (CUDA by default; raises without it), where the
     model must live.
@@ -765,10 +813,6 @@ def forward_train(model: Qwen3, input_ids, *, attention_mask=None,
     if model.device != dev:
         raise ValueError(f"model is on {model.device}, not {dev}")
     cfg = model.cfg
-    if cfg.remat and cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r}: only 'full' is ported "
-            f"(ROADMAP §1 item 15)")
     input_ids = torch.as_tensor(input_ids, device=dev).long()
     if attention_mask is not None:
         attention_mask = torch.as_tensor(attention_mask, device=dev)

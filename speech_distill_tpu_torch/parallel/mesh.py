@@ -3,11 +3,11 @@ mesh.py``).
 
 JAX builds a named ``jax.sharding.Mesh`` over the devices of one
 controller. The port runs one process a device over ``torch.distributed``
-(NCCL on the card, gloo on the CPU) and builds a
-``torch.distributed.device_mesh`` with the same four named dims, in the
-same row-major order: rank = ((dp * PP + pp) * SP + sp) * TP + tp. A
-:class:`Mesh` is one rank's view of it: the shape, this rank's index on
-each axis, the process group of each axis and the rank's device.
+(NCCL on the card, gloo on the CPU) and builds a process group for each
+line of the same four named dims, in the same row-major order:
+rank = ((dp * PP + pp) * SP + sp) * TP + tp. A :class:`Mesh` is one
+rank's view of it: the shape, this rank's index on each axis, the process
+group of each axis and the rank's device.
 
 Axes:
   dp — data parallel (batch dim)
@@ -19,6 +19,13 @@ Axes:
 An axis's process group orders its ranks by their index on the axis, so
 a neighbour on the sp ring or the pp chain is an index in that group.
 
+A mesh may span some of the ranks (``make_mesh(ranks=)``, the JAX
+``make_mesh(devices=)``): the disaggregated teacher's ranks and the
+student's (``distill/disaggregate``). Its groups come from ``new_group``,
+which every rank of the world calls in the same order, so every rank
+builds every mesh; its ``group(None)`` holds its own ranks, not the
+world's.
+
 JAX's ``serialize_collective_chains`` has no counterpart: it orders two
 independent collective chains of one XLA:CPU program against a deadlock
 of XLA's thunk executor. Here each rank issues its collectives in program
@@ -27,7 +34,7 @@ order, so independent chains never interleave.
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -76,11 +83,11 @@ class Mesh:
     identity)."""
 
     def __init__(self, shape: Dict[str, int], coords: Dict[str, int],
-                 device: torch.device, device_mesh=None):
+                 device: torch.device, groups: Optional[dict] = None):
         self.shape = dict(shape)
         self.coords = dict(coords)
         self.device = device
-        self.device_mesh = device_mesh
+        self.groups = groups or {}      # axis (None: the mesh) -> group
 
     def size(self, axis: str) -> int:
         return self.shape[axis]
@@ -123,40 +130,51 @@ class Mesh:
         return self.rank == 0
 
     def group(self, axis: Optional[str] = None):
-        """The process group of ``axis`` (None: every rank); None when it
-        holds one rank."""
-        if self.device_mesh is None:
-            return None
-        if axis is None:
-            import torch.distributed as dist
-            return dist.group.WORLD if self.world > 1 else None
-        if self.shape[axis] == 1:
-            return None
-        return self.device_mesh.get_group(axis)
+        """The process group of ``axis`` (None: every rank of the mesh);
+        None when it holds one rank."""
+        return self.groups.get(axis)
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, coords={self.coords}, "
                 f"device={self.device})")
 
 
-def make_mesh(cfg: Optional[MeshConfig] = None, device=None) -> Mesh:
+def make_mesh(cfg: Optional[MeshConfig] = None, device=None,
+              ranks: Optional[Sequence[int]] = None) -> Optional[Mesh]:
     """The (dp, pp, sp, tp) mesh over every rank of the process group
     (one rank when none is initialized; ``multihost.initialize`` starts
-    one). ``device``: this rank's device (:func:`rank_device`)."""
+    one), or over ``ranks`` (global ranks in mesh order). Every rank of
+    the world calls it with the same ``ranks``: the groups (the mesh's,
+    then each line of each axis) come from ``new_group`` in one order on
+    every rank. A rank outside ``ranks`` gets None. ``device``: this
+    rank's device (:func:`rank_device`)."""
+    import numpy as np
     import torch.distributed as dist
 
     n = dist.get_world_size() if dist.is_initialized() else 1
-    shape = mesh_shape(cfg, n)
-    dev = rank_device(device)
-    if n == 1:
-        return single_device_mesh(dev)
-    from torch.distributed.device_mesh import init_device_mesh
-    if dev.type == "cuda":
+    ranks = list(range(n) if ranks is None else ranks)
+    shape = mesh_shape(cfg, len(ranks))
+    me = dist.get_rank() if dist.is_initialized() else 0
+    dev = rank_device(device) if me in ranks else None
+    if len(ranks) == 1:
+        return single_device_mesh(dev) if me in ranks else None
+    if dev is not None and dev.type == "cuda":
         torch.cuda.set_device(dev)
-    dm = init_device_mesh(dev.type, tuple(shape[a] for a in AXES),
-                          mesh_dim_names=AXES)
-    coords = {a: dm.get_local_rank(a) for a in AXES}
-    return Mesh(shape, coords, dev, dm)
+    groups = {None: dist.group.WORLD if len(ranks) == n
+              else dist.new_group(ranks)}
+    grid = np.arange(len(ranks)).reshape([shape[a] for a in AXES])
+    for i, a in enumerate(AXES):
+        if shape[a] == 1:
+            continue
+        for line in np.moveaxis(grid, i, -1).reshape(-1, shape[a]):
+            members = [ranks[j] for j in line]
+            g = dist.new_group(members)
+            if me in members:
+                groups[a] = g
+    if me not in ranks:
+        return None
+    at = np.unravel_index(ranks.index(me), grid.shape)
+    return Mesh(shape, {a: int(c) for a, c in zip(AXES, at)}, dev, groups)
 
 
 def single_device_mesh(device=None) -> Mesh:

@@ -98,6 +98,24 @@ def is_primary() -> bool:
     return process_index() == 0
 
 
+def check_single_host() -> None:
+    """Raise ``ValueError`` when the ranks span more than one host: the
+    disaggregated teacher is single-host, as in JAX (which refuses it for
+    more than one process: a JAX process is a host, a rank here is a
+    device). Each rank's ``socket.gethostname()`` is all-gathered over
+    the process group (every rank calls this)."""
+    import socket
+    import torch.distributed as dist
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return
+    names = [None] * dist.get_world_size()
+    dist.all_gather_object(names, socket.gethostname())
+    if len(set(names)) > 1:
+        raise ValueError(
+            f"--teacher_devices (disaggregated teacher) is single-host; "
+            f"these ranks span {len(set(names))} hosts")
+
+
 def shutdown() -> None:
     """Leave the process group (if one was started)."""
     import torch.distributed as dist
@@ -137,11 +155,19 @@ def fetch_replicated(tree, specs=None, mesh: Optional[Mesh] = None):
     return tree_map(lambda x: x.detach(), tree)
 
 
-def barrier() -> None:
-    """Every rank waits here for the others (e.g. before reading a
-    checkpoint another rank just wrote)."""
+def barrier(mesh: Optional[Mesh] = None) -> None:
+    """Every rank of ``mesh`` (default: of the process group) waits here
+    for the others (e.g. before reading a checkpoint another rank just
+    wrote). A disaggregated run passes the student's mesh: the teacher
+    ranks, serving, never join it."""
     import torch.distributed as dist
-    if dist.is_initialized() and dist.get_world_size() > 1:
+    if not dist.is_initialized():
+        return
+    if mesh is not None:
+        group = mesh.group(None)
+        if group is not None:
+            dist.barrier(group=group)
+    elif dist.get_world_size() > 1:
         dist.barrier()
 
 

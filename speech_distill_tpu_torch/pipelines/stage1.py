@@ -260,7 +260,7 @@ def train_stage1(config):
         export_hf(final, cfg, out)
         tokenizer.save_pretrained(out)
         print("Stage-1 training completed!")
-    multihost.barrier()
+    multihost.barrier(mesh)
 
 
 def build_parser():

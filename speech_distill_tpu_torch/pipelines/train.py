@@ -22,8 +22,15 @@ teacher is replicated whole). ``--sp`` splits each sequence over a ring
 ``--pp`` pipelines the student's stack (and a teacher's whose layer
 count pp divides) in ``--pp_microbatches`` (default 2 pp) microbatches,
 GPipe or ``--pp_schedule 1f1b`` (``--pp_interleave`` virtual stages).
-As in JAX, sp and pp do not combine. The disaggregated teacher
-(``--teacher_devices``, ``--teacher_tp``) is not ported and raises.
+As in JAX, sp and pp do not combine.
+
+``--teacher_devices N`` (online sparse KD) disaggregates the teacher onto
+the trailing N ranks (``distill/disaggregate``): they load only the
+teacher, on a dp x ``--teacher_tp`` mesh of their own without ring or
+pipeline, and serve its top-K to the student ranks, whose step (and eval
+step) becomes the precomputed one; the teacher ranks return when the
+student closes the stream. As in JAX it refuses dense KD and ranks on
+more than one host, and ``--teacher_tp`` without it changes nothing.
 
 Where the JAX CLI fails, this one raises ``ValueError`` before the teacher
 loads: a quantized CosyVoice2 teacher, and dense KD against a CosyVoice2
@@ -33,10 +40,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
-
-# flag -> its default: set to anything else, the flag raises
-_UNPORTED = {"teacher_devices": 0, "teacher_tp": 1}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -80,8 +85,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--per_device_train_batch_size", type=int, default=4)
     p.add_argument("--gradient_accumulation_steps", type=int, default=4)
     p.add_argument("--pad_to_multiple_of", type=int, default=128)
-    # the disaggregated teacher (--teacher_devices, --teacher_tp): not
-    # ported (ROADMAP §1 item 15), each raises when not at its default
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--sp", type=int, default=1)
     p.add_argument("--sp_zigzag", action="store_true")
@@ -105,16 +108,16 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def check_ported(config) -> None:
-    """Raise ``NotImplementedError`` for a flag the port does not have,
-    and ``ValueError`` where the JAX CLI refuses (sp with pp, an
-    interleave without 1F1B) or fails (a quantized CosyVoice2 teacher, on
-    its int8 embedding)."""
-    for flag, default in _UNPORTED.items():
-        if getattr(config, flag, default) != default:
-            raise NotImplementedError(
-                f"--{flag} is not ported (the disaggregated teacher: "
-                f"ROADMAP §1 item 15)")
+def check_ported(config, mode: str = None) -> None:
+    """Raise ``ValueError`` where the JAX CLI refuses (sp with pp, an
+    interleave without 1F1B, ``--teacher_devices`` with dense KD: a
+    quantized teacher or ``--top_k`` <= 0, under the dataset's ``mode``
+    when given) or fails (a quantized CosyVoice2 teacher, on its int8
+    embedding)."""
+    if mode == "online_dense" and config.teacher_devices > 0:
+        raise ValueError(
+            "--teacher_devices streams sparse top-K artifacts; dense KD "
+            "(quantized teacher or top_k<=0) must share the mesh")
     if config.sp > 1 and config.pp > 1:
         raise ValueError("--sp (ring attention) and --pp (pipeline) "
                          "cannot combine; pick one")
@@ -128,6 +131,21 @@ def check_ported(config) -> None:
         raise ValueError("--load_teacher_in_4bit / _8bit with "
                          "--teacher_family cosyvoice2: a quantized "
                          "CosyVoice2 teacher is not supported")
+
+
+def check_teacher_rows(config, ranks) -> None:
+    """A disaggregated teacher extracts a batch's rows split over its dp
+    (JAX shards the ids ``P("dp")``): the global batch must divide by it,
+    else ``ValueError`` on every rank before any weight loads."""
+    from speech_distill_tpu_torch.core.config import MeshConfig
+    from speech_distill_tpu_torch.parallel.mesh import mesh_shape
+    t_dp = mesh_shape(MeshConfig(tp=config.teacher_tp), len(ranks[1]))["dp"]
+    s_dp = mesh_shape(MeshConfig(tp=config.tp, sp=config.sp, pp=config.pp),
+                      len(ranks[0]))["dp"]
+    rows = config.per_device_train_batch_size * s_dp
+    if rows % t_dp:
+        raise ValueError(f"a global batch of {rows} rows does not split "
+                         f"over the teacher's dp={t_dp}")
 
 
 def preview(tokenizer, sample) -> None:
@@ -181,27 +199,74 @@ def parallel_cfg(cfg, config, teacher: bool = False):
     return cfg
 
 
-def train(config) -> None:
-    import torch
-    from speech_distill_tpu_torch.core.checkpoint import export_hf
-    from speech_distill_tpu_torch.core.config import (DistillConfig,
-                                                      LoraConfig, MeshConfig,
-                                                      parse_prefix)
-    from speech_distill_tpu_torch.core.trainer import (LoopConfig,
-                                                       batches_from,
-                                                       train_loop)
-    from speech_distill_tpu_torch.data.collator import DistillCollator
-    from speech_distill_tpu_torch.data.template import align_prefixes
+def load_teacher_model(config, quant: str, s_cfg, dcfg, dev, mesh=None):
+    """The teacher of an online mode on ``dev``: a Qwen3 HF directory
+    (quantized by ``--load_teacher_in_*``), or the CosyVoice2 checkpoint
+    of ``--teacher_family cosyvoice2`` with its forward and (sparse) its
+    extraction, on the CLI's ``mesh`` when one is given (sharded, with the
+    ring or pipeline of :func:`parallel_cfg`; a CosyVoice2 teacher whole
+    under tp). Returns (teacher, teacher_forward, teacher_extract)."""
     from speech_distill_tpu_torch.distill import train_step
-    from speech_distill_tpu_torch.distill.lora import (init_lora,
-                                                       merge_and_export)
-    from speech_distill_tpu_torch.models.hf_loader import load_pretrained
-    from speech_distill_tpu_torch.parallel import multihost, sharding
+    from speech_distill_tpu_torch.parallel import sharding
+    parallel = mesh is not None and mesh.world > 1
+    if config.teacher_family != "cosyvoice2":
+        teacher = load_teacher(config.teacher_model, quant, dev)
+        if parallel:
+            teacher = sharding.shard_params(
+                mesh, teacher, parallel_cfg(teacher.cfg, config,
+                                            teacher=True))
+        return teacher, None, None
+    from speech_distill_tpu_torch.models import cosyvoice2 as cv2
+    if dcfg.use_dense:
+        train_step.check_width(cv2.CosyVoice2Config().unified_vocab_size,
+                               s_cfg.vocab_size)
+    teacher = cv2.load(config.teacher_model, dev)
+    if parallel and mesh.tp == 1:
+        # the ring / pipeline of the backbone (replicated whole under tp)
+        bcfg = parallel_cfg(teacher.cfg.backbone, config, teacher=True)
+        teacher.backbone = sharding.shard_params(mesh, teacher.backbone,
+                                                 bcfg)
+        teacher.cfg = dataclasses.replace(teacher.cfg, backbone=bcfg)
+    extract = None
+    if not dcfg.use_dense:
+        extract = cv2.make_teacher_extract(
+            teacher.cfg, dcfg.top_k, s_cfg.vocab_size,
+            extract=dcfg.online_extract, recall=dcfg.online_topk_recall)
+    return teacher, cv2.make_teacher_forward(teacher.cfg), extract
+
+
+def teacher_service(config, dcfg, ranks, t_mesh, student_model: str):
+    """Every rank's part of the disaggregated teacher
+    (``disaggregate.make_teacher_service``): the teacher ranks load the
+    teacher on their mesh (sharded over its tp; a CosyVoice2 teacher
+    whole, as under ``--tp``), the student ranks nothing."""
+    from speech_distill_tpu_torch.distill import disaggregate
+    from speech_distill_tpu_torch.models.hf_loader import config_from_hf
+    with open(os.path.join(student_model, "config.json")) as f:
+        s_cfg = config_from_hf(json.load(f))
+    teacher = extract = None
+    if t_mesh is not None:
+        teacher, _, extract = load_teacher_model(config, "none", s_cfg,
+                                                 dcfg, t_mesh.device)
+    svc = disaggregate.make_teacher_service(
+        teacher, None, t_mesh, top_k=dcfg.top_k,
+        student_vocab_size=s_cfg.vocab_size,
+        method=dcfg.online_topk_method, recall=dcfg.online_topk_recall,
+        extract_fn=extract, shard=config.teacher_family == "qwen3",
+        ranks=ranks)
+    if svc.is_teacher:
+        print(f"Disaggregated teacher: ranks {ranks[1]} (mesh "
+              f"{t_mesh.shape}), student ranks {ranks[0]}")
+    return svc
+
+
+def train(config) -> None:
+    from speech_distill_tpu_torch.core.config import (DistillConfig,
+                                                      LoraConfig, MeshConfig)
+    from speech_distill_tpu_torch.distill import disaggregate
+    from speech_distill_tpu_torch.parallel import multihost
     from speech_distill_tpu_torch.parallel import mesh as meshlib
-    from speech_distill_tpu_torch.pipelines.common import (load_hf_dataset,
-                                                           load_tokenizer)
-    from speech_distill_tpu_torch.pipelines.prepare_dataset import (
-        make_dual_processor)
+    from speech_distill_tpu_torch.pipelines.common import load_hf_dataset
 
     check_ported(config)
     # one process a device: the rank's card (cuda:LOCAL_RANK) unless
@@ -209,32 +274,11 @@ def train(config) -> None:
     rank_dev = None if config.device == "cuda" else config.device
     multihost.initialize(config.coordinator_address, config.num_processes,
                          config.process_id, device=rank_dev)
-    mesh = meshlib.make_mesh(MeshConfig(tp=config.tp, sp=config.sp,
-                                        pp=config.pp), device=rank_dev)
-    meshlib.set_active_mesh(mesh)
-    parallel = mesh.world > 1
-    dev = mesh.device
-    tokenizer = load_tokenizer(config.student_model, config.pad_token)
-    teacher_prefix, student_prefix = align_prefixes(
-        parse_prefix(config.teacher_prefix),
-        parse_prefix(config.student_prefix), tokenizer)
-
+    meshlib.rank_device(rank_dev)        # raises without CUDA
     dataset = load_hf_dataset(config.dataset_path)
     is_preprocessed = ("student_input_ids" in dataset.column_names
                        and "teacher_input_ids" in dataset.column_names)
     has_topk = "teacher_top_k_v" in dataset.column_names
-
-    if config.test_size > 0 and len(dataset) > config.test_size:
-        split = dataset.train_test_split(test_size=config.test_size, seed=42)
-        dataset, eval_dataset = split["train"], split["test"]
-    else:
-        eval_dataset = None
-
-    if not is_preprocessed:
-        dual = make_dual_processor(
-            tokenizer, teacher_prefix, student_prefix, config, device=dev)
-        dataset = dataset.map(dual, batched=True, desc="process")
-    preview(tokenizer, dataset[0])
 
     quant = ("int4" if config.load_teacher_in_4bit
              else "int8" if config.load_teacher_in_8bit else "none")
@@ -252,37 +296,85 @@ def train(config) -> None:
                         alpha=config.lora_alpha,
                         use_rslora=config.use_rslora,
                         init_weights=config.init_lora_weights))
+    mode = "precomputed" if has_topk else (
+        "online_dense" if dcfg.use_dense else "online_sparse")
+    check_ported(config, mode)
+    # a disaggregated teacher (online KD only, as in JAX): the trailing
+    # ranks, every rank building both meshes
+    ranks = t_mesh = service = None
+    if config.teacher_devices > 0 and mode != "precomputed":
+        multihost.check_single_host()
+        ranks = disaggregate.split_devices(config.teacher_devices)
+        check_teacher_rows(config, ranks)
+        t_mesh = meshlib.make_mesh(MeshConfig(tp=config.teacher_tp),
+                                   device=rank_dev, ranks=ranks[1])
+    mesh = meshlib.make_mesh(MeshConfig(tp=config.tp, sp=config.sp,
+                                        pp=config.pp), device=rank_dev,
+                             ranks=ranks[0] if ranks else None)
+    if ranks is not None:
+        service = teacher_service(config, dcfg, ranks, t_mesh,
+                                  config.student_model)
+        if service.is_teacher:
+            service.serve()
+            return
+    try:
+        _train_student(config, dcfg, mode, quant, dataset, is_preprocessed,
+                       mesh, service)
+    finally:
+        if service is not None:
+            service.close()     # the teacher ranks return, after a raise too
+
+
+def _train_student(config, dcfg, mode, quant, dataset, is_preprocessed,
+                   mesh, service) -> None:
+    """The student ranks' part of :func:`train` (every rank without a
+    disaggregated teacher): load, train, evaluate and export."""
+    import torch
+    from speech_distill_tpu_torch.core.checkpoint import export_hf
+    from speech_distill_tpu_torch.core.config import parse_prefix
+    from speech_distill_tpu_torch.core.trainer import (LoopConfig,
+                                                       batches_from,
+                                                       train_loop)
+    from speech_distill_tpu_torch.data.collator import DistillCollator
+    from speech_distill_tpu_torch.data.template import align_prefixes
+    from speech_distill_tpu_torch.distill import disaggregate, train_step
+    from speech_distill_tpu_torch.distill.lora import (init_lora,
+                                                       merge_and_export)
+    from speech_distill_tpu_torch.models.hf_loader import load_pretrained
+    from speech_distill_tpu_torch.parallel import multihost, sharding
+    from speech_distill_tpu_torch.parallel import mesh as meshlib
+    from speech_distill_tpu_torch.pipelines.common import load_tokenizer
+    from speech_distill_tpu_torch.pipelines.prepare_dataset import (
+        make_dual_processor)
+
+    meshlib.set_active_mesh(mesh)
+    parallel = mesh.world > 1
+    dev = mesh.device
+    tokenizer = load_tokenizer(config.student_model, config.pad_token)
+    teacher_prefix, student_prefix = align_prefixes(
+        parse_prefix(config.teacher_prefix),
+        parse_prefix(config.student_prefix), tokenizer)
+
+    if config.test_size > 0 and len(dataset) > config.test_size:
+        split = dataset.train_test_split(test_size=config.test_size, seed=42)
+        dataset, eval_dataset = split["train"], split["test"]
+    else:
+        eval_dataset = None
+
+    if not is_preprocessed:
+        dual = make_dual_processor(
+            tokenizer, teacher_prefix, student_prefix, config, device=dev)
+        dataset = dataset.map(dual, batched=True, desc="process")
+    preview(tokenizer, dataset[0])
 
     s_cfg, student = load_pretrained(config.student_model, device=dev)
     s_cfg = parallel_cfg(s_cfg, config)
-    mode = "precomputed" if has_topk else (
-        "online_dense" if dcfg.use_dense else "online_sparse")
     teacher = teacher_forward = teacher_extract = None
-    if mode != "precomputed" and config.teacher_family == "cosyvoice2":
-        from speech_distill_tpu_torch.models import cosyvoice2 as cv2
-        if mode == "online_dense":
-            train_step.check_width(cv2.CosyVoice2Config().unified_vocab_size,
-                                   s_cfg.vocab_size)
-        teacher = cv2.load(config.teacher_model, dev)
-        if parallel and mesh.tp == 1:
-            # the ring / pipeline of the backbone (replicated whole under
-            # tp, as before)
-            bcfg = parallel_cfg(teacher.cfg.backbone, config, teacher=True)
-            teacher.backbone = sharding.shard_params(mesh, teacher.backbone,
-                                                     bcfg)
-            teacher.cfg = dataclasses.replace(teacher.cfg, backbone=bcfg)
-        teacher_forward = cv2.make_teacher_forward(teacher.cfg)
-        if mode == "online_sparse":
-            teacher_extract = cv2.make_teacher_extract(
-                teacher.cfg, dcfg.top_k, s_cfg.vocab_size,
-                extract=dcfg.online_extract,
-                recall=dcfg.online_topk_recall)
-    elif mode != "precomputed":
-        teacher = load_teacher(config.teacher_model, quant, dev)
-        if parallel:
-            teacher = sharding.shard_params(
-                mesh, teacher, parallel_cfg(teacher.cfg, config,
-                                            teacher=True))
+    if mode != "precomputed" and service is None:
+        teacher, teacher_forward, teacher_extract = load_teacher_model(
+            config, quant, s_cfg, dcfg, dev, mesh)
+    # a disaggregated teacher streams the top-K in: the precomputed steps
+    step_mode = "precomputed" if service is not None else mode
 
     if config.use_lora:
         gen = torch.Generator().manual_seed(dcfg.seed)
@@ -313,7 +405,7 @@ def train(config) -> None:
         state = state._replace(opt_state=sharding.shard_opt_state(
             mesh, state.opt_state, specs, zero1=config.zero1))
     step_fn = train_step.make_kd_step(
-        s_cfg, dcfg, opt, mode=mode, teacher_forward=teacher_forward,
+        s_cfg, dcfg, opt, mode=step_mode, teacher_forward=teacher_forward,
         teacher_extract=teacher_extract, use_lora=config.use_lora,
         pp_schedule=config.pp_schedule, device=dev, mesh=step_mesh,
         zero1=config.zero1 and parallel)
@@ -324,11 +416,15 @@ def train(config) -> None:
             config.speech_bos, add_special_tokens=False)[0],
         pad_to_multiple_of=dcfg.pad_to_multiple_of)
 
+    def teacher_stream(it):
+        return it if service is None else \
+            disaggregate.pipeline_batches(it, service)
+
     def batch_iter(epoch):
-        return batches_from(
+        return teacher_stream(batches_from(
             (dataset[i] for i in range(len(dataset))), collator,
             global_batch, A, shuffle_seed=dcfg.seed, epoch=epoch,
-            shuffle_buffer=dcfg.shuffle_buffer_size or None)
+            shuffle_buffer=dcfg.shuffle_buffer_size or None))
 
     loop_cfg = LoopConfig(
         num_epochs=dcfg.num_train_epochs, max_steps=config.max_steps,
@@ -340,14 +436,14 @@ def train(config) -> None:
         if not is_preprocessed:
             eval_dataset = eval_dataset.map(dual, batched=True, desc="eval")
         eval_step = train_step.make_kd_eval_step(
-            s_cfg, dcfg, mode=mode, teacher_forward=teacher_forward,
+            s_cfg, dcfg, mode=step_mode, teacher_forward=teacher_forward,
             use_lora=config.use_lora, device=dev, mesh=step_mesh)
 
         def eval_fn(state):
             totals, n = None, 0
-            for hb in batches_from(
+            for hb in teacher_stream(batches_from(
                     (eval_dataset[i] for i in range(len(eval_dataset))),
-                    collator, global_batch, 1, drop_last=False):
+                    collator, global_batch, 1, drop_last=False)):
                 if parallel:
                     hb = multihost.make_global_batch(mesh, hb)
                 m = {k: float(v) for k, v in eval_step(
@@ -366,7 +462,6 @@ def train(config) -> None:
         device=dev, mesh=step_mesh,
         state_specs=lambda st: sharding.state_pspecs(
             st, specs, mesh, zero1=config.zero1))
-
     # the merged model for HF consumers (the ranks' slices made whole;
     # the primary writes)
     trainable = multihost.fetch_replicated(state.trainable, specs, step_mesh)
@@ -377,7 +472,7 @@ def train(config) -> None:
         export_hf(final, s_cfg, out)
         tokenizer.save_pretrained(out)
         print("Training complete.")
-    multihost.barrier()
+    multihost.barrier(mesh)
 
 
 def main(argv=None):

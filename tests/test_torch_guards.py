@@ -315,6 +315,7 @@ def test_parallel_entry_points_take_the_rank_card(monkeypatch, tmp_path):
     without CUDA before any process group or child is started."""
     from speech_distill_tpu_torch.parallel import mesh as meshlib
     from speech_distill_tpu_torch.parallel import multihost
+    from speech_distill_tpu_torch.parallel import multihost_dryrun
     monkeypatch.setenv("LOCAL_RANK", "3")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert meshlib.rank_device() == torch.device("cuda", 3)
@@ -324,8 +325,11 @@ def test_parallel_entry_points_take_the_rank_card(monkeypatch, tmp_path):
                  meshlib.single_device_mesh,
                  lambda: multihost.initialize("localhost:1", 2, 0),
                  lambda: multihost.launch(print, 2,
-                                          store_dir=str(tmp_path))):
+                                          store_dir=str(tmp_path)),
+                 lambda: meshlib.make_mesh(ranks=[0]),
+                 lambda: multihost_dryrun.launch(1, 2)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     assert meshlib.make_mesh(device="cpu").device == torch.device("cpu")
+    assert meshlib.make_mesh(device="cpu", ranks=[0]).world == 1
     assert meshlib.single_device_mesh("cpu").world == 1

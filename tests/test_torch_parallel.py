@@ -60,32 +60,31 @@ def test_mesh_shape_errors_match_jax(kw):
 @pytest.mark.parametrize("kw", [dict(sp=2), dict(pp=2)])
 def test_make_mesh_raises_for_sp_and_pp(kw, monkeypatch):
     """One process asking for 2 ranks raises the arithmetic's
-    ``ValueError``; on a world of two (faked, with the device mesh
+    ``ValueError``; on a world of two (faked, with ``new_group``
     stubbed) ``make_mesh`` builds the sp or pp axis like any other, with
     JAX's shape (the real groups: ``tests/test_torch_ring_attention.py``,
     ``tests/test_torch_pipeline.py``)."""
     import torch.distributed as dist
-    import torch.distributed.device_mesh as dm
     with pytest.raises(ValueError):          # one process: 2 ranks asked
         meshlib.make_mesh(MeshConfig(**kw), device="cpu")
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
-    made = {}
+    monkeypatch.setattr(dist, "get_rank", lambda group=None: 0)
+    made = []
 
-    class FakeDeviceMesh:
-        def __init__(self, device_type, shape, mesh_dim_names):
-            made.update(type=device_type, shape=shape, names=mesh_dim_names)
-
-        def get_local_rank(self, axis):
-            return 0
-    monkeypatch.setattr(dm, "init_device_mesh", FakeDeviceMesh)
+    def fake_new_group(ranks, **kw):
+        made.append(list(ranks))
+        return ("group", tuple(ranks))
+    monkeypatch.setattr(dist, "new_group", fake_new_group)
     mesh = meshlib.make_mesh(MeshConfig(**kw), device="cpu")
     axis = next(iter(kw))
     want = jmesh.make_mesh(JMeshConfig(**kw), devices=jax.devices()[:2])
     assert mesh.shape == {a: int(want.shape[a]) for a in meshlib.AXES}
-    assert made == {"type": "cpu", "names": meshlib.AXES,
-                    "shape": tuple(mesh.shape[a] for a in meshlib.AXES)}
+    assert made == [[0, 1]]                  # the one line of the axis
+    assert mesh.group(axis) == ("group", (0, 1))
+    assert all(mesh.group(a) is None for a in meshlib.AXES if a != axis)
     assert getattr(mesh, axis) == 2 and mesh.world == 2
+    assert mesh.coords == {a: 0 for a in meshlib.AXES}
 
 
 def _jax_mesh(dp, tp):

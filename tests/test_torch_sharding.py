@@ -461,8 +461,11 @@ def test_unported_train_flags_still_raise():
     """The sp and pp flags are ported (``tests/test_torch_ring_attention.
     py``, ``tests/test_torch_pipeline.py``): ``check_ported`` takes them,
     and refuses what the JAX CLI refuses (sp with pp, an interleave
-    without 1F1B) with ``ValueError``; the disaggregated teacher's flags
-    still raise, naming the ROADMAP item of the last slice."""
+    without 1F1B) with ``ValueError``; so are the disaggregated
+    teacher's (``tests/test_torch_disaggregate.py``): ``--teacher_tp``
+    alone changes nothing, as in JAX, and ``--teacher_devices`` with dense
+    KD (``--top_k`` <= 0 or a quantized teacher) raises JAX's
+    ``ValueError``, sparse KD not."""
     from speech_distill_tpu_torch.pipelines import train as ttrain
 
     def config(flag):
@@ -479,5 +482,10 @@ def test_unported_train_flags_still_raise():
         with pytest.raises(ValueError, match=match):
             ttrain.check_ported(config(flag))
     for flag in (["--teacher_devices", "2"], ["--teacher_tp", "2"]):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            ttrain.check_ported(config(flag))
+        ttrain.check_ported(config(flag))
+        ttrain.check_ported(config(flag), "online_sparse")
+    ttrain.check_ported(config(["--teacher_tp", "2"]), "online_dense")
+    for flag in (["--teacher_devices", "2", "--top_k", "0"],
+                 ["--teacher_devices", "2", "--load_teacher_in_8bit"]):
+        with pytest.raises(ValueError, match="dense KD"):
+            ttrain.check_ported(config(flag), "online_dense")

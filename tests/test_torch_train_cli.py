@@ -228,9 +228,10 @@ _PORTED = {"--tp": "device count", "--zero1": "device count",
            "--process_id": "process", "--sp": "device count",
            "--pp": "device count", "--pp_interleave": "requires",
            "--pp_schedule": "pp > 1"}
-# flags that change nothing on one rank (sp 1, pp 1): check_ported takes
+# flags that change nothing on one rank (sp 1, pp 1), or alone
+# (--teacher_tp without --teacher_devices, as in JAX): check_ported takes
 # them and the run is the plain one
-_NO_OP = ("--sp_zigzag", "--pp_microbatches")
+_NO_OP = ("--sp_zigzag", "--pp_microbatches", "--teacher_tp")
 
 
 @pytest.mark.parametrize("flag", [
@@ -250,8 +251,11 @@ def test_unported_train_flags_raise(ws, flag):
         ttrain.check_ported(ttrain.build_parser().parse_args(
             ["--dataset_path", ws["enriched"]] + flag + CPU))
         return
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ttrain.main(["--dataset_path", ws["enriched"]] + flag + CPU)
+    # --teacher_devices: online KD in one process has no rank to spare
+    # (split_devices' bounds), before any weight loads
+    with pytest.raises(ValueError, match="teacher_devices=4 must be in"):
+        ttrain.main(["--dataset_path", ws["proc"], "--teacher_model",
+                     ws["teacher"]] + flag + CPU)
 
 
 def test_unported_family_and_stage1_flags_raise(ws, tmp_path):
@@ -340,3 +344,124 @@ def test_train_cli_cosyvoice2_narrow_teacher_raises(ws, tmp_path,
                      str(tmp_path / "not-there.pt"), "--teacher_family",
                      "cosyvoice2", "--top_k", "0",
                      "--output_dir", str(tmp_path / "out")] + CPU)
+
+
+def _disagg_args(ws):
+    """Online sparse KD, 32 train rows in global batches of 4: max_steps 2
+    stops the one epoch 6 batches early, with extractions in flight,
+    then the per-epoch eval runs (8 rows, 2 batches)."""
+    return ["--dataset_path", ws["proc"], "--student_model", ws["student"],
+            "--teacher_model", ws["teacher"], "--top_k", "8",
+            "--gradient_accumulation_steps", "1", "--pad_to_multiple_of",
+            "16", "--test_size", "8", "--max_steps", "2",
+            "--num_train_epochs", "1", "--warmup_steps", "1",
+            "--learning_rate", "2e-4", "--use_lora", "--lora_r", "4",
+            "--lora_alpha", "8"]
+
+
+def _disagg_rank(rank, world, args):
+    """One rank of ``train --teacher_devices 1`` on 2 ranks (fp32)."""
+    from speech_distill_tpu_torch.models import hf_loader
+    from speech_distill_tpu_torch.pipelines import train
+    hf_loader.load_pretrained = functools.partial(
+        hf_loader.load_pretrained, dtype="float32")
+    train.main(args + ["--teacher_devices", "1", "--coordinator_address",
+                       "file://unused", "--num_processes", str(world),
+                       "--process_id", str(rank)])
+
+
+@pytest.fixture(scope="module")
+def disagg_runs(ws, tmp_path_factory):
+    """The port's ``train --teacher_devices 1`` on 2 gloo ranks (rank 1
+    the teacher's) and, meanwhile, the port's one-process online run and
+    the JAX CLI's ``--teacher_devices 4`` run (the student on 4 of its 8
+    devices at per-device batch 1: the same global batch of 4)."""
+    import threading
+    from speech_distill_tpu.pipelines.train import main as jmain
+    from speech_distill_tpu_torch.parallel import multihost
+    root = tmp_path_factory.mktemp("tdisagg")
+    args = _disagg_args(ws)
+    port = args + ["--per_device_train_batch_size", "4"] + CPU
+    box, out = {}, {}
+
+    def ranks():
+        try:
+            multihost.launch(
+                _disagg_rank, 2, port + ["--output_dir",
+                                         str(root / "port_disagg")],
+                store_dir=str(tmp_path_factory.mktemp("store")),
+                device="cpu", timeout_s=300, threads=1)
+        except BaseException as e:            # re-raised below
+            box["error"] = e
+    th = threading.Thread(target=ranks)
+    th.start()
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            _fp32(mp)
+            ttrain.main(port + ["--output_dir", str(root / "port")])
+            try:
+                jmain(args + ["--per_device_train_batch_size", "1",
+                              "--teacher_devices", "4", "--output_dir",
+                              str(root / "jax_disagg")])
+            except ValueError as e:
+                out["jax_error"] = str(e)
+    finally:
+        th.join()
+    if "error" in box:
+        raise box["error"]
+    return {"root": root, **out}
+
+
+def test_train_cli_disaggregated_teacher_matches_one_process(disagg_runs):
+    """``train --teacher_devices 1`` (the student on rank 0, the teacher
+    serving from rank 1) stopping at max_steps mid-epoch, then the eval:
+    its eval losses and final_model equal the one-process online run's
+    (rtol 1e-5; the model rtol 1e-4, atol 1e-6): each batch, eval's too,
+    carries its own extraction."""
+    root = disagg_runs["root"]
+    got, ref = _metrics(root / "port_disagg"), _metrics(root / "port")
+    assert [m["step"] for m in got] == [m["step"] for m in ref] == [2]
+    for k in LOSSES[4:]:
+        np.testing.assert_allclose(got[0][k], ref[0][k], rtol=1e-5,
+                                   err_msg=k)
+    g, r = _final(root / "port_disagg"), _final(root / "port")
+    assert sorted(g) == sorted(r)
+    for k in r:
+        np.testing.assert_allclose(g[k], r[k], rtol=1e-4, atol=1e-6,
+                                   err_msg=k)
+
+
+def test_train_cli_teacher_rows_must_split_over_its_dp(ws, monkeypatch):
+    """The teacher ranks split each batch's rows over their dp (JAX
+    shards the ids over it): 3 teacher ranks at tp 1 cannot take a global
+    batch of 4 rows, refused before any mesh or weight (JAX fails on the
+    placement)."""
+    from speech_distill_tpu_torch.distill import disaggregate
+    monkeypatch.setattr(disaggregate, "split_devices",
+                        lambda n: ([0], [1, 2, 3]))
+    with pytest.raises(ValueError, match="4 rows does not split over the "
+                       "teacher's dp=3"):
+        ttrain.main(["--dataset_path", ws["proc"], "--teacher_model",
+                     ws["teacher"], "--teacher_devices", "3",
+                     "--per_device_train_batch_size", "4"] + CPU)
+
+
+def test_jax_disaggregated_eval_reads_train_artifacts(disagg_runs):
+    """JAX's train and eval share one TeacherService FIFO: train_loop
+    stops at max_steps with train extractions in flight, and the eval's
+    pipeline_batches gets them. Its training equals the online run's (the
+    final_model, as the port's one-process run, which
+    ``test_train_cli_matches_jax`` holds to JAX's), but its eval either
+    fails on the shapes or reads another batch's teacher: a standing
+    divergence of the port (ROADMAP §3)."""
+    root = disagg_runs["root"]
+    if "jax_error" in disagg_runs:      # the eval died on the shapes
+        assert "misaligned" in disagg_runs["jax_error"]
+        return
+    g, r = _final(root / "jax_disagg"), _final(root / "port")
+    for k in r:
+        np.testing.assert_allclose(g[k], r[k], rtol=1e-4, atol=1e-6,
+                                   err_msg=k)
+    got, ref = _metrics(root / "jax_disagg"), _metrics(root / "port")
+    assert abs(got[0]["eval_distill_loss"] / ref[0]["eval_distill_loss"]
+               - 1) > 1e-3

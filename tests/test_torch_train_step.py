@@ -224,3 +224,38 @@ def test_optimizer_matches_optax_chain():
             jp = jax.tree.map(lambda p, u: p + u, jp, ju)
             tp = tts.apply_updates(tp, tu, in_place=False)
         assert ts["count"] == 7
+
+
+def test_kd_split_apply_matches_monolithic_and_jax(setup):
+    """split_apply=True (JAX: a grad program, then a donated apply
+    program): the eager step is the monolithic one whatever the flag (one
+    code path, so it is bit-equal to it by construction); three steps
+    equal JAX's split step within the KD step tolerances above."""
+    jcfg, lora, base = setup
+    jd = JDistill(lora=JLora(r=R, alpha=ALPHA))
+    jopt = jts.make_optimizer(LR, 1, 10)
+    jstep = jts.make_kd_step(jcfg, jd, jopt, mode="precomputed",
+                             donate=True, split_apply=True)
+    jstate = jts.init_state(jax.tree.map(jnp.asarray, lora), jopt)
+    jbase = jax.tree.map(jnp.asarray, base)
+    dcfg = DistillConfig(lora=LoraConfig(r=R, alpha=ALPHA))
+    opt = tts.make_optimizer(LR, 1, 10)
+    cfg, model, trainable = _port(setup, remat=False)
+    step = tts.make_kd_step(cfg, dcfg, opt, mode="precomputed", donate=True,
+                            split_apply=True, device="cpu")
+    s_s, m_s = tts.init_state(trainable, opt), []
+    for _ in range(3):
+        s_s, m = step(s_s, model, None, _batch(seed=5))
+        m_s.append(m)
+    assert s_s.step == 3
+    for m in m_s:
+        jstate, jm = jstep(jstate, jbase, None,
+                           jax.tree.map(jnp.asarray, _batch(seed=5)))
+        for k in ("loss", "student_loss", "distill_loss", "teacher_loss"):
+            np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-5,
+                                       err_msg=k)
+        np.testing.assert_allclose(float(m["grad_norm"]),
+                                   float(jm["grad_norm"]), rtol=1e-3)
+    for a, b_ in zip(tree_leaves(tree_to_numpy(s_s.trainable)),
+                     jax.tree.leaves(_np(jstate.trainable))):
+        np.testing.assert_allclose(a, b_, rtol=1e-3, atol=1e-5)
