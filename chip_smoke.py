@@ -1984,14 +1984,12 @@ def train(cfg, model, dev):
     tokens = TRAIN_B * TRAIN_T
     step_s = float(np.median(times[2:]))
     tok_s = tokens / step_s
-    mfu = tok_s * 3 * qwen3.flops_per_token(cfg, TRAIN_T) / BF16_FLOP_PER_S
     RATES["train_tokens_per_s"] = tok_s
     real = sum(len(f["input_ids"]) for f in feats[:n * TRAIN_B])
     log("train " + json.dumps({
         "steps": n, "batch_shape": shapes[0], "tokens_per_step": tokens,
         "real_tokens_per_step": real / n, "step_ms_median": step_s * 1e3,
         "step_ms": [t * 1e3 for t in times], "tokens_per_s": tok_s,
-        "mfu": mfu, "mfu_peak": "H100 SXM bf16 dense 989 TFLOP/s",
         "loss": [m["loss"] for m in metrics],
         "grad_norm": [m["grad_norm"] for m in metrics],
         "peak_mem_gib": peak, "checkpoints_kept": kept,
@@ -2554,12 +2552,8 @@ def online_loop(what: str, step, state, base, teacher, batch, steps: int,
     L, Lt = cfg.num_hidden_layers, tcfg.num_hidden_layers
     step_s = float(np.median(times))
     tok_s = TRAIN_B * TRAIN_T / step_s
-    flops = (3 * qwen3.flops_per_token(cfg, TRAIN_T)
-             + qwen3.flops_per_token(tcfg, TRAIN_T))
     rec = {"mode": what, "steps": steps, "step_ms_median": step_s * 1e3,
            "step_ms": [t * 1e3 for t in times], "tokens_per_s": tok_s,
-           "mfu": tok_s * flops / BF16_FLOP_PER_S,
-           "mfu_flops": "3 x student + teacher flops_per_token",
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
            "loss": [m["loss"] for m in metrics],
            "grad_norm": [m["grad_norm"] for m in metrics],
@@ -3050,14 +3044,11 @@ def stage1(cfg, dev):
     tokens = S1_B * S1_A * S1_T
     step_s = float(np.median(times[1:]))
     tok_s = tokens / step_s
-    mfu = tok_s * 3 * qwen3.flops_per_token(cfg, S1_T) / BF16_FLOP_PER_S
     RATES["stage1_step_ms"], RATES["stage1_tokens_per_s"] = step_s * 1e3, tok_s
     log("stage1 " + json.dumps({
         "steps": n, "B": S1_B, "T": S1_T, "A": S1_A,
         "tokens_per_step": tokens, "step_ms": [t * 1e3 for t in times],
         "step_ms_median_after_first": step_s * 1e3, "tokens_per_s": tok_s,
-        "mfu": mfu, "mfu_formula": "tokens_per_s * 3 * flops_per_token(cfg, "
-        "4096) / 989e12 (H100 SXM bf16 dense)",
         "peak_mem_gib": peak, "loss": [m["loss"] for m in metrics],
         "grad_norm": [m["grad_norm"] for m in metrics], "eval": evals,
         "checkpoints_kept": kept, "launches_per_step": per_step,

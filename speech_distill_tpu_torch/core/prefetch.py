@@ -4,7 +4,8 @@ prefetch.py``).
 
 A background thread produces collated host batches and applies ``put``
 (by default nothing; :func:`put` copies a numpy batch to a device) while
-the current step runs. The bounded queue bounds host memory.
+the current step runs. The bounded queue bounds host memory. The wait for
+a batch is the ``data.wait`` span (``core/metrics.span``).
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
+
+from speech_distill_tpu_torch.core.metrics import span
 
 _SENTINEL = object()
 
@@ -51,7 +54,8 @@ class Prefetcher:
         return self
 
     def __next__(self):
-        item = self._q.get()
+        with span("data.wait"):
+            item = self._q.get()
         if item is _SENTINEL:
             if self._err is not None:
                 raise self._err

@@ -8,7 +8,11 @@ Trainer does), so a resumed run takes the same batches as an
 uninterrupted one; the JAX loop starts the stream over instead.
 
 ``SDT_PROFILE=<dir>`` traces steps 11-13 with ``torch.profiler`` into
-``<dir>`` (``core/metrics.ProfilerWindow``).
+``<dir>`` (``core/metrics.ProfilerWindow``), with ``spans.json`` beside the
+trace: the steps' phase spans (``train.forward``, ``train.head``,
+``train.backward``, ``train.recompute``, ``train.optimizer``, ``data.wait``,
+...) as ``{name: {"n", "device_s", "host_s"}}``, self seconds summed over
+the three steps (``core/metrics.span_table``).
 """
 from __future__ import annotations
 
@@ -157,8 +161,6 @@ def train_loop(step_fn: Callable, state, frozen_args: tuple,
         else:
             def put_batch(batch):
                 return put(batch, dev)
-    logger = MetricsLogger(cfg.output_dir, cfg.report_to if primary
-                           else "none", write=primary)
     profiler = ProfilerWindow(
         os.environ.get("SDT_PROFILE", f"{cfg.output_dir}/trace"),
         enabled=bool(os.environ.get("SDT_PROFILE")) and primary)
@@ -176,6 +178,8 @@ def train_loop(step_fn: Callable, state, frozen_args: tuple,
             start_step = latest
             if primary:
                 print(f"resumed from step {latest}")
+    logger = MetricsLogger(cfg.output_dir, cfg.report_to if primary
+                           else "none", write=primary, step=start_step)
 
     global_step = start_step
     to_skip = start_step            # batches the restored steps consumed

@@ -47,6 +47,17 @@ split_sequence``). Under pp the student's stack runs GPipe inside
 (``"1f1b"``, interleaved with ``cfg.pp_interleave``; precomputed mode):
 every stage gets the loss and the same gradient of each leaf replicated
 over pp (embed, head, final norm), and its own layers' gradients.
+
+The steps name their phases with ``core/metrics.span``, recorded only
+while a ``torch.profiler`` records: ``train.forward`` (the batch's
+placement and the student's forward), ``train.teacher`` (the online
+teacher), ``train.head`` (the loss head, and its analytic backward inside
+``train.backward``), ``train.backward`` (``autograd.grad`` and the
+microbatches' fp32 sums; a layer's remat recompute inside it is
+``train.recompute``, ``models/qwen3``), ``train.grad_sync`` (the mesh's
+gradient and metric all-reduces) and ``train.optimizer`` (mask, norm,
+clip, AdamW and the update). The 1F1B schedule's interleaved forward and
+backward are in none of them.
 """
 from __future__ import annotations
 
@@ -59,6 +70,7 @@ from speech_distill_tpu_torch.core.config import (TEACHER_QUANTS,
                                                   DistillConfig, LoraConfig,
                                                   Qwen3Config)
 from speech_distill_tpu_torch.core.device import resolve_device
+from speech_distill_tpu_torch.core.metrics import span
 from speech_distill_tpu_torch.core.tree import (tree_leaves, tree_map,
                                                 tree_unflatten)
 from speech_distill_tpu_torch.distill import losses
@@ -414,11 +426,13 @@ def _accumulate(loss_and_grad: Callable, trainable: Params, batch: dict):
     for a in range(A):
         grads, metrics = loss_and_grad(
             trainable, {k: v[a] for k, v in batch.items()})
-        g32 = [g.float() for g in tree_leaves(grads)]
-        acc = g32 if acc is None else [x + y for x, y in zip(acc, g32)]
+        with span("train.backward"):
+            g32 = [g.float() for g in tree_leaves(grads)]
+            acc = g32 if acc is None else [x + y for x, y in zip(acc, g32)]
         per_mb.append(metrics)
     inv = 1.0 / A
-    grads = tree_unflatten(trainable, [x * inv for x in acc])
+    with span("train.backward"):
+        grads = tree_unflatten(trainable, [x * inv for x in acc])
     metrics = {k: torch.stack([m[k] for m in per_mb]).mean()
                for k in per_mb[0]}
     return grads, metrics
@@ -741,42 +755,48 @@ def make_kd_step(student_cfg: Qwen3Config, distill_cfg: DistillConfig,
         # student's are made
         split = _split(base, mb, mesh)
         if mode != "precomputed":
-            t_out = _online_teacher(mode, student_cfg, distill_cfg,
-                                    teacher_forward, teacher_extract,
-                                    teacher, mb)
+            with span("train.teacher"):
+                t_out = _online_teacher(mode, student_cfg, distill_cfg,
+                                        teacher_forward, teacher_extract,
+                                        teacher, mb)
+                if split is not None:
+                    t_out = _local_teacher(t_out, teacher,
+                                           mb["input_ids"].shape[1],
+                                           split[0])
+        with span("train.forward"):
+            st = _effective_student(trainable, lcfg, use_lora)
+            acts = _student_forward(base, st, mb, merge_weights, fused_head,
+                                    dev)
+        with span("train.head"):
+            head = qwen3.full_lm_head(base, st.embed, st.lm_head)
             if split is not None:
-                t_out = _local_teacher(t_out, teacher,
-                                       mb["input_ids"].shape[1], split[0])
-        st = _effective_student(trainable, lcfg, use_lora)
-        acts = _student_forward(base, st, mb, merge_weights, fused_head, dev)
-        head = qwen3.full_lm_head(base, st.embed, st.lm_head)
-        if split is not None:
-            acts, mb, t_out = _presplit_loss_inputs(
-                acts, split[1], t_out if mode != "precomputed" else None)
-        labels, smask = mb["labels"], mb.get("speech_token_mask")
-        if mode == "online_dense":
-            if fused_head:
-                out = head_dense_kd_loss(acts, head, t_out, labels, smask,
-                                         T, alpha)
+                acts, mb, t_out = _presplit_loss_inputs(
+                    acts, split[1], t_out if mode != "precomputed" else None)
+            labels, smask = mb["labels"], mb.get("speech_token_mask")
+            if mode == "online_dense":
+                if fused_head:
+                    out = head_dense_kd_loss(acts, head, t_out, labels,
+                                             smask, T, alpha)
+                else:
+                    out = losses.dense_distill_loss(acts, t_out, labels,
+                                                    smask, T, alpha)
+                del t_out
             else:
-                out = losses.dense_distill_loss(acts, t_out, labels, smask,
-                                                T, alpha)
-            del t_out
-        else:
-            v, i = (t_out if mode == "online_sparse" else
-                    (mb["teacher_top_k_v"], mb["teacher_top_k_i"]))
-            args = (labels, v, i, smask, T, alpha)
-            if fused_loss:
-                out = fused_sparse_kd_loss(acts, head, *args,
-                                           chunk_size=loss_chunk_size,
-                                           backend=fused_backend)
-            elif fused_head:
-                out = head_sparse_kd_loss(acts, head, *args)
-            else:
-                out = losses.sparse_distill_loss(acts, v, i, labels, smask,
-                                                 T, alpha)
+                v, i = (t_out if mode == "online_sparse" else
+                        (mb["teacher_top_k_v"], mb["teacher_top_k_i"]))
+                args = (labels, v, i, smask, T, alpha)
+                if fused_loss:
+                    out = fused_sparse_kd_loss(acts, head, *args,
+                                               chunk_size=loss_chunk_size,
+                                               backend=fused_backend)
+                elif fused_head:
+                    out = head_sparse_kd_loss(acts, head, *args)
+                else:
+                    out = losses.sparse_distill_loss(acts, v, i, labels,
+                                                     smask, T, alpha)
         leaves = tree_leaves(trainable)
-        grads = torch.autograd.grad(out.total, leaves)
+        with span("train.backward"):
+            grads = torch.autograd.grad(out.total, leaves)
         metrics = {"loss": out.total, "student_loss": out.task,
                    "distill_loss": out.distill, "teacher_loss": out.teacher}
         return (tree_unflatten(trainable, list(grads)),
@@ -787,34 +807,38 @@ def make_kd_step(student_cfg: Qwen3Config, distill_cfg: DistillConfig,
     groups = _batch_groups(mesh)
 
     def step(state: TrainState, base: qwen3.Qwen3, teacher, batch: dict):
-        batch = _batch_to(batch, dev)
+        with span("train.forward"):
+            batch = _batch_to(batch, dev)
         with comm.dp_denominators(*groups):
             grads, metrics = _accumulate(
                 lambda tr, mb: loss_and_grad(tr, mb, base, teacher),
                 state.trainable, batch)
         if mesh is None:
-            metrics["grad_norm"] = global_norm(grads)
-            updates, opt_state = optimizer.update(grads, state.opt_state,
-                                                  state.trainable)
-            trainable = apply_updates(state.trainable, updates,
-                                      in_place=donate)
+            with span("train.optimizer"):
+                metrics["grad_norm"] = global_norm(grads)
+                updates, opt_state = optimizer.update(
+                    grads, state.opt_state, state.trainable)
+                trainable = apply_updates(state.trainable, updates,
+                                          in_place=donate)
             return TrainState(trainable, opt_state, state.step + 1), metrics
         from speech_distill_tpu_torch.parallel import sharding
         specs = sharding.trainable_pspecs(state.trainable, student_cfg,
                                           use_lora, mesh)
-        grads = sync_grads(grads, sharding.tp_partial(state.trainable,
-                                                      use_lora), mesh)
-        metrics = {k: comm.all_reduce_over(v, *groups)
-                   for k, v in metrics.items()}
-        g_norm = metrics["grad_norm"] = mesh_norm(grads, specs, mesh)
-        if zero1:
-            trainable, opt_state = zero1_update(optimizer, grads, state,
-                                                specs, mesh, g_norm, donate)
-        else:
-            updates, opt_state = optimizer.update(
-                grads, state.opt_state, state.trainable, g_norm=g_norm)
-            trainable = apply_updates(state.trainable, updates,
-                                      in_place=donate)
+        with span("train.grad_sync"):
+            grads = sync_grads(grads, sharding.tp_partial(state.trainable,
+                                                          use_lora), mesh)
+            metrics = {k: comm.all_reduce_over(v, *groups)
+                       for k, v in metrics.items()}
+        with span("train.optimizer"):
+            g_norm = metrics["grad_norm"] = mesh_norm(grads, specs, mesh)
+            if zero1:
+                trainable, opt_state = zero1_update(
+                    optimizer, grads, state, specs, mesh, g_norm, donate)
+            else:
+                updates, opt_state = optimizer.update(
+                    grads, state.opt_state, state.trainable, g_norm=g_norm)
+                trainable = apply_updates(state.trainable, updates,
+                                          in_place=donate)
         return TrainState(trainable, opt_state, state.step + 1), metrics
 
     return step
@@ -973,43 +997,50 @@ def make_stage1_step(cfg: Qwen3Config, optimizer: Optimizer,
 
     def loss_and_grad(trainable: Params, mb: dict, base: qwen3.Qwen3):
         embed, lm_head = _stage1_tables(trainable)
-        acts = qwen3.forward_train(
-            base, mb["input_ids"], attention_mask=mb["attention_mask"],
-            embed=embed, lm_head=lm_head, return_hidden=fused_loss,
-            device=dev)
+        with span("train.forward"):
+            acts = qwen3.forward_train(
+                base, mb["input_ids"], attention_mask=mb["attention_mask"],
+                embed=embed, lm_head=lm_head, return_hidden=fused_loss,
+                device=dev)
         split = _split(base, mb, mesh)
-        if split is not None:
-            acts, mb, _ = _presplit_loss_inputs(acts, split[1], None)
-        labels = mb["labels"]
-        if fused_loss:
-            head = qwen3.lm_head_weight(base, embed, lm_head)
-            loss = fused_cross_entropy(acts, head, labels,
-                                       backend=fused_backend)
-        else:
-            shift = labels[:, 1:]
-            valid = (shift != losses.IGNORE_INDEX).float()
-            ce = losses._ce_per_pos(acts[:, :-1, :], shift)
-            loss = losses._masked_mean(ce, valid)
+        with span("train.head"):
+            if split is not None:
+                acts, mb, _ = _presplit_loss_inputs(acts, split[1], None)
+            labels = mb["labels"]
+            if fused_loss:
+                head = qwen3.lm_head_weight(base, embed, lm_head)
+                loss = fused_cross_entropy(acts, head, labels,
+                                           backend=fused_backend)
+            else:
+                shift = labels[:, 1:]
+                valid = (shift != losses.IGNORE_INDEX).float()
+                ce = losses._ce_per_pos(acts[:, :-1, :], shift)
+                loss = losses._masked_mean(ce, valid)
         leaves = tree_leaves(trainable)
-        grads = torch.autograd.grad(loss, leaves)
+        with span("train.backward"):
+            grads = torch.autograd.grad(loss, leaves)
         return tree_unflatten(trainable, list(grads)), {"loss": loss.detach()}
 
     def step(state: TrainState, base: qwen3.Qwen3, batch: dict):
-        batch = _batch_to(batch, dev)
+        with span("train.forward"):
+            batch = _batch_to(batch, dev)
         with comm.dp_denominators(*groups):
             grads, metrics = _accumulate(
                 lambda tr, mb: loss_and_grad(tr, mb, base), state.trainable,
                 batch)
         if mesh is not None:
-            grads = tree_map(lambda g: comm.all_reduce_over(g, *groups),
-                             grads)
-            metrics = {k: comm.all_reduce_over(v, *groups)
-                       for k, v in metrics.items()}
-        grads = mask_new_token_grads(grads, old_vocab_size)
-        metrics["grad_norm"] = global_norm(grads)
-        updates, opt_state = optimizer.update(grads, state.opt_state,
-                                              state.trainable)
-        trainable = apply_updates(state.trainable, updates, in_place=donate)
+            with span("train.grad_sync"):
+                grads = tree_map(lambda g: comm.all_reduce_over(g, *groups),
+                                 grads)
+                metrics = {k: comm.all_reduce_over(v, *groups)
+                           for k, v in metrics.items()}
+        with span("train.optimizer"):
+            grads = mask_new_token_grads(grads, old_vocab_size)
+            metrics["grad_norm"] = global_norm(grads)
+            updates, opt_state = optimizer.update(grads, state.opt_state,
+                                                  state.trainable)
+            trainable = apply_updates(state.trainable, updates,
+                                      in_place=donate)
         return TrainState(trainable, opt_state, state.step + 1), metrics
 
     return step

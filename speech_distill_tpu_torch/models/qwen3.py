@@ -53,6 +53,7 @@ from torch.utils.checkpoint import checkpoint
 
 from speech_distill_tpu_torch.core.config import Qwen3Config, torch_dtype
 from speech_distill_tpu_torch.core.device import resolve_device
+from speech_distill_tpu_torch.core.metrics import span
 from speech_distill_tpu_torch.ops.attention import (RING_IMPLS, sdpa,
                                                     use_flash)
 from speech_distill_tpu_torch.ops.lora_linear import lora_linear
@@ -509,11 +510,19 @@ def _save_dots():
 
 
 def _checkpointed(fn, dots: bool = False):
+    def traced(*args):
+        # the recompute runs inside a backward (a graph task), the first
+        # forward outside any
+        if torch._C._current_graph_task_id() == -1:
+            return fn(*args)
+        with span("train.recompute"):
+            return fn(*args)
+
     def run(*args):
         if dots:
-            return checkpoint(fn, *args, use_reentrant=False,
+            return checkpoint(traced, *args, use_reentrant=False,
                               context_fn=_save_dots)
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(traced, *args, use_reentrant=False)
     return run
 
 
@@ -877,16 +886,6 @@ def unembed_train(hidden: torch.Tensor, w: torch.Tensor,
     (fp32), backward in ``cfg.head_bwd_dtype``."""
     out = _Unembed.apply(hidden, w, torch_dtype(cfg.head_bwd_dtype))
     return out.to(cfg.torch_logits_dtype)
-
-
-def flops_per_token(cfg: Qwen3Config, seq_len: int) -> float:
-    """Approximate forward FLOPs a token (2 N matmul + attention term),
-    the JAX ``flops_per_token``."""
-    D, Fd, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
-    QD, KVD = cfg.q_dim, cfg.kv_dim
-    per_layer = 2 * (D * QD + 2 * D * KVD + QD * D + 3 * D * Fd)
-    attn = 2 * 2 * QD * seq_len
-    return L * (per_layer + attn) + 2 * D * cfg.vocab_size
 
 
 def lm_head_weight(model: Qwen3, embed: Optional[torch.Tensor] = None,

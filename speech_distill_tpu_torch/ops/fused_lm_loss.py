@@ -42,6 +42,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from speech_distill_tpu_torch.core.metrics import span
 from speech_distill_tpu_torch.distill.losses import (DistillLossOutput,
                                                      IGNORE_INDEX,
                                                      _masked_mean,
@@ -190,6 +191,12 @@ class _HeadKD(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_total, g_task, g_distill, g_teacher):
+        with span("train.head"):
+            return _HeadKD._backward(ctx, g_total, g_task, g_distill,
+                                     g_teacher)
+
+    @staticmethod
+    def _backward(ctx, g_total, g_task, g_distill, g_teacher):
         h, w, sb, lse1, lse_t, p, idx, safe, valid, inv_n = ctx.saved_tensors
         T, alpha = ctx.T, ctx.alpha
         a_task = (g_total * alpha + g_task) * inv_n
@@ -276,6 +283,12 @@ class _HeadDenseKD(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_total, g_task, g_distill, g_teacher):
+        with span("train.head"):
+            return _HeadDenseKD._backward(ctx, g_total, g_task, g_distill,
+                                          g_teacher)
+
+    @staticmethod
+    def _backward(ctx, g_total, g_task, g_distill, g_teacher):
         (h, w, sb, tb, lse1_s, lse_t_s, lse_t_t, safe, valid,
          inv_n) = ctx.saved_tensors
         T, alpha = ctx.T, ctx.alpha

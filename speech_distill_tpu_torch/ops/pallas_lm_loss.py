@@ -29,6 +29,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from speech_distill_tpu_torch.core.metrics import span
 from speech_distill_tpu_torch.ops import _cuda
 
 NEG_INF = -1e30
@@ -289,12 +290,15 @@ class LMHeadStats(torch.autograd.Function):
     def backward(ctx, d_lse1, d_lse_t, d_label):
         h, w, labels, lse1, lse_t = ctx.saved_tensors
         T = ctx.temperature
-        rows = [g.float().contiguous() for g in (d_lse1, d_lse_t, d_label)]
-        if h.is_cuda:
-            args = (h, w, labels, lse1, lse_t, *rows, T)
-            return lm_head_dh(*args), lm_head_dw(*args), None, None
-        dh, dw = lm_head_stats_bwd_plain(h, w, labels, lse1, lse_t, *rows, T)
-        return dh, dw, None, None
+        with span("train.head"):
+            rows = [g.float().contiguous()
+                    for g in (d_lse1, d_lse_t, d_label)]
+            if h.is_cuda:
+                args = (h, w, labels, lse1, lse_t, *rows, T)
+                return lm_head_dh(*args), lm_head_dw(*args), None, None
+            dh, dw = lm_head_stats_bwd_plain(h, w, labels, lse1, lse_t,
+                                             *rows, T)
+            return dh, dw, None, None
 
 
 def lm_head_stats(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
