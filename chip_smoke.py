@@ -76,6 +76,18 @@
    and down codes (device times beside cuBLAS), K4-int8 at K4's check
    shape, and decode logits of the kernel and plain routes against an
    fp32 reference on the same codes.
+5c. The decoder layer's elementwise kernels (``ops/fused_norm``:
+   RMSNorm, q/k RMSNorm + RoPE, SwiGLU, forward and backward) alone at
+   the stage-1 (16 x 4,096 tokens) and KD (32 x 512) shapes, the serve's
+   decode step (16 slots x T 1) and a 1,024-wide prefill: each held to
+   its plain version, timed by CUDA-graph replays beside its byte bound
+   and the eager chain the model ran before (forward, and its autograd
+   backward), then the host microseconds of a routed call at one token,
+   kernel against eager. Every phase that counts
+   launches pins these kernels' counts too (``fused_launches``): 2 L + 1
+   RMSNorm, L q/k norm + RoPE and L SwiGLU launches a forward of L
+   layers, the matching backward launches a training step; none where a
+   path runs fp32.
 6. Trains: PiSSA LoRA on the same full-width model, ``make_kd_step(mode=
    "precomputed")`` in ``train_loop`` over seeded synthetic batches (B 8,
    T 512, K 128), with checkpoints; fails unless the flash forward and
@@ -254,6 +266,7 @@ from speech_distill_tpu_torch.models.convert import (model_to_tree,
 from speech_distill_tpu_torch.native.serving import (NativePagePool,
                                                      NativePrefixRegistry)
 from speech_distill_tpu_torch.ops import _cuda
+from speech_distill_tpu_torch.ops import fused_norm
 from speech_distill_tpu_torch.ops.attention import FLASH_BLOCK, FLASH_MIN_SEQ
 from speech_distill_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_plain, flash_attention_fwd, flash_attention_fwd_plain,
@@ -308,6 +321,12 @@ BF16_ERR_RATIO = 2.0
 # products over up to T * G terms and write bf16 results (2^-9), and their
 # forward's o and lse carry bf16 rounding too
 BWD_REL_TOL = 2e-2
+# the one-pass elementwise kernels against their plain versions on the
+# same bf16 inputs (ops/fused_norm's own bound; its comment gives the
+# source)
+FUSED_REL_TOL = fused_norm.PLAIN_REL_TOL
+FUSED_NAMES = ("rms_norm_fwd", "rms_norm_bwd", "qk_norm_rope_fwd",
+               "qk_norm_rope_bwd", "swiglu_fwd", "swiglu_bwd")
 # the KD step of the smoke (bench.py's defaults): B 8, T 512, top-K 128
 TRAIN_B, TRAIN_T, TRAIN_K, TRAIN_STEPS = 8, 512, 128, 10
 SPEECH_BOS = 151_670          # a speech-start id; the pad id is the EOS
@@ -344,6 +363,57 @@ INT4_REL_TOL, INT4_BF16_REL_TOL = 1e-3, 2.0 ** -7
 QUANT_PROJ = 7
 # earlier phases' library rates, printed beside phase 15's CLI rates
 RATES: dict = {}
+
+
+def add_launches(*counts: dict, times: int = 1) -> dict:
+    """The sum of launch-count dicts, each count ``times`` over; nonzero
+    counts only."""
+    out: dict = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v * times
+    return {k: v for k, v in out.items() if v}
+
+
+def fused_launches(fwd: int, finals: int, bwd: int = 0,
+                   bwd_norms: int = 0) -> dict:
+    """The launches of ``ops/fused_norm``'s kernels (nonzero only) for
+    ``fwd`` bf16 decoder-layer forwards (two RMSNorms, the q/k norm +
+    RoPE and the SwiGLU each) and ``finals`` final norms, and for the
+    backward of ``bwd`` layers with ``bwd_norms`` RMSNorm backwards in
+    all."""
+    return add_launches({
+        "rms_norm_fwd": 2 * fwd + finals, "qk_norm_rope_fwd": fwd,
+        "swiglu_fwd": fwd, "rms_norm_bwd": bwd_norms,
+        "qk_norm_rope_bwd": bwd, "swiglu_bwd": bwd})
+
+
+def forward_launches(L: int, forwards: int) -> dict:
+    """``ops/fused_norm``'s launches of ``forwards`` whole forwards of an L
+    layer bf16 model (a prefill, a decode step, a teacher's batch)."""
+    return fused_launches(L * forwards, forwards)
+
+
+def train_launches(L: int, fwd: int = None) -> dict:
+    """``ops/fused_norm``'s launches of one training step of an L layer
+    bf16 student: ``fwd`` layer forwards (default 2 L: each layer again in
+    the full-remat recompute) and the final norm, then the backward of
+    every layer and of the final norm: 2 L + 1 RMSNorm backwards, since
+    every step here trains the embedding (stage 1's rows, LoRA's copy of
+    the table), so layer 0's input norm has a gradient to pass down."""
+    return fused_launches(2 * L if fwd is None else fwd, 1, L, 2 * L + 1)
+
+
+def check_serve_launches(what: str, counts: dict, L: int, eng) -> None:
+    """A paged serve's ``ops/fused_norm`` launches: one whole forward a
+    prefill forward and a decode step (the engine's own counters), no
+    backward."""
+    want = forward_launches(L, eng.n_prefill_forwards + eng.n_decode_steps)
+    got = {k: counts.get(k, 0) for k in FUSED_NAMES if counts.get(k, 0)}
+    if got != want:
+        fail(f"{what}: fused_norm launches {got} != {want} "
+             f"({eng.n_prefill_forwards} prefill forwards, "
+             f"{eng.n_decode_steps} decode steps)")
 
 
 def log(msg: str) -> None:
@@ -511,6 +581,7 @@ def serve(cfg, model):
     if counts["paged_decode"] != L * eng.n_decode_steps:
         fail(f"paged_decode launches {counts['paged_decode']} != layers x "
              f"decode steps {L * eng.n_decode_steps}")
+    check_serve_launches("serve", counts, L, eng)
     per_step = profile_decode(eng, lens[:13], cfg, rng,
                               groups={"k4": "paged_decode_kernel"})
     check_k4_per_step(per_step["k4"], L, "serve")
@@ -752,6 +823,7 @@ def serve_features(cfg, model, dev) -> dict:
     if counts["paged_decode"] != L * eng.n_decode_steps:
         fail(f"feature serve paged_decode launches {counts['paged_decode']}"
              f" != layers x decode steps {L * eng.n_decode_steps}")
+    check_serve_launches("feature serve", counts, L, eng)
     if eng.runtime != "native":
         fail(f"feature serve ran the {eng.runtime} runtime")
     del eng
@@ -1043,6 +1115,7 @@ def tts_serve(cfg, model, dev, fcfg=None, hcfg=None) -> dict:
     if counts["paged_decode"] != L * eng.n_decode_steps:
         fail(f"tts serve paged_decode launches {counts['paged_decode']} != "
              f"layers x decode steps {L * eng.n_decode_steps}")
+    check_serve_launches("tts serve", counts, L, eng)
     if counts["flash_fwd"] != L * len(flash_widths) or not flash_widths:
         fail(f"tts serve flash_fwd launches {counts['flash_fwd']} != "
              f"layers x fresh long admissions {L * len(flash_widths)}")
@@ -1403,8 +1476,10 @@ def decode_engines(cfg, model, dev, fcfg=None, hcfg=None) -> dict:
     """Phase 3d: the contiguous-cache engines at full width, bf16 caches.
     The launch counts are set to 0 before the first engine runs and read
     after the last; fails unless K1-fwd ran 28 times a flash-width
-    prefill (the serving16 prefix, the continuous long prompts) and K3
-    and K4 never. Then the greedy gates. Returns the launch counts."""
+    prefill (the serving16 prefix, the continuous long prompts), K3 and
+    K4 never, and the layers' elementwise kernels a whole layer at a
+    time with a final norm a forward. Then the greedy gates. Returns the
+    launch counts."""
     t_phase = time.perf_counter()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1443,6 +1518,16 @@ def decode_engines(cfg, model, dev, fcfg=None, hcfg=None) -> dict:
     for k in ("paged_decode", "paged_decode_int8", "int4_matmul"):
         if counts.get(k, 0):
             fail(f"decode engines launched {k} {counts[k]} times")
+    # the layers' elementwise kernels: a layer's three together, one final
+    # norm a forward (the layer-skip drafts' forwards run fewer than L
+    # layers), nothing of a backward
+    f = {k: counts.get(k, 0) for k in FUSED_NAMES}
+    forwards = f["rms_norm_fwd"] - 2 * f["qk_norm_rope_fwd"]
+    if (f["qk_norm_rope_fwd"] != f["swiglu_fwd"] or forwards < 1
+            or not forwards <= f["qk_norm_rope_fwd"] <= L * forwards
+            or f["rms_norm_bwd"] or f["qk_norm_rope_bwd"]
+            or f["swiglu_bwd"]):
+        fail(f"decode engines fused_norm launches {f}")
     check_greedy_gates(cfg, model, dev, spec_prompt)
     log(f"decode engines phase s={time.perf_counter() - t_phase:.2f}, "
         f"device memory still allocated "
@@ -1760,6 +1845,7 @@ def serve_quant(cfg, model, dev):
         fail(f"quantized serve launches {counts} != {want} (K4-int8 once a "
              f"layer a decode step; K3 for the 7 projections of every "
              f"layer of every model forward)")
+    check_serve_launches("quantized serve", counts, L, eng)
     need = sum(pieces_needed(n, FEATURE_CHUNK, eng.ps) for n in lens)
     if eng.n_prefill_chunks < need:
         fail(f"quantized serve ran {eng.n_prefill_chunks} prefill pieces, "
@@ -2001,11 +2087,12 @@ def train(cfg, model, dev):
     if not all(np.isfinite([m["loss"], m["grad_norm"]]).all()
                for m in metrics):
         fail("a loss or grad_norm is not finite")
-    want = {"flash_fwd": 2 * L * n, "flash_dq": L * n, "flash_dkv": L * n}
+    want = add_launches({"flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L},
+                        train_launches(L), times=n)
     got = {k: counts[k] for k in want}
     if got != want:
-        fail(f"flash launches {got} != {want} (2 x layers forward under "
-             f"remat, layers backward, per step)")
+        fail(f"flash and fused_norm launches {got} != {want} (2 x layers "
+             f"forward under remat, layers backward, per step)")
     if len(kept) != 2:
         fail(f"save_total_limit 2 kept {kept}")
     if not all(torch.equal(a, b) for a, b in zip(frozen,
@@ -2420,9 +2507,10 @@ def remat_policies(cfg, base, lora, dev) -> dict:
     fails unless K1-fwd ran 2 x 28 a step under "full" and "dots" (JAX's
     Pallas call is not a dot: the kernel runs again in the recompute), 28
     + 14 under "half", 28 under "everything" and without remat, K1-dq and
-    K1-dkv 28 each, nothing else, and the losses, grad norms and adapters
-    equal "full"'s. Logs each policy's peak memory and step ms. Returns
-    the launch counts by policy."""
+    K1-dkv 28 each, the layers' elementwise kernels once a layer forward
+    (recompute included) and backward, nothing else, and the losses, grad
+    norms and adapters equal "full"'s. Logs each policy's peak memory and
+    step ms. Returns the launch counts by policy."""
     batch = remat_batch(cfg)
     L = cfg.num_hidden_layers
     fwd = {"full": 2 * L, "dots": 2 * L, "half": L + L // 2,
@@ -2455,8 +2543,9 @@ def remat_policies(cfg, base, lora, dev) -> dict:
             grad_norm_rel=rel_gap(r["grad_norm"], full["grad_norm"]),
             launches={k: r["launches"][k] for k in
                       ("flash_fwd", "flash_dq", "flash_dkv")})
-        want = {"flash_fwd": fwd[run] * REMAT_STEPS,
-                "flash_dq": L * REMAT_STEPS, "flash_dkv": L * REMAT_STEPS}
+        want = add_launches(
+            {"flash_fwd": fwd[run], "flash_dq": L, "flash_dkv": L},
+            train_launches(L, fwd[run]), times=REMAT_STEPS)
         got = {k: v for k, v in r["launches"].items() if v}
         if got != want:
             fail(f"remat {run}: launches {got} != {want}")
@@ -2534,8 +2623,9 @@ def online_loop(what: str, step, state, base, teacher, batch, steps: int,
     """``ONLINE_WARMUP`` steps, then ``steps`` timed ones with the launch
     counts reset just before them; fails unless K1-fwd ran teacher + 2 x
     student layers a step (the student's recompute), K1-dq and K1-dkv the
-    student's layers, K3 never, and the losses are finite. Returns the
-    state, the logged record and the counts."""
+    student's layers, K3 never, the layers' elementwise kernels the
+    teacher's forward and the student's step, and the losses are finite.
+    Returns the state, the logged record and the counts."""
     for _ in range(ONLINE_WARMUP):
         state, _ = step(state, base, teacher, batch)
     torch.cuda.synchronize()
@@ -2558,10 +2648,13 @@ def online_loop(what: str, step, state, base, teacher, batch, steps: int,
            "loss": [m["loss"] for m in metrics],
            "grad_norm": [m["grad_norm"] for m in metrics],
            "launches": {k: counts[k] for k in ("flash_fwd", "flash_dq",
-                                               "flash_dkv", "int4_matmul")}}
+                                               "flash_dkv", "int4_matmul")
+                        + FUSED_NAMES}}
     log("online kd " + json.dumps(rec))
-    want = {"flash_fwd": (Lt + 2 * L) * steps, "flash_dq": L * steps,
-            "flash_dkv": L * steps, "int4_matmul": 0}
+    want = {"int4_matmul": 0, **dict.fromkeys(FUSED_NAMES, 0),
+            **add_launches({"flash_fwd": Lt + 2 * L, "flash_dq": L,
+                            "flash_dkv": L}, forward_launches(Lt, 1),
+                           train_launches(L), times=steps)}
     if rec["launches"] != want:
         fail(f"{what} launches {rec['launches']} != {want} (teacher + 2 x "
              f"student layers forward, student layers backward, no K3)")
@@ -2856,7 +2949,8 @@ def online_kd(cfg, dev) -> dict:
     batch = bench_kd_batch(cfg, np.random.default_rng(SEED))
     dcfg = DistillConfig(top_k=TRAIN_K, lora=lcfg)
     opt = train_step.make_optimizer(5e-5, 10, 1000)
-    totals = dict.fromkeys(("flash_fwd", "flash_dq", "flash_dkv"), 0)
+    totals = dict.fromkeys(("flash_fwd", "flash_dq", "flash_dkv")
+                           + FUSED_NAMES, 0)
     records = {}
 
     def fresh_state(optimizer):
@@ -3060,17 +3154,18 @@ def stage1(cfg, dev):
                for m in metrics) or len(evals) != 1 \
             or not np.isfinite(evals[0]["loss"]):
         fail("a stage-1 loss, grad_norm or eval loss is not finite")
-    want = {"lm_head_stats": S1_A, "lm_head_dh": S1_A, "lm_head_dw": S1_A,
-            "flash_fwd": 2 * L * S1_A, "flash_dq": L * S1_A,
-            "flash_dkv": L * S1_A}
+    want = add_launches({"lm_head_stats": 1, "lm_head_dh": 1,
+                         "lm_head_dw": 1, "flash_fwd": 2 * L, "flash_dq": L,
+                         "flash_dkv": L}, train_launches(L), times=S1_A)
     for i, got in enumerate(per_step):
         if {k: got[k] for k in want} != want:
             fail(f"stage-1 step {i + 1} launches {got} != {want} (K2 once a "
                  f"microbatch; flash 2 x layers forward under remat, layers "
                  f"backward)")
     # the eval forward: one flash forward a layer for each eval row
-    total = {k: v * S1_STEPS for k, v in want.items()}
-    total["flash_fwd"] += L * S1_EVAL_ROWS
+    total = add_launches(add_launches(want, times=S1_STEPS),
+                         {"flash_fwd": L * S1_EVAL_ROWS},
+                         forward_launches(L, S1_EVAL_ROWS))
     if {k: counts[k] for k in total} != total:
         fail(f"stage-1 loop launches {counts} != {total}")
     final = state.trainable["embed"]["weight"].detach()
@@ -3522,11 +3617,15 @@ def cli(dev) -> tuple:
                  "--eval_steps", "2", "--eval_batch_size", "1",
                  "--warmup_steps", "1", "--logging_steps", "1",
                  "--num_workers", "1"], record)
-    per_step = {"lm_head_stats": 1, "lm_head_dh": 1, "lm_head_dw": 1,
-                "flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L}
+    per_step = add_launches(
+        {"lm_head_stats": 1, "lm_head_dh": 1, "lm_head_dw": 1,
+         "flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L},
+        train_launches(L))
     check_cli_steps("stage1", spy, steps, per_step)
-    want = {k: v * steps for k, v in per_step.items()}
-    want["flash_fwd"] += L * n_eval           # eval rows one at a time
+    # eval rows one at a time
+    want = add_launches(add_launches(per_step, times=steps),
+                        {"flash_fwd": L * n_eval},
+                        forward_launches(L, n_eval))
     check_cli_launches("stage1", record, want)
     s1_ms = [st["s"] * 1e3 for st in spy.steps]
     moved = 0
@@ -3573,8 +3672,8 @@ def cli(dev) -> tuple:
     finally:
         extract_cli.extract_teacher_logprobs = real_extract
     batches = -(-CLI_ROWS // CLI_B)
-    check_cli_launches("extract-logits", record,
-                       {"flash_fwd": L * batches})
+    check_cli_launches("extract-logits", record, add_launches(
+        {"flash_fwd": L * batches}, forward_launches(L, batches)))
     ds = datasets.load_from_disk(d("enr"))
     real_tokens = 0
     for row in ds:
@@ -3606,10 +3705,12 @@ def cli(dev) -> tuple:
                  str(CLI_B), "--gradient_accumulation_steps", "1",
                  "--pad_to_multiple_of", str(CLI_T), "--max_steps", "4",
                  "--test_size", str(CLI_TRAIN_TEST)], record)
-    per_step = {"flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L}
+    per_step = add_launches({"flash_fwd": 2 * L, "flash_dq": L,
+                             "flash_dkv": L}, train_launches(L))
     check_cli_steps("train", spy, 4, per_step)
-    want = {k: 4 * v for k, v in per_step.items()}
-    want["flash_fwd"] += L                    # the held-out batch
+    # the held-out batch
+    want = add_launches(add_launches(per_step, times=4), {"flash_fwd": L},
+                        forward_launches(L, 1))
     check_cli_launches("train", record, want)
     kd_ms = [st["s"] * 1e3 for st in spy.steps]
     merged = merge_and_export(spy.frozen[0], spy.state.trainable,
@@ -3634,7 +3735,12 @@ def cli(dev) -> tuple:
                    "--smoke_wav", d("smoke.wav"), "--output",
                    d("quality.json")], record)
     n_batches = CLI_EVAL_TEST // 4
-    check_cli_launches("evaluate", record, {"flash_fwd": L * n_batches})
+    # the batches, then the audio smoke's decode (a prefill and a forward
+    # of each sampled token)
+    decode = 1 + rep["smoke"]["generated_tokens"]
+    check_cli_launches("evaluate", record, add_launches(
+        {"flash_fwd": L * n_batches},
+        forward_launches(L, n_batches + decode)))
     values = [v for sl in ("all", "speech")
               for k, v in rep["metrics"][sl].items() if v is not None]
     if rep["rows"] != 4 * n_batches or not np.isfinite(values).all():
@@ -3663,10 +3769,14 @@ def cli(dev) -> tuple:
                  "--gradient_accumulation_steps", "1",
                  "--pad_to_multiple_of", str(CLI_T), "--max_steps", "2",
                  "--test_size", str(CLI_TRAIN_TEST)], record)
-    per_step = {"flash_fwd": 3 * L, "flash_dq": L, "flash_dkv": L}
+    # a step: the teacher's forward, then the student's
+    per_step = add_launches({"flash_fwd": 3 * L, "flash_dq": L,
+                             "flash_dkv": L}, forward_launches(L, 1),
+                            train_launches(L))
     check_cli_steps("train-online", spy, 2, per_step)
-    want = {k: 2 * v for k, v in per_step.items()}
-    want["flash_fwd"] += 2 * L                # eval: teacher, student
+    # eval: teacher, student
+    want = add_launches(add_launches(per_step, times=2),
+                        {"flash_fwd": 2 * L}, forward_launches(L, 2))
     check_cli_launches("train-online", record, want)
     del spy
     shutil.rmtree(d("online"))
@@ -3787,9 +3897,9 @@ class SynthSpy:
     """While ``synthesize.main`` runs: wraps ``initiate_model`` to time
     and record the S3 quantize and CAM++ calls (inputs, outputs, ms) and
     the engine's turns (tokens, seconds, fresh prefill widths, decode
-    steps), the orchestrator's flow + HiFT ms a turn (offline) or its
-    first audio a turn (streaming), and the returned wavs. The run's
-    EngineConfig gets the turn cap."""
+    steps, model forwards), the orchestrator's flow + HiFT ms a turn
+    (offline) or its first audio a turn (streaming), and the returned
+    wavs. The run's EngineConfig gets the turn cap."""
 
     def __init__(self, sp: SamplingParams):
         from speech_distill_tpu_torch.infer import infer_utils
@@ -3839,10 +3949,10 @@ class SynthSpy:
             return out
         model.s3_quantize, dataset.spk_emb_fn = s3_quantize, spk_emb_fn
 
-        def record(prefill_len, tokens, s, steps):
+        def record(prefill_len, tokens, s, steps, forwards):
             spy.turns.append({"prefill_tokens": prefill_len,
                               "tokens": len(tokens), "s": s,
-                              "decode_steps": steps})
+                              "decode_steps": steps, "forwards": forwards})
 
         if eng.stateful:
             real_prefill, real_stream = eng.prefill, eng.generate_stream
@@ -3856,8 +3966,9 @@ class SynthSpy:
 
             def generate(ids, state=None):
                 out, ms = spy.timed(real_gen, ids, state=state)
+                # the prefill, then a forward of each sampled token
                 record(len(ids), out["token_ids"], ms / 1e3,
-                       len(out["token_ids"]))
+                       len(out["token_ids"]), 1 + len(out["token_ids"]))
                 return out
             eng.generate = generate
 
@@ -3875,7 +3986,7 @@ class SynthSpy:
                         break
                     toks.extend(new)
                     yield new
-                record(len(ids), toks, busy, len(toks))
+                record(len(ids), toks, busy, len(toks), 1 + len(toks))
             eng.generate_stream = generate_stream
         else:
             real_gen = eng.generate
@@ -3883,7 +3994,8 @@ class SynthSpy:
             def generate(ids, max_new=None):
                 out, ms = spy.timed(real_gen, ids, max_new)
                 record(len(ids), out["token_ids"], ms / 1e3,
-                       eng.n_decode_steps)
+                       eng.n_decode_steps,
+                       eng.n_prefill_forwards + eng.n_decode_steps)
                 if not eng.prefix_hits:
                     spy.fresh.append(-(-len(ids) // eng.ps) * eng.ps)
                 return out
@@ -4085,9 +4197,9 @@ def check_synthesis_run(run: str, path: str, spy: SynthSpy, counts: dict,
     want_k = {"flash_fwd": L * sum(is_flash_width(w) for w in spy.fresh)}
     if run == "paged":
         want_k["paged_decode"] = L * sum(t["decode_steps"] for t in turns)
-    got_k = {k: counts.get(k, 0) for k in ("flash_fwd", "paged_decode")}
-    if got_k != {k: want_k.get(k, 0) for k in got_k} or set(counts) - set(
-            got_k):
+    want_k = add_launches(want_k, forward_launches(
+        L, sum(t["forwards"] for t in turns)))
+    if counts != want_k:
         fail(f"synthesis {run} launches {counts} != {want_k}")
     codes = check_prompt_codes(spy, cpu)
     audio_s = len(wav) / 24000
@@ -4211,10 +4323,15 @@ def cv_train_cli(root: str, teacher, record: dict) -> dict:
                  str(CLI_TRAIN_TEST)], record)
     L = qwen3_student_0p6b().num_hidden_layers
     Lt = cfg.backbone.num_hidden_layers
-    per_step = {"flash_fwd": Lt + 2 * L, "flash_dq": L, "flash_dkv": L}
+    # the teacher's layers: RoPE alone in the q/k kernel (no q/k norm)
+    per_step = add_launches({"flash_fwd": Lt + 2 * L, "flash_dq": L,
+                             "flash_dkv": L}, forward_launches(Lt, 1),
+                            train_launches(L))
     check_cli_steps("train-cosyvoice2", spy, CV_STEPS, per_step)
-    want = {k: CV_STEPS * v for k, v in per_step.items()}
-    want["flash_fwd"] += Lt + L               # eval: teacher, student
+    # eval: teacher, student
+    want = add_launches(add_launches(per_step, times=CV_STEPS),
+                        {"flash_fwd": Lt + L}, forward_launches(Lt, 1),
+                        forward_launches(L, 1))
     check_cli_launches("train-cosyvoice2", record, want)
     # the teacher's share, counted inside its calls: 24 a forward, one
     # forward a step and one for the held-out batch
@@ -4385,8 +4502,10 @@ def cv_stage1_8bit(cfg, dev, record: dict) -> tuple:
             record["stage1-8bit"] = {"launches": {
                 k: v for k, v in _cuda.launches.items() if v}}
             st8, final = state.opt_state, state.trainable["embed"]["weight"]
-            want = {"lm_head_stats": 1, "lm_head_dh": 1, "lm_head_dw": 1,
-                    "flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L}
+            want = add_launches(
+                {"lm_head_stats": 1, "lm_head_dh": 1, "lm_head_dw": 1,
+                 "flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L},
+                train_launches(L))
             if any(p != want for p in per_step):
                 fail(f"stage-1 8-bit launches a step {per_step} != {want}")
             if not np.isfinite(losses).all():
@@ -4627,6 +4746,7 @@ def par_serve(cfg, model, dev, mesh=None) -> dict:
     torch.cuda.synchronize()
     return {"tokens": out, "seconds": time.perf_counter() - t0,
             "decode_steps": eng.n_decode_steps,
+            "prefill_forwards": eng.n_prefill_forwards,
             "launches": dict(_cuda.launches)}
 
 
@@ -4939,25 +5059,45 @@ def parallel(dev, side) -> tuple:
 
     counts = {}
     # a pp stage runs its 14 layers on each of the M microbatches, again
-    # in the backward's recompute (full remat), and differentiates them
-    stage = L // PAR_WORLD * PAR_PP_MICRO * PAR_STEPS
-    kd = {"flash_fwd": 2 * L * PAR_STEPS, "flash_dq": L * PAR_STEPS,
-          "flash_dkv": L * PAR_STEPS}
-    pp = {"flash_fwd": 2 * stage, "flash_dq": stage, "flash_dkv": stage}
+    # in the backward's recompute (full remat), and differentiates them;
+    # GPipe runs the stack inside forward_train, so every stage runs the
+    # final norm on the whole batch a step; 1F1B runs the head on each
+    # microbatch on the last stage
+    micro = PAR_PP_MICRO * PAR_STEPS
+    stage = L // PAR_WORLD * micro
+    kd = add_launches({"flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L},
+                      train_launches(L), times=PAR_STEPS)
     for r, res in enumerate(ranks):
         c = {run: res[run]["launches"] for run in PAR_RUNS + ("kd_disagg",)}
         counts[f"rank{r}"] = c
         steps = res["serve"]["decode_steps"]
-        want = {"serve": {"paged_decode": L * steps,
-                          "flash_fwd": L * PAR_FLASH_PREFILLS},
-                "kd_tp2": kd, "kd_dp2_zero1": kd, "kd_pp2_gpipe": pp,
-                "kd_pp2_1f1b_v2": pp, "kd_sp2_zigzag": {},
-                "stage1_sp2": {"lm_head_stats": 1, "lm_head_dh": 1,
-                               "lm_head_dw": 1}}
+        pp_k1 = {"flash_fwd": 2 * stage, "flash_dq": stage,
+                 "flash_dkv": stage}
+        heads = {"gpipe": PAR_STEPS, "1f1b": micro * (r == PAR_WORLD - 1)}
+        pp = {sched: add_launches(pp_k1, fused_launches(
+                  2 * stage, n, stage, 2 * stage + n))
+              for sched, n in heads.items()}
+        want = {"serve": add_launches(
+                    {"paged_decode": L * steps,
+                     "flash_fwd": L * PAR_FLASH_PREFILLS},
+                    forward_launches(L, steps
+                                     + res["serve"]["prefill_forwards"])),
+                "kd_tp2": kd, "kd_dp2_zero1": kd,
+                "kd_pp2_gpipe": pp["gpipe"], "kd_pp2_1f1b_v2": pp["1f1b"],
+                "kd_sp2_zigzag": add_launches(train_launches(L),
+                                              times=PAR_STEPS),
+                "stage1_sp2": add_launches(
+                    {"lm_head_stats": 1, "lm_head_dh": 1, "lm_head_dw": 1},
+                    train_launches(L))}
         for run, w in want.items():
             got = {k: c[run][k] for k in w}
             if got != w:
                 fail(f"parallel rank {r} {run}: launches {got} != {w}")
+        # fp32 layers take the plain chains
+        f32 = {k: c["serve_fp32"][k] for k in FUSED_NAMES
+               if c["serve_fp32"][k]}
+        if f32:
+            fail(f"parallel rank {r} serve_fp32: fused_norm launches {f32}")
         for run in PAR_RUNS[2:]:
             other = {k: v for k, v in c[run].items()
                      if v and k not in want[run]}
@@ -5030,15 +5170,19 @@ def check_par_disagg(ranks: list, ref: dict, L: int) -> None:
     """The disaggregated run: rank 0 the student, rank 1 the teacher; each
     rank's launches exact (the student's precomputed steps: K1-fwd 2 x 28,
     K1-dq / dkv 28 a step; the teacher's extraction: K1-fwd 28 a batch at
-    H 16, KV 8, Dh 128), nothing else, and the student's losses and grad
+    H 16, KV 8, Dh 128; the layers' elementwise kernels of each),
+    nothing else, and the student's losses and grad
     norms held to the one-process online steps."""
     st, te = ranks[0]["kd_disagg"], ranks[1]["kd_disagg"]
     if (st["role"], te["role"]) != ("student", "teacher"):
         fail(f"parallel disaggregated roles {st['role']}, {te['role']}")
     n, Lt = PAR_DISAGG_STEPS, qwen3_teacher_1p7b().num_hidden_layers
-    for r, got, want in ((0, st, {"flash_fwd": 2 * L * n, "flash_dq": L * n,
-                                  "flash_dkv": L * n}),
-                         (1, te, {"flash_fwd": Lt * n})):
+    student = add_launches({"flash_fwd": 2 * L, "flash_dq": L,
+                            "flash_dkv": L}, train_launches(L),
+                           times=n)
+    teacher = add_launches({"flash_fwd": Lt}, forward_launches(Lt, 1),
+                           times=n)
+    for r, got, want in ((0, st, student), (1, te, teacher)):
         have = {k: v for k, v in got["launches"].items() if v}
         if have != want:
             fail(f"parallel disaggregated rank {r}: launches {have} != "
@@ -5099,6 +5243,160 @@ def par_kernels(dev, side, counts: dict) -> list:
     return [k4] + rows
 
 
+# the decoder layer's elementwise passes at the two training cells' shapes
+# (benchmark/traffic): stage 1's 16 x 4,096 and KD's 32 x 512 tokens; and
+# at the serve's (phase 3): a decode step of its 16 slots (T 1) and its
+# longest fresh prefill (1,024 wide)
+FUSED_SHAPES = (("stage-1", 16, 4096), ("KD", 32, 512), ("decode", 16, 1),
+                ("prefill", 1, 1024))
+FUSED_HOST_CALLS = 200      # calls a host-cost reading, at 1 token
+
+
+def fused_norm_kernels(cfg, dev, side) -> list:
+    """The one-pass kernels of ``ops/fused_norm`` alone, each timed by
+    CUDA-graph replays at :data:`FUSED_SHAPES` beside its byte bound and the
+    eager chain the model ran before (the plain forward, and its autograd
+    backward: fwd + bwd less fwd); each held against its plain version.
+    Then the host microseconds a routed call costs (kernel and eager, at
+    one token, device work negligible). Returns the kernels-line
+    entries."""
+    D, F = cfg.hidden_size, cfg.intermediate_size
+    H, KV, Dh = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                 cfg.head_dim)
+    eps = cfg.rms_norm_eps
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 23)
+
+    def draw(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen) * scale + shift).to(
+            dev, torch.bfloat16)
+
+    def plain_bwd_ms(f, inputs, grads):
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        both = graph_ms(lambda: torch.autograd.grad(
+            f(*leaves), leaves, grads), side)
+        return max(both - graph_ms(lambda: f(*leaves), side), 0.0)
+
+    entries = []
+    for what, B, T in FUSED_SHAPES:
+        N = B * T
+        x, ln, dy = draw(N, D, scale=2.0), draw(D, shift=1.0), draw(N, D)
+        q, k = draw(B, T, H, Dh, scale=3.0), draw(B, T, KV, Dh)
+        qs, ks = draw(Dh, shift=1.0), draw(Dh, shift=1.0)
+        dqo, dko = draw(B, T, H, Dh), draw(B, T, KV, Dh)
+        cos, sin = qwen3.rope_angles(
+            torch.arange(T, device=dev)[None].expand(B, T), Dh,
+            cfg.rope_theta)
+        gate, up, dh = draw(N, F, scale=3.0), draw(N, F), draw(N, F)
+        rows = N * (H + KV) * Dh
+        cases = {
+            "rms_norm": dict(
+                fwd=lambda: fused_norm.rms_norm_fwd(x, ln, eps),
+                bwd=lambda: fused_norm.rms_norm_bwd(x, ln, eps, dy, False),
+                plain=lambda a: fused_norm.rms_norm_plain(a, ln, eps),
+                inputs=[x], grads=[dy],
+                ref=lambda: (fused_norm.rms_norm_plain(x, ln, eps),
+                             fused_norm.rms_norm_bwd_plain(x, ln, eps,
+                                                           dy)[0]),
+                got=lambda: (fused_norm.rms_norm_fwd(x, ln, eps),
+                             fused_norm.rms_norm_bwd(x, ln, eps, dy,
+                                                     False)[0]),
+                bytes_fwd=4 * N * D, bytes_bwd=6 * N * D,
+                shape=[N, D]),
+            "qk_norm_rope": dict(
+                fwd=lambda: fused_norm.qk_norm_rope_fwd(q, k, cos, sin, qs,
+                                                        ks, eps),
+                bwd=lambda: fused_norm.qk_norm_rope_bwd(
+                    q, k, cos, sin, qs, ks, eps, dqo, dko, False),
+                plain=lambda a, b: fused_norm.qk_norm_rope_plain(
+                    a, b, cos, sin, qs, ks, eps),
+                inputs=[q, k], grads=[dqo, dko],
+                ref=lambda: (*fused_norm.qk_norm_rope_plain(
+                    q, k, cos, sin, qs, ks, eps),
+                    *fused_norm.qk_norm_rope_bwd_plain(
+                        q, k, cos, sin, qs, ks, eps, dqo, dko)[:2]),
+                got=lambda: (*fused_norm.qk_norm_rope_fwd(
+                    q, k, cos, sin, qs, ks, eps),
+                    *fused_norm.qk_norm_rope_bwd(
+                        q, k, cos, sin, qs, ks, eps, dqo, dko, False)[:2]),
+                bytes_fwd=4 * rows + 8 * N * Dh,
+                bytes_bwd=6 * rows + 8 * N * Dh,
+                shape=[B, T, H, KV, Dh]),
+            "swiglu": dict(
+                fwd=lambda: fused_norm.swiglu_fwd(gate, up),
+                bwd=lambda: fused_norm.swiglu_bwd(gate, up, dh),
+                plain=fused_norm.swiglu_plain,
+                inputs=[gate, up], grads=[dh],
+                ref=lambda: (fused_norm.swiglu_plain(gate, up),
+                             *fused_norm.swiglu_bwd_plain(gate, up, dh)),
+                got=lambda: (fused_norm.swiglu_fwd(gate, up),
+                             *fused_norm.swiglu_bwd(gate, up, dh)),
+                bytes_fwd=6 * N * F, bytes_bwd=10 * N * F,
+                shape=[N, F]),
+        }
+        for name, c in cases.items():
+            got, ref = c["got"](), c["ref"]()
+            torch.cuda.synchronize()
+            err = max(((a.float() - b.float()).abs().max()
+                       / b.float().abs().max()).item()
+                      for a, b in zip(got, ref))
+            if not err <= FUSED_REL_TOL:
+                fail(f"{name} kernels disagree with their plain versions at "
+                     f"the {what} shape: {err}")
+            del got, ref
+            plain_fwd = graph_ms(lambda: c["plain"](*c["inputs"]), side)
+            plain_bwd = plain_bwd_ms(c["plain"], c["inputs"], c["grads"])
+            for d in ("fwd", "bwd"):
+                ms = graph_ms(c[d], side)
+                bound_ms = c[f"bytes_{d}"] / HBM_BYTES_PER_S * 1e3
+                plain_ms = plain_fwd if d == "fwd" else plain_bwd
+                log(f"{name}_{d} at the {what} shape {c['shape']}: "
+                    f"ms={ms:.4f} bound_ms={bound_ms:.4f} (bytes; "
+                    f"{100 * bound_ms / ms:.1f}% of it) plain_ms="
+                    f"{plain_ms:.4f} (eager; x{plain_ms / ms:.1f}) "
+                    f"rel_err={err:.2e} (graph replays)")
+                entries.append({
+                    "name": f"{name}_{d}", "route": "cuda",
+                    "source": "speech_distill_tpu_torch/csrc/fused_norm.cu",
+                    "replaces": "speech_distill_tpu_torch/models/qwen3.py "
+                                "eager chain (no Pallas kernel)",
+                    "path": what, "shape": c["shape"], "ms": ms,
+                    "kernel_ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": "bytes",
+                    "rel_err": err, "timing": "graph"})
+        del x, dy, q, k, dqo, dko, gate, up, dh, cases
+        torch.cuda.empty_cache()
+    # host cost of a routed call at one token: the kernel's wrapper and
+    # Function against the eager chain's launches
+    x1, q1, k1 = draw(1, 1, D), draw(1, 1, H, Dh), draw(1, 1, KV, Dh)
+    g1, u1 = draw(1, 1, F), draw(1, 1, F)
+    c1, s1 = qwen3.rope_angles(torch.zeros(1, 1, device=dev), Dh,
+                               cfg.rope_theta)
+    calls = {
+        "rms_norm": (lambda: fused_norm.rms_norm(x1, ln, eps),
+                     lambda: fused_norm.rms_norm_plain(x1, ln, eps)),
+        "qk_norm_rope": (
+            lambda: fused_norm.qk_norm_rope(q1, k1, c1, s1, qs, ks, eps),
+            lambda: fused_norm.qk_norm_rope_plain(q1, k1, c1, s1, qs, ks,
+                                                  eps)),
+        "swiglu": (lambda: fused_norm.swiglu(g1, u1),
+                   lambda: fused_norm.swiglu_plain(g1, u1)),
+    }
+    host = {}
+    for name, fns in calls.items():
+        us = []
+        for f in fns:
+            f()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(FUSED_HOST_CALLS):
+                f()
+            us.append((time.perf_counter() - t) / FUSED_HOST_CALLS * 1e6)
+            torch.cuda.synchronize()
+        host[name] = {"kernel_us": us[0], "eager_us": us[1]}
+    log(f"fused_norm host us a call (1 token): {json.dumps(host)}")
+    return entries
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available: this smoke runs on the GPU only")
@@ -5146,6 +5444,7 @@ def main() -> None:
     log(f"quantized serving phases s={time.perf_counter() - t0:.2f}, "
         f"device memory still allocated "
         f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    kernels += fused_norm_kernels(cfg, dev, side)
     t0 = time.perf_counter()
     train_counts, lora, base = train(cfg, model, dev)
     kernels += check_flash_bwd(dev, train_counts, side)
@@ -5157,7 +5456,8 @@ def main() -> None:
     online_counts = online_kd(cfg, dev)
     for entry in kernels:   # K1 at the KD shape: phase 9b's step loops
         if entry.get("path") == "KD":   # and the remat policies' steps
-            entry["online_kd_launches"] = online_counts[entry["name"]]
+            entry["online_kd_launches"] = online_counts.get(entry["name"],
+                                                            0)
             entry["remat_launches"] = {run: c.get(entry["name"], 0)
                                        for run, c in remat_counts.items()}
     t0 = time.perf_counter()

@@ -33,6 +33,7 @@ K2 = ("lm_head_stats_kernel", "lm_head_combine_kernel", "lm_head_dl_kernel",
       "lm_head_gemm_kernel")
 # kinds of device operation, by a piece of the name; the first match wins
 KINDS = (("k1", ("flash_",)), ("k2", ("lm_head_",)),
+         ("fused_norm", ("rms_norm_", "qk_norm_rope_", "swiglu_")),
          ("elementwise", ("elementwise_kernel",)), ("reduce", ("reduce_",)),
          ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
          ("copy", ("Memcpy", "Memset", "CatArray", "copy")))

@@ -1,7 +1,9 @@
 """Qwen3 decoder in PyTorch (port of ``speech_distill_tpu/models/qwen3.py``).
 
 GQA + per-head q/k RMSNorm + NeoX RoPE + SwiGLU, norms and softmax in
-fp32. Two forwards: the serving :func:`forward` (no cache; or a
+fp32. The norms, the q/k norm with RoPE and the SwiGLU product are
+``ops/fused_norm``'s (one-pass kernels on CUDA bf16 tensors, the plain
+chains elsewhere). Two forwards: the serving :func:`forward` (no cache; or a
 contiguous cache with per-row RoPE ``positions``, per-row write columns
 ``cache_positions`` and the layer-skip draft's ``num_layers``, under
 ``torch.no_grad``) and the grad-enabled :func:`forward_train` of the KD
@@ -56,6 +58,8 @@ from speech_distill_tpu_torch.core.device import resolve_device
 from speech_distill_tpu_torch.core.metrics import span
 from speech_distill_tpu_torch.ops.attention import (RING_IMPLS, sdpa,
                                                     use_flash)
+from speech_distill_tpu_torch.ops.fused_norm import (qk_norm_rope, rms_norm,
+                                                    swiglu)
 from speech_distill_tpu_torch.ops.lora_linear import lora_linear
 from speech_distill_tpu_torch.ops.matmul import matmul_f32
 from speech_distill_tpu_torch.ops.quant import dequantize_array
@@ -316,14 +320,6 @@ def embed_tokens(model: Qwen3, input_ids: torch.Tensor) -> torch.Tensor:
     return table[input_ids]
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
-             ) -> torch.Tensor:
-    xf = x.float()
-    var = xf.square().mean(dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
-    return (y * scale.float()).to(x.dtype)
-
-
 def rope_angles(positions: torch.Tensor, head_dim: int, theta: float
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """cos/sin tables [..., T, head_dim] in NeoX half-rotation layout."""
@@ -334,18 +330,6 @@ def rope_angles(positions: torch.Tensor, head_dim: int, theta: float
     ang = positions.float()[..., None] * freq
     ang = torch.cat([ang, ang], dim=-1)
     return torch.cos(ang), torch.sin(ang)
-
-
-def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
-               ) -> torch.Tensor:
-    """x: [B, T, N, Dh]; cos/sin: [B, T, Dh] or [T, Dh]; math in fp32."""
-    if cos.dim() == 2:
-        cos, sin = cos[None], sin[None]
-    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
-    half = x.shape[-1] // 2
-    xf = x.float()
-    rotated = torch.cat([-xf[..., half:], xf[..., :half]], dim=-1)
-    return (xf * cos + rotated * sin).to(x.dtype)
 
 
 def _proj(x: torch.Tensor, w, la: Optional[dict], key: str,
@@ -385,19 +369,17 @@ def qkv_proj(attn: Attention, x: torch.Tensor, cos, sin, cfg: Qwen3Config,
     q = q.reshape(B, T, -1, Dh)
     k = k.reshape(B, T, -1, Dh)
     v = v.reshape(B, T, -1, Dh)
-    if cfg.qk_norm:
-        q = rms_norm(q, attn.q_norm, cfg.rms_norm_eps)
-        k = rms_norm(k, attn.k_norm, cfg.rms_norm_eps)
-    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+    scales = (attn.q_norm, attn.k_norm) if cfg.qk_norm else (None, None)
+    return (*qk_norm_rope(q, k, cos, sin, *scales, cfg.rms_norm_eps), v)
 
 
 def mlp_block(mlp: MLP, y: torch.Tensor, la: Optional[dict] = None,
               scale: float = 1.0, merge: bool = False) -> torch.Tensor:
-    """Gated MLP on the already-normed input, SiLU in fp32."""
-    g = F.silu(_proj(y, mlp.gate, la, "gate", scale, merge).float()
-               ).to(y.dtype)
-    return _proj(g * _proj(y, mlp.up, la, "up", scale, merge), mlp.down,
-                 la, "down", scale, merge)
+    """Gated MLP on the already-normed input, SiLU in fp32
+    (``ops/fused_norm.swiglu``)."""
+    h = swiglu(_proj(y, mlp.gate, la, "gate", scale, merge),
+               _proj(y, mlp.up, la, "up", scale, merge))
+    return _proj(h, mlp.down, la, "down", scale, merge)
 
 
 @dataclass

@@ -11,7 +11,9 @@ non-zero code. Nothing here runs at import time: this module imports on
 machines that have no nvcc and no GPU.
 
 Launch counts live in :data:`launches`: every kernel wrapper adds one
-where it launches its kernel, and nowhere else.
+where it launches its kernel, and nowhere else. The entries of
+:data:`QUERIES` launch nothing (a source's answer about its own launch
+geometry) and have no count.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # C signature of each entry point
 SIGNATURES = {
     # q, k_pool, v_pool, block_tables, lengths, out,
@@ -57,16 +60,40 @@ SIGNATURES = {
     # N, V, D, chunk, ld, temperature, stream
     "lm_head_dh": [_P] * 11 + [_I] * 5 + [_F, _P],
     "lm_head_dw": [_P] * 11 + [_I] * 5 + [_F, _P],
+    # x, scale, y, rows, D, eps, blocks, stream
+    "rms_norm_fwd": [_P] * 3 + [_I] * 2 + [_F, _I, _P],
+    # x, scale, dy, dx, scale partials (or null), rows, D, eps, blocks,
+    # stream
+    "rms_norm_bwd": [_P] * 5 + [_I] * 2 + [_F, _I, _P],
+    # q, k, cos, sin, q scale, k scale (both null: RoPE alone), q out,
+    # k out, tokens, H, KV, Dh, cos rows, eps, blocks, stream
+    "qk_norm_rope_fwd": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
+    # q, k, dq out, dk out, cos, sin, q scale, k scale, dq, dk, scale
+    # partials (or null), tokens, H, KV, Dh, cos rows, eps, blocks, stream
+    "qk_norm_rope_bwd": [_P] * 11 + [_I] * 5 + [_F, _I, _P],
+    # gate, up, h, n, blocks, stream
+    "swiglu_fwd": [_P] * 3 + [_I] * 2 + [_P],
+    # gate, up, dh, dgate, dup, n, blocks, stream
+    "swiglu_bwd": [_P] * 5 + [_I] * 2 + [_P],
+    # op, units, width, SMs -> blocks of the persistent grid (0: the op
+    # does not take the width)
+    "fused_norm_grid": [_I, _L, _I, _I],
 }
+QUERIES = ("fused_norm_grid",)
 # the csrc/<source>.cu that defines each entry point
 SOURCES = {"paged_decode": "paged_decode",
            "paged_decode_int8": "paged_decode",
            "int4_matmul": "int4_matmul", "flash_fwd": "flash_fwd",
            "flash_dq": "flash_bwd", "flash_dkv": "flash_bwd",
            "lm_head_stats": "lm_head_stats", "lm_head_dh": "lm_head_stats",
-           "lm_head_dw": "lm_head_stats"}
+           "lm_head_dw": "lm_head_stats",
+           **{name: "fused_norm" for name in (
+               "rms_norm_fwd", "rms_norm_bwd", "qk_norm_rope_fwd",
+               "qk_norm_rope_bwd", "swiglu_fwd", "swiglu_bwd",
+               "fused_norm_grid")}}
 
-launches: Dict[str, int] = {name: 0 for name in SIGNATURES}
+launches: Dict[str, int] = {name: 0 for name in SIGNATURES
+                            if name not in QUERIES}
 _fns: Dict[str, object] = {}
 
 

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from speech_distill_tpu_torch.ops import _cuda
+from speech_distill_tpu_torch.ops import fused_norm
 from speech_distill_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
     flash_attention_fwd, flash_attention_fwd_plain)
@@ -48,6 +49,14 @@ SCALE_MAX_ULP = 4
 # max |plain|: bf16 attention outputs rounded at different points (the
 # kernel's bf16 P, the plain route's fp32 softmax), through 2 layers
 PREFILL_REL_TOL = 2e-2
+# the one-pass elementwise kernels (ops/fused_norm) against their plain
+# versions on the same bf16 inputs (the module's own bound; its comment
+# gives the source)
+FUSED_REL_TOL = fused_norm.PLAIN_REL_TOL
+# a 2-layer training forward and backward through those kernels against
+# the plain route on the same weights: values one bf16 step apart at some
+# positions, carried through 2 layers of bf16 products (as PREFILL_REL_TOL)
+FUSED_MODEL_REL_TOL = 2e-2
 
 
 @pytest.fixture
@@ -630,3 +639,243 @@ def test_adamw_8bit_on_the_card_gives_the_cpu_codes(dev, clip,
                     b.cpu().numpy(), a.numpy(),
                     maxulp=0 if step == 0 or clip == "the CPU's"
                     else SCALE_MAX_ULP)
+
+
+# the one-pass elementwise kernels at the shapes the main path runs: KD
+# (B 32 x T 512 = 16,384 rows), stage 1 (16 x 4,096 = 65,536), the 1.7B's
+# hidden 2,048 / FFN 6,144, CosyVoice2's hidden 896 / FFN 4,864 / 14 + 2
+# heads of 64, a tp-2 rank's 8 + 4 heads, a paged decode step (T 1), and
+# ragged row and head counts
+def _bf16(dev, shape, seed, scale=1.0, shift=0.0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return (torch.randn(shape, generator=g) * scale + shift).to(
+        dev, torch.bfloat16)
+
+
+@pytest.mark.parametrize("need_dscale", [False, True])
+@pytest.mark.parametrize("N,D", [(16384, 1024), (65536, 1024), (16384, 2048),
+                                 (300, 896), (37, 128), (37, 64)])
+def test_rms_norm_kernels_match_plain(dev, N, D, need_dscale):
+    x, scale = _bf16(dev, (N, D), 1, 2.0), _bf16(dev, (D,), 2, 0.5, 1.0)
+    dy = _bf16(dev, (N, D), 3)
+    before = dict(_cuda.launches)
+    y = fused_norm.rms_norm_fwd(x, scale, 1e-6)
+    dx, ds = fused_norm.rms_norm_bwd(x, scale, 1e-6, dy, need_dscale)
+    torch.cuda.synchronize()
+    assert (_cuda.launches["rms_norm_fwd"] - before["rms_norm_fwd"],
+            _cuda.launches["rms_norm_bwd"] - before["rms_norm_bwd"]) == (1, 1)
+    assert _rel_err(y, fused_norm.rms_norm_plain(x, scale, 1e-6).float()) \
+        <= FUSED_REL_TOL
+    ref_dx, ref_ds = fused_norm.rms_norm_bwd_plain(x, scale, 1e-6, dy)
+    assert _rel_err(dx, ref_dx.float()) <= FUSED_REL_TOL
+    if need_dscale:
+        assert ds.dtype == scale.dtype
+        assert _rel_err(ds, ref_ds.float()) <= FUSED_REL_TOL
+    else:
+        assert ds is None
+
+
+@pytest.mark.parametrize("qk_norm", [True, False])
+@pytest.mark.parametrize("tables", ["T", "BT"])
+@pytest.mark.parametrize("B,T,H,KV,Dh", [
+    (32, 512, 16, 8, 128), (16, 4096, 16, 8, 128), (8, 512, 14, 2, 64),
+    (8, 512, 8, 4, 128), (64, 1, 16, 8, 128), (3, 7, 7, 1, 64)])
+def test_qk_norm_rope_kernels_match_plain(dev, B, T, H, KV, Dh, tables,
+                                          qk_norm):
+    from speech_distill_tpu_torch.models.qwen3 import rope_angles
+    q, k = _bf16(dev, (B, T, H, Dh), 1, 3.0), _bf16(dev, (B, T, KV, Dh), 2)
+    pos = torch.arange(T, device=dev) + 100
+    if tables == "BT":
+        pos = pos[None] + 37 * torch.arange(B, device=dev)[:, None]
+    cos, sin = rope_angles(pos, Dh, 1e6)
+    scales = ((_bf16(dev, (Dh,), 3, 0.5, 1.0), _bf16(dev, (Dh,), 4, 0.5, 1.0))
+              if qk_norm else (None, None))
+    dqo, dko = _bf16(dev, q.shape, 5), _bf16(dev, k.shape, 6)
+    before = dict(_cuda.launches)
+    got = fused_norm.qk_norm_rope_fwd(q, k, cos, sin, *scales, 1e-6)
+    grads = fused_norm.qk_norm_rope_bwd(q, k, cos, sin, *scales, 1e-6, dqo,
+                                        dko, qk_norm)
+    torch.cuda.synchronize()
+    assert (_cuda.launches["qk_norm_rope_fwd"] - before["qk_norm_rope_fwd"],
+            _cuda.launches["qk_norm_rope_bwd"]
+            - before["qk_norm_rope_bwd"]) == (1, 1)
+    ref = fused_norm.qk_norm_rope_plain(q, k, cos, sin, *scales, 1e-6)
+    ref_grads = fused_norm.qk_norm_rope_bwd_plain(q, k, cos, sin, *scales,
+                                                  1e-6, dqo, dko)
+    for name, a, b in zip(("q", "k", "dq", "dk", "dq_scale", "dk_scale"),
+                          (*got, *grads), (*ref, *ref_grads)):
+        if b is None:
+            assert a is None, name
+            continue
+        assert a.dtype == b.dtype and _rel_err(a, b.float()) \
+            <= FUSED_REL_TOL, name
+
+
+@pytest.mark.parametrize("N,F", [(16384, 3072), (65536, 3072), (16384, 6144),
+                                 (300, 4864), (1, 8)])
+def test_swiglu_kernels_match_plain(dev, N, F):
+    gate, up, dh = (_bf16(dev, (N, F), 1, 3.0), _bf16(dev, (N, F), 2),
+                    _bf16(dev, (N, F), 3))
+    before = dict(_cuda.launches)
+    h = fused_norm.swiglu_fwd(gate, up)
+    dgate, dup = fused_norm.swiglu_bwd(gate, up, dh)
+    torch.cuda.synchronize()
+    assert (_cuda.launches["swiglu_fwd"] - before["swiglu_fwd"],
+            _cuda.launches["swiglu_bwd"] - before["swiglu_bwd"]) == (1, 1)
+    assert _rel_err(h, fused_norm.swiglu_plain(gate, up).float()) \
+        <= FUSED_REL_TOL
+    for a, b in zip((dgate, dup),
+                    fused_norm.swiglu_bwd_plain(gate, up, dh)):
+        assert _rel_err(a, b.float()) <= FUSED_REL_TOL
+
+
+def test_fused_norm_kernels_are_deterministic(dev):
+    """Two calls on the same inputs give bitwise the same results, the
+    scales' gradients (per-block partials summed) included."""
+    from speech_distill_tpu_torch.models.qwen3 import rope_angles
+    x, scale, dy = (_bf16(dev, (16384, 1024), 1), _bf16(dev, (1024,), 2),
+                    _bf16(dev, (16384, 1024), 3))
+    q, k = _bf16(dev, (32, 512, 16, 128), 4), _bf16(dev, (32, 512, 8, 128), 5)
+    qs, ks = _bf16(dev, (128,), 6), _bf16(dev, (128,), 7)
+    cos, sin = rope_angles(torch.arange(512, device=dev), 128, 1e6)
+    gate, up = _bf16(dev, (16384, 3072), 8), _bf16(dev, (16384, 3072), 9)
+
+    def run():
+        return (fused_norm.rms_norm_fwd(x, scale, 1e-6),
+                *fused_norm.rms_norm_bwd(x, scale, 1e-6, dy, True),
+                *fused_norm.qk_norm_rope_fwd(q, k, cos, sin, qs, ks, 1e-6),
+                *fused_norm.qk_norm_rope_bwd(q, k, cos, sin, qs, ks, 1e-6,
+                                             q, k, True),
+                fused_norm.swiglu_fwd(gate, up),
+                *fused_norm.swiglu_bwd(gate, up, gate))
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(first, second)):
+        assert torch.equal(a, b), i
+
+
+def test_fused_norm_kernels_refuse_what_they_cannot_take(dev):
+    bf = torch.bfloat16
+    x, scale = torch.zeros(8, 1024, device=dev), torch.ones(1024, device=dev)
+    cos = sin = torch.zeros(4, 96, device=dev)
+    q96 = torch.zeros(1, 4, 2, 96, device=dev, dtype=bf)
+    wide = torch.zeros(2, 8200, device=dev, dtype=bf)
+    odd = torch.zeros(2, 1028, device=dev, dtype=bf)[:, 2:]   # 4-byte offset
+    before = dict(_cuda.launches)
+    cases = {
+        "fp32 rows": lambda: fused_norm.rms_norm_fwd(x, scale, 1e-6),
+        "too wide": lambda: fused_norm.rms_norm_fwd(
+            wide, torch.ones(8200, device=dev, dtype=bf), 1e-6),
+        "Dh 96": lambda: fused_norm.qk_norm_rope_fwd(q96, q96, cos, sin),
+        "fp32 gate": lambda: fused_norm.swiglu_fwd(x, x),
+        "unaligned": lambda: fused_norm.swiglu_fwd(odd, odd),
+        "shapes differ": lambda: fused_norm.swiglu_bwd(
+            x.to(bf), x.to(bf), x[:4].to(bf)),
+    }
+    for name, call in cases.items():
+        with pytest.raises(ValueError, match="does not take"):
+            call()
+    assert _cuda.launches == before
+    # the routed functions send fp32 to the plain versions, the kernels'
+    # widths to the kernels
+    assert torch.equal(fused_norm.rms_norm(x, scale, 1e-6),
+                       fused_norm.rms_norm_plain(x, scale, 1e-6))
+    assert _cuda.launches == before
+    fused_norm.rms_norm(x.to(bf), scale.to(bf), 1e-6)
+    assert _cuda.launches["rms_norm_fwd"] == before["rms_norm_fwd"] + 1
+
+
+def test_fused_norm_routes_on_device_dtype_and_width_alone(dev):
+    """On CUDA bf16 tensors of the kernels' widths the routed functions
+    launch the kernels or raise: a view at an odd offset is copied and
+    launched, a scale, table or up that the kernel cannot take raises;
+    nothing falls back to the plain chain."""
+    from speech_distill_tpu_torch.models.qwen3 import rope_angles
+    bf = torch.bfloat16
+    flat = _bf16(dev, (4 * 1024 + 8,), 1)
+    x = flat[8:].view(4, 1024)                  # 16 bytes off the grid + 16
+    odd = flat[4:4 + 4 * 1024].view(4, 1024)    # 8 bytes off the grid
+    assert x.data_ptr() % 16 == 0 and odd.data_ptr() % 16 == 8
+    scale = _bf16(dev, (1024,), 2, 0.5, 1.0)
+    before = dict(_cuda.launches)
+    y = fused_norm.rms_norm(odd, scale, 1e-6)
+    assert _cuda.launches["rms_norm_fwd"] == before["rms_norm_fwd"] + 1
+    assert _rel_err(y, fused_norm.rms_norm_plain(odd, scale, 1e-6).float()
+                    ) <= FUSED_REL_TOL
+    h = fused_norm.swiglu(odd, odd)
+    assert _cuda.launches["swiglu_fwd"] == before["swiglu_fwd"] + 1
+    assert torch.equal(h, fused_norm.swiglu_plain(odd, odd))
+    q, k = _bf16(dev, (1, 4, 2, 128), 3), _bf16(dev, (1, 4, 1, 128), 4)
+    cos, sin = rope_angles(torch.arange(4, device=dev), 128, 1e6)
+    qs = _bf16(dev, (128,), 5)
+    refused = {
+        "fp32 scale": lambda: fused_norm.rms_norm(x, scale.float(), 1e-6),
+        "scale of another width": lambda: fused_norm.rms_norm(
+            x, scale[:512], 1e-6),
+        "bf16 tables": lambda: fused_norm.qk_norm_rope(
+            q, k, cos.to(bf), sin.to(bf)),
+        "fp32 q scale": lambda: fused_norm.qk_norm_rope(
+            q, k, cos, sin, qs.float(), qs.float()),
+        "one scale": lambda: fused_norm.qk_norm_rope(q, k, cos, sin, qs),
+        "fp32 up": lambda: fused_norm.swiglu(x, x.float()),
+    }
+    mid = dict(_cuda.launches)
+    for name, call in refused.items():
+        with pytest.raises(ValueError, match="does not take"):
+            call()
+    assert _cuda.launches == mid
+
+
+@pytest.mark.parametrize("trains", ["lora", "full"])
+def test_training_layers_run_the_fused_kernels(dev, monkeypatch, trains):
+    """A 2-layer forward_train (remat "full") and its backward: every norm,
+    q/k norm + RoPE and SwiGLU runs through the kernels, in the forward,
+    the recompute and the backward, with exact launch counts (the scales'
+    gradients too with full finetuning); the plain route on the same
+    weights launches none, and the two agree within bf16 rounding."""
+    from speech_distill_tpu_torch.core.config import LoraConfig, qwen3_tiny
+    from speech_distill_tpu_torch.core.tree import tree_leaves, tree_map
+    from speech_distill_tpu_torch.distill.lora import init_lora
+    from speech_distill_tpu_torch.models import qwen3
+    from speech_distill_tpu_torch.models.convert import model_to_tree
+    cfg = qwen3_tiny(2048, hidden_size=1024, intermediate_size=3072,
+                     head_dim=128, num_attention_heads=16,
+                     num_key_value_heads=8)
+    model = qwen3.init_params(cfg, seed=0, device=dev)
+    if trains == "lora":      # PiSSA: the residual replaces the base weights
+        src, base = init_lora(model, cfg, LoraConfig(), device=dev)
+        src = src["layers"]
+    else:
+        src, base = model_to_tree(model), model
+    B, T, L = 2, 512, cfg.num_hidden_layers
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, T))).to(dev)
+    w = _bf16(dev, (B, T, cfg.hidden_size), 11).float()
+
+    def run():
+        tree = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                        src)
+        kw = {"adapters": tree} if trains == "lora" else {"weights": tree}
+        _cuda.reset_launches()
+        h = qwen3.forward_train(base, ids, device=dev, **kw)
+        (h.float() * w).sum().backward()
+        torch.cuda.synchronize()
+        return [t.grad for t in tree_leaves(tree)], dict(_cuda.launches)
+    grads, launches = run()
+    names = ("rms_norm_fwd", "rms_norm_bwd", "qk_norm_rope_fwd",
+             "qk_norm_rope_bwd", "swiglu_fwd", "swiglu_bwd")
+    # with LoRA the embedding is frozen: layer 0's input norm has nothing
+    # to differentiate
+    assert {n: launches[n] for n in names} == {
+        "rms_norm_fwd": 2 * 2 * L + 1,
+        "rms_norm_bwd": 2 * L + (trains == "full"),
+        "qk_norm_rope_fwd": 2 * L, "qk_norm_rope_bwd": L,
+        "swiglu_fwd": 2 * L, "swiglu_bwd": L}
+    for pred in ("norm_kernel_takes", "rope_kernel_takes",
+                 "swiglu_kernel_takes"):
+        monkeypatch.setattr(fused_norm, pred, lambda *a, **k: False)
+    ref, ref_launches = run()
+    assert not any(ref_launches[n] for n in names)
+    assert len(grads) == len(ref) and all(g is not None for g in grads)
+    for i, (a, b) in enumerate(zip(grads, ref)):
+        assert _rel_err(a, b.float()) <= FUSED_MODEL_REL_TOL, i

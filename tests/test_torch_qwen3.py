@@ -12,6 +12,7 @@ from speech_distill_tpu.models import qwen3 as jq
 from speech_distill_tpu_torch.core.config import qwen3_tiny
 from speech_distill_tpu_torch.models import qwen3 as tq
 from speech_distill_tpu_torch.models.convert import params_from_jax
+from speech_distill_tpu_torch.ops.fused_norm import apply_rope
 
 LOGITS_ATOL = 1e-4
 
@@ -87,7 +88,7 @@ def test_building_blocks_match_jax():
     jcos, jsin = jq.rope_angles(jnp.asarray(pos), 16, 1e6)
     np.testing.assert_allclose(tcos.numpy(), np.asarray(jcos), atol=1e-6)
     np.testing.assert_allclose(
-        tq.apply_rope(torch.from_numpy(x), tcos, tsin).numpy(),
+        apply_rope(torch.from_numpy(x), tcos, tsin).numpy(),
         np.asarray(jq.apply_rope(jnp.asarray(x), jcos, jsin)),
         atol=1e-5, rtol=1e-5)
 
